@@ -11,25 +11,35 @@ in place of the card):
 1. device  - needs ``torch.cuda``; prints the card's name and power limit
              and the torch/CUDA versions;
 2. build   - compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc;
-3. kernels - each hand-written kernel against its plain torch version on
-             the card, byte-exact, at B = 1, 64, 4096 and C = 4096, 1000;
-             at B = 4096 and B = 64 (C = 4096): CUDA-event time of a
-             wrapper call, the kernel's own device time from a
-             ``torch.profiler`` trace, the plain version's time and the
-             device-memory bound;
-4. cluster - the paper's testbed (``configs/memec.py``: 16 servers,
+3. kernels - each of the seven hand-written kernels against its plain
+             torch version on the card, byte-exact, at B = 1, 64, 4096 and
+             C = 4096, 1000 (and C = 256, RDP's sub-block row, for the
+             RDP shapes); at B = 4096 and B = 64, at the width the main
+             path gives the kernel: CUDA-event time of a wrapper call, the
+             kernel's own device time from a ``torch.profiler`` trace, the
+             plain version's time and the bound from these inputs' bytes
+             and operations;
+4. RS      - the paper's testbed (``configs/memec.py``: 16 servers,
              4 proxies, RS(10,8), c = 16, 4 KB chunks) on
              ``engine="cuda"``, YCSB batch 64: load, workload A, a
              data-server fail/restore, a parity-server fail/restore with
              A and D, against a twin on the numpy engine.  Contents,
              ``stats`` and the transitions must be equal, the parity sweep
-             must find no stale parity, and every kernel must have
+             must find no stale parity, and the RS kernels must have
              launched.  The decodes of each ``fail_server`` are then
              replayed on the numpy, plain-torch and CUDA engines and
-             timed.
+             timed;
+5. RDP     - the same scenario with ``scheme="rdp"`` (RDP(10,8), p = 17,
+             sixteen 256-byte sub-blocks per chunk): the 0/1 kernel, the
+             per-item kernel and the per-item fold must have launched;
+6. RS(14,10) - one ``CudaEngine`` decode of 200 stripes whose patterns
+             re-encode three or four parities, against ``NumpyEngine``:
+             the column-loop kernel must have launched.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {"platform": "gpu", ...}}``.
+Every phase of 4-6 starts with the launch counts at 0 and reads them
+when it ends; launches made to compare a kernel with its plain version
+are not counted.  The line before the last is ``{"kernels": [...]}``;
+the last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 from __future__ import annotations
 
@@ -51,7 +61,9 @@ BYTE_OPS_PER_S = 1.979e15
 
 OBJECTS = 200_000        # the smallest load at which the testbed seals
 BATCH = 64               # YCSB multi-key window
-A_OPS, DEGRADED_OPS, PARITY_DOWN_OPS = 20_000, 5_000, 2_000
+# workload ops: A, A with a data server down, A and D with a parity
+# server down
+OPS = dict(A=20_000, degraded=5_000, parity_down=2_000)
 
 
 def log(*parts):
@@ -110,11 +122,37 @@ def bound(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def matmul_work(np, A, data, gf01=False):
+    """Bytes a shared-matrix product must move (each input once, each
+    output once, the matrix as the kernel reads it) and its
+    multiply-XORs: one per nonzero coefficient and output byte."""
+    B, k, C = data.shape
+    m = A.shape[0]
+    mat = m * -(-k // 32) * 4 if gf01 else m * k
+    return B * k * C + B * m * C + mat, int(np.count_nonzero(A)) * B * C
+
+
+def per_item_work(np, Ms, blocks, parity=None):
+    B, O, J = Ms.shape
+    C = blocks.shape[2]
+    out = (2 if parity is not None else 1) * B * O * C
+    return Ms.size + B * J * C + out, int(np.count_nonzero(Ms)) * C
+
+
+def delta_work(np, parity, g, xor):
+    B, m = g.shape
+    C = xor.shape[1]
+    out = (2 if parity is not None else 1) * B * m * C
+    return 4 * B * m + B * C + out, int(np.count_nonzero(g & 255)) * C
+
+
 def kernel_specs(np, torch, dev):
     """Per kernel: how to make its inputs at (B, C), call the wrapper and
-    the plain version, and count the bytes and operations it must do."""
+    the plain version, the (B, C) grid it is checked on, the width it is
+    timed at (the main path's), and the bytes and operations that these
+    inputs need."""
     from repro_torch.core.codes import make_code
-    from repro_torch.core.engine import block_rep
+    from repro_torch.core.engine import NumpyEngine, block_rep
     from repro_torch.kernels import delta_update as du
     from repro_torch.kernels import gf256_matmul as gm
 
@@ -126,27 +164,62 @@ def kernel_specs(np, torch, dev):
         return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
                              generator=gen)
 
+    def fused(scheme, n, k, avail, wanted):
+        """The fused decode matrix [inv ; G_par o inv] the engine builds
+        for one erasure pattern."""
+        eng = NumpyEngine(make_code(scheme, n, k))
+        return eng._fused_decode_matrix(
+            eng.plan_decode([avail], [wanted], 4096).groups[0])
+
     E = block_rep(make_code("rs", 10, 8)).encode          # (2, 8) encode
     # fused decode of two lost data chunks, re-encoding both parities:
-    # [inv ; G_par ∘ inv] is (10, 8), the largest RS(10,8) decode matrix
-    G = np.concatenate([np.eye(8, dtype=np.uint8), E])
-    from repro_torch.core import gf256
-    inv = gf256.gf_mat_inv(G[[2, 3, 4, 5, 6, 7, 8, 9]])
-    fused = np.concatenate([inv, gf256.gf_matmul_np(E, inv)])
+    # [inv ; G_par o inv] is (10, 8), the largest RS(10,8) decode matrix
+    rs_dec = fused("rs", 10, 8, range(2, 10), (0, 1, 8, 9))
+    # RS(14,10): a lost data chunk, all four parities re-encoded
+    f4_dec = fused("rs", 14, 10, range(1, 14), (0, 10, 11, 12, 13))
+    # RDP(10,8), r = 16: the (32, 128) block encode matrix and the fused
+    # decode of two lost data chunks with both parities, (160, 128)
+    rdp = make_code("rdp", 10, 8)
+    R = block_rep(rdp).encode
+    r = R.shape[0] // 2
+    rdp_dec = fused("rdp", 10, 8, range(2, 10), (0, 1, 8, 9))
+    assert gm.choose_strategy(rs_dec) == "unroll"
+    assert gm.choose_strategy(f4_dec) == "cols" and f4_dec.shape == (14, 10)
+    assert gm.choose_strategy(R) == "gf01" and R.shape == (32, 128)
+    assert gm.choose_strategy(rdp_dec) == "gf01"
+    assert rdp_dec.shape == (160, 128)
 
-    def matmul(A):
+    RS_C, RDP_C = (4096, 1000), (4096, 1000, 256)
+
+    def matmul(A, strategy, check_C, time_C):
         m, k = A.shape
+        plain = (gm.gf01_matmul_batched_plain if strategy == "gf01"
+                 else gm.gf256_matmul_batched_plain)
+        return dict(make=lambda B, C: (A, u8((B, k, C))),
+                    kernel=gm.gf256_matmul_batched, plain=plain,
+                    work=lambda a: matmul_work(np, *a,
+                                               gf01=strategy == "gf01"),
+                    check_C=check_C, time_C=time_C)
 
+    def rdp_delta_make(B, C):
+        """What ``submit_delta`` hands the kernel for RDP: per item the
+        (m*r, r) columns of the data chunk it mutates."""
+        idx = rng.integers(0, rdp.k, B)
+        cols = R.reshape(2 * r, rdp.k, r)[:, idx, :]
+        return (np.ascontiguousarray(np.transpose(cols, (1, 0, 2))),
+                u8((B, r, C)))
+
+    def fold_make(O):
         def make(B, C):
-            return (A, u8((B, k, C)))
-        return dict(make=make, kernel=gm.gf256_matmul_batched,
-                    plain=gm.gf256_matmul_batched_plain,
-                    nbytes=lambda B, C: B * k * C + B * m * C + m * k,
-                    ops=lambda B, C: B * m * k * C)
-
-    def fold_make(B, C):
-        Ms = rng.integers(1, 256, (B, 1, 1), dtype=np.uint8)
-        return (Ms, u8((B, 1, C)), u8((B, 1, C)))
+            if O == 1:
+                Ms = rng.integers(1, 256, (B, 1, 1), dtype=np.uint8)
+            else:
+                # RDP seal: the (r, r) system of one parity row and chunk
+                E4 = R.reshape(2, r, rdp.k, r)
+                Ms = np.ascontiguousarray(E4[rng.integers(0, 2, B), :,
+                                             rng.integers(0, rdp.k, B), :])
+            return (Ms, u8((B, O, C)), u8((B, O, C)))
+        return make
 
     def delta_make(parity):
         def make(B, C):
@@ -154,33 +227,52 @@ def kernel_specs(np, torch, dev):
             return ((u8((B, 2, C)) if parity else None), g, u8((B, C)))
         return make
 
+    def per_item_case(make, check_C, time_C):
+        return dict(make=make, kernel=gm.gf256_matmul_per_item_batched,
+                    plain=gm.gf256_matmul_per_item_plain,
+                    work=lambda a: per_item_work(np, *a),
+                    check_C=check_C, time_C=time_C)
+
+    def delta_case(parity):
+        return dict(make=delta_make(parity), kernel=du.delta_apply_batched,
+                    plain=du.delta_apply_batched_plain,
+                    work=lambda a: delta_work(np, *a),
+                    check_C=RS_C, time_C=4096)
+
     # ``cuda_name``: the __global__ function in csrc/gf256.cu, as the
     # profiler names the launch
     return [
         dict(name="gf_matmul_batched", cuda_name="matmul_batched_kernel",
              replaces="src/repro/kernels/gf256_matmul.py:95",
-             cases={"decode_10x8": matmul(fused), "encode_2x8": matmul(E)}),
-        dict(name="gf_per_item_fold", cuda_name="per_item_fold_kernel",
+             cases={"decode_10x8": matmul(rs_dec, "unroll", RS_C, 4096),
+                    "encode_2x8": matmul(E, "unroll", RS_C, 4096)}),
+        dict(name="gf_matmul_cols_batched",
+             cuda_name="matmul_cols_kernel",
+             replaces="src/repro/kernels/gf256_matmul.py:124",
+             cases={"decode_14x10": matmul(f4_dec, "cols", RS_C, 4096)}),
+        dict(name="gf01_matmul_batched", cuda_name="gf01_matmul_kernel",
+             replaces="src/repro/kernels/gf256_matmul.py:154",
+             cases={"encode_32x128": matmul(R, "gf01", RDP_C, 256),
+                    "decode_160x128": matmul(rdp_dec, "gf01", RDP_C, 256)}),
+        dict(name="gf_per_item",
+             cuda_name="per_item_kernel",
+             replaces="src/repro/kernels/gf256_matmul.py:297",
+             cases={"delta_Bx32x16": per_item_case(rdp_delta_make, RDP_C,
+                                                   256)}),
+        dict(name="gf_per_item_fold",
+             cuda_name="per_item_kernel",
              replaces="src/repro/kernels/gf256_matmul.py:302",
-             cases={"fold_Bx1x1": dict(
-                 make=fold_make, kernel=gm.gf256_matmul_per_item_batched,
-                 plain=gm.gf256_matmul_per_item_plain,
-                 nbytes=lambda B, C: B + 3 * B * C,
-                 ops=lambda B, C: B * C)}),
-        dict(name="gf_delta_apply_batched", cuda_name="delta_batched_kernel",
+             cases={"fold_Bx1x1": per_item_case(fold_make(1), RS_C, 4096),
+                    "fold_Bx16x16": per_item_case(fold_make(r), RDP_C,
+                                                  256)}),
+        dict(name="gf_delta_apply_batched",
+             cuda_name="delta_batched_kernel",
              replaces="src/repro/kernels/delta_update.py:74",
-             cases={"apply_m2": dict(
-                 make=delta_make(True), kernel=du.delta_apply_batched,
-                 plain=du.delta_apply_batched_plain,
-                 nbytes=lambda B, C: 8 * B + 2 * B * 2 * C + B * C,
-                 ops=lambda B, C: B * 2 * C)}),
-        dict(name="gf_delta_only_batched", cuda_name="delta_batched_kernel",
+             cases={"apply_m2": delta_case(True)}),
+        dict(name="gf_delta_only_batched",
+             cuda_name="delta_batched_kernel",
              replaces="src/repro/kernels/delta_update.py:80",
-             cases={"delta_m2": dict(
-                 make=delta_make(False), kernel=du.delta_apply_batched,
-                 plain=du.delta_apply_batched_plain,
-                 nbytes=lambda B, C: 8 * B + B * 2 * C + B * C,
-                 ops=lambda B, C: B * 2 * C)}),
+             cases={"delta_m2": delta_case(False)}),
     ]
 
 
@@ -189,24 +281,26 @@ def run_kernels(np, torch, dev):
     rows = []
     for spec in kernel_specs(np, torch, dev):
         row = dict(name=spec["name"], route="cuda", source=SOURCE,
-                   replaces=spec["replaces"], checked=[])
+                   replaces=spec["replaces"], checked=[], max_abs_err=0)
         for case_name, case in spec["cases"].items():
-            for C in (4096, 1000):
+            for C in case["check_C"]:
                 for B in (1, 64, 4096):
                     args = case["make"](B, C)
                     got = case["kernel"](*args)
                     want = case["plain"](*args)
                     torch.cuda.synchronize()
-                    diff = (got != want)
-                    if bool(diff.any()):
-                        first = int(diff.reshape(-1).nonzero()[0])
+                    err = int((got.int() - want.int()).abs().max())
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                    if err:
+                        first = int((got != want).reshape(-1).nonzero()[0])
                         raise AssertionError(
                             f"{spec['name']} {case_name} B={B} C={C}: "
                             f"first differing byte at flat index {first}")
                     row["checked"].append(f"{case_name} B={B} C={C}")
+                    del args, got, want
             timing = {}
+            C = case["time_C"]
             for B, reps in ((4096, 20), (64, 200)):
-                C = 4096
                 args = case["make"](B, C)
                 call = lambda: case["kernel"](*args)          # noqa: E731
                 ms = cuda_ms(torch, call, reps)
@@ -214,26 +308,30 @@ def run_kernels(np, torch, dev):
                                              spec["cuda_name"])
                 plain_ms = cuda_ms(torch, lambda: case["plain"](*args),
                                    max(3, reps // 10))
-                b_ms, by = bound(case["nbytes"](B, C), case["ops"](B, C))
+                nbytes, ops = case["work"](args)
+                b_ms, by = bound(nbytes, ops)
                 timing[B] = dict(ms=ms, kernel_ms=kernel_ms,
                                  plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=by, bytes=case["nbytes"](B, C),
-                                 ops=case["ops"](B, C))
+                                 bound_by=by, bytes=nbytes, ops=ops)
                 kernel_txt = ("not measured (no device time in the trace)"
                               if kernel_ms is None else f"{kernel_ms:.4f} ms")
                 log(f"kernel {spec['name']} {case_name} B={B} C={C}: "
                     f"wrapper {ms:.4f} ms, kernel {kernel_txt} (plain "
-                    f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {by})")
+                    f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {by}, "
+                    f"{nbytes} bytes)")
+                del args
             row.setdefault("cases", {})[case_name] = {
-                f"{k}_b{B}": v for B, t in timing.items()
-                for k, v in t.items()}
+                "C": C, **{f"{k}_b{B}": v for B, t in timing.items()
+                           for k, v in t.items()}}
             if "ms" not in row:       # the first case is the headline
                 t = timing[4096]
                 row.update(ms=t["ms"], kernel_ms=t["kernel_ms"],
                            plain_ms=t["plain_ms"],
                            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                           library_ms=None, shape=f"{case_name} B=4096 C=4096")
+                           library_ms=None,
+                           shape=f"{case_name} B=4096 C={C}")
         rows.append(row)
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return rows
 
@@ -307,20 +405,21 @@ def scenario(cl, cfg, run_workload) -> tuple[list, dict, dict, dict]:
         decodes[name] = copy.deepcopy(calls)
 
     phase("load", lambda: run_workload(cl, "load", 0, cfg, batch_size=BATCH))
-    phase("A", lambda: run_workload(cl, "A", A_OPS, cfg, batch_size=BATCH))
+    phase("A", lambda: run_workload(cl, "A", OPS["A"], cfg,
+                                    batch_size=BATCH))
     counts = {"sealed_after_load_A": sealed_chunks(cl)}
     sid = victim(cl, False)
     fail("fail_data", sid)
-    phase("A_degraded", lambda: run_workload(cl, "A", DEGRADED_OPS, cfg,
+    phase("A_degraded", lambda: run_workload(cl, "A", OPS["degraded"], cfg,
                                              batch_size=BATCH))
     trans.append(("restore_data", sid, phase(
         "restore_data", lambda: cl.restore_server(sid))))
     sid = victim(cl, True)
     fail("fail_parity", sid)
     phase("A_parity_down", lambda: run_workload(
-        cl, "A", PARITY_DOWN_OPS, cfg, batch_size=BATCH))
+        cl, "A", OPS["parity_down"], cfg, batch_size=BATCH))
     phase("D_parity_down", lambda: run_workload(
-        cl, "D", PARITY_DOWN_OPS, cfg, batch_size=BATCH))
+        cl, "D", OPS["parity_down"], cfg, batch_size=BATCH))
     trans.append(("restore_parity", sid, phase(
         "restore_parity", lambda: cl.restore_server(sid))))
     counts["sealed_end"] = sealed_chunks(cl)
@@ -363,58 +462,130 @@ def replay_decodes(np, torch, code, decodes) -> dict:
     return out
 
 
-def contents(cl, cfg):
+def contents(cl, cfg, inserted):
     from repro_torch.data.ycsb import YCSBWorkload
     w = YCSBWorkload(cfg)
-    keys = [w.key(i) for i in range(cfg.num_objects + PARITY_DOWN_OPS)]
+    keys = [w.key(i) for i in range(cfg.num_objects + inserted)]
     out = []
     for s in range(0, len(keys), 4096):
         out.extend(cl.multi_get(keys[s:s + 4096]))
     return out
 
 
-def run_cluster(np, torch):
-    from repro_torch.configs.memec import CONFIG, make_configured_cluster
-    from repro_torch.data.ycsb import YCSBConfig, run_workload
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+# the kernels each main-path phase must launch
+RS_KERNELS = ("gf_matmul_batched", "gf_per_item_fold", "gf_delta_apply_batched",
+              "gf_delta_only_batched")
+RDP_KERNELS = ("gf01_matmul_batched", "gf_per_item", "gf_per_item_fold")
+COLS_KERNELS = ("gf_matmul_cols_batched",)
 
-    cfg = YCSBConfig(num_objects=OBJECTS, key_size=CONFIG.key_size,
-                     value_sizes=CONFIG.value_sizes)
-    cl = make_configured_cluster(CONFIG, engine="cuda")
-    twin = make_configured_cluster(CONFIG, engine="numpy")
-    log(f"cluster: {CONFIG.num_servers} servers, {CONFIG.num_proxies} "
-        f"proxies, {CONFIG.scheme.upper()}({CONFIG.n},{CONFIG.k}), "
-        f"c={CONFIG.c}, chunk {CONFIG.chunk_size} B, {OBJECTS} objects, "
-        f"YCSB batch {BATCH}")
+
+def launched_in(torch, fn):
+    """Run ``fn`` with every launch count at 0; return its result and the
+    counts it left (read after the card has finished)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     reset_launch_counts()
-    trans, secs, counts, decodes = scenario(cl, cfg, run_workload)
+    out = fn()
     torch.cuda.synchronize()
-    launches = launch_counts()
-    log("cluster cuda seconds per phase:", json.dumps(secs))
-    log("cluster cuda launches per kernel:", json.dumps(launches))
-    log("cluster cuda engine:", json.dumps(cl.engine.stats()))
-    log("cluster chunks:", json.dumps(counts))
+    return out, launch_counts()
+
+
+def run_cluster(np, torch, testbed, must_launch):
+    """The testbed scenario on the CUDA engine against a numpy-engine
+    twin; ``must_launch`` names the kernels the scenario has to launch.
+    Returns the launches per kernel."""
+    from repro_torch.configs.memec import make_configured_cluster
+    from repro_torch.data.ycsb import YCSBConfig, run_workload
+
+    cfg = YCSBConfig(num_objects=OBJECTS, key_size=testbed.key_size,
+                     value_sizes=testbed.value_sizes)
+    cl = make_configured_cluster(testbed, engine="cuda")
+    twin = make_configured_cluster(testbed, engine="numpy")
+    tag = f"{testbed.scheme.upper()}({testbed.n},{testbed.k})"
+    log(f"cluster {tag}: {testbed.num_servers} servers, "
+        f"{testbed.num_proxies} proxies, c={testbed.c}, chunk "
+        f"{testbed.chunk_size} B (r = {cl.engine.rep.r}), {OBJECTS} objects, "
+        f"YCSB batch {BATCH}")
+    t0 = time.perf_counter()
+    (trans, secs, counts, decodes), launches = launched_in(
+        torch, lambda: scenario(cl, cfg, run_workload))
+    wall = time.perf_counter() - t0
+    log(f"cluster {tag} cuda seconds per phase:", json.dumps(secs))
+    log(f"cluster {tag} cuda launches per kernel:", json.dumps(launches))
+    log(f"cluster {tag} cuda engine:", json.dumps(cl.engine.stats()))
+    log(f"cluster {tag} chunks:", json.dumps(counts))
+    t0 = time.perf_counter()
     twin_trans, twin_secs, twin_counts, _ = scenario(twin, cfg, run_workload)
-    log("cluster numpy twin seconds per phase:", json.dumps(twin_secs))
-    log("fail_server decodes replayed (host s per engine):",
+    twin_wall = time.perf_counter() - t0
+    log(f"cluster {tag} numpy twin seconds per phase:", json.dumps(twin_secs))
+    log(f"cluster {tag} scenario wall seconds: cuda {wall:.3f}, numpy twin "
+        f"{twin_wall:.3f}")
+    log(f"cluster {tag} fail_server decodes replayed (host s per engine):",
         json.dumps(replay_decodes(np, torch, cl.code, decodes)))
 
-    missing = [k for k, n in launches.items() if n == 0]
-    assert not missing, f"kernels never launched on the main path: {missing}"
+    missing = [k for k in must_launch if launches[k] == 0]
+    assert not missing, f"{tag}: kernels never launched: {missing}"
     paths = set(cl.engine.op_paths.values())
     assert paths == {"cuda-kernel"}, f"op_paths {cl.engine.op_paths}"
+    if cl.engine.rep.r != 1:
+        assert "delta" not in cl.engine.op_paths, cl.engine.op_paths
     assert counts["sealed_after_load_A"] > 0, "no chunk sealed"
     assert counts["recovered_chunks"]["fail_data"] > 0, "nothing recovered"
     assert trans == twin_trans, "fail/restore transitions differ"
     assert counts == twin_counts, (counts, twin_counts)
     assert cl.stats == twin.stats, "cluster stats differ from the twin"
-    got, want = contents(cl, cfg), contents(twin, cfg)
+    got = contents(cl, cfg, OPS["parity_down"])
+    want = contents(twin, cfg, OPS["parity_down"])
     assert got == want, "contents differ from the numpy twin"
     assert all(v is not None for v in got[:OBJECTS]), "a loaded key is lost"
     checked, bad = parity_invariant(np, cl)
-    log(f"parity sweep: {checked} sealed data chunks checked, {bad} bad")
+    log(f"cluster {tag} parity sweep: {checked} sealed data chunks checked, "
+        f"{bad} bad")
     assert checked > 0 and bad == 0
-    return launches, secs
+    return launches
+
+
+def run_wide_decode(np, torch):
+    """RS(14,10) (f4's warm BLOB code) through ``CudaEngine``: one decode
+    of 200 stripes of 4 KB chunks (about a ``fail_server`` recovery batch
+    of the testbed) whose patterns re-encode three or four parities, so
+    the fused matrices are (13, 10) and (14, 10) and take the column-loop
+    kernel.  Held against ``NumpyEngine``."""
+    stripes, C = 200, 4096
+    from repro_torch.core.codes import make_code
+    from repro_torch.core.engine import CudaEngine, NumpyEngine
+    code = make_code("rs", 14, 10)
+    rng = np.random.default_rng(1410)
+    data = rng.integers(0, 256, (stripes, 10, C), dtype=np.uint8)
+    ref = NumpyEngine(code)
+    par = ref.encode_batch(data)
+    patterns = [((0,), (0, 10, 11, 12)), ((1, 2), (1, 2, 10, 11, 12, 13)),
+                ((10, 11, 12), (10, 11, 12)), ((10, 11, 12, 13),
+                                               (10, 11, 12, 13))]
+    avail, wanted = [], []
+    for b in range(stripes):
+        lost, want = patterns[b % len(patterns)]
+        stripe = np.concatenate([data[b], par[b]])
+        avail.append({p: stripe[p] for p in range(14) if p not in lost})
+        wanted.append(list(want))
+    eng = CudaEngine(code)
+    t0 = time.perf_counter()
+    got, launches = launched_in(
+        torch, lambda: eng.submit_decode(avail, wanted, C).result())
+    cuda_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = ref.decode_batch(avail, wanted, C)
+    numpy_s = time.perf_counter() - t0
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys() and all(
+            np.array_equal(g[p], w[p]) for p in w), "RS(14,10) decode differs"
+    shapes = sorted({M.shape for M in eng._fused_cache.values()})
+    log(f"RS(14,10) decode of {stripes} stripes x {C} B, fused matrices "
+        f"{shapes}: cuda {cuda_s:.4f} s, numpy {numpy_s:.4f} s (host s); "
+        f"launches {json.dumps(launches)}")
+    missing = [k for k in COLS_KERNELS if launches[k] == 0]
+    assert not missing, f"RS(14,10) decode never launched {missing}"
+    assert set(eng.op_paths.values()) == {"cuda-kernel"}, eng.op_paths
+    return launches
 
 
 def main() -> int:
@@ -424,7 +595,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+
     import numpy as np
+    from repro_torch.configs.memec import CONFIG
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
@@ -441,12 +615,22 @@ def main() -> int:
         f"(nvcc {' '.join(_build.NVCC_FLAGS)} of {', '.join(_build.SOURCES)})")
 
     rows = run_kernels(np, torch, dev)
-    launches, secs = run_cluster(np, torch)
+    t0 = time.perf_counter()
+    by_phase = {"rs_cluster": run_cluster(np, torch, CONFIG, RS_KERNELS)}
+    log(f"phase RS cluster: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_phase["rdp_cluster"] = run_cluster(
+        np, torch, dataclasses.replace(CONFIG, scheme="rdp"), RDP_KERNELS)
+    log(f"phase RDP cluster: {time.perf_counter() - t0:.1f} s")
+    by_phase["rs_14_10_decode"] = run_wide_decode(np, torch)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches_by_phase"] = {p: n[row["name"]]
+                                    for p, n in by_phase.items()}
+        row["launches"] = sum(row["launches_by_phase"].values())
         log(json.dumps({k: row[k] for k in (
-            "name", "launches", "ms", "kernel_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "shape")}))
+            "name", "launches", "launches_by_phase", "ms", "kernel_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "shape")}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ class MemECConfig:
     value_sizes: tuple = (8, 32)
     # batched coding-engine backend: numpy | torch | torch:cpu | cuda (see
     # core/engine.py).  None defers to $MEMEC_TORCH_ENGINE, default cuda
-    # (the hand-written kernels; RS and XOR only until RDP's are ported).
+    # (the hand-written kernels, for every scheme).
     engine: str | None = None
     # intra-shard async coding pipeline (core/store.py): submit engine
     # work through futures while the shard's own netsim legs are in

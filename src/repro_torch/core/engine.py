@@ -17,9 +17,8 @@ Backends (all byte-identical, cross-validated in
   kernels' plain versions); the analogue of the JAX package's
   ``JaxEngine``.
 * ``CudaEngine``   — the hand-written CUDA kernels of ``kernels/``
-  through ``kernels.dispatch``; the analogue of ``PallasEngine``.  It
-  covers the r = 1 codes (RS, XOR); RDP (r > 1) raises until its kernels
-  are ported.
+  through ``kernels.dispatch``; the analogue of ``PallasEngine``, for
+  every code (RS and XOR with r = 1, RDP with r > 1).
 
 The device backends share a *block-linear representation* of the code: any
 systematic code here (RS, RDP, XOR, none) is GF(2^8)-linear over sub-block
@@ -778,29 +777,22 @@ class TorchEngine(CodingEngine):
 
 
 class CudaEngine(TorchEngine):
-    """The hand-written CUDA kernels for the r = 1 codes (RS, XOR).
+    """The hand-written CUDA kernels, for every code.
 
-    Encode and the fused decode run ``gf256_matmul_batched``; the seal
-    fold rows and the hot-key collapse run the per-item fold; sealed
-    updates run ``delta_apply_batched`` (with parity) and degraded
-    mutates its delta-only body.  Which path each op took comes from
+    Encode and the fused decode run ``gf256_matmul_batched``, whose
+    strategy rule sends RS/XOR matrices to the unroll kernel, RDP's 0/1
+    block matrices to the 0/1 kernel and large dense matrices to the
+    column-loop kernel.  The seal fold rows and the hot-key collapse run
+    the per-item fold.  For r = 1 codes sealed updates run
+    ``delta_apply_batched`` (with parity) and degraded mutates its
+    delta-only body; for r > 1 (RDP) both take the inherited per-item
+    path (the per-item fold and the plain per-item kernel), as the JAX
+    package's ``PallasEngine`` does.  Which path each op took comes from
     ``kernels.dispatch`` and lands in ``op_paths``: ``cuda-kernel`` on
     the card, ``torch-cpu`` when the caller asked for ``device="cpu"``.
-
-    RDP (r > 1) needs the column-loop, 0/1 and plain per-item kernels,
-    which are not ported yet: constructing the engine for it raises.
     """
 
     name = "cuda"
-
-    def __init__(self, code: Code, device=None,
-                 inv_cache_size: int | None = None):
-        if block_rep(code).r != 1:
-            raise NotImplementedError(
-                f"CudaEngine runs r = 1 codes only; "
-                f"{type(code).__name__} has r = {block_rep(code).r} and "
-                f"needs the kernels of ROADMAP slice 2 (RDP)")
-        super().__init__(code, device, inv_cache_size)
 
     def _matmul_dev(self, M, blocks):
         from ..kernels import dispatch
@@ -843,6 +835,9 @@ class CudaEngine(TorchEngine):
             self._gammas(data_indices), x)
 
     def submit_delta(self, data_indices, xors):
+        if self.rep.r != 1:
+            # r > 1: one (m*r, r) matrix per item, the plain per-item kernel
+            return super().submit_delta(data_indices, xors)
         xors = np.asarray(xors, dtype=np.uint8)
         B, C = xors.shape
         wb = self.delta_work_bytes(B, C)
@@ -854,6 +849,9 @@ class CudaEngine(TorchEngine):
             lambda: self._resolve_dev(dev, (B, self.code.m, C)), wb, "delta")
 
     def submit_apply_delta(self, parity, data_indices, xors):
+        if self.rep.r != 1:
+            # r > 1: the per-item fold kernel, parity folded in
+            return super().submit_apply_delta(parity, data_indices, xors)
         parity = np.asarray(parity, dtype=np.uint8)
         xors = np.asarray(xors, dtype=np.uint8)
         B, C = xors.shape

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for MemEC's coding data plane, with plain
 torch versions beside them.
 
-* gf256_matmul — one matrix times a batch of stripes (encode, decode),
-  and per-item matrices folded into parity (seal fold, hot-key collapse);
+* gf256_matmul — one matrix times a batch of stripes (encode, decode; the
+  unroll, 0/1 and column-loop kernels), and per-item matrices with or
+  without a parity fold (seal fold, hot-key collapse, RDP deltas);
 * delta_update — batched P' = P ⊕ gamma·(D ⊕ D') parity maintenance.
 
 ``dispatch`` sends CUDA tensors to the kernels and CPU tensors to the

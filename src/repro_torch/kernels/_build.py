@@ -37,7 +37,12 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "gf_error_string": ((_I,), ctypes.c_char_p),
     "gf_max_coefs": ((), _I),
+    "gf_cols_max_coefs": ((), _I),
+    "gf01_max_cols": ((), _I),
     "gf_matmul_batched": ((_P, _I, _I, _P, _P, _P, _I, _L, _P), _I),
+    "gf_matmul_cols_batched": ((_P, _P, _I, _I, _P, _P, _I, _L, _P), _I),
+    "gf01_matmul_batched": ((_P, _I, _I, _P, _P, _I, _L, _P), _I),
+    "gf_per_item": ((_P, _P, _P, _P, _I, _I, _I, _L, _P), _I),
     "gf_per_item_fold": ((_P, _P, _P, _P, _P, _I, _I, _I, _L, _P), _I),
     "gf_delta_apply_batched": ((_P, _P, _P, _P, _P, _I, _I, _L, _P), _I),
     "gf_delta_only_batched": ((_P, _P, _P, _P, _I, _I, _L, _P), _I),

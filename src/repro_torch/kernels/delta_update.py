@@ -12,8 +12,9 @@ gamma[b, r]·xor[b] into the m parity rows of its stripe.
   ``_delta_only_batched_kernel``.  Both are one templated kernel with a
   ``HAS_PARITY`` flag.
 * ``delta_apply_per_item_batched``: the front door for per-item matrices
-  (seal folds, hot-key collapse), routed to
-  ``gf256_matmul_per_item_batched``.
+  (seal folds, hot-key collapse, every RDP delta), routed to
+  ``gf256_matmul_per_item_batched``: with parity its fold kernel, with
+  ``parity=None`` its plain per-item kernel.
 
 Bound: device-memory bytes, (2m+1)·C per item with parity and (m+1)·C
 without; the kernel reads the xor once, takes its log once per byte, and
@@ -97,7 +98,8 @@ def delta_apply_batched(parity: torch.Tensor | None, gammas,
 def delta_apply_per_item_batched(parity: torch.Tensor | None, Ms,
                                  blocks: torch.Tensor) -> torch.Tensor:
     """Per-item-matrix delta fold: ``Ms`` (B, O, J) host matrices,
-    ``blocks`` (B, J, C), ``parity`` (B, O, C) folded in when given.
-    The dispatch-routed front door for ``gf256_matmul_per_item_batched``;
-    the tuner lookup of the JAX package comes with the tuner."""
+    ``blocks`` (B, J, C), ``parity`` (B, O, C) folded in when given; for
+    ``parity=None`` the bare (B, O, C) deltas.  The dispatch-routed front
+    door for ``gf256_matmul_per_item_batched``; the tuner lookup of the
+    JAX package comes with the tuner."""
     return gf256_matmul_per_item_batched(Ms, blocks, parity)

@@ -149,6 +149,51 @@ def test_twin_cluster_matches_reference(reference_runs, engine,
         assert "delta" in paths, paths
 
 
+RDP_KW = dict(KW, scheme="rdp")         # RDP(10,8), p = 17: Cb = 32
+
+
+@pytest.fixture(scope="module")
+def rdp_reference_runs():
+    """The reference RDP cluster's end-state snapshot per hot setting."""
+    cache = {}
+
+    def get(hot):
+        if hot not in cache:
+            ref = RefCluster(engine="numpy", hot_key_threshold=hot, **RDP_KW)
+            trans = scenario(ref, RefYCSBConfig(num_objects=N_OBJ),
+                             ref_run_workload)
+            cache[hot] = snapshot(ref, trans)
+        return cache[hot]
+    return get
+
+
+@pytest.mark.parametrize("engine", ["torch:cpu", "cuda-on-cpu"])
+@pytest.mark.parametrize("hot", [0.0, 3.0])
+def test_rdp_twin_cluster_matches_reference(rdp_reference_runs, engine, hot):
+    ref = rdp_reference_runs(hot)
+    eng = (CudaEngine(make_code("rdp", 10, 8), device="cpu")
+           if engine == "cuda-on-cpu" else engine)
+    cl = MemECCluster(engine=eng, hot_key_threshold=hot, **RDP_KW)
+    assert cl.engine.rep.r == 16 and cl.chunk_size // cl.engine.rep.r == 32
+    got = snapshot(cl, scenario(cl, YCSBConfig(num_objects=N_OBJ),
+                                run_workload))
+    assert any(t.get("recovered_chunks", 0) > 0
+               for _, t in got["transitions"])
+    assert all(v is not None for v in got["contents"])
+    for key in ("transitions", "stats", "contents", "regions"):
+        assert got[key] == ref[key], f"{key} differ from the reference"
+    checked, bad = parity_invariant(cl)
+    assert checked > 0 and bad == 0
+    if hot:
+        assert got["stats"]["hot_tier"]["buffered_updates"] > 0
+    # r > 1: every delta took the per-item path, never the r = 1 kernel
+    paths = cl.engine.op_paths
+    want = "torch-plain" if engine == "torch:cpu" else "torch-cpu"
+    assert set(paths.values()) == {want}, paths
+    assert {"matmul", "delta_per_item"} <= set(paths), paths
+    assert "delta" not in paths, paths
+
+
 def test_configured_cluster_takes_the_port_engine_names():
     from repro_torch.configs import memec_config
     from repro_torch.configs.memec import make_configured_cluster

@@ -19,9 +19,17 @@ from repro_torch.core.engine import (CudaEngine, NumpyEngine, TorchEngine,
 
 torch.set_num_threads(1)
 
-CODES = [("rs", 10, 8), ("rs", 6, 4), ("xor", 5, 4)]
+CODES = [("rs", 10, 8), ("rs", 6, 4), ("xor", 5, 4), ("rdp", 10, 8),
+         ("rdp", 6, 4)]
 ENGINES = ["numpy", "torch", "cuda"]
 C = 1000
+
+
+def width(code):
+    """Chunk width of the grid: C for r = 1 codes; for RDP a multiple of
+    r whose sub-block rows (63 bytes) take the kernels' byte path."""
+    r = eng_mod.block_rep(code).r
+    return C if r == 1 else 63 * r
 
 
 def build(kind, code):
@@ -38,8 +46,8 @@ def pair(kind, scheme, n, k):
 
 
 def stripes(code, B, rng):
-    data = rng.integers(0, 256, (B, code.k, C), dtype=np.uint8)
-    par = np.zeros((B, code.m, C), np.uint8)
+    data = rng.integers(0, 256, (B, code.k, width(code)), dtype=np.uint8)
+    par = np.zeros((B, code.m, width(code)), np.uint8)
     for b in range(B):
         par[b] = code.encode(data[b])
     return data, par
@@ -59,7 +67,7 @@ def assert_decoded_equal(got, want):
 def test_encode(kind, scheme, n, k, B):
     eng, ref = pair(kind, scheme, n, k)
     rng = np.random.default_rng(B * 31 + n)
-    data = rng.integers(0, 256, (B, k, C), dtype=np.uint8)
+    data = rng.integers(0, 256, (B, k, width(eng.code)), dtype=np.uint8)
     want = ref.encode_batch(data)
     np.testing.assert_array_equal(eng.encode_batch(data), want)
     np.testing.assert_array_equal(eng.submit_encode(data).result(), want)
@@ -88,9 +96,10 @@ def _erasure_batch(code, rng, B):
 def test_decode_mixed_patterns(kind, scheme, n, k):
     eng, ref = pair(kind, scheme, n, k)
     avail, wanted = _erasure_batch(eng.code, np.random.default_rng(n), 14)
-    want = ref.decode_batch(avail, wanted, C)
-    assert_decoded_equal(eng.decode_batch(avail, wanted, C), want)
-    assert_decoded_equal(eng.submit_decode(avail, wanted, C).result(), want)
+    w = width(eng.code)
+    want = ref.decode_batch(avail, wanted, w)
+    assert_decoded_equal(eng.decode_batch(avail, wanted, w), want)
+    assert_decoded_equal(eng.submit_decode(avail, wanted, w).result(), want)
     assert eng.decode_patterns_submitted >= len(
         {(tuple(sorted(a)), tuple(w)) for a, w in zip(avail, wanted)})
 
@@ -102,7 +111,7 @@ def test_delta_and_apply_delta(kind, scheme, n, k, B):
     eng, ref = pair(kind, scheme, n, k)
     rng = np.random.default_rng(B + 100 * n)
     idx = rng.integers(0, k, B)
-    xors = rng.integers(0, 256, (B, C), dtype=np.uint8)
+    xors = rng.integers(0, 256, (B, width(eng.code)), dtype=np.uint8)
     _, par = stripes(eng.code, B, rng)
     want = ref.delta_batch(idx, xors)
     np.testing.assert_array_equal(eng.delta_batch(idx, xors), want)
@@ -124,8 +133,8 @@ def test_fold_rows(kind, scheme, n, k):
     B = 9
     idx = rng.integers(0, k, B)
     rows = rng.integers(0, eng.code.m, B)
-    xors = rng.integers(0, 256, (B, C), dtype=np.uint8)
-    prow = rng.integers(0, 256, (B, C), dtype=np.uint8)
+    xors = rng.integers(0, 256, (B, width(eng.code)), dtype=np.uint8)
+    prow = rng.integers(0, 256, (B, width(eng.code)), dtype=np.uint8)
     got = eng.submit_fold_rows(idx, xors, rows, prow)
     want = ref.submit_fold_rows(idx, xors, rows, prow)
     assert got.work_bytes == want.work_bytes and got.kind == want.kind
@@ -139,7 +148,7 @@ def test_delta_collapse(kind, scheme, n, k):
     rng = np.random.default_rng(11 * n)
     B = 5
     idx = rng.integers(0, k, B)
-    versions = [rng.integers(0, 256, (v, C), dtype=np.uint8)
+    versions = [rng.integers(0, 256, (v, width(eng.code)), dtype=np.uint8)
                 for v in (1, 3, 2, 8, 1)]
     _, par = stripes(eng.code, B, rng)
     got = eng.submit_delta_collapse(par, idx, versions)
@@ -149,7 +158,7 @@ def test_delta_collapse(kind, scheme, n, k):
 
 
 @pytest.mark.parametrize("scheme,n,k", [("rdp", 6, 4)])
-@pytest.mark.parametrize("kind", ["numpy", "torch"])
+@pytest.mark.parametrize("kind", ENGINES)
 def test_rdp_on_the_engines_that_take_it(kind, scheme, n, k):
     eng, ref = pair(kind, scheme, n, k)
     r = eng.rep.r
@@ -163,9 +172,43 @@ def test_rdp_on_the_engines_that_take_it(kind, scheme, n, k):
                                   ref.delta_batch(idx, xors))
 
 
-def test_cuda_engine_refuses_rdp():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        CudaEngine(make_code("rdp", 6, 4), device="cpu")
+@pytest.mark.parametrize("kind", ENGINES)
+def test_rs_14_10_decodes_reach_the_column_loop(kind):
+    """RS(14,10), the f4 warm-store code: decodes that re-encode three or
+    four parities build fused matrices of (13, 10) and (14, 10), above
+    the unroll limit, so the device engines run the ``cols`` body."""
+    from repro_torch.kernels.gf256_matmul import choose_strategy
+    eng, ref = pair(kind, "rs", 14, 10)
+    rng = np.random.default_rng(1410)
+    data, par = stripes(eng.code, 12, rng)
+    patterns = [((0,), (0, 10, 11, 12)), ((0, 1, 2), (1, 11, 12, 13)),
+                ((3,), (3, 10, 11, 12, 13)), ((10, 11, 12, 13), (10, 11, 12)),
+                ((5, 9), (5,))]
+    avail, wanted = [], []
+    for b in range(len(data)):
+        lost, want = patterns[b % len(patterns)]
+        stripe = np.concatenate([data[b], par[b]])
+        avail.append({p: stripe[p] for p in range(14) if p not in lost})
+        wanted.append(list(want))
+    want = ref.decode_batch(avail, wanted, C)
+    assert_decoded_equal(eng.decode_batch(avail, wanted, C), want)
+    if kind != "numpy":
+        shapes = {M.shape: choose_strategy(M)
+                  for M in eng._fused_cache.values()}
+        assert shapes[(13, 10)] == shapes[(14, 10)] == "cols", shapes
+        assert shapes[(10, 10)] == "unroll", shapes
+
+
+def test_cuda_engine_rdp_takes_the_per_item_path():
+    """r > 1: deltas and sealed updates go through the per-item kernels
+    (``delta_per_item``), never the r = 1 gamma kernel (``delta``)."""
+    eng = build("cuda", make_code("rdp", 10, 8))
+    rng = np.random.default_rng(108)
+    xors = rng.integers(0, 256, (4, 256), dtype=np.uint8)
+    par = rng.integers(0, 256, (4, 2, 256), dtype=np.uint8)
+    eng.submit_delta(np.arange(4), xors).result()
+    eng.submit_apply_delta(par, np.arange(4), xors).result()
+    assert eng.op_paths == {"delta_per_item": "torch-cpu"}
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ own tests run them.  Every case is also held against the numpy oracle
 The CUDA kernels themselves run only on a card: ``test_torch_gpu.py``
 holds each against its plain version there.
 """
+import importlib
 import zlib
 
 import numpy as np
@@ -22,7 +23,9 @@ from repro.kernels.gf256_matmul import \
 from repro_torch.kernels import dispatch, launch_counts, ref
 from repro_torch.kernels.delta_update import (delta_apply_batched,
                                               delta_apply_per_item_batched)
-from repro_torch.kernels.gf256_matmul import (gf256_matmul_batched,
+from repro_torch.kernels.gf256_matmul import (choose_strategy,
+                                              gf01_matmul_batched_plain,
+                                              gf256_matmul_batched,
                                               gf256_matmul_per_item_batched)
 
 torch.set_num_threads(1)
@@ -98,6 +101,116 @@ def test_matmul_batched_zero_one_matrix(C):
     np.testing.assert_array_equal(got, np_matmul_batched(A, D))
 
 
+# ---------------------------------------------------------------------------
+# kernels 2 and 3: the column-loop and 0/1 bodies of gf256_matmul_batched
+# ---------------------------------------------------------------------------
+
+def _rdp_matrices():
+    """RDP(10,8)'s (32, 128) block encode matrix and a (160, 128) fused
+    decode matrix: two lost data chunks, both parities re-encoded."""
+    from repro.core.codes import make_code as ref_make_code
+    from repro.core.engine import NumpyEngine as RefNumpyEngine
+    eng = RefNumpyEngine(ref_make_code("rdp", 10, 8))
+    plan = eng.plan_decode([range(2, 10)], [(0, 1, 8, 9)], 4096)
+    return {"encode": eng.rep.encode,
+            "decode": eng._fused_decode_matrix(plan.groups[0])}
+
+
+@pytest.fixture(scope="module")
+def rdp_matrices():
+    mats = _rdp_matrices()
+    assert mats["encode"].shape == (32, 128)
+    assert mats["decode"].shape == (160, 128)
+    assert all(int(M.max()) == 1 for M in mats.values())
+    return mats
+
+
+@pytest.mark.parametrize("B", BS)
+@pytest.mark.parametrize("Cb", [32, 256, 1000])
+@pytest.mark.parametrize("which", ["encode", "decode"])
+def test_gf01_plain_vs_numpy(rdp_matrices, which, Cb, B):
+    A = rdp_matrices[which]
+    D = _u8(_rng("g01", which, Cb, B), (B, 128, Cb))
+    assert choose_strategy(A) == "gf01"
+    want = np_matmul_batched(A, D)
+    np.testing.assert_array_equal(
+        gf01_matmul_batched_plain(A, torch.from_numpy(D)).numpy(), want)
+    np.testing.assert_array_equal(
+        gf256_matmul_batched(A, torch.from_numpy(D)).numpy(), want)
+
+
+# interpret-mode Pallas compiles per shape: one C per matrix
+@pytest.mark.parametrize("which,Cb", [("encode", 32), ("decode", 256)])
+def test_gf01_plain_vs_pallas_interpret(rdp_matrices, which, Cb):
+    A = rdp_matrices[which]
+    D = _u8(_rng("g01p", which, Cb), (3, 128, Cb))
+    want = np.asarray(ref_matmul(A, D, strategy="gf01", interpret=True))
+    got = gf256_matmul_batched(A, torch.from_numpy(D), strategy="gf01")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gf01_plain_refuses_a_dense_matrix():
+    with pytest.raises(ValueError, match="0/1"):
+        gf01_matmul_batched_plain(np.full((2, 3), 2, np.uint8),
+                                  torch.zeros((1, 3, 16), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("B", BS)
+@pytest.mark.parametrize("C", [32, 256, 1000, 4096])
+@pytest.mark.parametrize("m,k", [(12, 20), (13, 10), (14, 10)])
+def test_cols_plain_vs_numpy(m, k, C, B):
+    rng = _rng("cols", m, k, C, B)
+    A, D = _u8(rng, (m, k)), _u8(rng, (B, k, C))
+    assert choose_strategy(A) == "cols"
+    got = gf256_matmul_batched(A, torch.from_numpy(D))
+    np.testing.assert_array_equal(got.numpy(), np_matmul_batched(A, D))
+
+
+# the JAX package's own dense test shape (tests/test_kernels.py) and the
+# RS(14,10) fused decode of four re-encoded parities
+@pytest.mark.parametrize("m,k,C", [(12, 20, 200), (14, 10, 256)])
+def test_cols_plain_vs_pallas_interpret(m, k, C):
+    rng = _rng("colsp", m, k, C)
+    A, D = _u8(rng, (m, k)), _u8(rng, (2, k, C))
+    want = np.asarray(ref_matmul(A, D, strategy="cols", interpret=True))
+    got = gf256_matmul_batched(A, torch.from_numpy(D), strategy="cols")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _reference_strategy(monkeypatch, A, strategy):
+    """The body the JAX package's ``gf256_matmul_batched`` picks for A:
+    its three pallas_call launchers are replaced by recorders."""
+    # the package exports a function of the module's name: go by module
+    jmod = importlib.import_module("repro.kernels.gf256_matmul")
+    seen = []
+    for body, fn in (("unroll", "_gf_matmul_batched_call"),
+                     ("cols", "_gf_matmul_cols_call"),
+                     ("gf01", "_gf01_matmul_call")):
+        def record(a, data, *, m, body=body, **_):
+            seen.append(body)
+            return np.zeros((data.shape[0], m, data.shape[2]), np.uint8)
+        monkeypatch.setattr(jmod, fn, record)
+    jmod.gf256_matmul_batched(A, np.zeros((1, A.shape[1], 128), np.uint8),
+                              strategy=strategy, interpret=True)
+    assert len(seen) == 1
+    return seen[0]
+
+
+@pytest.mark.parametrize("strategy", [None, "unroll", "cols", "gf01", "bogus"])
+def test_strategy_rule_matches_the_reference(monkeypatch, strategy):
+    rng = _rng("rule", strategy)
+    for m, k in [(1, 4), (2, 8), (10, 8), (16, 8), (8, 17), (12, 20),
+                 (13, 10), (32, 128), (160, 128)]:
+        for zero_one in (True, False):
+            A = rng.integers(0, 2 if zero_one else 256, (m, k),
+                             dtype=np.uint8)
+            if not zero_one:
+                A[0, 0] = 2                     # surely not 0/1
+            assert choose_strategy(A, strategy) == \
+                _reference_strategy(monkeypatch, A, strategy), \
+                (m, k, zero_one, strategy)
+
+
 def test_matmul_batched_m_zero():
     D = _u8(_rng("m0"), (3, 8, 1000))
     got = gf256_matmul_batched(np.zeros((0, 8), np.uint8), torch.from_numpy(D))
@@ -111,7 +224,7 @@ def test_matmul_batched_rejects_mismatched_data():
 
 
 # ---------------------------------------------------------------------------
-# kernel 2: per-item fold (and the plain per-item product)
+# kernel 5: per-item fold (and the plain per-item product)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("B", BS)
@@ -140,6 +253,31 @@ def test_per_item_fold_plain_vs_pallas_interpret(O, J, C, zero_one):
     np.testing.assert_array_equal(got, want)
 
 
+# kernel 4: the per-item product without a parity fold (the RDP delta)
+
+@pytest.mark.parametrize("B", BS)
+@pytest.mark.parametrize("Cb", [32, 256, 1000])
+@pytest.mark.parametrize("zero_one", [True, False])
+def test_per_item_plain_vs_numpy(zero_one, Cb, B):
+    rng = _rng("pin", zero_one, Cb, B)
+    Ms = rng.integers(0, 2 if zero_one else 256, (B, 32, 16), dtype=np.uint8)
+    D = _u8(rng, (B, 16, Cb))
+    got = delta_apply_per_item_batched(None, Ms, torch.from_numpy(D))
+    assert tuple(got.shape) == (B, 32, Cb)
+    np.testing.assert_array_equal(got.numpy(), np_per_item(Ms, D))
+
+
+@pytest.mark.parametrize("Cb", [32, 256])
+@pytest.mark.parametrize("zero_one", [True, False])
+def test_per_item_plain_vs_pallas_interpret(zero_one, Cb):
+    rng = _rng("pinp", zero_one, Cb)
+    Ms = rng.integers(0, 2 if zero_one else 256, (3, 32, 16), dtype=np.uint8)
+    D = _u8(rng, (3, 16, Cb))
+    want = np.asarray(ref_per_item(Ms, D, None, interpret=True))
+    got = gf256_matmul_per_item_batched(Ms, torch.from_numpy(D)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_per_item_parity_is_not_modified_in_place():
     rng = _rng("inplace")
     Ms, D, P = _u8(rng, (3, 2, 3)), _u8(rng, (3, 3, 128)), _u8(rng, (3, 2, 128))
@@ -149,7 +287,7 @@ def test_per_item_parity_is_not_modified_in_place():
 
 
 # ---------------------------------------------------------------------------
-# kernels 3 and 4: delta_apply_batched with and without parity
+# kernels 6 and 7: delta_apply_batched with and without parity
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("B", BS)
