@@ -11,14 +11,16 @@ in place of the card):
 1. device  - needs ``torch.cuda``; prints the card's name and power limit
              and the torch/CUDA versions;
 2. build   - compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc;
-3. kernels - each of the seven hand-written kernels against its plain
-             torch version on the card, byte-exact, at B = 1, 64, 4096 and
-             C = 4096, 1000 (and C = 256, RDP's sub-block row, for the
-             RDP shapes); at B = 4096 and B = 64, at the width the main
-             path gives the kernel: CUDA-event time of a wrapper call, the
-             kernel's own device time from a ``torch.profiler`` trace, the
-             plain version's time and the bound from these inputs' bytes
-             and operations;
+3. kernels - each of the ten hand-written kernels against its plain
+             torch version on the card, byte-exact: the batched ones at
+             B = 1, 64, 4096 and C = 4096, 1000 (and C = 256, RDP's
+             sub-block row, for the RDP shapes), the single-stripe ones at
+             C = 4096, 1000 and 1 MiB, the probe at Q = 1, 64, 65,536 on a
+             2^20-bucket table; at the widths the main path gives each
+             kernel: CUDA-event time of a wrapper call, the kernel's own
+             device time from a ``torch.profiler`` trace, the plain
+             version's time and the bound from these inputs' bytes and
+             operations;
 4. RS      - the paper's testbed (``configs/memec.py``: 16 servers,
              4 proxies, RS(10,8), c = 16, 4 KB chunks) on
              ``engine="cuda"``, YCSB batch 64: load, workload A, a
@@ -34,16 +36,33 @@ in place of the card):
              per-item kernel and the per-item fold must have launched;
 6. RS(14,10) - one ``CudaEngine`` decode of 200 stripes whose patterns
              re-encode three or four parities, against ``NumpyEngine``:
-             the column-loop kernel must have launched.
+             the column-loop kernel must have launched;
+7. ops     - ``repro_torch.kernels.ops`` on RS(10,8) 4 KB chunks (encode,
+             decode of two lost positions, a parity delta, an index
+             probe) against ``core.codes`` and the index, then
+             ``repro_torch.quickstart`` on the card: kernels 8-10 (the
+             single-stripe product, the fused old/new delta, the cuckoo
+             probe) must have launched;
+8. sharded - ``configs/memec.py`` with ``shards=4, placement="ring"``:
+             four paper testbeds as the shards of one cluster, sharing
+             the card, on ``engine="cuda"`` against a numpy twin - load,
+             A, a data-server fail/restore in one shard with A running,
+             ``add_shard`` (live migration) and ``rebalance``.  Contents,
+             ``stats`` and reports must be equal, every shard's parity
+             sweep must find no stale parity, and the seal, delta and
+             decode kernels must have launched.
 
-Every phase of 4-6 starts with the launch counts at 0 and reads them
-when it ends; launches made to compare a kernel with its plain version
-are not counted.  The line before the last is ``{"kernels": [...]}``;
+Kernel 10 is also held against its plain version on the real object
+index of a server of the loaded RS testbed.  Every phase of 4-8 starts
+with the launch counts at 0 and reads them when it ends; launches made
+to compare a kernel with its plain version are not counted.  The line
+before the last is ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 from __future__ import annotations
 
 import copy
+import importlib
 import json
 import subprocess
 import sys
@@ -64,6 +83,14 @@ BATCH = 64               # YCSB multi-key window
 # workload ops: A, A with a data server down, A and D with a parity
 # server down
 OPS = dict(A=20_000, degraded=5_000, parity_down=2_000)
+# the sharded phase: four testbed shards on a ring; at this load the
+# smallest shard (22.5 % of the keys) holds about 54,000 objects and
+# seals chunks (each shard starts sealing near 40,000)
+SHARDED_OBJECTS = 240_000
+SHARDED_OPS = dict(A=20_000, degraded=5_000, hot=4_000)
+# keys ``rebalance`` moves in one pass; the rest stay forwarded and
+# readable (an uncapped pass moves ~100,000 keys at this load)
+REBALANCE_MOVES = 20_000
 
 
 def log(*parts):
@@ -146,6 +173,59 @@ def delta_work(np, parity, g, xor):
     return 4 * B * m + B * C + out, int(np.count_nonzero(g & 255)) * C
 
 
+def single_matmul_work(np, A, data):
+    """The single-stripe product's bytes (data in, result out, the
+    matrix) and multiply-XORs (one per nonzero coefficient and byte)."""
+    k, C = data.shape
+    m = A.shape[0]
+    return k * C + m * C + m * k, int(np.count_nonzero(A)) * C
+
+
+def single_delta_work(np, parity, g, old, new):
+    """Parity, old and new read once, parity written once, the gammas;
+    one multiply-XOR per nonzero gamma and byte."""
+    m, C = parity.shape
+    g = np.asarray(g)
+    return 2 * m * C + 2 * C + 4 * m, int(np.count_nonzero(g & 255)) * C
+
+
+def probe_work(np, num_buckets, h1, h2):
+    """Bytes the probe's queries touch, not the table: per query its
+    fingerprint (8 B), two bucket ids (8 B) and two outputs (5 B), and per
+    distinct bucket it names one row of 4 fingerprints and 4 occupancy
+    bytes (36 B); one 64-bit compare per slot read."""
+    rows = 1 + ((h1 % np.uint64(num_buckets)) != (h2 % np.uint64(num_buckets)))
+    n_rows = int(rows.sum())
+    return 21 * len(h1) + 36 * n_rows, 4 * n_rows
+
+
+def probe_table(np, buckets: int, occupancy: float, queries: int, seed: int):
+    """A cuckoo table of ``buckets`` x 4 random fingerprints, about
+    ``occupancy`` of the slots occupied, and ``queries`` probes: half hit
+    an occupied slot through the bucket their h1 or h2 names, half miss,
+    and one in 16 has h1 == h2 (both probes on one bucket).  numpy from a
+    fixed seed."""
+    rng = np.random.default_rng(seed)
+
+    def u64(n):
+        return np.frombuffer(rng.bytes(8 * n), dtype=np.uint64).copy()
+    fps = u64(buckets * 4).reshape(buckets, 4)
+    occ = rng.random((buckets, 4)) < occupancy
+    B = np.uint64(buckets)
+    hits = queries // 2
+    pick = rng.choice(np.flatnonzero(occ), hits)
+    named = (pick // 4).astype(np.uint64) + B * (u64(hits) >> np.uint64(21))
+    other = u64(hits)
+    side = rng.random(hits) < 0.5
+    h1 = np.concatenate([np.where(side, named, other), u64(queries - hits)])
+    h2 = np.concatenate([np.where(side, other, named), u64(queries - hits)])
+    fp = np.concatenate([fps.reshape(-1)[pick], u64(queries - hits)])
+    same = rng.random(queries) < 1 / 16
+    h2[same] = h1[same]
+    order = rng.permutation(queries)
+    return fps, occ, h1[order], h2[order], fp[order]
+
+
 def kernel_specs(np, torch, dev):
     """Per kernel: how to make its inputs at (B, C), call the wrapper and
     the plain version, the (B, C) grid it is checked on, the width it is
@@ -153,8 +233,9 @@ def kernel_specs(np, torch, dev):
     inputs need."""
     from repro_torch.core.codes import make_code
     from repro_torch.core.engine import NumpyEngine, block_rep
-    from repro_torch.kernels import delta_update as du
-    from repro_torch.kernels import gf256_matmul as gm
+    du = importlib.import_module("repro_torch.kernels.delta_update")
+    gm = importlib.import_module("repro_torch.kernels.gf256_matmul")
+    cl = importlib.import_module("repro_torch.kernels.cuckoo_lookup")
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev)
@@ -191,6 +272,13 @@ def kernel_specs(np, torch, dev):
 
     RS_C, RDP_C = (4096, 1000), (4096, 1000, 256)
 
+    def batched(check_C, time_C):
+        """The (B, C) grid a batched kernel is checked on, and its timed
+        points at the main path's width."""
+        return dict(check=[(B, C) for C in check_C for B in (1, 64, 4096)],
+                    timed=[("b4096", (4096, time_C), 20),
+                           ("b64", (64, time_C), 200)])
+
     def matmul(A, strategy, check_C, time_C):
         m, k = A.shape
         plain = (gm.gf01_matmul_batched_plain if strategy == "gf01"
@@ -199,7 +287,7 @@ def kernel_specs(np, torch, dev):
                     kernel=gm.gf256_matmul_batched, plain=plain,
                     work=lambda a: matmul_work(np, *a,
                                                gf01=strategy == "gf01"),
-                    check_C=check_C, time_C=time_C)
+                    **batched(check_C, time_C))
 
     def rdp_delta_make(B, C):
         """What ``submit_delta`` hands the kernel for RDP: per item the
@@ -231,13 +319,44 @@ def kernel_specs(np, torch, dev):
         return dict(make=make, kernel=gm.gf256_matmul_per_item_batched,
                     plain=gm.gf256_matmul_per_item_plain,
                     work=lambda a: per_item_work(np, *a),
-                    check_C=check_C, time_C=time_C)
+                    **batched(check_C, time_C))
 
     def delta_case(parity):
         return dict(make=delta_make(parity), kernel=du.delta_apply_batched,
                     plain=du.delta_apply_batched_plain,
                     work=lambda a: delta_work(np, *a),
-                    check_C=RS_C, time_C=4096)
+                    **batched(RS_C, 4096))
+
+    # kernels 8-10, the single-stripe entries of kernels/ops.py and the
+    # index probe: RS(10,8) encode (2,8) and the decode inverse of two lost
+    # data chunks (8,8), at one 4 KB chunk and at 1 MiB
+    rs = make_code("rs", 10, 8)
+    inv, _ = rs.decode_matrix(list(range(2, 10)))
+    assert inv.shape == (8, 8) and gm.choose_strategy(inv) == "unroll"
+    WIDE = 1 << 20
+
+    def single(A):
+        k = A.shape[1]
+        return dict(make=lambda C: (A, u8((k, C))), kernel=gm.gf256_matmul,
+                    plain=gm.gf256_matmul_plain,
+                    work=lambda a: single_matmul_work(np, *a),
+                    check=[(4096,), (1000,), (WIDE,)],
+                    timed=[("c4096", (4096,), 200), ("c1048576", (WIDE,), 20)])
+
+    def single_delta_make(C):
+        g = rng.integers(1, 256, 2).astype(np.int32)
+        return (u8((2, C)), g, u8((C,)), u8((C,)))
+
+    # the probe: 2^20 buckets (4 M slots, 90 % occupied, 36 MB of table
+    # on the card), Q = 64 (a YCSB window) and Q = 65,536
+    fps, occ, h1, h2, fp = probe_table(np, 1 << 20, 0.9, 1 << 16, seed=20)
+    fps_d = torch.from_numpy(fps.view(np.int64)).to(dev)
+    occ_d = torch.from_numpy(occ).to(dev)
+
+    def probe_plain(fps_t, occ_t, a, b, f):
+        return cl.cuckoo_probe_plain(
+            fps_t, occ_t, *cl.query_tensors(a, b, f, fps_t.shape[0],
+                                            fps_t.device))
 
     # ``cuda_name``: the __global__ function in csrc/gf256.cu, as the
     # profiler names the launch
@@ -273,7 +392,36 @@ def kernel_specs(np, torch, dev):
              cuda_name="delta_batched_kernel",
              replaces="src/repro/kernels/delta_update.py:80",
              cases={"delta_m2": delta_case(False)}),
+        dict(name="gf_matmul", cuda_name="matmul_batched_kernel",
+             replaces="src/repro/kernels/gf256_matmul.py:66",
+             cases={"encode_2x8": single(rs.parity_matrix),
+                    "decode_8x8": single(inv)}),
+        dict(name="gf_delta_update", cuda_name="delta_update_kernel",
+             replaces="src/repro/kernels/delta_update.py:28",
+             cases={"update_m2": dict(
+                 make=single_delta_make, kernel=du.delta_update,
+                 plain=du.delta_update_plain,
+                 work=lambda a: single_delta_work(np, *a),
+                 check=[(4096,), (1000,), (WIDE,)],
+                 timed=[("c4096", (4096,), 200),
+                        ("c1048576", (WIDE,), 20)])}),
+        dict(name="gf_cuckoo_probe", cuda_name="cuckoo_probe_kernel",
+             replaces="src/repro/kernels/cuckoo_lookup.py:29",
+             cases={"probe_2e20": dict(
+                 make=lambda Q: (fps_d, occ_d, h1[:Q], h2[:Q], fp[:Q]),
+                 kernel=cl.cuckoo_lookup, plain=probe_plain,
+                 work=lambda a: probe_work(np, a[0].shape[0], a[2], a[3]),
+                 check=[(1,), (64,), (1 << 16,)],
+                 timed=[("q64", (64,), 200), ("q65536", (1 << 16,), 20)])}),
     ]
+
+
+def max_err(torch, got, want) -> int:
+    """Largest absolute difference over a kernel's output(s)."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    return max(int((g.int() - w.int()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
 
 
 def run_kernels(np, torch, dev):
@@ -283,25 +431,22 @@ def run_kernels(np, torch, dev):
         row = dict(name=spec["name"], route="cuda", source=SOURCE,
                    replaces=spec["replaces"], checked=[], max_abs_err=0)
         for case_name, case in spec["cases"].items():
-            for C in case["check_C"]:
-                for B in (1, 64, 4096):
-                    args = case["make"](B, C)
-                    got = case["kernel"](*args)
-                    want = case["plain"](*args)
-                    torch.cuda.synchronize()
-                    err = int((got.int() - want.int()).abs().max())
-                    row["max_abs_err"] = max(row["max_abs_err"], err)
-                    if err:
-                        first = int((got != want).reshape(-1).nonzero()[0])
-                        raise AssertionError(
-                            f"{spec['name']} {case_name} B={B} C={C}: "
-                            f"first differing byte at flat index {first}")
-                    row["checked"].append(f"{case_name} B={B} C={C}")
-                    del args, got, want
+            for shape in case["check"]:
+                args = case["make"](*shape)
+                got = case["kernel"](*args)
+                want = case["plain"](*args)
+                torch.cuda.synchronize()
+                err = max_err(torch, got, want)
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                if err:
+                    raise AssertionError(
+                        f"{spec['name']} {case_name} {shape}: max abs err "
+                        f"{err} against the plain version")
+                row["checked"].append(f"{case_name} {shape}")
+                del args, got, want
             timing = {}
-            C = case["time_C"]
-            for B, reps in ((4096, 20), (64, 200)):
-                args = case["make"](B, C)
+            for label, shape, reps in case["timed"]:
+                args = case["make"](*shape)
                 call = lambda: case["kernel"](*args)          # noqa: E731
                 ms = cuda_ms(torch, call, reps)
                 kernel_ms = kernel_device_ms(torch, call, reps,
@@ -310,26 +455,29 @@ def run_kernels(np, torch, dev):
                                    max(3, reps // 10))
                 nbytes, ops = case["work"](args)
                 b_ms, by = bound(nbytes, ops)
-                timing[B] = dict(ms=ms, kernel_ms=kernel_ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=by, bytes=nbytes, ops=ops)
+                timing[label] = dict(ms=ms, kernel_ms=kernel_ms,
+                                     plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=by, bytes=nbytes, ops=ops)
                 kernel_txt = ("not measured (no device time in the trace)"
                               if kernel_ms is None else f"{kernel_ms:.4f} ms")
-                log(f"kernel {spec['name']} {case_name} B={B} C={C}: "
+                log(f"kernel {spec['name']} {case_name} {label} {shape}: "
                     f"wrapper {ms:.4f} ms, kernel {kernel_txt} (plain "
                     f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {by}, "
                     f"{nbytes} bytes)")
                 del args
             row.setdefault("cases", {})[case_name] = {
-                "C": C, **{f"{k}_b{B}": v for B, t in timing.items()
-                           for k, v in t.items()}}
-            if "ms" not in row:       # the first case is the headline
-                t = timing[4096]
+                "shapes": {label: str(shape)
+                           for label, shape, _ in case["timed"]},
+                **{f"{k}_{label}": v for label, t in timing.items()
+                   for k, v in t.items()}}
+            if "ms" not in row:       # the first timed point is the headline
+                label, shape, _ = case["timed"][0]
+                t = timing[label]
                 row.update(ms=t["ms"], kernel_ms=t["kernel_ms"],
                            plain_ms=t["plain_ms"],
                            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                            library_ms=None,
-                           shape=f"{case_name} B=4096 C={C}")
+                           shape=f"{case_name} {label} {shape}")
         rows.append(row)
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -477,6 +625,10 @@ RS_KERNELS = ("gf_matmul_batched", "gf_per_item_fold", "gf_delta_apply_batched",
               "gf_delta_only_batched")
 RDP_KERNELS = ("gf01_matmul_batched", "gf_per_item", "gf_per_item_fold")
 COLS_KERNELS = ("gf_matmul_cols_batched",)
+OPS_KERNELS = ("gf_matmul", "gf_delta_update", "gf_cuckoo_probe")
+# seal folds, sealed-update deltas and recovery decodes
+SHARDED_KERNELS = ("gf_per_item_fold", "gf_delta_apply_batched",
+                   "gf_matmul_batched")
 
 
 def launched_in(torch, fn):
@@ -492,7 +644,7 @@ def launched_in(torch, fn):
 def run_cluster(np, torch, testbed, must_launch):
     """The testbed scenario on the CUDA engine against a numpy-engine
     twin; ``must_launch`` names the kernels the scenario has to launch.
-    Returns the launches per kernel."""
+    Returns the launches per kernel and the CUDA cluster."""
     from repro_torch.configs.memec import make_configured_cluster
     from repro_torch.data.ycsb import YCSBConfig, run_workload
 
@@ -541,7 +693,47 @@ def run_cluster(np, torch, testbed, must_launch):
     log(f"cluster {tag} parity sweep: {checked} sealed data chunks checked, "
         f"{bad} bad")
     assert checked > 0 and bad == 0
-    return launches
+    return launches, cl
+
+
+def check_probe_on_index(np, torch, cl, row):
+    """Kernel 10 on a real object index: the server of the loaded testbed
+    holding the most keys, probed for all its resident keys plus as many
+    absent ones, against the plain version and the index itself; then the
+    keys-in time of ``ops.batched_index_lookup`` (host hashing, the table
+    copied to the card) beside the arrays-in time of the kernel row."""
+    from repro_torch.kernels import ops
+    srv = max(cl.servers, key=lambda s: s.object_index.size)
+    index = srv.object_index
+    resident = index.keys()
+    absent = [b"absent-key-%013d" % i for i in range(len(resident))]
+    keys = resident + absent
+    found, slot = ops.batched_index_lookup(index, keys)
+    pf, ps = ops.batched_index_lookup(index, keys, device="cpu")
+    torch.cuda.synchronize()
+    assert torch.equal(found.cpu(), pf) and torch.equal(slot.cpu(), ps), \
+        "probe on the testbed index differs from the plain version"
+    assert found.cpu().numpy().tolist() == \
+        [True] * len(resident) + [False] * len(absent)
+    for key, s in zip(resident, slot.cpu().numpy()):
+        b, sl = divmod(int(s), 4)
+        assert index.slot_data[(b, sl)][0] == key
+    row["checked"].append(
+        f"testbed server {srv.sid} object index: {index.num_buckets} "
+        f"buckets, {len(resident)} resident + {len(absent)} absent keys")
+    keys_in = {}
+    for q, reps in ((64, 50), (len(keys), 3)):
+        probe = keys[:q]
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ops.batched_index_lookup(index, probe)
+        torch.cuda.synchronize()
+        keys_in[f"keys_in_ms_q{q}"] = (time.perf_counter() - t0) / reps * 1e3
+    row["keys_in"] = dict(keys_in, buckets=index.num_buckets)
+    log(f"kernel gf_cuckoo_probe on the testbed index of server {srv.sid} "
+        f"({index.num_buckets} buckets, {len(keys)} keys): equal to the "
+        f"plain version; keys-in host ms per ops.batched_index_lookup: "
+        f"{json.dumps(keys_in)}")
 
 
 def run_wide_decode(np, torch):
@@ -588,6 +780,155 @@ def run_wide_decode(np, torch):
     return launches
 
 
+def run_ops(np, torch):
+    """The public entry points of ``repro_torch.kernels.ops`` on RS(10,8)
+    4 KB chunks - encode, decode of two lost positions, a parity delta,
+    an index probe - held against ``core.codes`` and the index, then the
+    port's quickstart on the card (its own asserts must hold).  Kernels
+    8-10 must launch."""
+    from repro_torch import quickstart
+    from repro_torch.core.codes import RSCode
+    from repro_torch.core.index import CuckooIndex
+    from repro_torch.kernels import ops
+    code = RSCode(n=10, k=8)
+    rng = np.random.default_rng(8)
+    data = rng.integers(0, 256, (8, 4096), dtype=np.uint8)
+    new3 = data[3].copy()
+    new3[100:900] = rng.integers(0, 256, 800, dtype=np.uint8)
+    index = CuckooIndex(num_buckets=1 << 12)
+    keys = [b"user%020d" % i for i in range(8000)]
+    for i, key in enumerate(keys):
+        index.insert(key, i)
+    probe = keys[::2] + [b"none%020d" % i for i in range(4000)]
+
+    def drive():
+        d = torch.from_numpy(data).cuda()
+        par = ops.encode_stripe(code, d)
+        stripe = torch.cat([d, par])
+        lost = (2, 9)
+        rec = ops.decode_stripe(code, {i: stripe[i] for i in range(10)
+                                       if i not in lost}, list(lost), 4096)
+        upd = ops.apply_parity_delta(code, par, 3, d[3],
+                                     torch.from_numpy(new3).cuda())
+        found, slot = ops.batched_index_lookup(index, probe)
+        quickstart.main([])
+        return [x.cpu().numpy() for x in (par, rec[2], rec[9], upd, found,
+                                          slot)]
+    t0 = time.perf_counter()
+    (par, rec2, rec9, upd, found, slot), launches = launched_in(torch, drive)
+    secs = time.perf_counter() - t0
+    want_par = code.encode(data)
+    assert np.array_equal(par, want_par), "ops.encode_stripe differs"
+    assert np.array_equal(rec2, data[2]) and np.array_equal(rec9, want_par[1])
+    d2 = data.copy()
+    d2[3] = new3
+    assert np.array_equal(upd, code.encode(d2)), "apply_parity_delta differs"
+    assert found.tolist() == [key in index for key in probe]
+    for key, f, s in zip(probe, found, slot):
+        if f:
+            assert index.slot_data[divmod(int(s), 4)][0] == key
+    log(f"phase ops (entry points + quickstart on the card): {secs:.1f} s; "
+        f"launches {json.dumps(launches)}")
+    missing = [k for k in OPS_KERNELS if launches[k] == 0]
+    assert not missing, f"ops phase never launched {missing}"
+    return launches
+
+
+def sharded_scenario(cl, cfg, run_workload, batch: int):
+    """load -> A -> fail a data server in the shard with the most sealed
+    chunks -> A -> restore -> add_shard (live migration) -> A hammering
+    shard 0 -> rebalance (at most ``REBALANCE_MOVES`` keys).  Returns
+    (reports, seconds per phase, counts)."""
+    secs, reports = {}, []
+
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    phase("load", lambda: run_workload(cl, "load", 0, cfg, batch_size=batch))
+    phase("A", lambda: run_workload(cl, "A", SHARDED_OPS["A"], cfg,
+                                    batch_size=batch))
+    sealed = [sealed_chunks(sh) for sh in cl.shards]
+    counts = {"sealed_per_shard_after_load_A": sealed}
+    si = max(range(len(sealed)), key=lambda i: sealed[i])
+    sid = victim(cl.shards[si], False)
+    reports.append(("fail", si, sid, phase(
+        "fail", lambda: cl.fail_server(sid, shard=si))))
+    phase("A_degraded", lambda: run_workload(
+        cl, "A", SHARDED_OPS["degraded"], cfg, batch_size=batch))
+    reports.append(("restore", si, sid, phase(
+        "restore", lambda: cl.restore_server(sid, shard=si))))
+    reports.append(("add_shard", phase(
+        "add_shard", lambda: cl.add_shard(batch_size=batch))))
+    cl.reset_load()
+    phase("A_hot_shard0", lambda: run_workload(
+        cl, "A", SHARDED_OPS["hot"], cfg, batch_size=batch, hot_shard=0))
+    reports.append(("rebalance", phase(
+        "rebalance", lambda: cl.rebalance(skew_threshold=1.2,
+                                          max_moves=REBALANCE_MOVES,
+                                          batch_size=batch))))
+    counts["sealed_per_shard_end"] = [sealed_chunks(sh) for sh in cl.shards]
+    return reports, secs, counts
+
+
+def run_sharded(np, torch, testbed):
+    """Four paper testbeds as the shards of one ring-placed cluster on the
+    card (each shard its own ``CudaEngine``; the scatter runs them on
+    worker threads), against a numpy-engine twin."""
+    from repro_torch.configs.memec import make_configured_cluster
+    from repro_torch.data.ycsb import YCSBConfig, run_workload
+    cfg = YCSBConfig(num_objects=SHARDED_OBJECTS, key_size=testbed.key_size,
+                     value_sizes=testbed.value_sizes)
+    cl = make_configured_cluster(testbed, engine="cuda")
+    twin = make_configured_cluster(testbed, engine="numpy")
+    log(f"sharded: {testbed.shards} shards x ({testbed.num_servers} servers, "
+        f"RS({testbed.n},{testbed.k}), c={testbed.c}, {testbed.chunk_size} B "
+        f"chunks), placement {testbed.placement}, {SHARDED_OBJECTS} objects, "
+        f"YCSB batch {testbed.batch_size}")
+    t0 = time.perf_counter()
+    (reports, secs, counts), launches = launched_in(
+        torch, lambda: sharded_scenario(cl, cfg, run_workload,
+                                        testbed.batch_size))
+    wall = time.perf_counter() - t0
+    log("sharded cuda seconds per phase:", json.dumps(secs))
+    log("sharded cuda launches per kernel:", json.dumps(launches))
+    log("sharded chunks:", json.dumps(counts))
+    t0 = time.perf_counter()
+    twin_reports, twin_secs, twin_counts = sharded_scenario(
+        twin, cfg, run_workload, testbed.batch_size)
+    twin_wall = time.perf_counter() - t0
+    log("sharded numpy twin seconds per phase:", json.dumps(twin_secs))
+    log(f"sharded scenario wall seconds: cuda {wall:.3f}, numpy twin "
+        f"{twin_wall:.3f}")
+    log("sharded reports:", json.dumps(reports, default=str))
+
+    missing = [k for k in SHARDED_KERNELS if launches[k] == 0]
+    assert not missing, f"sharded: kernels never launched: {missing}"
+    assert all(n > 0 for n in counts["sealed_per_shard_after_load_A"]), \
+        f"a shard sealed nothing: {counts}"
+    assert reports[0][3]["recovered_chunks"] > 0, "nothing recovered"
+    assert reports[2][1]["moved_keys"] > 0, "add_shard moved nothing"
+    assert reports[3][1]["moved_keys"] > 0, f"rebalance: {reports[3][1]}"
+    for i, eng in enumerate(cl.engines):
+        paths = set(eng.op_paths.values())
+        assert paths <= {"cuda-kernel"}, f"shard {i} op_paths {eng.op_paths}"
+        assert paths or i >= testbed.shards, f"shard {i} ran no coding op"
+    assert reports == twin_reports, "fail/restore/migration reports differ"
+    assert counts == twin_counts, (counts, twin_counts)
+    assert cl.stats == twin.stats, "sharded stats differ from the twin"
+    got = contents(cl, cfg, 0)
+    assert got == contents(twin, cfg, 0), "contents differ from the twin"
+    assert all(v is not None for v in got), "a loaded key is lost"
+    for i, sh in enumerate(cl.shards):
+        checked, bad = parity_invariant(np, sh)
+        log(f"sharded shard {i} parity sweep: {checked} sealed data chunks "
+            f"checked, {bad} bad")
+        assert bad == 0
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -615,14 +956,24 @@ def main() -> int:
         f"(nvcc {' '.join(_build.NVCC_FLAGS)} of {', '.join(_build.SOURCES)})")
 
     rows = run_kernels(np, torch, dev)
+    log(f"phase kernels: {time.perf_counter() - t_start:.1f} s since start")
     t0 = time.perf_counter()
-    by_phase = {"rs_cluster": run_cluster(np, torch, CONFIG, RS_KERNELS)}
+    launches, rs_cl = run_cluster(np, torch, CONFIG, RS_KERNELS)
+    by_phase = {"rs_cluster": launches}
+    probe_row = next(r for r in rows if r["name"] == "gf_cuckoo_probe")
+    check_probe_on_index(np, torch, rs_cl, probe_row)
+    del rs_cl
     log(f"phase RS cluster: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    by_phase["rdp_cluster"] = run_cluster(
+    by_phase["rdp_cluster"], _ = run_cluster(
         np, torch, dataclasses.replace(CONFIG, scheme="rdp"), RDP_KERNELS)
     log(f"phase RDP cluster: {time.perf_counter() - t0:.1f} s")
     by_phase["rs_14_10_decode"] = run_wide_decode(np, torch)
+    by_phase["ops"] = run_ops(np, torch)
+    t0 = time.perf_counter()
+    by_phase["sharded"] = run_sharded(np, torch, dataclasses.replace(
+        CONFIG, shards=4, placement="ring", batch_size=BATCH))
+    log(f"phase sharded: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_phase"] = {p: n[row["name"]]
                                     for p, n in by_phase.items()}

@@ -19,10 +19,24 @@ class MemECConfig:
     max_unsealed: int = 4
     key_size: int = 24
     value_sizes: tuple = (8, 32)
-    # batched coding-engine backend: numpy | torch | torch:cpu | cuda (see
-    # core/engine.py).  None defers to $MEMEC_TORCH_ENGINE, default cuda
-    # (the hand-written kernels, for every scheme).
+    # batched coding-engine backend: numpy | torch | torch:cpu | cuda |
+    # cuda:cpu (see core/engine.py).  None defers to $MEMEC_TORCH_ENGINE,
+    # default cuda (the hand-written kernels, for every scheme).  A
+    # comma-separated list assigns backends per shard (cycling), e.g.
+    # "cuda,numpy" = kernels on even shards, numpy on odd.
     engine: str | None = None
+    # multi-key request batch size for the batched client API / YCSB
+    # driver (1 = classic per-key requests)
+    batch_size: int = 1
+    # shard count for core/shard.py's ShardedCluster (hash of key ->
+    # shard; each shard is an independent paper-testbed cluster).  1 =
+    # the paper's single unsharded cluster; None defers to $MEMEC_SHARDS.
+    shards: int | None = 1
+    # key->shard placement policy (core/ring.py): "mod" (historical
+    # FNV-mod), "ring" / "ring:<vnodes>" (elastic consistent-hash ring —
+    # required for add_shard/remove_shard/rebalance).  None defers to
+    # $MEMEC_PLACEMENT, default "mod".
+    placement: str | None = None
     # intra-shard async coding pipeline (core/store.py): submit engine
     # work through futures while the shard's own netsim legs are in
     # flight — request latency charges max(coding, network) per phase
@@ -35,12 +49,12 @@ CONFIG = MemECConfig()
 
 
 def make_configured_cluster(cfg: MemECConfig = CONFIG, **overrides):
-    """Build the cluster this config describes: the paper's single
-    unsharded cluster (sharding is not ported yet)."""
-    from ..core.store import MemECCluster
+    """Build the cluster this config describes (sharded iff shards > 1)."""
+    from ..core.shard import make_cluster
     kw = dict(num_servers=cfg.num_servers, num_proxies=cfg.num_proxies,
               scheme=cfg.scheme, n=cfg.n, k=cfg.k, c=cfg.c,
               chunk_size=cfg.chunk_size, max_unsealed=cfg.max_unsealed,
-              engine=cfg.engine, async_engine=cfg.async_engine)
+              engine=cfg.engine, shards=cfg.shards, placement=cfg.placement,
+              async_engine=cfg.async_engine)
     kw.update(overrides)
-    return MemECCluster(**kw)
+    return make_cluster(**kw)

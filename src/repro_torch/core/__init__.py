@@ -1,4 +1,4 @@
-"""MemEC core on PyTorch: the single-shard cluster and its coding engine.
+"""MemEC core on PyTorch: the cluster, sharded or not, and its coding engine.
 
 Layers:
 * gf256 / codes — GF(2^8) arithmetic + RS/RDP/XOR erasure codes with
@@ -15,37 +15,63 @@ Layers:
   multi_update), coordinated degraded mode, server states, backups,
   one-shot batched recovery, migration (§4, §5);
 * hotkey — the version-buffered hot-key update tier;
-* netsim / trace — the modeled network, event runtime and span tracing.
-
-Sharding, placement, rebalancing, the baselines, the analysis formulas
-and telemetry are not ported yet (ROADMAP Queue 1).
+* shard — the scale-out layer: `ShardedCluster` hash-partitions the key
+  space across S independent shard stores (own stripe lists, coordinator,
+  `CodingEngine` — mixed backends allowed through `engine_specs`), plans
+  multi-key requests across shards with pipelined scatter/gather, and
+  scopes failure recovery per shard.  `make_cluster(shards=...)` /
+  `$MEMEC_SHARDS`; S=1 returns the plain `MemECCluster`;
+* ring / rebalance — elastic placement (FNV-mod or a consistent-hash
+  ring, `placement=` / `$MEMEC_PLACEMENT`), live stripe migration and
+  skew-aware rebalancing via `ShardedCluster.add_shard/remove_shard/
+  rebalance`;
+* netsim / trace / telemetry — the modeled network, event runtime, span
+  tracing with critical-path attribution and Chrome export, and the
+  versioned telemetry snapshot;
+* baselines — all-replication + hybrid-encoding comparison stores (§3.1);
+* analysis — the redundancy formulas of §3.3 (Figure 2).
 """
+from .analysis import (AnalysisParams, redundancy_all_encoding,
+                       redundancy_all_replication, redundancy_hybrid_encoding)
+from .baselines import AllReplicationCluster, HybridEncodingCluster
 from .chunk import CHUNK_SIZE, ChunkBuilder, ChunkId, ObjectRef
 from .codes import Code, NoCode, RDPCode, RSCode, XORCode, make_code
 from .coordinator import Coordinator, ServerState
 from .engine import (CodingEngine, CudaEngine, DecodePlan, EngineFuture,
-                     NumpyEngine, TorchEngine, make_engine, resolve_async)
+                     NumpyEngine, TorchEngine, engine_specs, make_engine,
+                     resolve_async)
 from .index import CuckooIndex
 from .netsim import (ArrivalProcess, CostModel, EventRuntime, LatencyRecorder,
                      Leg, NetSim, resolve_arrival)
 from .proxy import Proxy
+from .rebalance import MigrationPlan, Rebalancer
+from .ring import ModPlacement, Placement, RingPlacement, make_placement
 from .server import Server
+from .shard import (ShardedCluster, ShardedNet, make_cluster, resolve_shards,
+                    shard_for_key)
 from .store import MemECCluster, PartialFailure
 from .stripe import StripeList, StripeMapper, generate_stripe_lists
 from .trace import (Span, TraceCapture, Tracer, critical_paths,
                     describe_critical_path, export_chrome, resolve_trace,
                     validate_chrome)
+from . import telemetry
 from . import trace
 
 __all__ = [
-    "CHUNK_SIZE", "ChunkBuilder", "ChunkId", "ObjectRef", "Code", "NoCode",
-    "RDPCode", "RSCode", "XORCode", "make_code", "CodingEngine",
-    "CudaEngine", "DecodePlan", "EngineFuture", "NumpyEngine", "TorchEngine",
-    "make_engine", "resolve_async", "Coordinator", "ServerState",
+    "AnalysisParams", "redundancy_all_encoding", "redundancy_all_replication",
+    "redundancy_hybrid_encoding", "AllReplicationCluster",
+    "HybridEncodingCluster", "CHUNK_SIZE", "ChunkBuilder", "ChunkId",
+    "ObjectRef", "Code", "NoCode", "RDPCode", "RSCode", "XORCode",
+    "make_code", "CodingEngine", "CudaEngine", "DecodePlan", "EngineFuture",
+    "NumpyEngine", "TorchEngine", "make_engine", "resolve_async",
+    "engine_specs", "CuckooIndex", "Coordinator", "ServerState",
     "CostModel", "ArrivalProcess", "EventRuntime", "LatencyRecorder",
     "resolve_arrival", "Leg", "NetSim", "Proxy", "Server", "MemECCluster",
-    "PartialFailure", "StripeList", "StripeMapper", "generate_stripe_lists",
-    "trace", "Span", "Tracer", "TraceCapture", "critical_paths",
+    "PartialFailure", "ShardedCluster", "ShardedNet", "make_cluster",
+    "resolve_shards", "shard_for_key", "StripeList", "StripeMapper",
+    "generate_stripe_lists", "Placement", "ModPlacement", "RingPlacement",
+    "make_placement", "Rebalancer", "MigrationPlan", "telemetry", "trace",
+    "Span", "Tracer", "TraceCapture", "critical_paths",
     "describe_critical_path", "export_chrome", "resolve_trace",
     "validate_chrome",
 ]

@@ -33,7 +33,8 @@ Selection: ``make_engine(name, code)``; ``name=None`` reads the
 ``cuda``), defaulting to ``cuda``.  Device engines run on the card unless
 the caller asks for the CPU (``torch:cpu``, or ``device="cpu"``); with no
 card, asking for one raises.  ``configs/memec.py`` carries the same knob
-for the cluster.
+for the cluster; ``engine_specs`` expands it per shard (a comma list
+cycles, e.g. ``"cuda,numpy"``).
 
 Async submission: ``submit_encode`` / ``submit_decode`` / ``submit_delta``
 (and the fused fold/apply/collapse ops) return lightweight
@@ -909,3 +910,24 @@ def resolve_async(async_engine=None) -> bool:
         return os.environ.get("MEMEC_ASYNC", "").strip().lower() in (
             "1", "true", "yes", "on")
     return bool(async_engine)
+
+
+def engine_specs(spec, num_shards: int) -> list:
+    """Expand an engine spec into one entry per shard.
+
+    ``spec`` may be None (defer to ``$MEMEC_TORCH_ENGINE``, itself
+    possibly a comma list), a single backend name, a comma-separated
+    string, a list/tuple of names, or a ``CodingEngine`` instance;
+    shorter lists cycle (e.g. ``"cuda,numpy"`` over 4 shards ->
+    cuda/numpy/cuda/numpy — kernels for hot shards, numpy elsewhere).
+    Names keep their device suffix (``"cuda:cpu,numpy"``); ``make_engine``
+    splits it."""
+    if spec is None:
+        spec = os.environ.get("MEMEC_TORCH_ENGINE")
+    if isinstance(spec, str) and "," in spec:
+        spec = [s.strip() for s in spec.split(",") if s.strip()]
+    if isinstance(spec, (list, tuple)):
+        if not spec:
+            raise ValueError("empty engine spec list")
+        return [spec[i % len(spec)] for i in range(num_shards)]
+    return [spec] * num_shards

@@ -9,6 +9,11 @@ and flags so an edited kernel never loads a stale library.
 
 Nothing here runs at import: this module is imported on hosts without
 ``nvcc`` or a card, where only the plain torch versions run.
+
+The wrappers are entered from several threads at once (the sharded
+cluster runs each shard's group of a multi-key request on its own
+worker), so the first build, the device caches and the launch counts
+each fill or change under a lock.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -46,7 +52,14 @@ SIGNATURES = {
     "gf_per_item_fold": ((_P, _P, _P, _P, _P, _I, _I, _I, _L, _P), _I),
     "gf_delta_apply_batched": ((_P, _P, _P, _P, _P, _I, _I, _L, _P), _I),
     "gf_delta_only_batched": ((_P, _P, _P, _P, _I, _I, _L, _P), _I),
+    "gf_matmul": ((_P, _I, _I, _P, _P, _P, _L, _P), _I),
+    "gf_delta_max_rows": ((), _I),
+    "gf_delta_update": ((_P, _P, _I, _P, _P, _P, _P, _L, _P), _I),
+    "gf_cuckoo_probe": ((_P, _P, _P, _P, _P, _P, _P, _I, _P), _I),
 }
+
+_LOCK = threading.Lock()
+_LIBRARY: ctypes.CDLL | None = None
 
 
 def _nvcc() -> str:
@@ -90,15 +103,58 @@ def build() -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library with every signature declared."""
-    lib = ctypes.CDLL(str(build()))
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-    return lib
+    """The loaded kernel library with every signature declared; the
+    first caller builds it while any other thread waits."""
+    global _LIBRARY
+    with _LOCK:
+        if _LIBRARY is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+            _LIBRARY = lib
+        return _LIBRARY
+
+
+def locked_cache(maxsize: int | None):
+    """``functools.lru_cache`` whose fills run one at a time, so two
+    threads never copy the same value to the card twice."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+        lock = threading.Lock()
+
+        @functools.wraps(fn)
+        def call(*args):
+            with lock:
+                return cached(*args)
+        return call
+    return wrap
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(launches: dict, name: str) -> None:
+    """Add one launch of kernel ``name`` to a wrapper module's counts
+    (``+=`` on a dict entry can lose counts across threads)."""
+    with _COUNT_LOCK:
+        launches[name] += 1
+
+
+def read_counts(*launches: dict) -> dict[str, int]:
+    """One consistent copy of several modules' launch counts."""
+    with _COUNT_LOCK:
+        return {k: v for d in launches for k, v in d.items()}
+
+
+def reset_counts(*launches: dict) -> None:
+    """Set every launch count in ``launches`` to 0."""
+    with _COUNT_LOCK:
+        for d in launches:
+            for name in d:
+                d[name] = 0
 
 
 def check(err: int, name: str) -> None:
@@ -108,7 +164,7 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-@functools.lru_cache(maxsize=None)
+@locked_cache(maxsize=None)
 def _tables(device: torch.device) -> torch.Tensor:
     from ..core import gf256
     host = np.concatenate([gf256.MUL_TABLE.reshape(-1), gf256.EXP_TABLE,

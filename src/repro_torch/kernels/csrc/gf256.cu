@@ -10,6 +10,9 @@
 //   gf_per_item_fold        <- _per_item_fold_kernel
 //   gf_delta_apply_batched  <- _delta_apply_batched_kernel
 //   gf_delta_only_batched   <- _delta_only_batched_kernel
+//   gf_matmul               <- _gf_matmul_kernel          (single stripe)
+//   gf_delta_update         <- _delta_kernel              (single stripe)
+//   gf_cuckoo_probe         <- kernels/cuckoo_lookup.py:_probe_kernel
 //
 // The Pallas bodies decompose every product into 8 bit-planes because the
 // TPU's vector unit cannot gather bytes.  A GPU gathers from shared memory
@@ -55,6 +58,9 @@
 // the table kernels; the 0/1 kernel's inner loop is one conflict-free
 // 16-byte shared-memory load and XOR per set bit.
 //
+// The single-stripe entries of kernels/ops.py and the index probe have
+// notes of their own beside their kernels below.
+//
 // Every entry point launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError() so the caller can raise.
 
@@ -77,6 +83,8 @@ constexpr int kColsRows = 4;
 // lane a row takes 16 bytes, so K may reach kGf01Smem / 16 columns
 constexpr int kGf01Smem = 96 * 1024;
 constexpr int kGf01MaxCols = kGf01Smem / kVec;
+// single-stripe delta: the m gammas travel in the kernel parameters
+constexpr int kDeltaMaxRows = 256;
 
 // Layout of the device table buffer the wrapper passes in:
 // MUL_TABLE (256*256) | EXP_TABLE (512) | LOG_TABLE as bytes (256).
@@ -86,6 +94,10 @@ constexpr int kLogOff = 65536 + 512;
 
 struct Coefs {
   uint8_t a[kMaxCoefs];
+};
+
+struct Gammas {
+  uint8_t g[kDeltaMaxRows];
 };
 
 union V16 {
@@ -377,6 +389,114 @@ delta_batched_kernel(const uint8_t* __restrict__ tables,
   }
 }
 
+// Single-stripe fused delta  out[r] = P[r] ^ g[r] * (old ^ new); P and
+// out (m, C), old and new (C,).  Replaces delta_update.py:_delta_kernel,
+// the UPDATE path of kernels/ops.py:apply_parity_delta.
+//
+// Bound: device-memory bytes, (2m + 2) * C: parity, old and new are each
+// read once and parity written once.  The xor of old and new is formed in
+// registers, never stored; a torch `old ^ new` followed by the batched
+// delta kernel would move 3 * C bytes more.  The m gammas (m <= 14 for
+// every code here) travel by value in the kernel parameters, so the
+// wrapper copies nothing to the card before the launch.  Each thread owns
+// 16 bytes of the row: it takes LOG of the xor once and spends one EXP
+// lookup per output byte, as the batched delta kernel does; blocks walk
+// 4096-byte tiles grid-stride.
+__global__ void __launch_bounds__(kThreads)
+delta_update_kernel(const uint8_t* __restrict__ tables, Gammas G, int m,
+                    const uint8_t* __restrict__ P,
+                    const uint8_t* __restrict__ old,
+                    const uint8_t* __restrict__ nw, uint8_t* __restrict__ out,
+                    long long C, long long tiles, bool vec) {
+  __shared__ uint8_t exp_s[512];
+  __shared__ uint8_t log_s[256];
+  load_exp_log(tables, exp_s, log_s);
+  for (long long u = blockIdx.x; u < tiles; u += gridDim.x) {
+    const long long c0 = u * kTile + (long long)threadIdx.x * kVec;
+    if (c0 >= C) continue;
+    const int nb = (int)min((long long)kVec, C - c0);
+    V16 x = load16(old + c0, nb, vec);
+    xor16(x, load16(nw + c0, nb, vec));
+    V16 lx;
+#pragma unroll
+    for (int t = 0; t < kVec; ++t) lx.b[t] = log_s[x.b[t]];
+    for (int r = 0; r < m; ++r) {
+      V16 acc = load16(P + (long long)r * C + c0, nb, vec);
+      const int g = G.g[r];
+      if (g != 0) {
+        const int lg = log_s[g];
+#pragma unroll
+        for (int t = 0; t < kVec; ++t)
+          acc.b[t] ^= x.b[t] ? exp_s[lx.b[t] + lg] : (uint8_t)0;
+      }
+      store16(out + (long long)r * C + c0, acc, nb, vec);
+    }
+  }
+}
+
+// Batched cuckoo-index probe: query q looks at its two buckets b1[q],
+// b2[q] (4 slots each) and reports found[q] and slot[q], the least
+// bucket*4 + slot whose fingerprint equals fp[q] and whose occupied byte
+// is nonzero, or -1.  fps (B, 4) uint64, occ (B, 4) bytes.  Replaces
+// kernels/cuckoo_lookup.py:_probe_kernel (the GET path's index probe,
+// paper §3.2).
+//
+// The TPU kernel fetched the two (1, 4) bucket rows per grid step by
+// scalar prefetch and compared fingerprints as (lo, hi) uint32 pairs, the
+// TPU having no 64-bit lanes.  Here one thread serves one query with
+// native 64-bit compares: it loads its bucket ids, reads each bucket's 32
+// bytes of fingerprints as two 16-byte loads and its 4 occupancy bytes as
+// one word, and writes 5 bytes.  Bound: the bytes the queries touch (two
+// bucket rows, two ids, a fingerprint and two outputs per query), not the
+// table: a probe gathers 36 scattered bytes per bucket row it reads, so
+// its floor is memory latency at small Q and those bytes at large Q.
+// b1 == b2 reads the same row twice and yields the same slot, as in the
+// TPU kernel.  The bucket ids come from the host (h % B, as the reference
+// computes them), so every row read is in the table.
+__global__ void __launch_bounds__(kThreads)
+cuckoo_probe_kernel(const unsigned long long* __restrict__ fps,
+                    const uint8_t* __restrict__ occ,
+                    const int32_t* __restrict__ b1,
+                    const int32_t* __restrict__ b2,
+                    const unsigned long long* __restrict__ fp,
+                    uint8_t* __restrict__ found, int32_t* __restrict__ slot,
+                    int Q, bool vec) {
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < Q;
+       q += (long long)gridDim.x * blockDim.x) {
+    const unsigned long long want = __ldg(fp + q);
+    const int bucket[2] = {__ldg(b1 + q), __ldg(b2 + q)};
+    int best = -1;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const long long b = bucket[p];
+      unsigned long long f[4];
+      uint32_t o;
+      if (vec) {
+        const ulonglong2* row = reinterpret_cast<const ulonglong2*>(fps + b * 4);
+        const ulonglong2 lo = __ldg(row), hi = __ldg(row + 1);
+        f[0] = lo.x; f[1] = lo.y; f[2] = hi.x; f[3] = hi.y;
+        o = __ldg(reinterpret_cast<const uint32_t*>(occ + b * 4));
+      } else {
+        o = 0u;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          f[s] = __ldg(fps + b * 4 + s);
+          o |= (uint32_t)__ldg(occ + b * 4 + s) << (8 * s);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int cand = (int)(b * 4 + s);
+        if (((o >> (8 * s)) & 0xffu) != 0u && f[s] == want &&
+            (best < 0 || cand < best))
+          best = cand;
+      }
+    }
+    found[q] = best >= 0 ? 1 : 0;
+    slot[q] = best;
+  }
+}
+
 int grid_for(long long units, int blocks_per_sm) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
@@ -387,6 +507,10 @@ int grid_for(long long units, int blocks_per_sm) {
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+bool aligned4(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
 }
 
 // threads per row: a power of two, 16 bytes each, enough to cover C (at
@@ -545,6 +669,48 @@ int gf_delta_only_batched(const uint8_t* tables, const int32_t* G,
                           const uint8_t* X, uint8_t* out, int B, int m,
                           long long C, void* stream) {
   return launch_delta(false, tables, G, nullptr, X, out, B, m, C, stream);
+}
+
+// Single-stripe A (*) D, D (k, C) -> out (m, C): the table kernel of
+// gf_matmul_batched with B = 1.  Replaces gf256_matmul.py:_gf_matmul_kernel
+// (kernels/ops.py encode_stripe/decode_stripe).  The TPU needed a rank-2
+// kernel only because a BlockSpec fixes the rank; the body is the same
+// one-lookup-per-product loop.  It walks ceil(C / 4096) tiles grid-stride,
+// so a wide stripe spreads over the SMs while one 4 KB chunk is one block
+// (a launch-bound call either way).  Matrices above the unroll rule go to
+// the column-loop or 0/1 kernels with B = 1 (the Python wrapper decides).
+int gf_matmul(const uint8_t* A_host, int m, int k, const uint8_t* tables,
+              const uint8_t* D, uint8_t* out, long long C, void* stream) {
+  return gf_matmul_batched(A_host, m, k, tables, D, out, 1, C, stream);
+}
+
+int gf_delta_max_rows() { return kDeltaMaxRows; }
+
+int gf_delta_update(const uint8_t* tables, const int32_t* G_host, int m,
+                    const uint8_t* P, const uint8_t* old, const uint8_t* nw,
+                    uint8_t* out, long long C, void* stream) {
+  if (m <= 0 || m > kDeltaMaxRows || C <= 0) return (int)cudaErrorInvalidValue;
+  Gammas G;
+  for (int r = 0; r < m; ++r) G.g[r] = (uint8_t)(G_host[r] & 255);
+  const long long tiles = (C + kTile - 1) / kTile;
+  const bool vec = (C % kVec == 0) && aligned16(P) && aligned16(old) &&
+                   aligned16(nw) && aligned16(out);
+  const int grid = grid_for(tiles, 8);
+  delta_update_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      tables, G, m, P, old, nw, out, C, tiles, vec);
+  return (int)cudaGetLastError();
+}
+
+int gf_cuckoo_probe(const unsigned long long* fps, const uint8_t* occ,
+                    const int32_t* b1, const int32_t* b2,
+                    const unsigned long long* fp, uint8_t* found,
+                    int32_t* slot, int Q, void* stream) {
+  if (Q <= 0) return (int)cudaErrorInvalidValue;
+  const bool vec = aligned16(fps) && aligned4(occ);
+  const int grid = grid_for(((long long)Q + kThreads - 1) / kThreads, 8);
+  cuckoo_probe_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      fps, occ, b1, b2, fp, found, slot, Q, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,7 +1,15 @@
-"""Batched parity deltas  P' = P ⊕ gamma·(D ⊕ D'): CUDA kernels + plain torch.
+"""Parity deltas  P' = P ⊕ gamma·(D ⊕ D'): CUDA kernels + plain torch.
 
 This is the paper's UPDATE hot path (§2/§4.2): every sealed update folds
 gamma[b, r]·xor[b] into the m parity rows of its stripe.
+
+* ``delta_update(parity, gammas, old, new)``: one stripe, (m, C) parity,
+  (m,) gammas, (C,) old and new bytes -> (m, C) updated parity, the
+  entry of ``kernels/ops.py:apply_parity_delta``.  Kernel
+  ``gf_delta_update`` replaces ``_delta_kernel``: it reads old and new
+  itself and XORs them in registers, so the call moves (2m+2)·C bytes
+  (an ``old ^ new`` pass before the batched kernel would add 3·C), and
+  the gammas travel by value in the launch parameters.
 
 * ``delta_apply_batched(parity, gammas, xor)``: (B, m, C) parity,
   (B, m) gammas, (B, C) xor -> (B, m, C) updated parity.  Kernel
@@ -25,13 +33,15 @@ version below.  Nothing falls back.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build, dispatch
 from .gf256_matmul import _batch_chunks, _mul_flat, gf256_matmul_per_item_batched
 
 #: launches of each kernel by its wrapper (plain versions do not count)
-LAUNCHES = {"gf_delta_apply_batched": 0, "gf_delta_only_batched": 0}
+LAUNCHES = {"gf_delta_apply_batched": 0, "gf_delta_only_batched": 0,
+            "gf_delta_update": 0}
 
 
 def delta_apply_batched_plain(parity: torch.Tensor | None, gammas,
@@ -91,7 +101,53 @@ def delta_apply_batched(parity: torch.Tensor | None, gammas,
                 _build.stream_ptr(dev))
             name = "gf_delta_apply_batched"
     _build.check(err, name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
+    return out
+
+
+def delta_update_plain(parity: torch.Tensor, gammas, old: torch.Tensor,
+                       new: torch.Tensor) -> torch.Tensor:
+    """(m, C) parity ^ gammas[r] * (old ^ new), one gather from the flat
+    MUL table.  The plain version of the ``gf_delta_update`` kernel."""
+    dev = parity.device
+    g = torch.as_tensor(gammas).to(device=dev, dtype=torch.int64) & 255
+    idx = (g * 256)[:, None] + (old ^ new).long()[None, :]
+    return parity ^ _mul_flat(dev)[idx]
+
+
+def delta_update(parity: torch.Tensor, gammas, old: torch.Tensor,
+                 new: torch.Tensor) -> torch.Tensor:
+    """Single-stripe fused delta: parity (m, C) uint8, gammas (m,) ints
+    (host array, or a tensor read back to the host), old/new (C,) uint8
+    -> the updated (m, C) parity on the parity's device."""
+    if not isinstance(parity, torch.Tensor) or parity.dim() != 2:
+        raise ValueError("parity must be an (m, C) torch.Tensor")
+    m, C = parity.shape
+    if isinstance(gammas, torch.Tensor):
+        gammas = gammas.cpu().numpy()
+    g = np.ascontiguousarray(np.asarray(gammas).astype(np.int32))
+    if g.shape != (m,):
+        raise ValueError(f"gammas {g.shape} vs parity {(m, C)}")
+    if not dispatch.decide(parity).kernel:
+        return delta_update_plain(parity, g, old, new)
+    dev = parity.device
+    _build.require(parity, "parity", torch.uint8, (m, C), dev)
+    _build.require(old, "old", torch.uint8, (C,), dev)
+    _build.require(new, "new", torch.uint8, (C,), dev)
+    if m == 0 or C == 0:
+        return parity.clone()
+    lib = _build.library()
+    if m > lib.gf_delta_max_rows():
+        raise ValueError(f"{m} parity rows exceed the kernel's "
+                         f"{lib.gf_delta_max_rows()}")
+    out = torch.empty((m, C), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gf_delta_update(
+            _build.tables(dev).data_ptr(), g.ctypes.data, m,
+            parity.data_ptr(), old.data_ptr(), new.data_ptr(), out.data_ptr(),
+            C, _build.stream_ptr(dev))
+    _build.check(err, "gf_delta_update")
+    _build.count_launch(LAUNCHES, "gf_delta_update")
     return out
 
 

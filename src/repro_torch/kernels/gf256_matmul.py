@@ -1,6 +1,14 @@
-"""GF(2^8) matrix products over a batch of stripes: CUDA kernels + plain torch.
+"""GF(2^8) matrix products over stripes: CUDA kernels + plain torch.
 
-Two entry points, with the JAX package's signatures:
+Three entry points, with the JAX package's signatures:
+
+* ``gf256_matmul(A, data)``: one host matrix A (m, k) times one stripe
+  (k, C) -> (m, C), the single-stripe product of ``kernels/ops.py``
+  (``encode_stripe``/``decode_stripe``).  Kernel ``gf_matmul`` replaces
+  ``_gf_matmul_kernel``: the ``unroll`` body with B = 1.  A matrix the
+  strategy rule sends elsewhere (above ``MAX_UNROLL_OPS``) runs the
+  ``cols`` or ``gf01`` kernel as a batch of one, as the reference's
+  single-stripe kernel handles any matrix.
 
 * ``gf256_matmul_batched(A, data, strategy=None)``: one host matrix A
   (m, k) times a batch of stripes (B, k, C) -> (B, m, C).  Encode and the
@@ -37,8 +45,6 @@ tuner lookup have no counterpart yet.
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -47,7 +53,7 @@ from . import _build, dispatch
 #: launches of each kernel by its wrapper (plain versions do not count)
 LAUNCHES = {"gf_matmul_batched": 0, "gf_matmul_cols_batched": 0,
             "gf01_matmul_batched": 0, "gf_per_item": 0,
-            "gf_per_item_fold": 0}
+            "gf_per_item_fold": 0, "gf_matmul": 0}
 
 #: the JAX package's rule: beyond this many fused ops (m*k*8) the unrolled
 #: body gives way to the column-loop kernels
@@ -99,7 +105,7 @@ def _pack_rows(A: np.ndarray) -> np.ndarray:
     return packed.view("<u4")
 
 
-@functools.lru_cache(maxsize=512)
+@_build.locked_cache(maxsize=512)
 def _device_matrix(strategy: str, raw: bytes, shape: tuple,
                    device: torch.device) -> torch.Tensor:
     A = np.frombuffer(raw, dtype=np.uint8).reshape(shape).copy()
@@ -133,6 +139,12 @@ def gf256_matmul_batched_plain(A, data: torch.Tensor) -> torch.Tensor:
                                       data[s:e, i].reshape(-1).long())
         out[s:e] = acc.view(m, e - s, C).permute(1, 0, 2)
     return out
+
+
+def gf256_matmul_plain(A, data: torch.Tensor) -> torch.Tensor:
+    """(m, k) x (k, C) -> (m, C): the batched plain version on a batch of
+    one.  The plain version of the ``gf_matmul`` kernel."""
+    return gf256_matmul_batched_plain(A, data[None])[0]
 
 
 def gf01_matmul_batched_plain(A, data: torch.Tensor) -> torch.Tensor:
@@ -235,7 +247,36 @@ def gf256_matmul_batched(A, data: torch.Tensor,
                 _build.tables(dev).data_ptr(), a_dev.data_ptr(), m, k,
                 data.data_ptr(), out.data_ptr(), B, C, _build.stream_ptr(dev))
     _build.check(err, name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
+    return out
+
+
+def gf256_matmul(A, data: torch.Tensor) -> torch.Tensor:
+    """Single-stripe A (*) data over GF(2^8): (m, k) host matrix, (k, C)
+    uint8 tensor -> (m, C) on the data's device."""
+    A = np.ascontiguousarray(np.asarray(A, dtype=np.uint8))
+    if A.ndim != 2:
+        raise ValueError(f"A must be (m, k), got {A.shape}")
+    m, k = A.shape
+    if not isinstance(data, torch.Tensor) or data.dim() != 2:
+        raise ValueError("data must be a (k, C) torch.Tensor")
+    C = data.shape[1]
+    strategy = choose_strategy(A)
+    if strategy != "unroll" or not dispatch.decide(data).kernel:
+        # the batch-of-one path: another kernel body, or a plain version
+        return gf256_matmul_batched(A, data[None], strategy)[0]
+    dev = data.device
+    _build.require(data, "data", torch.uint8, (k, C), dev)
+    out = torch.empty((m, C), dtype=torch.uint8, device=dev)
+    if m == 0 or k == 0 or C == 0:
+        return out.zero_()
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gf_matmul(A.ctypes.data, m, k, _build.tables(dev).data_ptr(),
+                            data.data_ptr(), out.data_ptr(), C,
+                            _build.stream_ptr(dev))
+    _build.check(err, "gf_matmul")
+    _build.count_launch(LAUNCHES, "gf_matmul")
     return out
 
 
@@ -276,5 +317,5 @@ def gf256_matmul_per_item_batched(Ms, blocks: torch.Tensor,
                 B, O, J, C, _build.stream_ptr(dev))
             name = "gf_per_item_fold"
     _build.check(err, name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out

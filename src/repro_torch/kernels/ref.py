@@ -1,4 +1,4 @@
-"""Pure-torch oracles for the coding kernels.
+"""Pure-torch oracles for the coding kernels and the index probe.
 
 These mirror the numpy host data plane (``core.gf256``/``codes``) in
 torch, so every kernel has an in-framework reference to sweep against.
@@ -7,6 +7,7 @@ of the kernels' plain versions.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import gf256
@@ -46,3 +47,43 @@ def delta_update_ref(parity: torch.Tensor, gammas: torch.Tensor,
         gammas.to(device=xor.device, dtype=torch.uint8)[:, None].expand(m, C),
         xor[None].expand(m, C))
     return parity ^ scaled
+
+
+def cuckoo_lookup_ref(flo: torch.Tensor, fhi: torch.Tensor,
+                      occupied: torch.Tensor, b1: torch.Tensor,
+                      b2: torch.Tensor, qlo: torch.Tensor, qhi: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched 2-bucket x 4-slot probe.
+
+    Fingerprints are carried as (lo, hi) 32-bit halves, as the JAX
+    package's oracle does (held in int64 tensors: torch's uint32 has few
+    ops), independent of the kernel's 64-bit compare.  flo/fhi: (B,4)
+    tables; occupied: (B,4); b1/b2: (Q,) bucket indices; qlo/qhi: (Q,).
+    Returns (found: (Q,) bool, slot: (Q,) int32 = bucket*4+slot or -1).
+    """
+    b1, b2 = b1.long(), b2.long()
+    hit1 = (occupied[b1] != 0) & (flo[b1] == qlo[:, None]) \
+        & (fhi[b1] == qhi[:, None])
+    hit2 = (occupied[b2] != 0) & (flo[b2] == qlo[:, None]) \
+        & (fhi[b2] == qhi[:, None])
+    slot_ids = torch.arange(4, device=flo.device)[None, :]
+    big = 2 ** 30
+    s1 = torch.where(hit1, b1[:, None] * 4 + slot_ids, big).min(dim=1).values
+    s2 = torch.where(hit2, b2[:, None] * 4 + slot_ids, big).min(dim=1).values
+    slot = torch.minimum(s1, s2)
+    found = slot < big
+    return found, torch.where(found, slot, -1).to(torch.int32)
+
+
+def rs_encode_ref(parity_matrix: np.ndarray, data: torch.Tensor
+                  ) -> torch.Tensor:
+    """Stripe encode: (k, C) data -> (m, C) parity."""
+    return gf256_matmul_ref(torch.from_numpy(
+        np.array(parity_matrix, dtype=np.uint8)), data)
+
+
+def rs_decode_ref(inv_matrix: np.ndarray, available: torch.Tensor
+                  ) -> torch.Tensor:
+    """Data reconstruction given host-inverted decode matrix (k,k)x(k,C)."""
+    return gf256_matmul_ref(torch.from_numpy(
+        np.array(inv_matrix, dtype=np.uint8)), available)

@@ -126,6 +126,8 @@ def test_codes_equal_reference(scheme, n, k):
 COPIED = ["core/codes.py", "core/chunk.py", "core/index.py", "core/stripe.py",
           "core/coordinator.py", "core/proxy.py", "core/server.py",
           "core/hotkey.py", "core/trace.py", "core/netsim.py", "core/store.py",
+          "core/ring.py", "core/rebalance.py", "core/shard.py",
+          "core/telemetry.py", "core/baselines.py", "core/analysis.py",
           "data/ycsb.py"]
 
 
@@ -141,6 +143,8 @@ def test_import_hygiene_no_jax_no_reference():
     code = ("import sys\n"
             "import repro_torch.core, repro_torch.kernels\n"
             "import repro_torch.configs.memec, repro_torch.data.ycsb\n"
+            "import repro_torch.kernels.ops, repro_torch.quickstart\n"
+            "import repro_torch.core.shard, repro_torch.kernels.cuckoo_lookup\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n"

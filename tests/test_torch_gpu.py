@@ -8,6 +8,8 @@ CPU mode).  On a host with a card and the CUDA toolkit, run them with
 This file imports only the port (no JAX), so it also runs where the JAX
 package is not installed.  Tolerance: exact byte equality.
 """
+import importlib
+import threading
 import zlib
 
 import numpy as np
@@ -15,17 +17,25 @@ import pytest
 import torch
 
 from repro_torch.core import (CudaEngine, MemECCluster, NumpyEngine,
-                              make_code)
+                              make_cluster, make_code)
+from repro_torch.core.codes import RSCode
+from repro_torch.core.index import CuckooIndex
 from repro_torch.data.ycsb import YCSBConfig, YCSBWorkload, run_workload
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import launch_counts, ops
 from repro_torch.kernels.delta_update import (delta_apply_batched,
-                                              delta_apply_batched_plain)
+                                              delta_apply_batched_plain,
+                                              delta_update,
+                                              delta_update_plain)
 from repro_torch.kernels.gf256_matmul import (choose_strategy,
                                               gf01_matmul_batched_plain,
+                                              gf256_matmul,
                                               gf256_matmul_batched,
                                               gf256_matmul_batched_plain,
+                                              gf256_matmul_plain,
                                               gf256_matmul_per_item_batched,
                                               gf256_matmul_per_item_plain)
+
+probe = importlib.import_module("repro_torch.kernels.cuckoo_lookup")
 
 pytestmark = pytest.mark.gpu
 
@@ -259,3 +269,182 @@ def test_cluster_on_card_matches_numpy_twin(cuda, scheme):
     keys = [w.key(i) for i in range(cfg.num_objects)]
     assert clusters[0].multi_get(keys) == clusters[1].multi_get(keys)
     assert set(clusters[0].engine.op_paths.values()) == {"cuda-kernel"}
+
+
+# ---------------------------------------------------------------------------
+# kernels 8-10: the single-stripe product, the fused old/new delta and the
+# cuckoo probe (the entry points of kernels/ops.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C", [1, 1000, 4096, 1 << 20])
+@pytest.mark.parametrize("m,k", [(2, 8), (8, 8), (10, 8), (1, 4)])
+def test_single_matmul_kernel_matches_plain(cuda, m, k, C):
+    rng = _rng("mm1", m, k, C)
+    A, D = _u8(rng, (m, k)), _u8(rng, (k, C), cuda)
+    before = launch_counts()["gf_matmul"]
+    got = gf256_matmul(A, D)
+    assert torch.equal(got, gf256_matmul_plain(A, D))
+    assert launch_counts()["gf_matmul"] == before + 1
+
+
+@pytest.mark.parametrize("shape,zero_one,kernel", [
+    ((32, 128), True, "gf01_matmul_batched"),
+    ((12, 20), False, "gf_matmul_cols_batched")])
+def test_single_matmul_above_the_unroll_rule(cuda, shape, zero_one, kernel):
+    rng = _rng("mm1-big", shape)
+    A = ((rng.integers(0, 4, shape) == 0).astype(np.uint8) if zero_one
+         else _u8(rng, shape))
+    D = _u8(rng, (shape[1], 1000), cuda)
+    before = launch_counts()
+    got = gf256_matmul(A, D)
+    want = (gf01_matmul_batched_plain(A, D[None])[0] if zero_one
+            else gf256_matmul_plain(A, D))
+    assert torch.equal(got, want)
+    after = launch_counts()
+    assert after[kernel] == before[kernel] + 1
+    assert after["gf_matmul"] == before["gf_matmul"]
+
+
+@pytest.mark.parametrize("C", [1, 1000, 4096, 1 << 20])
+@pytest.mark.parametrize("m", [1, 2, 14])
+def test_delta_update_kernel_matches_plain(cuda, m, C):
+    rng = _rng("du", m, C)
+    G = rng.integers(0, 256, m).astype(np.int32)
+    G[0] = 0                                     # a zero gamma row
+    P = _u8(rng, (m, C), cuda)
+    old, new = _u8(rng, (C,), cuda), _u8(rng, (C,), cuda)
+    before = launch_counts()["gf_delta_update"]
+    got = delta_update(P, G, old, new)
+    assert torch.equal(got, delta_update_plain(P, G, old, new))
+    assert launch_counts()["gf_delta_update"] == before + 1
+    # the operands are read, never written
+    assert torch.equal(P, delta_update_plain(got, G, old, new))
+
+
+def test_delta_update_unaligned_views_take_the_byte_path(cuda):
+    rng = _rng("du-unaligned")
+    flat = _u8(rng, (1 + 4 * 4096,), cuda)
+    P = flat[1:1 + 2 * 4096].view(2, 4096)
+    old, new = flat[1 + 2 * 4096:1 + 3 * 4096], flat[1 + 3 * 4096:]
+    G = np.array([7, 200], np.int32)
+    assert torch.equal(delta_update(P, G, old, new),
+                       delta_update_plain(P, G, old, new))
+
+
+def _probe_table(rng, nbuckets, Q):
+    fps = np.frombuffer(rng.bytes(8 * nbuckets * 4), np.uint64).reshape(
+        nbuckets, 4).copy()
+    occ = rng.random((nbuckets, 4)) < 0.9
+    h1 = np.frombuffer(rng.bytes(8 * Q), np.uint64).copy()
+    h2 = np.frombuffer(rng.bytes(8 * Q), np.uint64).copy()
+    fp = np.frombuffer(rng.bytes(8 * Q), np.uint64).copy()
+    h2[::9] = h1[::9]                            # both probes on one bucket
+    hits = rng.choice(np.flatnonzero(occ), (Q + 1) // 2)
+    for q, flat in zip(range(0, Q, 2), hits):
+        b = int(flat) // 4
+        fp[q] = fps.reshape(-1)[flat]
+        h = np.uint64(b + nbuckets * int(rng.integers(0, 1 << 30)))
+        if q % 9 == 0:
+            h1[q] = h2[q] = h
+        elif q % 4:
+            h1[q] = h
+        else:
+            h2[q] = h
+    return fps, occ, h1, h2, fp
+
+
+@pytest.mark.parametrize("Q", [1, 64, 65536])
+def test_cuckoo_probe_kernel_matches_plain(cuda, Q):
+    rng = _rng("probe", Q)
+    fps, occ, h1, h2, fp = _probe_table(rng, 1 << 12, Q)
+    fps_d = torch.from_numpy(fps.view(np.int64)).to(cuda)
+    occ_d = torch.from_numpy(occ).to(cuda)
+    before = launch_counts()["gf_cuckoo_probe"]
+    found, slot = probe.cuckoo_lookup(fps_d, occ_d, h1, h2, fp)
+    assert launch_counts()["gf_cuckoo_probe"] == before + 1
+    pf, ps = probe.cuckoo_probe_plain(
+        fps_d, occ_d, *probe.query_tensors(h1, h2, fp, 1 << 12, cuda))
+    assert torch.equal(found, pf) and torch.equal(slot, ps)
+    cf, cs = probe.cuckoo_lookup(fps, occ, h1, h2, fp, device="cpu")
+    assert torch.equal(found.cpu(), cf) and torch.equal(slot.cpu(), cs)
+    assert bool(found[0]) and (Q == 1 or not bool(found.all()))
+
+
+def test_ops_on_the_card_match_the_host(cuda):
+    rng = _rng("ops")
+    code = RSCode(n=10, k=8)
+    data = _u8(rng, (8, 4096))
+    par = ops.encode_stripe(code, data)          # numpy in: the card
+    assert par.device.type == "cuda"
+    np.testing.assert_array_equal(par.cpu().numpy(), code.encode(data))
+    stripe = torch.cat([torch.from_numpy(data).to(cuda), par])
+    rec = ops.decode_stripe(code, {i: stripe[i] for i in range(10)
+                                   if i not in (0, 8)}, [0, 8], 4096)
+    assert torch.equal(rec[0], stripe[0]) and torch.equal(rec[8], stripe[8])
+    new = data[5].copy()
+    new[:300] ^= 0x5A
+    upd = ops.apply_parity_delta(code, par, 5, stripe[5],
+                                 torch.from_numpy(new).to(cuda))
+    d2 = data.copy()
+    d2[5] = new
+    np.testing.assert_array_equal(upd.cpu().numpy(), code.encode(d2))
+    index = CuckooIndex(num_buckets=256)
+    keys = [b"obj%06d" % i for i in range(800)]
+    for i, key in enumerate(keys):
+        index.insert(key, i)
+    probe_keys = keys[::3] + [b"nope%04d" % i for i in range(40)]
+    found, slot = ops.batched_index_lookup(index, probe_keys)
+    assert found.device.type == "cuda"
+    assert found.cpu().numpy().tolist() == [k in index for k in probe_keys]
+    rf, rs = ops.batched_index_lookup(index, probe_keys, use_ref=True)
+    assert torch.equal(found, rf) and torch.equal(slot, rs)
+
+
+# ---------------------------------------------------------------------------
+# the sharded cluster on the card: shard engines run on worker threads
+# ---------------------------------------------------------------------------
+
+SHARD_KW = dict(num_servers=10, num_proxies=2, scheme="rs", n=4, k=2, c=8,
+                chunk_size=256, max_unsealed=2)
+
+
+def test_sharded_scatter_loses_no_launch_counts(cuda):
+    cl = make_cluster(shards=2, engine="cuda", **SHARD_KW)
+    assert cl.pipeline
+    rng = _rng("scatter")
+    A = _u8(rng, (2, 8))
+    D = _u8(rng, (4, 8, 4096), cuda)
+    threads = set()
+
+    def launch_many(si, idxs):
+        threads.add(threading.get_ident())
+        for _ in range(500):
+            gf256_matmul_batched(A, D)
+        return si
+    before = launch_counts()["gf_matmul_batched"]
+    out = cl._scatter(launch_many, {0: [0], 1: [1]})
+    torch.cuda.synchronize()
+    assert sorted(si for si, _, _ in out) == [0, 1] and len(threads) == 2
+    assert launch_counts()["gf_matmul_batched"] == before + 1000
+
+
+def test_sharded_cluster_on_card_matches_numpy_twin(cuda):
+    cfg = YCSBConfig(num_objects=1500)
+    clusters = [make_cluster(shards=3, placement="ring", engine=e,
+                             **SHARD_KW) for e in ("cuda", "numpy")]
+    reports = []
+    for cl in clusters:
+        run_workload(cl, "load", 0, cfg, batch_size=16)
+        run_workload(cl, "A", 1500, cfg, batch_size=16)
+        rep = [cl.fail_server(3, shard=1)]
+        run_workload(cl, "A", 500, cfg, batch_size=16)
+        rep.append(cl.restore_server(3, shard=1))
+        rep.append(cl.add_shard(batch_size=32))
+        reports.append(rep)
+    assert reports[0] == reports[1]
+    assert clusters[0].stats == clusters[1].stats
+    w = YCSBWorkload(cfg)
+    keys = [w.key(i) for i in range(cfg.num_objects)]
+    assert clusters[0].multi_get(keys) == clusters[1].multi_get(keys)
+    for eng in clusters[0].engines[:3]:
+        assert set(eng.op_paths.values()) == {"cuda-kernel"}
