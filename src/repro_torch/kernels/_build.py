@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-Route: ``nvcc`` compiles the sources into a shared library with a plain
-C interface, loaded with ``ctypes`` (a few seconds; a build that
-includes PyTorch's headers takes minutes).  The build runs at first use
-into ``build/repro_torch_kernels/`` at the root of the checkout, from
+Route: ``nvcc`` compiles each source into an object file, all sources
+at once in parallel processes, and links them into one shared library
+with a plain C interface, loaded with ``ctypes`` (a few seconds; a build
+that includes PyTorch's headers takes minutes).  The build runs at first
+use into ``build/repro_torch_kernels/`` at the root of the checkout, from
 the sources in the checkout only, and is keyed by a hash of the sources
 and flags so an edited kernel never loads a stale library.
 
@@ -31,10 +32,10 @@ import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gf256.cu",)
+SOURCES = ("gf256.cu", "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +57,8 @@ SIGNATURES = {
     "gf_delta_max_rows": ((), _I),
     "gf_delta_update": ((_P, _P, _I, _P, _P, _P, _P, _L, _P), _I),
     "gf_cuckoo_probe": ((_P, _P, _P, _P, _P, _P, _P, _I, _P), _I),
+    "flash_attention": ((_P, _P, _P, _P) + (_I,) * 6 + (_L,) * 9
+                        + (ctypes.c_float, _I, _I, _P), _I),
 }
 
 _LOCK = threading.Lock()
@@ -85,21 +88,31 @@ def _digest() -> str:
 def build() -> Path:
     """Compile the kernels (once per source hash) and return the library.
 
-    Concurrent builders are safe: each compiles into a temporary file and
-    renames it into place atomically."""
-    lib = BUILD_DIR / f"libgf256_{_digest()}.so"
+    Concurrent builds are safe: each compiles and links in a temporary
+    directory and renames the library into place atomically."""
+    lib = BUILD_DIR / f"libkernels_{_digest()}.so"
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(CSRC / s) for s in SOURCES]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            objs = [os.path.join(tmpdir, f"{Path(s).stem}.o")
+                    for s in SOURCES]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(SOURCES, objs)]
+            outs = [(s, p.communicate()[0], p.returncode)
+                    for s, p in zip(SOURCES, procs)]
+            failed = [f"{s} ({rc}):\n{out}" for s, out, rc in outs if rc]
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            tmp = os.path.join(tmpdir, "lib.so")
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                                   *objs], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, lib)
     return lib
 
 

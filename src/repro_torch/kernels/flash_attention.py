@@ -1,0 +1,162 @@
+"""Causal flash attention: a CUDA kernel + its plain torch version.
+
+* ``flash_attention(q, k, v, *, causal=True, block_q=128, block_kv=128)``:
+  the JAX package's signature and layout.  q is (B, Sq, H, hd), k and v
+  are (B, Skv, KV, hd); the output is (B, Sq, H, hd) in q's dtype.  GQA:
+  q head h reads KV head h // (H // KV).  Kernel ``flash_attention`` in
+  ``csrc/flash_attention.cu`` replaces
+  ``kernels/flash_attention.py:_flash_kernel``: one block per (batch and
+  head, 64-row Q tile), a loop over 64-row KV tiles that stops at the
+  diagonal of a causal call, fp32 scores and sums from bf16 or fp32
+  inputs, q/k/v read in place through their strides.
+
+Both versions mask keys at positions >= Skv whatever ``causal`` is.  (The
+reference's Pallas body pads a ragged K/V with zero keys and masks them
+only through the causal test, so a non-causal call whose Skv is not a
+multiple of its KV tile lets the zero keys into the softmax; its CPU path
+and its test's oracle do not.  The port computes the oracle's function.)
+
+``block_q`` and ``block_kv`` are the reference's TPU tile sizes; they are
+taken for its signature and checked, and do not change the result: the
+kernel's tiles are 64 x 64.  There is no ``interpret=``: the device of
+the tensors decides, as for every kernel of the port.
+
+Bound: operations.  At starcoder2-3b's prefill shape a causal call needs
+4·B·H·hd·Sq(Sq+1)/2 = 1.03e11 of them on 109 MB of bytes (see the
+source's note).
+
+Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor takes
+``flash_attention_plain``.  Nothing falls back.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build, dispatch
+
+#: launches of the kernel by its wrapper (the plain version does not count)
+LAUNCHES = {"flash_attention": 0}
+
+#: masked scores, as in the reference (not -inf)
+NEG_INF = -1e30
+#: head dims the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+#: |kernel - plain| allowed in fp32: both sum in fp32, in different
+#: orders (64-key tiles with an online softmax against one dense softmax)
+FP32_TOL = 1e-4
+
+
+def tolerance(want: torch.Tensor) -> torch.Tensor:
+    """How far each element of the kernel's output may stray from the
+    plain version's ``want`` on the same inputs, compared in fp32: an
+    fp32 tensor of ``want``'s shape.
+
+    float32: ``FP32_TOL``.  bfloat16: ``FP32_TOL`` + 2 bf16 ulps of that
+    element's |want| (the ulp floored at bf16's smallest normal).  Both
+    compute in fp32 from the same bf16 inputs, differ there by what the
+    fp32 bound allows, and round once to bf16: each rounding moves a value
+    by half an ulp, and a value next to a power of two may round into the
+    binade above, so 2 ulps cover both roundings.  The ulp term alone does
+    not hold where an output cancels to near 0 (|want| ~ 1e-7 and an fp32
+    difference of ~4e-7 is 20 of its ulps); the fp32 term covers that.
+    """
+    w = want.detach().float().abs()
+    if want.dtype == torch.float32:
+        return torch.full_like(w, FP32_TOL)
+    ulp = torch.exp2(torch.floor(torch.log2(w.clamp_min(2.0 ** -126))) - 7)
+    return FP32_TOL + 2.0 * ulp
+
+
+def tolerance_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| / ``tolerance(want)`` over the elements:
+    at most 1 where the kernel's output ``got`` holds."""
+    if not want.numel():
+        return 0.0
+    diff = (got.detach().float() - want.detach().float()).abs()
+    return float((diff / tolerance(want)).max())
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """Dense-softmax attention in fp32, GQA by KV-head index: the twin of
+    the reference's ``_attention_xla`` and the plain version of the
+    ``flash_attention`` kernel."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    kv_idx = torch.arange(H, device=q.device) // (H // KV)
+    kf = k[:, :, kv_idx].float()
+    vf = v[:, :, kv_idx].float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(hd)
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Skv, device=q.device)[None, :])
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def _check(q, k, v, block_q, block_kv) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 4:
+            raise ValueError(f"{name} must be a 4-d torch.Tensor")
+    B, Sq, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: expected (B, Sq, H, hd) and "
+                         f"two (B, Skv, KV, hd)")
+    KV = k.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} KV heads")
+    if k.shape[1] == 0:
+        raise ValueError("attention over no keys")
+    if int(block_q) <= 0 or int(block_kv) <= 0:
+        raise ValueError(f"block sizes {block_q}, {block_kv}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_q: int = 128,
+                    block_kv: int = 128) -> torch.Tensor:
+    """softmax(q kᵀ / sqrt(hd)) v per head, causal by absolute positions
+    when ``causal``; q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq, H,
+    hd) in q's dtype, on q's device."""
+    _check(q, k, v, block_q, block_kv)
+    if not dispatch.decide(q).kernel:
+        return flash_attention_plain(q, k, v, causal=causal)
+    dev = q.device
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q: dtype {q.dtype}, the kernel takes float32 "
+                        f"and bfloat16")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd}: the kernel is built for "
+                         f"{HEAD_DIMS}")
+    vec = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                             f"{q.dtype} on {dev}")
+        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads 16-byte vectors, so "
+                             f"hd must be contiguous and every stride a "
+                             f"multiple of {vec} elements; got strides "
+                             f"{t.stride()}")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    if B == 0 or Sq == 0 or H == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Skv, H, KV, hd, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
+            _DTYPE_CODES[q.dtype], _build.stream_ptr(dev))
+    _build.check(err, "flash_attention")
+    _build.count_launch(LAUNCHES, "flash_attention")
+    return out

@@ -1,0 +1,105 @@
+"""Serving engine: batched prefill + decode over the port's ``Model``.
+
+The port of the JAX package's ``serve/engine.py``.  ``prefill`` runs the
+prompt token by token through ``Model.decode_step`` into the KV cache, as
+the reference's does (``Model.apply`` is the fused full-sequence
+forward); ``decode`` then generates greedily, or samples at
+``temperature > 0`` from the engine's ``torch.Generator``.  The cache is
+written in place.
+
+The reference's EC protection of the cache pages (``protect_cache``,
+``refresh_cache_parity``, ``recover_cache_pages``) needs the erasure-coded
+state store of ``distributed/ecstore.py``, which is not ported yet
+(ROADMAP.md, Queue 1 item 9).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels import dispatch
+from ..models import Model
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray
+    steps: int
+
+
+class ServeEngine:
+    """One batch of ``batch_size`` sequences of at most ``max_len``
+    tokens on ``device`` (None: the card).  ``generator`` draws the
+    samples at ``temperature > 0``; by default a generator on the device
+    seeded with 0."""
+
+    def __init__(self, model: Model, *, max_len: int, batch_size: int,
+                 cache_dtype: torch.dtype = torch.bfloat16, device=None,
+                 generator: torch.Generator | None = None):
+        dev = dispatch.resolve_device(device)
+        if model.device.type != dev.type:
+            raise ValueError(f"model on {model.device}, engine on {dev}")
+        self.model = model
+        self.device = dev
+        self.max_len = max_len
+        self.batch_size = batch_size
+        self.cache = model.init_cache(batch_size, max_len, dtype=cache_dtype)
+        self.cur_len = 0
+        if generator is None:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(0)
+        self.generator = generator
+
+    def _step(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.cur_len >= self.max_len:
+            raise ValueError(f"the cache holds {self.max_len} tokens")
+        logits, self.cache = self.model.decode_step(self.cache, tokens,
+                                                    self.cur_len)
+        self.cur_len += 1
+        return logits
+
+    # -- serving ---------------------------------------------------------
+    def prefill(self, batch: dict) -> torch.Tensor:
+        """Run the prompt (batch["tokens"], (B, S)) token by token into
+        the cache; returns the logits after its last token."""
+        toks = torch.as_tensor(batch["tokens"], device=self.device)
+        logits = None
+        for t in range(toks.shape[1]):
+            logits = self._step(toks[:, t])
+        return logits
+
+    def decode(self, steps: int, temperature: float = 0.0,
+               first_tokens=None) -> GenerationResult:
+        """Feed ``first_tokens`` (B,) and generate ``steps`` tokens, each
+        fed back in; returns them as a (B, steps) host array."""
+        out = []
+        tok = torch.as_tensor(first_tokens, device=self.device)
+        for _ in range(steps):
+            logits = self._step(tok)
+            if temperature > 0:
+                probs = torch.softmax(logits.float() / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1,
+                                        generator=self.generator)[:, 0]
+            else:
+                tok = torch.argmax(logits, dim=-1)
+            out.append(tok)
+        tokens = (torch.stack(out, dim=1).cpu().numpy() if out
+                  else np.zeros((self.batch_size, 0), np.int64))
+        return GenerationResult(tokens, steps)
+
+
+def greedy_generate(model: Model, prompt_tokens, steps: int,
+                    max_len: int | None = None) -> np.ndarray:
+    """One-shot greedy generation on the model's device: (B, S) prompt
+    -> (B, steps) host array of generated tokens."""
+    B, S = prompt_tokens.shape
+    eng = ServeEngine(model, max_len=max_len or (S + steps), batch_size=B,
+                      device=model.device)
+    logits = eng.prefill({"tokens": prompt_tokens})
+    first = torch.argmax(logits, dim=-1)
+    if steps <= 1:
+        return first[:, None].cpu().numpy()[:, :steps]
+    res = eng.decode(steps - 1, first_tokens=first)
+    return np.concatenate([first[:, None].cpu().numpy(), res.tokens], axis=1)

@@ -128,7 +128,7 @@ COPIED = ["core/codes.py", "core/chunk.py", "core/index.py", "core/stripe.py",
           "core/hotkey.py", "core/trace.py", "core/netsim.py", "core/store.py",
           "core/ring.py", "core/rebalance.py", "core/shard.py",
           "core/telemetry.py", "core/baselines.py", "core/analysis.py",
-          "data/ycsb.py"]
+          "data/ycsb.py", "models/config.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -145,6 +145,12 @@ def test_import_hygiene_no_jax_no_reference():
             "import repro_torch.configs.memec, repro_torch.data.ycsb\n"
             "import repro_torch.kernels.ops, repro_torch.quickstart\n"
             "import repro_torch.core.shard, repro_torch.kernels.cuckoo_lookup\n"
+            "import repro_torch.configs, repro_torch.configs.starcoder2_3b\n"
+            "import repro_torch.models, repro_torch.models.convert\n"
+            "import repro_torch.serve, repro_torch.launch.serve\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "from repro_torch.configs import ARCH_NAMES, get_config\n"
+            "[get_config(a) for a in ARCH_NAMES]\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n"
@@ -166,4 +172,5 @@ def test_port_sources_name_no_jax_or_reference_import():
         text = path.read_text()
         for pat in pattern:
             assert pat not in text, f"{path}: {pat!r}"
-    assert os.path.exists(SRC / "repro_torch" / "kernels" / "csrc" / "gf256.cu")
+    for cu in ("gf256.cu", "flash_attention.cu"):
+        assert os.path.exists(SRC / "repro_torch" / "kernels" / "csrc" / cu)

@@ -6,7 +6,10 @@ CPU mode).  On a host with a card and the CUDA toolkit, run them with
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 This file imports only the port (no JAX), so it also runs where the JAX
-package is not installed.  Tolerance: exact byte equality.
+package is not installed.  Tolerance: exact byte equality for the
+GF(2^8) kernels and the probe; for flash attention the kernel's stated
+tolerance, per element (``kernels.flash_attention.tolerance``: 1e-4 in
+fp32, 1e-4 + 2 bf16 ulps of that element's magnitude in bf16).
 """
 import importlib
 import threading
@@ -36,6 +39,7 @@ from repro_torch.kernels.gf256_matmul import (choose_strategy,
                                               gf256_matmul_per_item_plain)
 
 probe = importlib.import_module("repro_torch.kernels.cuckoo_lookup")
+flash = importlib.import_module("repro_torch.kernels.flash_attention")
 
 pytestmark = pytest.mark.gpu
 
@@ -448,3 +452,81 @@ def test_sharded_cluster_on_card_matches_numpy_twin(cuda):
     assert clusters[0].multi_get(keys) == clusters[1].multi_get(keys)
     for eng in clusters[0].engines[:3]:
         assert set(eng.op_paths.values()) == {"cuda-kernel"}
+
+
+# ---------------------------------------------------------------------------
+# kernel 11: flash attention, and the model on the card
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KV, hd, causal): tests/test_flash_attention.py's grid, its
+# non-causal case, a ragged non-causal case and cross lengths
+FLASH_GRID = [(2, 256, 4, 2, 64, True), (1, 200, 8, 8, 32, True),
+              (2, 384, 6, 3, 128, True), (1, 64, 2, 1, 16, True),
+              (1, 128, 4, 4, 32, False), (1, 100, 2, 2, 16, False),
+              (1, 1, 24, 2, 128, True), (3, 65, 12, 2, 128, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", FLASH_GRID)
+def test_flash_kernel_matches_plain(cuda, B, S, H, KV, hd, causal, dtype):
+    rng = _rng("flash", B, S, H, KV, hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, dtype) for shape in
+        ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    before = launch_counts()["flash_attention"]
+    got = flash.flash_attention(q, k, v, causal=causal)
+    want = flash.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, S, H, hd)
+    ratio = flash.tolerance_ratio(got, want)
+    assert ratio <= 1.0, (ratio, (got.float() - want.float()).abs().max())
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q/k/v as views into one packed (B, S, H + 2 KV, hd) projection."""
+    rng = _rng("flash-views")
+    B, S, H, KV, hd = 2, 130, 8, 2, 64
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, S, H + 2 * KV, hd)).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    got = flash.flash_attention(q, k, v)
+    want = flash.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert flash.tolerance_ratio(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("bad", ["hd96", "fp16", "stride"])
+def test_flash_kernel_refuses_rather_than_runs_plain(cuda, bad):
+    q = torch.zeros(1, 64, 2, 96 if bad == "hd96" else 64, device=cuda,
+                    dtype=torch.float16 if bad == "fp16" else torch.bfloat16)
+    k = q
+    if bad == "stride":
+        k = torch.zeros(1, 64, 2, 65, device=cuda,
+                        dtype=torch.bfloat16)[..., :64]
+    before = launch_counts()["flash_attention"]
+    with pytest.raises((ValueError, TypeError)):
+        flash.flash_attention(q, k, k)
+    assert launch_counts()["flash_attention"] == before
+
+
+def test_model_apply_launches_flash_once_per_layer(cuda):
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import Model
+    cfg = get_reduced("starcoder2-3b")
+    model = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), device=cuda)
+    reset_launch_counts()
+    full = model.apply({"tokens": toks}).float()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention"] == cfg.num_layers
+    assert sum(counts.values()) == cfg.num_layers
+    cache = model.init_cache(2, 96, dtype=torch.float32)
+    for t in range(96):
+        logits, cache = model.decode_step(cache, toks[:, t], t)
+        err = float((logits.float() - full[:, t]).abs().max())
+        assert err < 2e-2, (t, err)
+    assert launch_counts()["flash_attention"] == cfg.num_layers
