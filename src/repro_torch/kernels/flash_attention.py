@@ -4,11 +4,26 @@
   the JAX package's signature and layout.  q is (B, Sq, H, hd), k and v
   are (B, Skv, KV, hd); the output is (B, Sq, H, hd) in q's dtype.  GQA:
   q head h reads KV head h // (H // KV).  Kernel ``flash_attention`` in
-  ``csrc/flash_attention.cu`` replaces
-  ``kernels/flash_attention.py:_flash_kernel``: one block per (batch and
-  head, 64-row Q tile), a loop over 64-row KV tiles that stops at the
-  diagonal of a causal call, fp32 scores and sums from bf16 or fp32
-  inputs, q/k/v read in place through their strides.
+  ``csrc/flash_attention.cu`` replaces the Pallas kernel
+  ``src/repro/kernels/flash_attention.py:31`` (``_flash_kernel``; its
+  ``pallas_call`` at ``:77``), with two bodies:
+
+  - bfloat16: tensor cores.  One CTA of one warpgroup per (batch and
+    head, 64-row Q tile); Q, and 64-key K and V tiles through a ring of
+    two slots (K0, V0, K1, ...), arrive by TMA (tensor maps built from
+    the strides, swizzled shared memory) on mbarriers; S = Q Kᵀ is a
+    ``wgmma`` from shared memory, the online softmax runs on the
+    accumulator in registers, and O += P V is a ``wgmma`` with P from
+    registers and V read key-major as a transposed B operand.  P enters
+    as two bf16 terms, hi = bf16(p) and lo = bf16(p - hi): one bf16
+    rounding of P misses ``tolerance`` 9 to 15 times over
+    (``tests/test_torch_flash.py`` emulates the body on the CPU).
+  - float32: CUDA cores in fp32 (TF32 tensor cores keep about 10 bits
+    and cannot hold ``FP32_TOL``).
+
+  Both loop over 64-key tiles up to the diagonal of a causal call, keep
+  the scores and sums in fp32, and read q/k/v in place through their
+  strides.
 
 Both versions mask keys at positions >= Skv whatever ``causal`` is.  (The
 reference's Pallas body pads a ragged K/V with zero keys and masks them
@@ -17,13 +32,17 @@ multiple of its KV tile lets the zero keys into the softmax; its CPU path
 and its test's oracle do not.  The port computes the oracle's function.)
 
 ``block_q`` and ``block_kv`` are the reference's TPU tile sizes; they are
-taken for its signature and checked, and do not change the result: the
-kernel's tiles are 64 x 64.  There is no ``interpret=``: the device of
-the tensors decides, as for every kernel of the port.
+taken for its signature and checked, and do not change the result.  There
+is no ``interpret=``: the device of the tensors decides, as for every
+kernel of the port.
 
 Bound: operations.  At starcoder2-3b's prefill shape a causal call needs
-4·B·H·hd·Sq(Sq+1)/2 = 1.03e11 of them on 109 MB of bytes (see the
-source's note).
+4·B·H·hd·Sq(Sq+1)/2 = 1.03e11 of them (0.104 ms at 989 TFLOP/s bf16) on
+109 MB of bytes; the split P costs the bf16 body 1.5 times that on the
+tensor cores, a floor of 0.156 ms (see the source's note).  Left for
+later: a producer warp with ``setmaxnreg``, ping-pong between consumer
+warpgroups, softmax overlapped with the next Q Kᵀ, persistent CTAs,
+clusters, one CTA per GQA group, fp8.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor takes
 ``flash_attention_plain``.  Nothing falls back.

@@ -9,8 +9,13 @@ against the reference test's numpy oracle, over the grid of
 own: 2e-5 (atol and rtol) in fp32, 0.05 in bf16.  Inputs come from numpy
 seeds and reach both sides as the same numbers.
 
-The CUDA kernel itself runs only on a card (``test_torch_gpu.py``).
+The CUDA kernel itself runs only on a card (``test_torch_gpu.py``); here
+a plain torch emulation of its bf16 arithmetic (``_wgmma_body``: 64-key
+tiles, the online softmax, P split into bf16 hi + lo terms, fp32 sums) is
+held against the plain version within ``tolerance``, and the same body
+with P rounded once to bf16 is shown to miss it.
 """
+import math
 import zlib
 
 import jax.numpy as jnp
@@ -20,7 +25,8 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro_torch.kernels import launch_counts
-from repro_torch.kernels.flash_attention import (FP32_TOL, flash_attention,
+from repro_torch.kernels.flash_attention import (FP32_TOL, NEG_INF,
+                                                 flash_attention,
                                                  flash_attention_plain,
                                                  tolerance, tolerance_ratio)
 from test_flash_attention import oracle
@@ -185,3 +191,77 @@ def test_tolerance_holds_rounding_and_fails_a_late_fault(fault):
     keep = {"diagonal_tile": lambda i, j: (i < S - 64) | (j < S - 64),
             "key0": lambda i, j: (i < S // 2) | (j >= 1)}[fault]
     assert tolerance_ratio(_causal_f64(q, k, v, keep=keep), want) > 1.0
+
+
+def _wgmma_body(q, k, v, *, causal=True, split=True):
+    """A plain torch emulation of the bf16 CUDA body's arithmetic: 64-key
+    tiles (keys past Skv as the zero rows TMA loads, masked), the online
+    softmax in base 2 with fp32 sums, and P V from P as two bf16 terms,
+    hi = bf16(p) and lo = bf16(p - hi), or as hi alone when not
+    ``split``.  Each product is exact in fp32, as on the tensor cores."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    idx = torch.arange(H) // (H // KV)
+    qf = q.float().transpose(1, 2)
+    kf = k[:, :, idx].float().transpose(1, 2)
+    vf = v[:, :, idx].float().transpose(1, 2)
+    scale_log2 = torch.tensor(math.log2(math.e) / math.sqrt(hd))
+    m = torch.full((B, H, Sq, 1), NEG_INF)
+    l = torch.zeros((B, H, Sq, 1))
+    o = torch.zeros((B, H, Sq, hd))
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, 64):
+        keys = torch.arange(k0, k0 + 64)[None, :]
+        pad = (0, 0, 0, k0 + 64 - min(k0 + 64, Skv))
+        kt = torch.nn.functional.pad(kf[:, :, k0:k0 + 64], pad)
+        vt = torch.nn.functional.pad(vf[:, :, k0:k0 + 64], pad)
+        masked = keys >= Skv
+        if causal:
+            masked = masked | (keys > rows)
+        s = ((qf @ kt.transpose(-1, -2)) * scale_log2).masked_fill(masked,
+                                                                   NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        o = o * alpha + hi @ vt
+        if split:
+            o = o + (p - hi).to(torch.bfloat16).float() @ vt
+        m = m_new
+    return (o / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
+# (B, Sq, Skv, H, KV, hd, causal): hd 128 at S >= 1,024, a ragged
+# non-causal case and cross lengths
+BODY_GRID = [(1, 1024, 1024, 4, 1, 128, True),
+             (1, 2048, 2048, 4, 2, 128, True),
+             (2, 1024, 1024, 4, 2, 64, True),
+             (1, 1000, 1000, 4, 2, 128, False),
+             (1, 300, 1100, 4, 2, 128, True),
+             (1, 1100, 300, 4, 2, 128, True)]
+
+
+def _bf16_inputs(B, Sq, Skv, H, KV, hd):
+    q, _, _ = _qkv(B, Sq, H, KV, hd)
+    _, k, v = _qkv(B, Sq, H, KV, hd, Skv=Skv)
+    return tuple(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", BODY_GRID)
+def test_split_p_body_holds_the_tolerance(B, Sq, Skv, H, KV, hd, causal):
+    """The bf16 kernel's arithmetic (P split hi + lo) stays within
+    ``tolerance`` of the plain version (about half of it: one bf16 ulp)."""
+    q, k, v = _bf16_inputs(B, Sq, Skv, H, KV, hd)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert tolerance_ratio(_wgmma_body(q, k, v, causal=causal), want) <= 1.0
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", BODY_GRID[:3])
+def test_single_bf16_p_exceeds_the_tolerance(B, Sq, Skv, H, KV, hd, causal):
+    """Why P is split: rounded once to bf16, as flash kernels commonly do,
+    it puts outputs 9 to 15 times the per-element bound off."""
+    q, k, v = _bf16_inputs(B, Sq, Skv, H, KV, hd)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    got = _wgmma_body(q, k, v, causal=causal, split=False)
+    assert tolerance_ratio(got, want) > 1.0

@@ -510,6 +510,77 @@ def test_flash_kernel_refuses_rather_than_runs_plain(cuda, bad):
     assert launch_counts()["flash_attention"] == before
 
 
+# the bf16 body (wgmma on TMA-fed shared memory), (B, Sq, Skv, H, KV, hd,
+# causal): every head dim on a short and a long ragged grid, ragged
+# lengths, Sq != Skv both ways, non-causal ragged, and the starcoder2-3b
+# prefill shape
+WGMMA_GRID = (
+    [(1, 256, 256, 4, 2, hd, True) for hd in flash.HEAD_DIMS]
+    + [(4, 2047, 2047, 8, 2, hd, True) for hd in flash.HEAD_DIMS]
+    + [(1, S, S, 4, 2, 128, True) for S in (100, 200, 2047)]
+    + [(1, 100, 300, 4, 2, 64, True), (1, 300, 100, 4, 2, 64, True),
+       (2, 129, 1000, 8, 1, 128, True), (4, 1000, 129, 16, 4, 32, True)]
+    + [(1, 100, 100, 2, 2, 16, False), (1, 200, 100, 2, 2, 128, False),
+       (2, 1000, 700, 4, 2, 64, False)]
+    + [(4, 2048, 2048, 24, 2, 128, True)])
+
+
+def _bf16(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", WGMMA_GRID)
+def test_flash_bf16_body_matches_plain(cuda, B, Sq, Skv, H, KV, hd, causal):
+    rng = _rng("flash-bf16", B, Sq, Skv, H, KV, hd, causal)
+    q, k, v = (_bf16(rng, B, Sq, H, hd), _bf16(rng, B, Skv, KV, hd),
+               _bf16(rng, B, Skv, KV, hd))
+    before = launch_counts()["flash_attention"]
+    got = flash.flash_attention(q, k, v, causal=causal)
+    want = flash.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, hd)
+    ratio = flash.tolerance_ratio(got, want)
+    assert ratio <= 1.0, (ratio, (got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("hd", flash.HEAD_DIMS)
+def test_flash_bf16_body_reads_a_fused_projection(cuda, hd):
+    """q/k/v as strided slices of one (B, S, H + 2 KV, hd) projection,
+    through the tensor maps' strides."""
+    B, S, H, KV = 2, 300, 8, 2
+    qkv = _bf16(_rng("flash-fused", hd), B, S, H + 2 * KV, hd)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    before = launch_counts()["flash_attention"]
+    got = flash.flash_attention(q, k, v)
+    want = flash.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert flash.tolerance_ratio(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("dtype,body", [
+    (torch.bfloat16, "flash_attention_wgmma_kernel"),
+    (torch.float32, "flash_attention_kernel")])
+def test_flash_dtype_picks_its_body(cuda, dtype, body):
+    """A bf16 call runs the wgmma body alone and an fp32 call the CUDA-core
+    body alone, as a profiler trace of the call names them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = _rng("flash-body", str(dtype))
+    q, k, v = (_bf16(rng, 1, 256, 4, 64).to(dtype) for _ in range(3))
+    flash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = {ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA}
+    assert [n for n in names if "flash_attention" in n] == \
+        [n for n in names if body in n] != []
+
+
 def test_model_apply_launches_flash_once_per_layer(cuda):
     from repro_torch.configs import get_reduced
     from repro_torch.kernels import reset_launch_counts
