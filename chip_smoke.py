@@ -22,14 +22,22 @@ in place of the card):
              at Q = 1, 64, 65,536 on a 2^20-bucket table; flash attention
              within its stated tolerance on the reference test's grid in
              fp32 and bf16, non-causal at S = 128 and 100, and the
-             starcoder2-3b prefill shape; at the widths the main path
-             gives each kernel: CUDA-event time of a wrapper call, the
-             kernel's own device time from a ``torch.profiler`` trace, the
-             plain version's time, for attention the time of
+             starcoder2-3b prefill shape; kernels 4-7 (coefficients in
+             the launch parameters) also in their other coefficient form
+             (0/1 masks or general bytes) and at a batch that splits
+             into several launches, and their timed calls must show no
+             host-to-device copy in the trace and raise nothing under
+             sync-debug mode "error"; at the widths the main path gives
+             each kernel: CUDA-event time of a wrapper call, the
+             kernel's own device time per call from a ``torch.profiler``
+             trace, the plain version's time, for attention the time of
              ``scaled_dot_product_attention`` (a yardstick the port never
              calls) and the achieved TFLOP/s (bf16 at the prefill shape
              and at B 1, S 256; fp32 at the prefill shape), and the bound
-             from these inputs' bytes and operations;
+             from these inputs' bytes and operations; then the
+             engine-level host time of an RS sealed-update batch and of
+             the RS and RDP seal folds (B = 64) on the CUDA and numpy
+             engines;
 4. RS      - the paper's testbed (``configs/memec.py``: 16 servers,
              4 proxies, RS(10,8), c = 16, 4 KB chunks) on
              ``engine="cuda"``, YCSB batch 64: load, workload A, a
@@ -176,10 +184,13 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 
 def kernel_device_ms(torch, fn, reps: int, cuda_name: str):
-    """The kernel's own device time per launch: the durations of the CUDA
-    kernels whose name holds ``cuda_name`` in a ``torch.profiler`` (CUPTI)
-    trace of ``reps`` calls of ``fn``, over their count.  None when the
-    trace holds no such kernel (the profiler saw no device activity)."""
+    """The kernel's own device time per call, and the host-to-device
+    copies in the window: the durations of the CUDA kernels whose name
+    holds ``cuda_name`` in a ``torch.profiler`` (CUPTI) trace of ``reps``
+    calls of ``fn``, summed over ``reps`` (a call split into several
+    launches counts them all), and the trace's ``Memcpy HtoD`` events.
+    The time is None when the trace holds no such kernel (the profiler
+    saw no device activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -189,9 +200,24 @@ def kernel_device_ms(torch, fn, reps: int, cuda_name: str):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA and cuda_name in ev.name]
-    return sum(spans) / len(spans) / 1e3 if spans else None
+    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    spans = [ev.time_range.elapsed_us() for ev in events
+             if cuda_name in ev.name]
+    htod = sum(1 for ev in events if "HtoD" in ev.name)
+    return (sum(spans) / reps / 1e3 if spans else None), htod
+
+
+def raises_no_sync(torch, fn) -> None:
+    """One call of ``fn`` under sync-debug mode "error": any operation
+    that waits on the stream (a pageable copy to the card, a read-back)
+    raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 def bound(nbytes: int, ops: int,
@@ -212,17 +238,24 @@ def matmul_work(np, A, data, gf01=False):
 
 
 def per_item_work(np, Ms, blocks, parity=None):
+    """Blocks in, parity in and out (or the product out), the matrices as
+    the kernel reads them (row masks for 0/1 matrices, else bytes); one
+    multiply-XOR per nonzero coefficient and byte."""
+    from repro_torch.kernels import coefs
     B, O, J = Ms.shape
     C = blocks.shape[2]
     out = (2 if parity is not None else 1) * B * O * C
-    return Ms.size + B * J * C + out, int(np.count_nonzero(Ms)) * C
+    mats = coefs.per_item_coefs(Ms)[1].size
+    return mats + B * J * C + out, int(np.count_nonzero(Ms)) * C
 
 
 def delta_work(np, parity, g, xor):
+    """The xor in, parity in and out (or the deltas out), one byte per
+    gamma; one multiply-XOR per nonzero gamma and byte."""
     B, m = g.shape
     C = xor.shape[1]
     out = (2 if parity is not None else 1) * B * m * C
-    return 4 * B * m + B * C + out, int(np.count_nonzero(g & 255)) * C
+    return B * m + B * C + out, int(np.count_nonzero(g & 255)) * C
 
 
 def single_matmul_work(np, A, data):
@@ -341,43 +374,71 @@ def kernel_specs(np, torch, dev):
                                                gf01=strategy == "gf01"),
                     **batched(check_C, time_C))
 
-    def rdp_delta_make(B, C):
+    def general(Ms):
+        """A general matrix of Ms's shape, with 0 and 1 entries beside
+        the rest (the byte form of the per-item kernels)."""
+        G = rng.integers(0, 256, Ms.shape, dtype=np.uint8)
+        G[::3, :, 0] = 0
+        G[1::3, :, 0] = 1
+        return G
+
+    def rdp_delta_make(B, C, form="01"):
         """What ``submit_delta`` hands the kernel for RDP: per item the
-        (m*r, r) columns of the data chunk it mutates."""
+        (m*r, r) columns of the data chunk it mutates (0/1, row masks);
+        ``form="general"`` a general matrix of the same shape."""
         idx = rng.integers(0, rdp.k, B)
         cols = R.reshape(2 * r, rdp.k, r)[:, idx, :]
-        return (np.ascontiguousarray(np.transpose(cols, (1, 0, 2))),
-                u8((B, r, C)))
+        Ms = np.ascontiguousarray(np.transpose(cols, (1, 0, 2)))
+        return (general(Ms) if form == "general" else Ms), u8((B, r, C))
 
     def fold_make(O):
-        def make(B, C):
+        def make(B, C, form=None):
             if O == 1:
-                Ms = rng.integers(1, 256, (B, 1, 1), dtype=np.uint8)
+                Ms = (rng.integers(0, 2, (B, 1, 1), dtype=np.uint8)
+                      if form == "01"
+                      else rng.integers(1, 256, (B, 1, 1), dtype=np.uint8))
             else:
                 # RDP seal: the (r, r) system of one parity row and chunk
                 E4 = R.reshape(2, r, rdp.k, r)
                 Ms = np.ascontiguousarray(E4[rng.integers(0, 2, B), :,
                                              rng.integers(0, rdp.k, B), :])
+                if form == "general":
+                    Ms = general(Ms)
             return (Ms, u8((B, O, C)), u8((B, O, C)))
         return make
 
     def delta_make(parity):
-        def make(B, C):
+        def make(B, C, form=None):
             g = rng.integers(0, 256, (B, 2)).astype(np.int32)
+            if form == "01":        # zero and one gammas beside the rest
+                g[::3, 0] = 0
+                g[1::3, 1] = 1
             return ((u8((B, 2, C)) if parity else None), g, u8((B, C)))
         return make
 
-    def per_item_case(make, check_C, time_C):
-        return dict(make=make, kernel=gm.gf256_matmul_per_item_batched,
-                    plain=gm.gf256_matmul_per_item_plain,
-                    work=lambda a: per_item_work(np, *a),
-                    **batched(check_C, time_C))
+    def by_value(case, extra):
+        """Kernels 4-7 take their coefficients in the launch parameters:
+        their grid adds the other coefficient form at B = 64 and a batch
+        whose coefficients exceed the largest parameter tier (split into
+        several launches)."""
+        case["check"] = case["check"] + extra
+        return case
+
+    def per_item_case(make, check_C, time_C, extra):
+        return by_value(dict(make=make,
+                             kernel=gm.gf256_matmul_per_item_batched,
+                             plain=gm.gf256_matmul_per_item_plain,
+                             work=lambda a: per_item_work(np, *a),
+                             **batched(check_C, time_C)), extra)
 
     def delta_case(parity):
-        return dict(make=delta_make(parity), kernel=du.delta_apply_batched,
-                    plain=du.delta_apply_batched_plain,
-                    work=lambda a: delta_work(np, *a),
-                    **batched(RS_C, 4096))
+        return by_value(dict(make=delta_make(parity),
+                             kernel=du.delta_apply_batched,
+                             plain=du.delta_apply_batched_plain,
+                             work=lambda a: delta_work(np, *a),
+                             **batched(RS_C, 4096)),
+                        [(64, 4096, "01"), (64, 1000, "01"), (20000, 256),
+                         (20000, 256, "01")])
 
     # kernels 8-10, the single-stripe entries of kernels/ops.py and the
     # index probe: RS(10,8) encode (2,8) and the decode inverse of two lost
@@ -426,22 +487,28 @@ def kernel_specs(np, torch, dev):
              cases={"encode_32x128": matmul(R, "gf01", RDP_C, 256),
                     "decode_160x128": matmul(rdp_dec, "gf01", RDP_C, 256)}),
         dict(name="gf_per_item",
-             cuda_name="per_item_kernel",
+             cuda_name="per_item_kernel", by_value=True,
              replaces="src/repro/kernels/gf256_matmul.py:297",
-             cases={"delta_Bx32x16": per_item_case(rdp_delta_make, RDP_C,
-                                                   256)}),
+             cases={"delta_Bx32x16": per_item_case(
+                 rdp_delta_make, RDP_C, 256,
+                 [(64, 256, "general"), (64, 1000, "general"),
+                  (1100, 256), (300, 256, "general")])}),
         dict(name="gf_per_item_fold",
-             cuda_name="per_item_kernel",
+             cuda_name="per_item_kernel", by_value=True,
              replaces="src/repro/kernels/gf256_matmul.py:302",
-             cases={"fold_Bx1x1": per_item_case(fold_make(1), RS_C, 4096),
-                    "fold_Bx16x16": per_item_case(fold_make(r), RDP_C,
-                                                  256)}),
+             cases={"fold_Bx1x1": per_item_case(
+                 fold_make(1), RS_C, 4096,
+                 [(64, 4096, "01"), (64, 1000, "01"), (40000, 64)]),
+                 "fold_Bx16x16": per_item_case(
+                     fold_make(r), RDP_C, 256,
+                     [(64, 256, "general"), (64, 1000, "general"),
+                      (2100, 256), (300, 256, "general")])}),
         dict(name="gf_delta_apply_batched",
-             cuda_name="delta_batched_kernel",
+             cuda_name="delta_batched_kernel", by_value=True,
              replaces="src/repro/kernels/delta_update.py:74",
              cases={"apply_m2": delta_case(True)}),
         dict(name="gf_delta_only_batched",
-             cuda_name="delta_batched_kernel",
+             cuda_name="delta_batched_kernel", by_value=True,
              replaces="src/repro/kernels/delta_update.py:80",
              cases={"delta_m2": delta_case(False)}),
         dict(name="gf_matmul", cuda_name="matmul_batched_kernel",
@@ -597,7 +664,13 @@ def run_kernels(np, torch, dev):
                 cuda_name = spec["cuda_name"]
                 if callable(cuda_name):
                     cuda_name = cuda_name(args)
-                kernel_ms = kernel_device_ms(torch, call, reps, cuda_name)
+                kernel_ms, htod = kernel_device_ms(torch, call, reps,
+                                                   cuda_name)
+                if spec.get("by_value"):
+                    # coefficients in the launch parameters: no copy to
+                    # the card and no wait on the stream
+                    assert htod == 0, f"{spec['name']} {label}: {htod} HtoD"
+                    raises_no_sync(torch, call)
                 plain_ms = cuda_ms(torch, lambda: case["plain"](*args),
                                    max(3, reps // 10))
                 library_ms = (cuda_ms(torch, lambda: case["library"](*args),
@@ -644,6 +717,47 @@ def run_kernels(np, torch, dev):
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return rows
+
+
+def engine_calls(np, torch) -> dict:
+    """Host time of one engine call around kernels 5 and 6, at the YCSB
+    window (B = 64) and 4 KB chunks: ``submit_apply_delta(...).result()``
+    on RS(10,8) (a sealed UPDATE batch: kernel 6) and
+    ``submit_fold_rows(...).result()`` on RS(10,8) and RDP(10,8) (seal
+    folds: kernel 5), on the CUDA engine beside the numpy engine, timed in
+    turns (numpy, cuda, cuda, numpy), 100 calls each.  The engines'
+    results must agree.  A measurement only: it counts toward no phase."""
+    from repro_torch.core.codes import make_code
+    from repro_torch.core.engine import CudaEngine, NumpyEngine
+    B, C, reps = BATCH, 4096, 100
+    rng = np.random.default_rng(16)
+    out = {}
+    for scheme in ("rs", "rdp"):
+        code = make_code(scheme, 10, 8)
+        engines = {"numpy": NumpyEngine(code), "cuda": CudaEngine(code)}
+        idx = rng.integers(0, code.k, B)
+        xors = rng.integers(0, 256, (B, C), dtype=np.uint8)
+        rows = rng.integers(0, code.m, B)
+        prow = rng.integers(0, 256, (B, C), dtype=np.uint8)
+        par = rng.integers(0, 256, (B, code.m, C), dtype=np.uint8)
+        calls = {f"fold_rows_{scheme}": lambda e: e.submit_fold_rows(
+            idx, xors, rows, prow).result()}
+        if scheme == "rs":
+            calls["apply_delta_rs"] = lambda e: e.submit_apply_delta(
+                par, idx, xors).result()
+        for name, call in calls.items():
+            got = {k: call(e) for k, e in engines.items()}
+            assert np.array_equal(got["cuda"], got["numpy"]), name
+            row = {}
+            for k in ("numpy", "cuda", "cuda", "numpy"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    call(engines[k])
+                row.setdefault(f"{k}_ms", []).append(
+                    (time.perf_counter() - t0) / reps * 1e3)
+            out[name] = row
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1320,6 +1434,8 @@ def main() -> int:
 
     rows = run_kernels(np, torch, dev)
     log(f"phase kernels: {time.perf_counter() - t_start:.1f} s since start")
+    log(f"engine host ms per call, B {BATCH}, C 4096 (turns numpy, cuda, "
+        f"cuda, numpy):", json.dumps(engine_calls(np, torch)))
     t0 = time.perf_counter()
     launches, rs_cl = run_cluster(np, torch, CONFIG, RS_KERNELS)
     by_phase = {"rs_cluster": launches}

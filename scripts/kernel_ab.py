@@ -1,0 +1,90 @@
+#!/usr/bin/env python3
+"""Time kernels' timed points in two checkouts, in turns, on one card.
+
+Run from the root of a checkout, on a machine with one CUDA card, with
+the root of another checkout of the repo (say an unpacked ``git archive``
+of the parent commit) as the argument:
+
+    python3 scripts/kernel_ab.py OTHER [--kernels gf_per_item_fold ...]
+
+For each checkout in the order this, other, other, this, a fresh process
+in that checkout builds its kernel library and runs its own
+``chip_smoke.kernel_specs``: every timed point of the named kernels
+(default: kernels 4-7), with that checkout's inputs, wrapper and timers
+(``cuda_ms`` for the wrapper call, ``kernel_device_ms`` for the kernel's
+device time).  Prints the card's name and power limit, then one JSON line
+per kernel, case and point with each turn's wrapper and kernel ms.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+KERNELS = ("gf_per_item", "gf_per_item_fold", "gf_delta_apply_batched",
+           "gf_delta_only_batched")
+
+# run inside one checkout: its own chip_smoke and package
+CHILD = r"""
+import json, sys
+sys.path.insert(0, "src")
+import numpy as np, torch
+import chip_smoke as cs
+from repro_torch.kernels import _build
+_build.library()
+dev = torch.device("cuda")
+names = set(sys.argv[1].split(","))
+for spec in cs.kernel_specs(np, torch, dev):
+    if spec["name"] not in names:
+        continue
+    for cname, case in spec["cases"].items():
+        for label, shape, reps in case["timed"]:
+            args = case["make"](*shape)
+            call = lambda: case["kernel"](*args)
+            ms = cs.cuda_ms(torch, call, reps)
+            k = cs.kernel_device_ms(torch, call, reps, spec["cuda_name"])
+            print(json.dumps(dict(kernel=spec["name"], case=cname,
+                                  point=label, ms=ms,
+                                  kernel_ms=k[0] if isinstance(k, tuple)
+                                  else k)), flush=True)
+"""
+
+
+def run(checkout: Path, kernels: str) -> list[dict]:
+    proc = subprocess.run([sys.executable, "-c", CHILD, kernels],
+                          cwd=checkout, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{checkout}: exit {proc.returncode}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("other", type=Path)
+    ap.add_argument("--kernels", nargs="+", default=list(KERNELS))
+    a = ap.parse_args()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    kernels = ",".join(a.kernels)
+    rows: dict[tuple, dict] = {}
+    for tag, root in (("this", ROOT), ("other", a.other.resolve()),
+                      ("other", a.other.resolve()), ("this", ROOT)):
+        for r in run(root, kernels):
+            row = rows.setdefault((r["kernel"], r["case"], r["point"]),
+                                  dict(kernel=r["kernel"], case=r["case"],
+                                       point=r["point"]))
+            row.setdefault(f"{tag}_ms", []).append(r["ms"])
+            row.setdefault(f"{tag}_kernel_ms", []).append(r["kernel_ms"])
+    for row in rows.values():
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

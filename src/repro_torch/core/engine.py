@@ -689,9 +689,10 @@ class TorchEngine(CodingEngine):
         B, C = len(versions), parity.shape[2]
         m, k, r = self.code.m, self.code.k, self.rep.r
         wb = self.collapse_work_bytes(versions, C)
-        if B == 0 or m == 0:
+        vmax = max((v.shape[0] for v in versions), default=0)
+        if B == 0 or m == 0 or vmax == 0:
+            # no version at all: the XOR of none is zero, parity unchanged
             return EngineFuture.wrap(parity.copy(), wb, "delta_collapse")
-        vmax = max(v.shape[0] for v in versions)
         stacked = np.zeros((B, vmax, C), dtype=np.uint8)
         for i, v in enumerate(versions):
             stacked[i, :v.shape[0]] = v
@@ -820,8 +821,7 @@ class CudaEngine(TorchEngine):
 
     def _gammas(self, data_indices) -> np.ndarray:
         idx = np.asarray(data_indices, dtype=np.int64)
-        return np.ascontiguousarray(
-            self.rep.encode[:, idx].T).astype(np.int32)   # (B, m)
+        return np.ascontiguousarray(self.rep.encode[:, idx].T)   # (B, m)
 
     def _delta_dev(self, parity, data_indices, xors):
         """Launch the batched delta kernel: with parity, the fused

@@ -10,7 +10,9 @@ probe and the models' attention, with plain torch versions beside them.
 * cuckoo_lookup — the batched 2-bucket x 4-slot object-index probe;
 * flash_attention — causal GQA attention, the models' prefill path.
 
-``ops`` holds the public single-stripe entry points; ``dispatch`` sends
+``ops`` holds the public single-stripe entry points; ``coefs`` the
+host side of the per-item and batched delta kernels' coefficients,
+which travel by value in the launch parameters; ``dispatch`` sends
 CUDA tensors to the kernels and CPU tensors to the plain versions;
 ``_build`` compiles ``csrc/*.cu`` with nvcc at first use and binds it
 with ctypes; ``ref`` holds the torch oracles.

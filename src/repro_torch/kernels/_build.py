@@ -18,6 +18,7 @@ each fill or change under a lock.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -49,10 +50,11 @@ SIGNATURES = {
     "gf_matmul_batched": ((_P, _I, _I, _P, _P, _P, _I, _L, _P), _I),
     "gf_matmul_cols_batched": ((_P, _P, _I, _I, _P, _P, _I, _L, _P), _I),
     "gf01_matmul_batched": ((_P, _I, _I, _P, _P, _I, _L, _P), _I),
-    "gf_per_item": ((_P, _P, _P, _P, _I, _I, _I, _L, _P), _I),
-    "gf_per_item_fold": ((_P, _P, _P, _P, _P, _I, _I, _I, _L, _P), _I),
-    "gf_delta_apply_batched": ((_P, _P, _P, _P, _P, _I, _I, _L, _P), _I),
-    "gf_delta_only_batched": ((_P, _P, _P, _P, _I, _I, _L, _P), _I),
+    "gf_coef_tier": ((_I,), _I),
+    "gf_per_item": ((_I, _P, _I, _P, _P, _I, _I, _I, _L, _P), _I),
+    "gf_per_item_fold": ((_I, _P, _I, _P, _P, _P, _I, _I, _I, _L, _P), _I),
+    "gf_delta_apply_batched": ((_I, _P, _P, _P, _P, _I, _I, _L, _P), _I),
+    "gf_delta_only_batched": ((_I, _P, _P, _P, _I, _I, _L, _P), _I),
     "gf_matmul": ((_P, _I, _I, _P, _P, _P, _L, _P), _I),
     "gf_delta_max_rows": ((), _I),
     "gf_delta_update": ((_P, _P, _I, _P, _P, _P, _P, _L, _P), _I),
@@ -191,8 +193,25 @@ def tables(device: torch.device) -> torch.Tensor:
     return _tables(torch.device(device))
 
 
+_NO_SWITCH = contextlib.nullcontext()
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device, for a
+    launch on it.  When it already is (the common case) the context does
+    nothing, which saves the device switch's few µs on every launch."""
+    if device.index == torch.cuda.current_device():
+        return _NO_SWITCH
+    return torch.cuda.device(device)
+
+
 def stream_ptr(device: torch.device) -> int:
-    """The current CUDA stream of ``device`` as an integer handle."""
+    """The current CUDA stream of ``device`` as an integer handle.  A
+    tensor's device carries its index; the raw getter skips building a
+    ``torch.cuda.Stream`` object on every launch."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 

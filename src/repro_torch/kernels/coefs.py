@@ -1,0 +1,95 @@
+"""Per-item coefficients passed by value in the kernels' launch parameters.
+
+The batched delta kernels (6, 7) and the per-item kernels (4, 5) take
+their coefficients in a ``__grid_constant__`` parameter struct instead
+of a device buffer, so their wrappers copy nothing to the card and never
+wait on the stream (``csrc/gf256.cu``, "Coefficients by value").  This
+module holds the host side of that, in plain numpy, so it runs and is
+tested on any host:
+
+* ``TIERS``: the byte sizes of the parameter struct the kernels are
+  built in.  A launch picks the smallest that holds its coefficients;
+  the largest stays under sm_90's 32,764 bytes of kernel parameters
+  with room for the pointers and sizes.
+* ``plan_launches``: a batch whose coefficients exceed the largest tier
+  is split into launches of whole items, in order, on the same stream.
+* ``row_masks``: a (B, O, J) 0/1 matrix (the reference's ``is01`` rule)
+  as ceil(J / 8) little-endian bytes per output row, bit j set where the
+  entry is 1; J <= ``MAX_MASK_COLS``.  RDP's (16, 16) seal systems take
+  32 bytes per item this way, against 256 as bytes.
+* ``per_item_coefs``: the form the per-item kernels get a batch of
+  matrices in: row masks where they apply, else the bytes.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+#: parameter-struct sizes in bytes, smallest first (``gf_coef_tier`` in
+#: ``csrc/gf256.cu`` returns the same numbers)
+TIERS = (512, 4096, 32640)
+#: widest 0/1 row a mask holds (four bytes)
+MAX_MASK_COLS = 32
+
+
+def plan_launches(B: int, per_item: int,
+                  tiers: tuple = TIERS) -> list[tuple[int, int, int]]:
+    """Split ``B`` items of ``per_item`` coefficient bytes each into
+    launches: ``[(start, end, tier), ...]`` covering items 0..B-1 once,
+    in order, each launch holding as many whole items as the largest
+    tier takes and naming the smallest tier index its bytes fit."""
+    if per_item > tiers[-1]:
+        raise ValueError(f"{per_item} coefficient bytes per item exceed the "
+                         f"{tiers[-1]}-byte launch parameters")
+    need = B * per_item
+    if 0 < B and need <= tiers[-1]:        # the main path: one launch
+        return [(0, B, next(i for i, t in enumerate(tiers) if need <= t))]
+    step = tiers[-1] // per_item if per_item > 0 else max(B, 1)
+    plan = []
+    for s in range(0, B, step):
+        e = min(B, s + step)
+        need = (e - s) * per_item
+        plan.append((s, e, next(i for i, t in enumerate(tiers) if need <= t)))
+    return plan
+
+
+def is01(Ms: np.ndarray) -> bool:
+    """The reference's rule: a matrix whose entries are all 0 or 1."""
+    return int(np.asarray(Ms).max(initial=0)) <= 1
+
+
+def mask_bytes(J: int) -> int:
+    """Bytes of one row mask of ``J`` columns."""
+    return -(-J // 8)
+
+
+def _pack(Ms: np.ndarray) -> np.ndarray:
+    # rows padded to whole bytes, then one flat packbits (a packbits along
+    # the last axis walks the rows one by one, tens of µs at B = 64)
+    *lead, J = Ms.shape
+    nb = mask_bytes(J)
+    if J != 8 * nb:
+        padded = np.zeros((*lead, 8 * nb), dtype=np.uint8)
+        padded[..., :J] = Ms
+        Ms = padded
+    return np.packbits(Ms.reshape(-1), bitorder="little").reshape(*lead, nb)
+
+
+def row_masks(Ms: np.ndarray) -> np.ndarray:
+    """(B, O, J) 0/1 matrices -> (B, O, ceil(J/8)) uint8 row masks, bit
+    j % 8 of byte j // 8 set where Ms[b, o, j] == 1."""
+    Ms = np.ascontiguousarray(Ms, dtype=np.uint8)
+    if Ms.shape[-1] > MAX_MASK_COLS or not is01(Ms):
+        raise ValueError(f"row masks take 0/1 matrices of at most "
+                         f"{MAX_MASK_COLS} columns, got {Ms.shape}")
+    return _pack(Ms)
+
+
+def per_item_coefs(Ms: np.ndarray) -> tuple[int, np.ndarray]:
+    """(mask bytes per row, host coefficients) for the per-item kernels:
+    (ceil(J/8), ``row_masks(Ms)``) for 0/1 matrices of at most
+    ``MAX_MASK_COLS`` columns, else (0, the (B, O, J) bytes)."""
+    Ms = np.ascontiguousarray(Ms, dtype=np.uint8)
+    J = Ms.shape[-1]
+    if J <= MAX_MASK_COLS and is01(Ms):
+        return mask_bytes(J), _pack(Ms)
+    return 0, Ms

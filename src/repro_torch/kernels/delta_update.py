@@ -25,8 +25,10 @@ gamma[b, r]·xor[b] into the m parity rows of its stripe.
   ``parity=None`` its plain per-item kernel.
 
 Bound: device-memory bytes, (2m+1)·C per item with parity and (m+1)·C
-without; the kernel reads the xor once, takes its log once per byte, and
-spends one EXP lookup per output byte (see ``csrc/gf256.cu``).
+without; the kernel reads the xor once and builds each gamma's nibble
+tables in registers (see ``csrc/gf256.cu``).  The gammas travel by value
+in the launch parameters (``kernels/coefs.py``), so the batched wrapper
+copies nothing to the card and never waits on the stream.
 
 Dispatch: a CUDA tensor launches the kernel, a CPU tensor takes the plain
 version below.  Nothing falls back.
@@ -36,7 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build, dispatch
+from . import _build, coefs, dispatch
 from .gf256_matmul import _batch_chunks, _mul_flat, gf256_matmul_per_item_batched
 
 #: launches of each kernel by its wrapper (plain versions do not count)
@@ -67,41 +69,52 @@ def delta_apply_batched(parity: torch.Tensor | None, gammas,
                         xor: torch.Tensor) -> torch.Tensor:
     """Batched fused delta fold with per-item coefficients.
 
-    parity: (B, m, C) or None; gammas: (B, m) int32 (host array or
-    tensor); xor: (B, C) uint8, D ⊕ D' per item.  Returns (B, m, C) on
-    the xor's device: updated parity, or the bare deltas for
-    ``parity=None``."""
+    parity: (B, m, C) or None; gammas: (B, m) ints, a host array (a tensor
+    is read back to the host first, which waits on its stream); xor:
+    (B, C) uint8, D ⊕ D' per item.  Returns (B, m, C) on the xor's
+    device: updated parity, or the bare deltas for ``parity=None``.  On
+    the card the gammas go into the launch parameters, so the call copies
+    nothing to the card and does not synchronize; a batch whose gammas
+    exceed the largest parameter tier runs as several launches."""
     if not isinstance(xor, torch.Tensor) or xor.dim() != 2:
         raise ValueError("xor must be a (B, C) torch.Tensor")
     if not dispatch.decide(xor).kernel:
         return delta_apply_batched_plain(parity, gammas, xor)
+    if isinstance(gammas, torch.Tensor):
+        gammas = gammas.cpu().numpy()
+    g = np.asarray(gammas)
+    if g.dtype != np.uint8:
+        g = (g & 255).astype(np.uint8)
     dev = xor.device
     B, C = xor.shape
-    g = torch.as_tensor(gammas).to(device=dev, dtype=torch.int32).contiguous()
-    if g.dim() != 2 or g.shape[0] != B:
-        raise ValueError(f"gammas {tuple(g.shape)} vs xor {(B, C)}")
+    if g.ndim != 2 or g.shape[0] != B:
+        raise ValueError(f"gammas {g.shape} vs xor {(B, C)}")
     m = g.shape[1]
     _build.require(xor, "xor", torch.uint8, (B, C), dev)
     if parity is not None:
         _build.require(parity, "parity", torch.uint8, (B, m, C), dev)
-    out = torch.empty((B, m, C), dtype=torch.uint8, device=dev)
+    out = (torch.empty((B, m, C), dtype=torch.uint8, device=dev)
+           if parity is None else torch.empty_like(parity))
     if B == 0 or m == 0 or C == 0:
         return out.copy_(parity) if parity is not None else out.zero_()
     lib = _build.library()
-    with torch.cuda.device(dev):
-        if parity is None:
-            err = lib.gf_delta_only_batched(
-                _build.tables(dev).data_ptr(), g.data_ptr(), xor.data_ptr(),
-                out.data_ptr(), B, m, C, _build.stream_ptr(dev))
-            name = "gf_delta_only_batched"
-        else:
-            err = lib.gf_delta_apply_batched(
-                _build.tables(dev).data_ptr(), g.data_ptr(),
-                parity.data_ptr(), xor.data_ptr(), out.data_ptr(), B, m, C,
-                _build.stream_ptr(dev))
-            name = "gf_delta_apply_batched"
-    _build.check(err, name)
-    _build.count_launch(LAUNCHES, name)
+    name = ("gf_delta_only_batched" if parity is None
+            else "gf_delta_apply_batched")
+    # host bytes go to ctypes as a char pointer, cheaper than .ctypes.data
+    gb, x_ptr, o_ptr = g.tobytes(), xor.data_ptr(), out.data_ptr()
+    with _build.on_device(dev):
+        stream = _build.stream_ptr(dev)
+        for s, e, tier in coefs.plan_launches(B, m):
+            if parity is None:
+                err = lib.gf_delta_only_batched(
+                    tier, gb[s * m:e * m], x_ptr + s * C, o_ptr + s * m * C,
+                    e - s, m, C, stream)
+            else:
+                err = lib.gf_delta_apply_batched(
+                    tier, gb[s * m:e * m], parity.data_ptr() + s * m * C,
+                    x_ptr + s * C, o_ptr + s * m * C, e - s, m, C, stream)
+            _build.check(err, name)
+            _build.count_launch(LAUNCHES, name)
     return out
 
 

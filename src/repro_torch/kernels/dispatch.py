@@ -59,15 +59,17 @@ def _device(where) -> torch.device:
         else torch.device(where)
 
 
+_DECISIONS = {"cuda": Decision(CUDA), "cpu": Decision(TORCH_CPU)}
+
+
 def decide(where) -> Decision:
     """Resolve the dispatch path for one kernel call on ``where``, the
     tensor (or device) the call operates on."""
     dev = _device(where)
-    if dev.type == "cuda":
-        return Decision(CUDA)
-    if dev.type == "cpu":
-        return Decision(TORCH_CPU)
-    raise ValueError(f"no kernel path for device {dev}")
+    try:
+        return _DECISIONS[dev.type]
+    except KeyError:
+        raise ValueError(f"no kernel path for device {dev}") from None
 
 
 def describe(where) -> dict:

@@ -32,11 +32,16 @@ Three entry points, with the JAX package's signatures:
 
 Bound: every kernel moves each input byte once and each output byte once
 (at B=4096, C=4096, (10, 8) that is 302 MB against ~0.1 ms at 3.35 TB/s);
-the arithmetic is a shared-memory lookup per product, or an XOR where the
+the arithmetic is a shared-memory lookup per product (the per-item
+kernels: a register nibble-table product), or an XOR where the
 coefficient is 1.  See the source note in ``csrc/gf256.cu`` for the
 design.  The ``gf01`` and ``cols`` matrices are copied to the device once
 per matrix and cached (``_device_matrix``): the encode matrix is fixed per
-code and decode matrices recur per erasure pattern.
+code and decode matrices recur per erasure pattern.  The per-item
+matrices change with every call, so they travel by value in the launch
+parameters instead (``kernels/coefs.py``): as bytes, or for 0/1 matrices
+as row masks; the per-item wrapper copies nothing to the card and never
+waits on the stream.
 
 Dispatch (``kernels.dispatch``): a CUDA tensor launches the kernel, a
 CPU tensor takes the plain version of the same strategy.  Nothing falls
@@ -48,7 +53,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build, dispatch
+from . import _build, coefs, dispatch
 
 #: launches of each kernel by its wrapper (plain versions do not count)
 LAUNCHES = {"gf_matmul_batched": 0, "gf_matmul_cols_batched": 0,
@@ -283,9 +288,16 @@ def gf256_matmul(A, data: torch.Tensor) -> torch.Tensor:
 def gf256_matmul_per_item_batched(Ms, blocks: torch.Tensor,
                                   parity: torch.Tensor | None = None
                                   ) -> torch.Tensor:
-    """Per-item matrices: (B, O, J) host matrices, (B, J, C) uint8 tensor
-    -> (B, O, C), with ``parity`` (B, O, C) XORed in when given."""
-    Ms = np.ascontiguousarray(np.asarray(Ms, dtype=np.uint8))
+    """Per-item matrices: (B, O, J) host matrices (a tensor is read back
+    to the host first, which waits on its stream), (B, J, C) uint8 tensor
+    -> (B, O, C), with ``parity`` (B, O, C) XORed in when given.  On the
+    card the matrices go into the launch parameters (row masks when they
+    are 0/1 with J <= 32, else bytes), so the call copies nothing to the
+    card and does not synchronize; a batch whose matrices exceed the
+    largest parameter tier runs as several launches."""
+    if isinstance(Ms, torch.Tensor):
+        Ms = Ms.cpu().numpy()
+    Ms = np.asarray(Ms, dtype=np.uint8)
     if Ms.ndim != 3:
         raise ValueError(f"Ms must be (B, O, J), got {Ms.shape}")
     B, O, J = Ms.shape
@@ -298,24 +310,30 @@ def gf256_matmul_per_item_batched(Ms, blocks: torch.Tensor,
     _build.require(blocks, "blocks", torch.uint8, (B, J, C), dev)
     if parity is not None:
         _build.require(parity, "parity", torch.uint8, (B, O, C), dev)
-    out = torch.empty((B, O, C), dtype=torch.uint8, device=dev)
+    out = (torch.empty((B, O, C), dtype=torch.uint8, device=dev)
+           if parity is None else torch.empty_like(parity))
     if B == 0 or O == 0 or J == 0 or C == 0:
         return out.copy_(parity) if parity is not None else out.zero_()
-    ms_dev = torch.from_numpy(Ms).to(dev)
+    mb, host = coefs.per_item_coefs(Ms)
+    per_item = host.size // B
+    # host bytes go to ctypes as a char pointer, cheaper than .ctypes.data
+    hb = host.tobytes()
     lib = _build.library()
-    with torch.cuda.device(dev):
-        if parity is None:
-            err = lib.gf_per_item(
-                _build.tables(dev).data_ptr(), ms_dev.data_ptr(),
-                blocks.data_ptr(), out.data_ptr(), B, O, J, C,
-                _build.stream_ptr(dev))
-            name = "gf_per_item"
-        else:
-            err = lib.gf_per_item_fold(
-                _build.tables(dev).data_ptr(), ms_dev.data_ptr(),
-                parity.data_ptr(), blocks.data_ptr(), out.data_ptr(),
-                B, O, J, C, _build.stream_ptr(dev))
-            name = "gf_per_item_fold"
-    _build.check(err, name)
-    _build.count_launch(LAUNCHES, name)
+    name = "gf_per_item" if parity is None else "gf_per_item_fold"
+    d_ptr, o_ptr = blocks.data_ptr(), out.data_ptr()
+    with _build.on_device(dev):
+        stream = _build.stream_ptr(dev)
+        for s, e, tier in coefs.plan_launches(B, per_item):
+            h = hb[s * per_item:e * per_item]
+            if parity is None:
+                err = lib.gf_per_item(
+                    tier, h, mb, d_ptr + s * J * C, o_ptr + s * O * C,
+                    e - s, O, J, C, stream)
+            else:
+                err = lib.gf_per_item_fold(
+                    tier, h, mb, parity.data_ptr() + s * O * C,
+                    d_ptr + s * J * C, o_ptr + s * O * C, e - s, O, J, C,
+                    stream)
+            _build.check(err, name)
+            _build.count_launch(LAUNCHES, name)
     return out

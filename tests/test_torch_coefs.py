@@ -1,0 +1,215 @@
+"""Host pieces of the by-value coefficient kernels (4-7), on the CPU.
+
+* The in-register product of ``csrc/gf256.cu`` (``nib_tables``,
+  ``nib_lookup``, ``gf_mul4``), emulated step for step in numpy with
+  ``__byte_perm`` as the CUDA documentation defines it, against the
+  JAX package's MUL_TABLE for all 65,536 (g, x) pairs.
+* ``coefs.row_masks`` / ``per_item_coefs`` against the byte matrices
+  and the reference's ``is01`` rule.
+* ``coefs.plan_launches``: every item in one launch, in order, each
+  launch within the parameter tier it names.
+
+The kernels themselves run only on a card (``test_torch_gpu.py``).
+Tolerance: exact.
+"""
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.gf256 import MUL_TABLE as REF_MUL_TABLE
+from repro_torch.kernels import coefs
+
+torch.set_num_threads(1)
+
+U32 = np.uint32
+
+
+def xtime(v):
+    d = v << U32(1)
+    return d ^ ((d >> U32(8)) * U32(0x11D))
+
+
+def byte_perm(x, y, s):
+    """CUDA ``__byte_perm``: byte n of the result is byte ((s >> 4n) & 7)
+    of the eight bytes x | y << 32."""
+    src = x.astype(np.uint64) | (y.astype(np.uint64) << np.uint64(32))
+    out = np.zeros(np.broadcast(x, y, s).shape, dtype=np.uint64)
+    for n in range(4):
+        idx = ((s >> U32(4 * n)) & U32(7)).astype(np.uint64)
+        out |= ((src >> (np.uint64(8) * idx)) & np.uint64(0xFF)) \
+            << np.uint64(8 * n)
+    return out.astype(U32)
+
+
+def selector(n):
+    return byte_perm(n | (n >> U32(4)), U32(0), U32(0x0020))
+
+
+def nib_select(w):
+    """(lo, hi, lo8, hi8) of the kernel's ``Sel4``."""
+    return (selector(w & U32(0x07070707)),
+            selector((w >> U32(4)) & U32(0x07070707)),
+            ((w >> U32(3)) & U32(0x01010101)) * U32(0xFF),
+            ((w >> U32(7)) & U32(0x01010101)) * U32(0xFF))
+
+
+def nib_tables(g):
+    """(l0, l1, l8, h0, h1, h8) of the kernel's ``Nib``."""
+    p = [g]
+    for _ in range(7):
+        p.append(xtime(p[-1]))
+    rep = U32(0x01010101)
+    l0 = (p[0] << U32(8)) | (p[1] << U32(16)) | ((p[0] ^ p[1]) << U32(24))
+    h0 = (p[4] << U32(8)) | (p[5] << U32(16)) | ((p[4] ^ p[5]) << U32(24))
+    return (l0, l0 ^ (p[2] * rep), p[3] * rep,
+            h0, h0 ^ (p[6] * rep), p[7] * rep)
+
+
+def gf_mul4(s, t):
+    lo, hi, lo8, hi8 = s
+    l0, l1, l8, h0, h1, h8 = t
+    return byte_perm(l0, l1, lo) ^ (lo8 & l8) ^ byte_perm(h0, h1, hi) \
+        ^ (hi8 & h8)
+
+
+def test_register_product_matches_mul_table_for_every_pair():
+    """g * x for all g and x: each g (one row) against 64 words that hold
+    x = 4w .. 4w + 3, so every x sits in every byte position once over
+    the grid's byte order."""
+    g = np.arange(256, dtype=U32)[:, None]                      # (256, 1)
+    xs = np.arange(256, dtype=np.uint8).reshape(64, 4)
+    words = xs.view("<u4").reshape(1, 64).astype(U32)           # (1, 64)
+    t = nib_tables(g)
+    got = gf_mul4(nib_select(words), t).astype("<u4")           # (256, 64)
+    got = got.view(np.uint8).reshape(256, 256)
+    np.testing.assert_array_equal(got, REF_MUL_TABLE)
+    # the same words rotated by a byte put every x in another position
+    rot = np.roll(xs, 1, axis=1)
+    got = gf_mul4(nib_select(rot.view("<u4").reshape(1, 64).astype(U32)), t)
+    got = got.astype("<u4").view(np.uint8).reshape(256, 64, 4)
+    np.testing.assert_array_equal(got, REF_MUL_TABLE[:, rot])
+
+
+def test_nibble_tables_are_the_products_of_each_nibble():
+    g = np.arange(256, dtype=U32)[:, None]
+    l0, l1, l8, h0, h1, h8 = nib_tables(g)
+
+    def entries(*words):
+        return np.stack(words, axis=-1).astype("<u4").view(
+            np.uint8).reshape(256, 4 * len(words))
+    i = np.arange(8)
+    np.testing.assert_array_equal(entries(l0, l1), REF_MUL_TABLE[:, i])
+    np.testing.assert_array_equal(entries(h0, h1), REF_MUL_TABLE[:, 16 * i])
+    np.testing.assert_array_equal(entries(l8), REF_MUL_TABLE[:, [8] * 4])
+    np.testing.assert_array_equal(entries(h8), REF_MUL_TABLE[:, [128] * 4])
+
+
+def test_selectors_hold_each_byte_in_order():
+    """Selector nibble b is the low three bits of byte b's nibble; the
+    masks are 0xFF where bit 3 of that nibble is set."""
+    w = np.random.default_rng(3).integers(0, 2**32, 4096,
+                                          dtype=np.uint64).astype(U32)
+    lo, hi, lo8, hi8 = nib_select(w)
+    b = np.stack([(w >> U32(8 * k)) & U32(0xFF) for k in range(4)], -1)
+    for k in range(4):
+        assert ((lo >> U32(4 * k)) & U32(7) == b[:, k] & U32(7)).all()
+        assert ((hi >> U32(4 * k)) & U32(7)
+                == (b[:, k] >> U32(4)) & U32(7)).all()
+        assert (((lo8 >> U32(8 * k)) & U32(0xFF)) == np.where(
+            b[:, k] & U32(8), U32(0xFF), U32(0))).all()
+        assert (((hi8 >> U32(8 * k)) & U32(0xFF)) == np.where(
+            b[:, k] & U32(128), U32(0xFF), U32(0))).all()
+
+
+@pytest.mark.parametrize("J", [1, 7, 8, 9, 16, 31, 32])
+def test_row_masks_hold_the_matrix(J):
+    rng = np.random.default_rng(J)
+    Ms = rng.integers(0, 2, (5, 3, J), dtype=np.uint8)
+    masks = coefs.row_masks(Ms)
+    assert masks.dtype == np.uint8 and masks.shape == (5, 3, -(-J // 8))
+    assert coefs.mask_bytes(J) == masks.shape[-1]
+    j = np.arange(J)
+    bits = (masks[..., j // 8] >> (j % 8)) & 1
+    np.testing.assert_array_equal(bits, Ms)
+    # bits past J are clear, so the kernel's set-bit walk stays in range
+    words = np.zeros((5, 3), dtype=np.uint64)
+    for k in range(masks.shape[-1]):
+        words |= masks[..., k].astype(np.uint64) << np.uint64(8 * k)
+    assert (words >> np.uint64(J) == 0).all()
+
+
+@pytest.mark.parametrize("case", ["zeros", "zero_one", "a_two", "general",
+                                  "wide_zero_one", "empty"])
+def test_per_item_form_follows_the_reference_is01_rule(case):
+    rng = np.random.default_rng(len(case))
+    shape = (4, 16, 40 if case == "wide_zero_one" else 16)
+    if case in ("zeros", "empty"):
+        Ms = np.zeros((0,) + shape[1:] if case == "empty" else shape,
+                      np.uint8)
+    elif case == "general":
+        Ms = rng.integers(0, 256, shape, dtype=np.uint8)
+    else:
+        Ms = rng.integers(0, 2, shape, dtype=np.uint8)
+        if case == "a_two":
+            Ms[2, 5, 3] = 2
+    # the reference's rule (repro/kernels/gf256_matmul.py, per-item entry)
+    ref_is01 = int(Ms.max(initial=0)) <= 1
+    assert coefs.is01(Ms) == ref_is01
+    mb, host = coefs.per_item_coefs(Ms)
+    if ref_is01 and Ms.shape[-1] <= coefs.MAX_MASK_COLS:
+        assert mb == 2
+        np.testing.assert_array_equal(host, coefs.row_masks(Ms))
+    else:
+        assert mb == 0
+        np.testing.assert_array_equal(host, Ms)
+    if not ref_is01:
+        with pytest.raises(ValueError):
+            coefs.row_masks(Ms)
+
+
+@pytest.mark.parametrize("B,per_item", [
+    (1, 1), (64, 2), (64, 32), (64, 64), (4096, 2), (4096, 1), (4096, 32),
+    (4096, 64), (20000, 2), (40000, 1), (3, 32640), (5, 10000), (0, 4),
+    (7, 0)])
+def test_plan_covers_every_item_once_in_tier(B, per_item):
+    plan = coefs.plan_launches(B, per_item)
+    step = coefs.TIERS[-1] // per_item if per_item else max(B, 1)
+    covered = []
+    for n, (s, e, tier) in enumerate(plan):
+        assert 0 <= s < e <= B
+        need = (e - s) * per_item
+        assert need <= coefs.TIERS[tier]
+        # the smallest tier that holds the launch
+        assert tier == 0 or need > coefs.TIERS[tier - 1]
+        # whole items, as many as the largest tier takes but the last
+        assert e - s == step or n == len(plan) - 1
+        covered.extend(range(s, e))
+    assert covered == list(range(B))
+
+
+def test_plan_refuses_an_item_larger_than_the_parameters():
+    with pytest.raises(ValueError):
+        coefs.plan_launches(2, coefs.TIERS[-1] + 1)
+
+
+def test_main_path_shapes_fit_one_launch():
+    """At a YCSB window of 64 every main-path shape is one launch: the
+    sealed-update gammas (64, 2), the RS seal (64, 1, 1), the RDP seal
+    (64, 16, 16) as masks and the RDP delta (64, 32, 16) as masks."""
+    seal, delta = (coefs.row_masks(np.ones((1, O, 16), np.uint8))[0].size
+                   for O in (16, 32))
+    assert (seal, delta) == (32, 64)
+    for per_item in (2, 1, seal, delta):
+        assert len(coefs.plan_launches(64, per_item)) == 1
+
+
+def test_tiers_are_the_kernel_source_tiers():
+    """The planner's tiers are the parameter-struct sizes the CUDA source
+    instantiates (``gf_coef_tier`` returns them on the card)."""
+    src = (Path(coefs.__file__).parent / "csrc" / "gf256.cu").read_text()
+    m = re.search(r"kCoefTiers\[3\] = \{([^}]*)\}", src)
+    assert m and tuple(int(v) for v in m.group(1).split(",")) == coefs.TIERS
+    assert list(coefs.TIERS) == sorted(coefs.TIERS)

@@ -144,17 +144,23 @@ def test_fold_rows(kind, scheme, n, k):
 @pytest.mark.parametrize("kind", ENGINES)
 @pytest.mark.parametrize("scheme,n,k", CODES)
 def test_delta_collapse(kind, scheme, n, k):
+    """Versions per item: 1-8 each; none for any item (the XOR of no
+    version is zero, so the parity comes back unchanged); and some items
+    with none beside items with several."""
     eng, ref = pair(kind, scheme, n, k)
     rng = np.random.default_rng(11 * n)
-    B = 5
-    idx = rng.integers(0, k, B)
-    versions = [rng.integers(0, 256, (v, width(eng.code)), dtype=np.uint8)
-                for v in (1, 3, 2, 8, 1)]
-    _, par = stripes(eng.code, B, rng)
-    got = eng.submit_delta_collapse(par, idx, versions)
-    want = ref.submit_delta_collapse(par, idx, versions)
-    assert got.work_bytes == want.work_bytes
-    np.testing.assert_array_equal(got.result(), want.result())
+    for counts in ((1, 3, 2, 8, 1), (0, 0), (0, 2, 0, 1)):
+        B = len(counts)
+        idx = rng.integers(0, k, B)
+        versions = [rng.integers(0, 256, (v, width(eng.code)),
+                                 dtype=np.uint8) for v in counts]
+        _, par = stripes(eng.code, B, rng)
+        got = eng.submit_delta_collapse(par, idx, versions)
+        want = ref.submit_delta_collapse(par, idx, versions)
+        assert got.work_bytes == want.work_bytes
+        np.testing.assert_array_equal(got.result(), want.result())
+        if not any(counts):
+            np.testing.assert_array_equal(got.result(), par)
 
 
 @pytest.mark.parametrize("scheme,n,k", [("rdp", 6, 4)])

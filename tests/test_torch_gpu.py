@@ -24,7 +24,7 @@ from repro_torch.core import (CudaEngine, MemECCluster, NumpyEngine,
 from repro_torch.core.codes import RSCode
 from repro_torch.core.index import CuckooIndex
 from repro_torch.data.ycsb import YCSBConfig, YCSBWorkload, run_workload
-from repro_torch.kernels import launch_counts, ops
+from repro_torch.kernels import _build, coefs, launch_counts, ops
 from repro_torch.kernels.delta_update import (delta_apply_batched,
                                               delta_apply_batched_plain,
                                               delta_update,
@@ -151,7 +151,9 @@ def test_per_item_kernel_matches_plain(cuda, zero_one, C, B):
     before = launch_counts()["gf_per_item"]
     got = gf256_matmul_per_item_batched(Ms, D)
     assert torch.equal(got, gf256_matmul_per_item_plain(Ms, D))
-    assert launch_counts()["gf_per_item"] == before + (B > 0)
+    # a general (64, 32, 16) batch is 32 KB of coefficients: two launches
+    assert launch_counts()["gf_per_item"] == before + _launches_of(
+        gf256_matmul_per_item_batched, (Ms, D))
 
 
 @pytest.mark.parametrize("B", [1, 64])
@@ -273,6 +275,207 @@ def test_cluster_on_card_matches_numpy_twin(cuda, scheme):
     keys = [w.key(i) for i in range(cfg.num_objects)]
     assert clusters[0].multi_get(keys) == clusters[1].multi_get(keys)
     assert set(clusters[0].engine.op_paths.values()) == {"cuda-kernel"}
+
+
+# ---------------------------------------------------------------------------
+# kernels 4-7: coefficients by value in the launch parameters
+# ---------------------------------------------------------------------------
+
+def _by_value_case(name, B, C, rng, device):
+    """(wrapper, plain, args, kernel) for one of kernels 4-7.  Matrices and
+    gammas hold 0 and 1 entries beside general ones; the RDP shapes come
+    as 0/1 (row masks) and, at the same shape, as general bytes."""
+    def mat(O, J, zero_one):
+        Ms = rng.integers(0, 2 if zero_one else 256, (B, O, J),
+                          dtype=np.uint8)
+        if not zero_one:
+            Ms[::3, :, 0] = 0
+            Ms[1::3, :, 0] = 1
+        return Ms
+    if name.startswith("delta"):
+        G = rng.integers(0, 256, (B, 2)).astype(np.int32)
+        G[::3, 0] = 0
+        G[1::3, 1] = 1
+        P = _u8(rng, (B, 2, C), device) if name == "delta_apply" else None
+        return (delta_apply_batched, delta_apply_batched_plain,
+                (P, G, _u8(rng, (B, C), device)),
+                "gf_delta_apply_batched" if P is not None
+                else "gf_delta_only_batched")
+    O, J, zero_one, fold = {
+        "fold_rs": (1, 1, False, True),
+        "fold_rdp_01": (16, 16, True, True),
+        "fold_rdp_general": (16, 16, False, True),
+        "per_item_rdp_01": (32, 16, True, False),
+        "per_item_rdp_general": (32, 16, False, False)}[name]
+    P = _u8(rng, (B, O, C), device) if fold else None
+    return (gf256_matmul_per_item_batched, gf256_matmul_per_item_plain,
+            (mat(O, J, zero_one), _u8(rng, (B, J, C), device), P),
+            "gf_per_item_fold" if fold else "gf_per_item")
+
+
+BY_VALUE = ["delta_apply", "delta_only", "fold_rs", "fold_rdp_01",
+            "fold_rdp_general", "per_item_rdp_01", "per_item_rdp_general"]
+
+
+def _launches_of(wrapper, args):
+    """Launches one wrapper call makes: one per parameter-tier plan step."""
+    if wrapper is delta_apply_batched:
+        B, m = args[1].shape
+        return len(coefs.plan_launches(B, m))
+    host = coefs.per_item_coefs(args[0])[1]
+    return len(coefs.plan_launches(host.shape[0],
+                                   int(np.prod(host.shape[1:]))))
+
+
+@pytest.mark.parametrize("C", [4096, 1000, 256])
+@pytest.mark.parametrize("B", [1, 64, 4096])
+@pytest.mark.parametrize("name", BY_VALUE)
+def test_by_value_kernels_match_plain(cuda, name, B, C):
+    wrapper, plain, args, kernel = _by_value_case(name, B, C,
+                                                  _rng("bv", name, B, C), cuda)
+    before = launch_counts()[kernel]
+    got = wrapper(*args)
+    assert torch.equal(got, plain(*args))
+    assert launch_counts()[kernel] == before + _launches_of(wrapper, args)
+
+
+@pytest.mark.parametrize("name,B,C", [
+    ("delta_apply", 20000, 256), ("delta_only", 20000, 256),
+    ("fold_rs", 40000, 64), ("fold_rdp_01", 2100, 256),
+    ("fold_rdp_general", 300, 256), ("per_item_rdp_01", 1100, 256)])
+def test_by_value_batches_split_into_launches(cuda, name, B, C):
+    """Coefficients above the largest parameter tier: several launches of
+    whole items, each counted, byte-equal to the plain version."""
+    wrapper, plain, args, kernel = _by_value_case(name, B, C,
+                                                  _rng("split", name), cuda)
+    n = _launches_of(wrapper, args)
+    assert n > 1
+    before = launch_counts()[kernel]
+    assert torch.equal(wrapper(*args), plain(*args))
+    assert launch_counts()[kernel] == before + n
+
+
+@pytest.mark.parametrize("name", BY_VALUE)
+def test_by_value_kernels_on_unaligned_views(cuda, name):
+    """Operands that start one byte into their storage take the byte
+    path of the kernel, not the 16-byte vectors."""
+    rng = _rng("bv-unaligned", name)
+    wrapper, plain, args, _ = _by_value_case(name, 5, 256, rng, cuda)
+
+    def shift(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        return view
+    args = tuple(shift(a) for a in args)
+    assert torch.equal(wrapper(*args), plain(*args))
+
+
+def test_by_value_kernels_from_four_threads(cuda):
+    """The sharded cluster's worker threads call the wrappers at once:
+    every result stays right and no launch count is lost."""
+    cases = [_by_value_case(name, 64, 4096, _rng("thr", name), cuda)
+             for name in BY_VALUE]
+    wants = [plain(*args) for _, plain, args, _ in cases]
+    reps, errors = 20, []
+    before = launch_counts()
+
+    def run():
+        try:
+            for _ in range(reps):
+                for (wrapper, _, args, _), want in zip(cases, wants):
+                    if not torch.equal(wrapper(*args), want):
+                        errors.append("differs")
+        except Exception as e:                  # noqa: BLE001
+            errors.append(repr(e))
+    threads = [threading.Thread(target=run) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[:3]
+    after = launch_counts()
+    for kernel in {k for *_, k in cases}:
+        n = sum(_launches_of(wrapper, args)
+                for wrapper, _, args, k in cases if k == kernel)
+        assert after[kernel] - before[kernel] == 4 * reps * n
+
+
+# a profiler trace of one call of each by-value wrapper, in a process of
+# its own: a torch.profiler session leaves the tracer in a state in which a
+# later session of this process (the flash body test) may see no kernels
+_TRACE_BY_VALUE = """
+import json, sys
+sys.path[:0] = ["src", "tests"]
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+import test_torch_gpu as t
+dev = torch.device("cuda")
+cases = [t._by_value_case(n, 64, 4096, t._rng("sync", n), dev)
+         for n in t.BY_VALUE]
+for wrapper, _, args, _ in cases:
+    wrapper(*args)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    for wrapper, _, args, _ in cases:
+        wrapper(*args)
+    torch.cuda.synchronize()
+print(json.dumps(sorted({ev.name for ev in p.events()
+                         if ev.device_type == DeviceType.CUDA})))
+"""
+
+
+def test_by_value_wrappers_neither_copy_nor_wait(cuda):
+    """Given host coefficients, the wrappers of kernels 4-7 raise nothing
+    under sync-debug mode "error", and a profiler trace of their calls
+    holds their kernels and no host-to-device copy."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    cases = [_by_value_case(name, 64, 4096, _rng("sync", name), cuda)
+             for name in BY_VALUE]
+    for wrapper, _, args, _ in cases:
+        wrapper(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for wrapper, _, args, _ in cases:
+            wrapper(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    proc = subprocess.run([sys.executable, "-c", _TRACE_BY_VALUE],
+                          cwd=Path(__file__).resolve().parents[1],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert any("per_item_kernel" in n for n in names), names
+    assert any("delta_batched_kernel" in n for n in names), names
+    assert not [n for n in names if "HtoD" in n], names
+
+
+@pytest.mark.parametrize("name", ["delta_apply", "fold_rdp_general"])
+def test_by_value_wrappers_read_back_device_coefficients(cuda, name):
+    """Coefficients given as a card tensor are read back to the host
+    (documented: that read waits on the stream) and give the same bytes."""
+    wrapper, plain, args, _ = _by_value_case(name, 64, 256,
+                                             _rng("dev-coefs", name), cuda)
+    i = 1 if wrapper is delta_apply_batched else 0
+    on_card = list(args)
+    on_card[i] = torch.from_numpy(np.asarray(args[i])).to(cuda)
+    assert torch.equal(wrapper(*on_card), plain(*args))
+
+
+def test_library_tiers_match_coefs(cuda):
+    lib = _build.library()
+    assert tuple(lib.gf_coef_tier(i) for i in range(len(coefs.TIERS))) \
+        == coefs.TIERS
+    assert lib.gf_coef_tier(len(coefs.TIERS)) == -1
 
 
 # ---------------------------------------------------------------------------
