@@ -25,7 +25,9 @@ in place of the card):
              starcoder2-3b prefill shape; kernels 4-7 (coefficients in
              the launch parameters) also in their other coefficient form
              (0/1 masks or general bytes) and at a batch that splits
-             into several launches, and their timed calls must show no
+             into several launches; the timed calls of kernels 1, 2 and
+             4-8 (coefficients, or for 1, 2 and 8 the shared matrix's
+             nibble tables, in the launch parameters) must show no
              host-to-device copy in the trace and raise nothing under
              sync-debug mode "error"; at the widths the main path gives
              each kernel: CUDA-event time of a wrapper call, the
@@ -35,9 +37,9 @@ in place of the card):
              calls) and the achieved TFLOP/s (bf16 at the prefill shape
              and at B 1, S 256; fp32 at the prefill shape), and the bound
              from these inputs' bytes and operations; then the
-             engine-level host time of an RS sealed-update batch and of
-             the RS and RDP seal folds (B = 64) on the CUDA and numpy
-             engines;
+             engine-level host time of an RS sealed-update batch, of the
+             RS and RDP seal folds and of an RS encode and fused decode
+             (B = 64) on the CUDA and numpy engines;
 4. RS      - the paper's testbed (``configs/memec.py``: 16 servers,
              4 proxies, RS(10,8), c = 16, 4 KB chunks) on
              ``engine="cuda"``, YCSB batch 64: load, workload A, a
@@ -82,6 +84,11 @@ in place of the card):
              ``repro_torch.launch.serve`` at its defaults (4 x 32 prompt
              tokens, 32 generated).
 
+While phases 4-8 run, ``ShapeLog`` counts each call of kernels 1-8 by
+shape, and after them its calls must add up to the launches those phases
+counted (a call reached through a binding it does not wrap fails the
+run); then every shape is timed and each kernel's loss per run, calls x
+(kernel ms - bound ms), is printed beside its launches.
 Kernel 10 is also held against its plain version on the real object
 index of a server of the loaded RS testbed.  Every phase of 4-9 starts
 with the launch counts at 0 and reads them when it ends; launches made
@@ -343,6 +350,7 @@ def kernel_specs(np, torch, dev):
     rs_dec = fused("rs", 10, 8, range(2, 10), (0, 1, 8, 9))
     # RS(14,10): a lost data chunk, all four parities re-encoded
     f4_dec = fused("rs", 14, 10, range(1, 14), (0, 10, 11, 12, 13))
+    E14 = block_rep(make_code("rs", 14, 10)).encode       # (4, 10) encode
     # RDP(10,8), r = 16: the (32, 128) block encode matrix and the fused
     # decode of two lost data chunks with both parities, (160, 128)
     rdp = make_code("rdp", 10, 8)
@@ -351,6 +359,7 @@ def kernel_specs(np, torch, dev):
     rdp_dec = fused("rdp", 10, 8, range(2, 10), (0, 1, 8, 9))
     assert gm.choose_strategy(rs_dec) == "unroll"
     assert gm.choose_strategy(f4_dec) == "cols" and f4_dec.shape == (14, 10)
+    assert gm.choose_strategy(E14) == "unroll" and E14.shape == (4, 10)
     assert gm.choose_strategy(R) == "gf01" and R.shape == (32, 128)
     assert gm.choose_strategy(rdp_dec) == "gf01"
     assert rdp_dec.shape == (160, 128)
@@ -475,11 +484,12 @@ def kernel_specs(np, torch, dev):
     # profiler names the launch
     return [
         dict(name="gf_matmul_batched", cuda_name="matmul_batched_kernel",
-             replaces="src/repro/kernels/gf256_matmul.py:95",
+             by_value=True, replaces="src/repro/kernels/gf256_matmul.py:95",
              cases={"decode_10x8": matmul(rs_dec, "unroll", RS_C, 4096),
-                    "encode_2x8": matmul(E, "unroll", RS_C, 4096)}),
+                    "encode_2x8": matmul(E, "unroll", RS_C, 4096),
+                    "encode_4x10": matmul(E14, "unroll", RS_C, 4096)}),
         dict(name="gf_matmul_cols_batched",
-             cuda_name="matmul_cols_kernel",
+             cuda_name="matmul_cols_kernel", by_value=True,
              replaces="src/repro/kernels/gf256_matmul.py:124",
              cases={"decode_14x10": matmul(f4_dec, "cols", RS_C, 4096)}),
         dict(name="gf01_matmul_batched", cuda_name="gf01_matmul_kernel",
@@ -512,7 +522,7 @@ def kernel_specs(np, torch, dev):
              replaces="src/repro/kernels/delta_update.py:80",
              cases={"delta_m2": delta_case(False)}),
         dict(name="gf_matmul", cuda_name="matmul_batched_kernel",
-             replaces="src/repro/kernels/gf256_matmul.py:66",
+             by_value=True, replaces="src/repro/kernels/gf256_matmul.py:66",
              cases={"encode_2x8": single(rs.parity_matrix),
                     "decode_8x8": single(inv)}),
         dict(name="gf_delta_update", cuda_name="delta_update_kernel",
@@ -685,9 +695,9 @@ def run_kernels(np, torch, dev):
                                      bound_ms=b_ms, bound_by=by,
                                      bytes=nbytes, ops=ops)
                 flops_txt = ""
-                if "ops_per_s" in case:   # floating-point operations
-                    t = kernel_ms if kernel_ms is not None else ms
-                    timing[label]["tflops"] = ops / t / 1e9
+                if "ops_per_s" in case and kernel_ms is not None:
+                    # floating-point operations over the kernel's own time
+                    timing[label]["tflops"] = ops / kernel_ms / 1e9
                     flops_txt = (f", {timing[label]['tflops']:.1f} TFLOP/s "
                                  f"achieved")
                 kernel_txt = ("not measured (no device time in the trace)"
@@ -720,13 +730,16 @@ def run_kernels(np, torch, dev):
 
 
 def engine_calls(np, torch) -> dict:
-    """Host time of one engine call around kernels 5 and 6, at the YCSB
+    """Host time of one engine call around kernels 1, 5 and 6, at the YCSB
     window (B = 64) and 4 KB chunks: ``submit_apply_delta(...).result()``
-    on RS(10,8) (a sealed UPDATE batch: kernel 6) and
+    on RS(10,8) (a sealed UPDATE batch: kernel 6),
     ``submit_fold_rows(...).result()`` on RS(10,8) and RDP(10,8) (seal
-    folds: kernel 5), on the CUDA engine beside the numpy engine, timed in
-    turns (numpy, cuda, cuda, numpy), 100 calls each.  The engines'
-    results must agree.  A measurement only: it counts toward no phase."""
+    folds: kernel 5), and ``submit_encode`` and ``submit_decode(...)
+    .result()`` on RS(10,8) (kernel 1: the (2, 8) encode, and the (10, 8)
+    fused decode of two lost data chunks with both parities re-encoded),
+    on the CUDA engine beside the numpy engine, timed in turns (numpy,
+    cuda, cuda, numpy), 100 calls each.  The engines' results must agree.
+    A measurement only: it counts toward no phase."""
     from repro_torch.core.codes import make_code
     from repro_torch.core.engine import CudaEngine, NumpyEngine
     B, C, reps = BATCH, 4096, 100
@@ -745,6 +758,15 @@ def engine_calls(np, torch) -> dict:
         if scheme == "rs":
             calls["apply_delta_rs"] = lambda e: e.submit_apply_delta(
                 par, idx, xors).result()
+            data = rng.integers(0, 256, (B, code.k, C), dtype=np.uint8)
+            stripes = np.concatenate(
+                [data, engines["numpy"].encode_batch(data)], axis=1)
+            avail = [{p: s[p] for p in range(2, code.n)} for s in stripes]
+            wanted = [[0, 1, code.k, code.k + 1]] * B
+            calls["encode_rs"] = lambda e: e.submit_encode(data).result()
+            calls["decode_rs"] = lambda e: [
+                [d[p] for p in w] for d, w in zip(
+                    e.submit_decode(avail, wanted, C).result(), wanted)]
         for name, call in calls.items():
             got = {k: call(e) for k, e in engines.items()}
             assert np.array_equal(got["cuda"], got["numpy"]), name
@@ -757,6 +779,202 @@ def engine_calls(np, torch) -> dict:
                 row.setdefault(f"{k}_ms", []).append(
                     (time.perf_counter() - t0) / reps * 1e3)
             out[name] = row
+    return out
+
+
+# ---------------------------------------------------------------------------
+# main-path shapes: what the phases call each coding kernel at
+# ---------------------------------------------------------------------------
+
+# the ShapeLog in force, if any; ``launched_in`` lets it count
+SHAPE_LOG = None
+
+
+class ShapeLog:
+    """Counts the calls of kernels 1-8 by shape in the main-path phases'
+    counted runs (``launched_in``).  It wraps the kernel wrappers where
+    the engine, ``kernels.ops`` and the quickstart reach them (the module
+    bindings), notes each call that launches on the card under its kernel
+    and shape, keeps the first call's host coefficients of each shape,
+    and calls the wrapper itself: launches and their counts are the
+    wrapper's own."""
+
+    def __init__(self, np):
+        import threading
+        self.np = np
+        self.calls = {}          # (kernel, shape) -> [calls, coefficients]
+        self.lock = threading.Lock()
+        self.saved = []
+        self.active = False
+
+    def note(self, kernel, shape, coef):
+        if self.active:
+            with self.lock:
+                self.calls.setdefault((kernel, shape), [0, coef])[0] += 1
+
+    def _patch(self, module, name, make):
+        self.saved.append((module, name, getattr(module, name)))
+        setattr(module, name, make(getattr(module, name)))
+
+    def __enter__(self):
+        np = self.np
+        gm = importlib.import_module("repro_torch.kernels.gf256_matmul")
+        du = importlib.import_module("repro_torch.kernels.delta_update")
+        ops = importlib.import_module("repro_torch.kernels.ops")
+
+        def batched(fn):
+            def call(A, data, strategy=None):
+                A8 = np.ascontiguousarray(A, dtype=np.uint8)
+                if data.is_cuda and data.numel() and A8.size:
+                    kernel = gm._KERNEL_OF[gm.choose_strategy(A8, strategy)]
+                    self.note(kernel, (A8.shape, tuple(data.shape)), A8)
+                return fn(A, data, strategy)
+            return call
+
+        def single(fn):
+            def call(A, data):
+                A8 = np.ascontiguousarray(A, dtype=np.uint8)
+                if (data.is_cuda and data.numel() and A8.size
+                        and gm.choose_strategy(A8) == "unroll"):
+                    self.note("gf_matmul", (A8.shape, tuple(data.shape)), A8)
+                return fn(A, data)
+            return call
+
+        def per_item(fn):
+            def call(Ms, blocks, parity=None):
+                if blocks.is_cuda and blocks.numel() and np.size(Ms):
+                    Ms8 = np.array(Ms.cpu() if hasattr(Ms, "cpu") else Ms,
+                                   dtype=np.uint8)
+                    self.note("gf_per_item" if parity is None
+                              else "gf_per_item_fold",
+                              (Ms8.shape, tuple(blocks.shape)), Ms8)
+                return fn(Ms, blocks, parity)
+            return call
+
+        def delta(fn):
+            def call(parity, gammas, xor):
+                if xor.is_cuda and xor.numel() and np.size(gammas):
+                    g = np.array(gammas.cpu() if hasattr(gammas, "cpu")
+                                 else gammas)
+                    self.note("gf_delta_only_batched" if parity is None
+                              else "gf_delta_apply_batched",
+                              (g.shape, tuple(xor.shape)), g)
+                return fn(parity, gammas, xor)
+            return call
+
+        self._patch(gm, "gf256_matmul_batched", batched)
+        self._patch(gm, "gf256_matmul", single)
+        self._patch(ops, "gf256_matmul", single)
+        self._patch(du, "gf256_matmul_per_item_batched", per_item)
+        self._patch(du, "delta_apply_batched", delta)
+        global SHAPE_LOG
+        SHAPE_LOG = self
+        return self
+
+    def __exit__(self, *exc):
+        global SHAPE_LOG
+        SHAPE_LOG = None
+        for module, name, fn in reversed(self.saved):
+            setattr(module, name, fn)
+        self.saved.clear()
+
+    def check_launches(self, by_phase: dict) -> None:
+        """Each kernel's logged calls, times the launches its wrapper
+        plans for each shape, must equal the launches that the phases run
+        under this log counted."""
+        from repro_torch.kernels import coefs
+        np = self.np
+
+        def per_call(kernel, mshape, coef):
+            if kernel in ("gf_per_item", "gf_per_item_fold"):
+                per_item = coefs.per_item_coefs(coef)[1].size // mshape[0]
+                return len(coefs.plan_launches(mshape[0], per_item))
+            if kernel in ("gf_delta_apply_batched", "gf_delta_only_batched"):
+                return len(coefs.plan_launches(*mshape))
+            return 1
+
+        logged = dict.fromkeys(CUDA_NAMES, 0)
+        for (kernel, (mshape, _)), (n, coef) in self.calls.items():
+            logged[kernel] += n * per_call(kernel, mshape, np.asarray(coef))
+        launched = {k: sum(n[k] for n in by_phase.values()) for k in logged}
+        assert logged == launched, (
+            f"main-path calls seen by the shape log {logged} differ from "
+            f"the launches counted {launched}")
+
+
+# the __global__ function of each kernel 1-8, as the profiler names it
+CUDA_NAMES = {"gf_matmul_batched": "matmul_batched_kernel",
+              "gf_matmul_cols_batched": "matmul_cols_kernel",
+              "gf01_matmul_batched": "gf01_matmul_kernel",
+              "gf_per_item": "per_item_kernel",
+              "gf_per_item_fold": "per_item_kernel",
+              "gf_delta_apply_batched": "delta_batched_kernel",
+              "gf_delta_only_batched": "delta_batched_kernel",
+              "gf_matmul": "matmul_batched_kernel"}
+
+
+def main_path_losses(np, torch, dev, shape_log) -> dict:
+    """Per kernel of 1-8: its calls on the main path by shape, the kernel's
+    device ms and bound at every shape it was called at (random data of
+    that shape, the coefficients of its first call), and the loss, calls
+    x (kernel ms - bound ms), summed over them.  A shape whose trace holds
+    no device time has kernel ms None, and its kernel's loss is None: no
+    other time stands in.  Kernel 11 runs one main-path shape (the
+    prefill), timed in the kernel phase."""
+    gm = importlib.import_module("repro_torch.kernels.gf256_matmul")
+    du = importlib.import_module("repro_torch.kernels.delta_update")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+
+    def u8(shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    def case(kernel, shape, coef):
+        """(call, bytes and operations, profiler name) of one shape."""
+        mshape, dshape = shape
+        if kernel in ("gf_matmul_batched", "gf_matmul_cols_batched",
+                      "gf01_matmul_batched"):
+            a = (coef, u8(dshape))
+            return (lambda: gm.gf256_matmul_batched(*a),
+                    matmul_work(np, *a, gf01=kernel == "gf01_matmul_batched"))
+        if kernel == "gf_matmul":
+            a = (coef, u8(dshape))
+            return lambda: gm.gf256_matmul(*a), single_matmul_work(np, *a)
+        if kernel in ("gf_per_item", "gf_per_item_fold"):
+            B, O, _ = mshape
+            a = (coef, u8(dshape),
+                 u8((B, O, dshape[2])) if kernel == "gf_per_item_fold"
+                 else None)
+            return (lambda: gm.gf256_matmul_per_item_batched(*a),
+                    per_item_work(np, *a))
+        B, m = mshape
+        a = (u8((B, m, dshape[1])) if kernel == "gf_delta_apply_batched"
+             else None, coef, u8(dshape))
+        return lambda: du.delta_apply_batched(*a), delta_work(np, *a)
+
+    out = {}
+    for kernel in sorted({k for k, _ in shape_log.calls}):
+        shapes = sorted(((n, shape, coef) for (k, shape), (n, coef)
+                         in shape_log.calls.items() if k == kernel),
+                        key=lambda t: -t[0])
+        calls = sum(n for n, _, _ in shapes)
+        timed, loss = [], 0.0
+        for n, shape, coef in shapes:
+            call, (nbytes, ops) = case(kernel, shape, coef)
+            k_ms, _ = kernel_device_ms(torch, call, 50, CUDA_NAMES[kernel])
+            b_ms, _ = bound(nbytes, ops)
+            loss = None if k_ms is None or loss is None \
+                else loss + n * (k_ms - b_ms)
+            timed.append(dict(shape=f"{shape[0]} x {shape[1]}", calls=n,
+                              kernel_ms=k_ms, bound_ms=b_ms))
+        out[kernel] = dict(calls=calls, distinct_shapes=len(shapes),
+                           loss_ms=loss, timed=timed)
+        loss_txt = ("not measured (a shape's trace held no device time)"
+                    if loss is None else f"{loss:.4f} ms")
+        log(f"main-path shapes {kernel}: {calls} calls at {len(shapes)} "
+            f"shapes, all timed; loss {loss_txt} per run:",
+            json.dumps(timed))
     return out
 
 
@@ -908,11 +1126,19 @@ SHARDED_KERNELS = ("gf_per_item_fold", "gf_delta_apply_batched",
 
 
 def launched_in(torch, fn):
-    """Run ``fn`` with every launch count at 0; return its result and the
-    counts it left (read after the card has finished)."""
+    """Run ``fn`` with every launch count at 0 (and the ``ShapeLog`` in
+    force counting); return its result and the counts it left (read after
+    the card has finished)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    shape_log = SHAPE_LOG
     reset_launch_counts()
-    out = fn()
+    if shape_log:
+        shape_log.active = True
+    try:
+        out = fn()
+    finally:
+        if shape_log:
+            shape_log.active = False
     torch.cuda.synchronize()
     return out, launch_counts()
 
@@ -1436,23 +1662,28 @@ def main() -> int:
     log(f"phase kernels: {time.perf_counter() - t_start:.1f} s since start")
     log(f"engine host ms per call, B {BATCH}, C 4096 (turns numpy, cuda, "
         f"cuda, numpy):", json.dumps(engine_calls(np, torch)))
+    with ShapeLog(np) as shapes:
+        t0 = time.perf_counter()
+        launches, rs_cl = run_cluster(np, torch, CONFIG, RS_KERNELS)
+        by_phase = {"rs_cluster": launches}
+        probe_row = next(r for r in rows if r["name"] == "gf_cuckoo_probe")
+        check_probe_on_index(np, torch, rs_cl, probe_row)
+        del rs_cl
+        log(f"phase RS cluster: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        by_phase["rdp_cluster"], _ = run_cluster(
+            np, torch, dataclasses.replace(CONFIG, scheme="rdp"), RDP_KERNELS)
+        log(f"phase RDP cluster: {time.perf_counter() - t0:.1f} s")
+        by_phase["rs_14_10_decode"] = run_wide_decode(np, torch)
+        by_phase["ops"] = run_ops(np, torch)
+        t0 = time.perf_counter()
+        by_phase["sharded"] = run_sharded(np, torch, dataclasses.replace(
+            CONFIG, shards=4, placement="ring", batch_size=BATCH))
+        log(f"phase sharded: {time.perf_counter() - t0:.1f} s")
+    shapes.check_launches(by_phase)
     t0 = time.perf_counter()
-    launches, rs_cl = run_cluster(np, torch, CONFIG, RS_KERNELS)
-    by_phase = {"rs_cluster": launches}
-    probe_row = next(r for r in rows if r["name"] == "gf_cuckoo_probe")
-    check_probe_on_index(np, torch, rs_cl, probe_row)
-    del rs_cl
-    log(f"phase RS cluster: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_phase["rdp_cluster"], _ = run_cluster(
-        np, torch, dataclasses.replace(CONFIG, scheme="rdp"), RDP_KERNELS)
-    log(f"phase RDP cluster: {time.perf_counter() - t0:.1f} s")
-    by_phase["rs_14_10_decode"] = run_wide_decode(np, torch)
-    by_phase["ops"] = run_ops(np, torch)
-    t0 = time.perf_counter()
-    by_phase["sharded"] = run_sharded(np, torch, dataclasses.replace(
-        CONFIG, shards=4, placement="ring", batch_size=BATCH))
-    log(f"phase sharded: {time.perf_counter() - t0:.1f} s")
+    losses = main_path_losses(np, torch, dev, shapes)
+    log(f"main-path shapes timed: {time.perf_counter() - t0:.1f} s")
     by_phase["model_prefill"], by_phase["model_decode_serve"], model = \
         run_model(np, torch, dev)
     log("model phase:", json.dumps(model))
@@ -1460,6 +1691,8 @@ def main() -> int:
         row["launches_by_phase"] = {p: n[row["name"]]
                                     for p, n in by_phase.items()}
         row["launches"] = sum(row["launches_by_phase"].values())
+        if row["name"] in losses:
+            row["main_path"] = losses[row["name"]]
         log(json.dumps({k: row[k] for k in (
             "name", "launches", "launches_by_phase", "ms", "kernel_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",

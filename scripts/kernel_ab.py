@@ -7,10 +7,12 @@ of the parent commit) as the argument:
 
     python3 scripts/kernel_ab.py OTHER [--kernels gf_per_item_fold ...]
 
-For each checkout in the order this, other, other, this, a fresh process
-in that checkout builds its kernel library and runs its own
-``chip_smoke.kernel_specs``: every timed point of the named kernels
-(default: kernels 4-7), with that checkout's inputs, wrapper and timers
+(``--kernels gf_matmul_batched gf_matmul_cols_batched gf_matmul`` for the
+shared-matrix kernels 1, 2 and 8.)  For each checkout in the order this,
+other, other, this, a fresh process in that checkout builds its kernel
+library and runs its own ``chip_smoke.kernel_specs``: every timed point
+of the named kernels (default: kernels 4-7), with that checkout's inputs,
+wrapper and timers
 (``cuda_ms`` for the wrapper call, ``kernel_device_ms`` for the kernel's
 device time).  Prints the card's name and power limit, then one JSON line
 per kernel, case and point with each turn's wrapper and kernel ms.

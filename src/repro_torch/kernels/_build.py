@@ -47,15 +47,15 @@ SIGNATURES = {
     "gf_max_coefs": ((), _I),
     "gf_cols_max_coefs": ((), _I),
     "gf01_max_cols": ((), _I),
-    "gf_matmul_batched": ((_P, _I, _I, _P, _P, _P, _I, _L, _P), _I),
-    "gf_matmul_cols_batched": ((_P, _P, _I, _I, _P, _P, _I, _L, _P), _I),
+    "gf_matmul_batched": ((_I, _P, _I, _I, _P, _P, _I, _L, _P), _I),
+    "gf_matmul_cols_batched": ((_I, _P, _I, _I, _P, _P, _I, _L, _P), _I),
     "gf01_matmul_batched": ((_P, _I, _I, _P, _P, _I, _L, _P), _I),
     "gf_coef_tier": ((_I,), _I),
     "gf_per_item": ((_I, _P, _I, _P, _P, _I, _I, _I, _L, _P), _I),
     "gf_per_item_fold": ((_I, _P, _I, _P, _P, _P, _I, _I, _I, _L, _P), _I),
     "gf_delta_apply_batched": ((_I, _P, _P, _P, _P, _I, _I, _L, _P), _I),
     "gf_delta_only_batched": ((_I, _P, _P, _P, _I, _I, _L, _P), _I),
-    "gf_matmul": ((_P, _I, _I, _P, _P, _P, _L, _P), _I),
+    "gf_matmul": ((_I, _P, _I, _I, _P, _P, _L, _P), _I),
     "gf_delta_max_rows": ((), _I),
     "gf_delta_update": ((_P, _P, _I, _P, _P, _P, _P, _L, _P), _I),
     "gf_cuckoo_probe": ((_P, _P, _P, _P, _P, _P, _P, _I, _P), _I),
@@ -188,7 +188,7 @@ def _tables(device: torch.device) -> torch.Tensor:
 
 
 def tables(device: torch.device) -> torch.Tensor:
-    """The device table buffer the kernels read:
+    """The device table buffer the single-stripe delta kernel reads:
     MUL_TABLE (65536) | EXP_TABLE (512) | LOG_TABLE (256), uint8."""
     return _tables(torch.device(device))
 

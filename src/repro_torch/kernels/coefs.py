@@ -1,11 +1,12 @@
-"""Per-item coefficients passed by value in the kernels' launch parameters.
+"""Coefficients passed by value in the kernels' launch parameters.
 
 The batched delta kernels (6, 7) and the per-item kernels (4, 5) take
-their coefficients in a ``__grid_constant__`` parameter struct instead
-of a device buffer, so their wrappers copy nothing to the card and never
-wait on the stream (``csrc/gf256.cu``, "Coefficients by value").  This
-module holds the host side of that, in plain numpy, so it runs and is
-tested on any host:
+their coefficients, and the shared-matrix kernels (1, 2, 8) their
+matrix's nibble tables, in a ``__grid_constant__`` parameter struct
+instead of a device buffer, so their wrappers copy nothing to the card
+and never wait on the stream (``csrc/gf256.cu``, "Coefficients by value"
+and "Shared-matrix products by value").  This module holds the host side
+of that, in plain numpy, so it runs and is tested on any host:
 
 * ``TIERS``: the byte sizes of the parameter struct the kernels are
   built in.  A launch picks the smallest that holds its coefficients;
@@ -19,6 +20,12 @@ tested on any host:
   32 bytes per item this way, against 256 as bytes.
 * ``per_item_coefs``: the form the per-item kernels get a batch of
   matrices in: row masks where they apply, else the bytes.
+* ``matrix_tables``: a shared (m, k) matrix as its coefficients' nibble
+  tables, six 32-bit words each (``struct Nib``: the products of the
+  coefficient with the low and the high nibbles, ``NIB_WORDS``), 24 bytes
+  a coefficient in row-major order; ``matrix_tier`` names the parameter
+  tier they fit, or ``DEVICE`` above the largest (more than 1,360
+  coefficients), where the wrapper keeps them in a device buffer instead.
 """
 from __future__ import annotations
 
@@ -29,6 +36,11 @@ import numpy as np
 TIERS = (512, 4096, 32640)
 #: widest 0/1 row a mask holds (four bytes)
 MAX_MASK_COLS = 32
+#: the words of one coefficient's nibble tables, in the order of
+#: ``struct Nib`` in ``csrc/gf256.cu``
+NIB_WORDS = ("l0", "l1", "l8", "h0", "h1", "h8")
+#: the tier index of tables that exceed every tier (``kDeviceTier``)
+DEVICE = -1
 
 
 def plan_launches(B: int, per_item: int,
@@ -93,3 +105,41 @@ def per_item_coefs(Ms: np.ndarray) -> tuple[int, np.ndarray]:
     if J <= MAX_MASK_COLS and is01(Ms):
         return mask_bytes(J), _pack(Ms)
     return 0, Ms
+
+
+def _xtime(v: np.ndarray) -> np.ndarray:
+    d = v << np.uint32(1)
+    return d ^ ((d >> np.uint32(8)) * np.uint32(0x11D))
+
+
+def nib_words(g) -> np.ndarray:
+    """(..., 6) uint32: the nibble tables of each coefficient ``g`` in
+    ``NIB_WORDS`` order, as the kernels' ``nib_tables`` builds them from
+    g's doublings p_j = g * 2^j (POLY 0x11D): l0, l1 hold g*i for i < 8
+    one byte each, l8 g*8 in every byte; h0, h1, h8 the same for g*16."""
+    p = [np.asarray(g, dtype=np.uint32) & np.uint32(255)]
+    for _ in range(7):
+        p.append(_xtime(p[-1]))
+    rep = np.uint32(0x01010101)
+
+    def first(a, b):            # g*0, a, b, a ^ b in the four bytes
+        return (a << np.uint32(8)) | (b << np.uint32(16)) \
+            | ((a ^ b) << np.uint32(24))
+    l0, h0 = first(p[0], p[1]), first(p[4], p[5])
+    return np.stack([l0, l0 ^ (p[2] * rep), p[3] * rep,
+                     h0, h0 ^ (p[6] * rep), p[7] * rep], axis=-1)
+
+
+_NIB = nib_words(np.arange(256)).astype("<u4")
+
+
+def matrix_tables(A: np.ndarray) -> np.ndarray:
+    """(m, k) matrix -> (m * k * 6,) little-endian uint32: the nibble
+    tables of A[r, i] at words 6 * (r * k + i) onward."""
+    return _NIB[np.asarray(A, dtype=np.uint8).reshape(-1)].reshape(-1)
+
+
+def matrix_tier(nbytes: int, tiers: tuple = TIERS) -> int:
+    """The smallest tier index whose struct holds ``nbytes`` of tables,
+    or ``DEVICE`` when none does."""
+    return next((i for i, t in enumerate(tiers) if nbytes <= t), DEVICE)

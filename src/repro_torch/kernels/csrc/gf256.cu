@@ -15,52 +15,43 @@
 //   gf_cuckoo_probe         <- kernels/cuckoo_lookup.py:_probe_kernel
 //
 // The Pallas bodies decompose every product into 8 bit-planes because the
-// TPU's vector unit cannot gather bytes.  A GPU gathers from shared memory
-// cheaply, so here a GF(2^8) product is a table lookup:
+// TPU's vector unit cannot gather bytes.  Here a GF(2^8) product is a
+// lookup:
 //
-//   * gf_matmul_batched keeps one 256-byte MUL_TABLE row per coefficient
-//     of the shared (m, k) matrix in shared memory (m*k*256 bytes, 20 KB
-//     at (10, 8)): one lookup per product;
-//   * the column-loop kernel and the single-stripe delta keep the 512-byte
-//     EXP and 256-byte LOG tables in shared memory: g*x = x ? EXP[LOG[x] +
-//     LOG[g]] : 0.  The column-loop kernel takes LOG[x] once per input
-//     byte and shares it across a group of 4 output rows held in
-//     registers;
-//   * the per-item and batched delta kernels (4-7) build two 16-entry
-//     nibble tables of their coefficient in registers and look bytes up
-//     four at a time with __byte_perm (see "Coefficients by value" below);
+//   * the shared-matrix products (kernels 1, 2 and 8) and the per-item and
+//     batched delta kernels (4-7) look bytes up four at a time with
+//     __byte_perm in two 16-entry nibble tables of their coefficient, six
+//     registers a coefficient (see "Coefficients by value" below); kernels
+//     4-7 build the tables in registers, kernels 1, 2 and 8 get them built
+//     by the host, once per matrix, in their launch parameters;
+//   * the single-stripe delta keeps the 512-byte EXP and 256-byte LOG
+//     tables in shared memory: g*x = x ? EXP[LOG[x] + LOG[g]] : 0;
 //   * a 0/1 coefficient needs no table at all: 1*x is a select, so
 //     gf01_matmul_batched is pure XOR over the set bits of each matrix
-//     row (packed into 32-bit masks and walked with __ffs), and the
-//     per-item kernels walk 0/1 rows the same way (the RDP deltas and
-//     seal folds are 0/1) and XOR whole 16-byte vectors when g = 1.
+//     row (packed into 32-bit masks and walked with __ffs), the per-item
+//     kernels walk 0/1 rows the same way (the RDP deltas and seal folds
+//     are 0/1), and every nibble-table kernel XORs whole 16-byte vectors
+//     when g = 1.
 //
-// Work split of kernels 1-3: a block is 256 threads and each thread owns
-// 16 contiguous bytes of a row.  RDP's sub-block rows are 256 bytes (C/r
-// at 4 KB chunks, r = 16), so a kernel that gave a block one 4096-byte
-// tile of one row would idle 15 of every 16 threads.  Instead the host
-// picks `lanes`, the
-// threads per row (a power of two, 16 bytes each, just enough to cover C
-// up to 256 threads), and a block covers 256 / lanes rows side by side:
+// Work split of the 0/1 kernel (3): a block is 256 threads and each thread
+// owns 16 contiguous bytes of a row.  RDP's sub-block rows are 256 bytes
+// (C/r at 4 KB chunks, r = 16), so a kernel that gave a block one
+// 4096-byte tile of one row would idle 15 of every 16 threads.  Instead
+// the host picks `lanes`, the threads per row (a power of two, 16 bytes
+// each, just enough to cover C up to 256 threads); the block stages one
+// item's (K, lanes*16) input tile in shared memory (32 KB at RDP's
+// (128, 256)), reading each input byte once, and its 256 / lanes row
+// groups XOR output rows out of it.  Blocks walk their units grid-stride.
 //
-//   * the column-loop kernel puts 256 / lanes items in one block;
-//   * the 0/1 kernel stages one item's (K, lanes*16) input tile in shared
-//     memory (32 KB at RDP's (128, 256)), reading each input byte once,
-//     and the block's 256 / lanes row groups XOR output rows out of it.
-//
-// Blocks walk their units grid-stride, so the tables are built once per
-// block.  When C is a multiple of 16 and every pointer is 16-byte aligned
-// the bytes move as one 16-byte vector load/store per thread; otherwise
+// When C is a multiple of 16 and every pointer is 16-byte aligned the
+// bytes move as one 16-byte vector load/store per thread; otherwise
 // (C = 1000, say) the same loop runs a byte at a time and masks the
 // ragged tail.
 //
 // Bound: each kernel moves every input byte once and every output byte
-// once; at the shapes of the coding path that is far below the card's
-// compute, so the floor is device-memory bandwidth.  The tables stay on
-// chip (no global gathers) and each output byte is written once.
-// Shared-memory byte gathers with bank conflicts are the expected limit of
-// the table kernels; the 0/1 kernel's inner loop is one conflict-free
-// 16-byte shared-memory load and XOR per set bit.
+// once; at the shapes of the coding path the floor is device-memory
+// bandwidth, or for the larger shared matrices the integer issue rate of
+// the nibble products (see their note).
 //
 // The single-stripe entries of kernels/ops.py and the index probe have
 // notes of their own beside their kernels below.
@@ -80,13 +71,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kVec = 16;
 constexpr int kTile = kThreads * kVec;
-// shared (m, k) matrix: its coefficients travel in the kernel parameters,
-// and its MUL_TABLE rows (m*k*256 bytes) must fit in shared memory
+// unroll kernel (1): the most coefficients of its shared (m, k) matrix
+// (its tables, 24 bytes a coefficient, always fit a parameter tier)
 constexpr int kMaxCoefs = 896;
-// column-loop kernel: the (m, k) matrix is staged in shared memory
+// column-loop kernel (2): the most coefficients of its matrix
 constexpr int kColsMaxCoefs = 32768;
-// output rows a column-loop thread accumulates in registers at once
-constexpr int kColsRows = 4;
 // 0/1 kernel: shared memory for one (K, lanes*16) input tile; at one
 // lane a row takes 16 bytes, so K may reach kGf01Smem / 16 columns
 constexpr int kGf01Smem = 96 * 1024;
@@ -94,15 +83,10 @@ constexpr int kGf01MaxCols = kGf01Smem / kVec;
 // single-stripe delta: the m gammas travel in the kernel parameters
 constexpr int kDeltaMaxRows = 256;
 
-// Layout of the device table buffer the wrapper passes in:
+// Layout of the device table buffer the single-stripe delta reads:
 // MUL_TABLE (256*256) | EXP_TABLE (512) | LOG_TABLE as bytes (256).
-constexpr int kMulOff = 0;
 constexpr int kExpOff = 65536;
 constexpr int kLogOff = 65536 + 512;
-
-struct Coefs {
-  uint8_t a[kMaxCoefs];
-};
 
 struct Gammas {
   uint8_t g[kDeltaMaxRows];
@@ -150,106 +134,6 @@ __device__ __forceinline__ void load_exp_log(const uint8_t* __restrict__ tables,
   for (int i = threadIdx.x; i < 256; i += blockDim.x)
     log_s[i] = tables[kLogOff + i];
   __syncthreads();
-}
-
-// P[b, r] = XOR_i A[r, i] * D[b, i]  over GF(2^8); D (B, k, C), P (B, m, C).
-__global__ void __launch_bounds__(kThreads)
-matmul_batched_kernel(Coefs A, int m, int k, const uint8_t* __restrict__ tables,
-                      const uint8_t* __restrict__ D, uint8_t* __restrict__ out,
-                      int B, long long C, long long tiles, bool vec) {
-  extern __shared__ uint8_t tab[];  // m*k rows of 256 products
-  const int nt = m * k * 256;
-  for (int i = threadIdx.x; i < nt; i += blockDim.x)
-    tab[i] = tables[kMulOff + (int)A.a[i >> 8] * 256 + (i & 255)];
-  __syncthreads();
-  const long long units = (long long)B * tiles;
-  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
-    const long long b = u / tiles;
-    const long long c0 = (u % tiles) * kTile + (long long)threadIdx.x * kVec;
-    if (c0 >= C) continue;
-    const int nb = (int)min((long long)kVec, C - c0);
-    const uint8_t* d = D + b * k * C + c0;
-    uint8_t* o = out + b * m * C + c0;
-    for (int r = 0; r < m; ++r) {
-      V16 acc;
-      acc.q = make_uint4(0u, 0u, 0u, 0u);
-      for (int i = 0; i < k; ++i) {
-        const V16 x = load16(d + (long long)i * C, nb, vec);
-        const uint8_t* row = tab + (r * k + i) * 256;
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) acc.b[j] ^= row[x.b[j]];
-      }
-      store16(o + (long long)r * C, acc, nb, vec);
-    }
-  }
-}
-
-// out[b, o] = XOR_i A[o, i] * D[b, i] for a dense (m, k) matrix above the
-// unroll limit; A (m, k) uint8 in device memory, D (B, k, C), out (B, m, C).
-// A block holds 256 / lanes items side by side, each thread 16 bytes of
-// one item; output rows go in groups of kColsRows, accumulated in
-// registers, so each input vector and its LOG bytes are loaded once per
-// group and shared by the group's rows (once in all for m <= 4, four
-// times at RS(14,10)'s (14, 10)).  Groups of 4 keep the thread at 64
-// registers with no spills; groups of 8 or 16 spilled to local memory.
-__global__ void __launch_bounds__(kThreads)
-matmul_cols_kernel(const uint8_t* __restrict__ tables,
-                   const uint8_t* __restrict__ A, int m, int k,
-                   const uint8_t* __restrict__ D, uint8_t* __restrict__ out,
-                   int B, long long C, int lanes, long long tiles, bool vec) {
-  __shared__ uint8_t exp_s[512];
-  __shared__ uint8_t log_s[256];
-  extern __shared__ uint8_t a_s[];  // the m*k coefficients
-  for (int i = threadIdx.x; i < m * k; i += blockDim.x) a_s[i] = A[i];
-  load_exp_log(tables, exp_s, log_s);
-  const int per_block = blockDim.x / lanes;
-  const int sub = threadIdx.x / lanes, lane = threadIdx.x % lanes;
-  const long long groups = ((long long)B + per_block - 1) / per_block;
-  const long long units = groups * tiles;
-  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
-    const long long b = (u / tiles) * per_block + sub;
-    const long long c0 = (u % tiles) * lanes * kVec + (long long)lane * kVec;
-    if (b >= B || c0 >= C) continue;
-    const int nb = (int)min((long long)kVec, C - c0);
-    const uint8_t* d = D + b * k * C + c0;
-    uint8_t* o = out + b * m * C + c0;
-    for (int r0 = 0; r0 < m; r0 += kColsRows) {
-      // acc[r][w]: bytes 4w..4w+3 of output row r0 + r, built with
-      // shifts so the accumulators stay in registers
-      uint32_t acc[kColsRows][4];
-#pragma unroll
-      for (int r = 0; r < kColsRows; ++r)
-#pragma unroll
-        for (int w = 0; w < 4; ++w) acc[r][w] = 0u;
-      for (int i = 0; i < k; ++i) {
-        const V16 x = load16(d + (long long)i * C, nb, vec);
-        // LOG of each byte, 255 (no log is that large) marking a zero byte
-        V16 lx;
-#pragma unroll
-        for (int t = 0; t < kVec; ++t) lx.b[t] = x.b[t] ? log_s[x.b[t]] : 255;
-#pragma unroll
-        for (int r = 0; r < kColsRows; ++r) {
-          const int g = r0 + r < m ? a_s[(r0 + r) * k + i] : 0;
-          if (g == 0) continue;
-          const int lg = log_s[g];
-#pragma unroll
-          for (int t = 0; t < kVec; ++t) {
-            const int l = lx.b[t];
-            const uint32_t p = l == 255 ? 0u : exp_s[l + lg];
-            acc[r][t >> 2] ^= p << (8 * (t & 3));
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kColsRows; ++r) {
-        if (r0 + r < m) {
-          V16 v;
-          v.q = make_uint4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-          store16(o + (long long)(r0 + r) * C, v, nb, vec);
-        }
-      }
-    }
-  }
 }
 
 // out[b, o] = XOR_{j : bit j of row o} D[b, j] for a 0/1 (M, K) matrix;
@@ -538,6 +422,211 @@ delta_batched_kernel(const __grid_constant__ CoefBytes<N> G,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Shared-matrix products by value: kernels 1 and 2, and kernel 8 (kernel
+// 1's launcher at B = 1).
+//
+// Replace gf256_matmul.py:_gf_matmul_batched_kernel (strategy unroll),
+// _gf_matmul_cols_kernel (strategy cols) and _gf_matmul_kernel (the single
+// stripe of kernels/ops.py): out[b, r] = XOR_i A[r, i] * D[b, i] over
+// GF(2^8) for one (m, k) matrix that every item shares; D (B, k, C), out
+// (B, m, C).  RS/XOR encode and every fused decode of a fail_server
+// recovery run here, at B = 64 (a YCSB window) up to a recovery batch of
+// hundreds to thousands of stripes.  The design is the by-value one
+// above, applied to a matrix shared across the batch:
+//
+//   * Tables by value, built once per matrix.  The host computes each
+//     coefficient's six Nib words (l0, l1, l8, h0, h1, h8: 24 bytes, what
+//     nib_tables computes; kernels/coefs.py matrix_tables, cached per
+//     matrix) and they travel in a __grid_constant__ struct of the
+//     kCoefTiers sizes: 1,920 B at (10, 8) and 3,360 B at (14, 10), both
+//     in the 4,096-byte tier.  Every thread of a warp reads the same
+//     coefficient at the same time: a broadcast from the parameter bank.
+//     No shared-memory table, no prologue, no __syncthreads, and the MUL
+//     table buffer is no longer an argument.
+//   * Matrices beyond the largest tier (above 1,360 coefficients, e.g.
+//     (64, 64); no main-path matrix comes near) take their tables from a
+//     device buffer that the wrapper copies to the card once per matrix
+//     and caches, never once per call; the kernel reads it with uniform
+//     loads.  (Reading only l0 there and building the rest with nib_tables
+//     in the thread was slower: 7.69 against 5.94 ms for a (64, 64)
+//     matrix at B = 1024 on an NVIDIA H100 80GB HBM3 at 700 W.)
+//   * Coefficient 0 is skipped and 1 is a plain XOR: l0 is 0 for g = 0
+//     and kNibOne for g = 1, so one word decides, a branch uniform over
+//     the warp.
+//   * Inputs read once.  One thread owns one 16-byte vector of one item.
+//     It walks the k inputs outermost, kGroup loads in flight together,
+//     makes each input word's Sel4 selectors once and XORs the input's
+//     products into every output row it holds: 4 registers a row.  When
+//     the batch fills the card (B * C / 16 vectors >= kFillThreads an SM)
+//     a thread holds kMat1Rows = 10 rows (kernel 1: an RS(10,8) decode in
+//     one pass) or kMat2Rows = 7 (kernel 2: an RS(14,10) decode in two
+//     passes over its inputs, the second from L1/L2), or 2 or 4 for a
+//     matrix of at most 2 or 4 rows.
+//   * A grid that fills the card.  One unit a thread, 64-thread blocks,
+//     grid-stride past kBlocksPerSm blocks an SM.  A batch too small to
+//     fill the card (B = 64 at C = 4 KB is 16,384 vectors) gives each
+//     thread two rows and puts the row groups side by side on blockIdx.y,
+//     with kMatSmallGroup loads in flight: five times the threads for a
+//     (10, 8) decode, each a fifth of the chain of dependent work.
+//
+// Registers (ptxas -v, sm_90a, scripts/by_value_variants.py, no spills):
+// kernel 1 at 10 rows 128, kernel 2 at 7 rows 96 (__launch_bounds__ at 8
+// and 10 blocks an SM), 60-77 for the 2- and 4-row shapes.  Rejected on
+// an NVIDIA H100 80GB HBM3 at 700 W, kernel ms at B = 4096, C = 4 KB:
+// all rows in one pass (12 or 16 rows, 122-158 registers: 0.24 / 0.35 ms
+// for (10, 8) / (14, 10)); two vectors a thread (0.18-0.23 / 0.28-0.35
+// at 168-255 registers); kernel 1 capped at 96 registers (0.151-0.158,
+// with 17 spill stores); kernel 2 at 80 registers (0.261 against 0.279,
+// with 4 spill stores).
+//
+// Bound: bytes, (k + m) * C per item: each input read once and each
+// output written once (302 MB, 0.0901 ms at 3.35 TB/s for the (10, 8)
+// decode at B = 4096, C = 4 KB).  The arithmetic is 2 __byte_perm and 3
+// LOP3 per general coefficient and 4-byte word, plus about 15 operations
+// per input word for its selectors: about 2e9 integer operations for that
+// decode and 4e9 for the (14, 10) one (two passes), 0.12 and 0.25 ms of
+// the CUDA cores' 64 integer operations a clock an SM at 1.98 GHz, so the
+// larger matrices are held by integer issue, not by bytes.
+// ---------------------------------------------------------------------------
+
+constexpr int kNibWords = 6;
+// Nib::l0 of g = 1 (g*i = i for i < 4): a plain XOR, no table
+constexpr uint32_t kNibOne = 0x03020100u;
+// the output rows a thread of kernel 1 (and 8) and of kernel 2 holds in
+// registers when the card is full, and the blocks an SM must hold of each
+// (__launch_bounds__, capping registers at 65,536 / (64 * blocks))
+constexpr int kMat1Rows = 10;
+constexpr int kMat1MinBlocks = 8;
+constexpr int kMat2Rows = 7;
+constexpr int kMat2MinBlocks = 10;
+// a grid of fewer vectors than kFillThreads an SM splits the rows across
+// threads instead (two rows a thread, a row group per blockIdx.y)
+constexpr int kFillThreads = 512;
+// input loads a thread of such a grid issues together
+constexpr int kMatSmallGroup = 4;
+// tier index of tables in a device buffer (kernel 2 only)
+constexpr int kDeviceTier = -1;
+
+// tables in the launch parameters, kCoefTiers bytes
+template <int N>
+struct CoefWords {
+  uint32_t w[N / 4];
+  __device__ __forceinline__ uint32_t word(int i) const { return w[i]; }
+  __device__ __forceinline__ Nib nib(int i, uint32_t l0) const {
+    Nib t;
+    t.l0 = l0;
+    t.l1 = w[i + 1];
+    t.l8 = w[i + 2];
+    t.h0 = w[i + 3];
+    t.h1 = w[i + 4];
+    t.h8 = w[i + 5];
+    return t;
+  }
+};
+
+// tables in a device buffer, for matrices above the largest tier
+struct DevWords {
+  const uint32_t* __restrict__ w;
+  __device__ __forceinline__ uint32_t word(int i) const { return __ldg(w + i); }
+  __device__ __forceinline__ Nib nib(int i, uint32_t l0) const {
+    Nib t;
+    t.l0 = l0;
+    t.l1 = __ldg(w + i + 1);
+    t.l8 = __ldg(w + i + 2);
+    t.h0 = __ldg(w + i + 3);
+    t.h1 = __ldg(w + i + 4);
+    t.h8 = __ldg(w + i + 5);
+    return t;
+  }
+};
+
+// out[b, r] = XOR_i A[r, i] * D[b, i], the tables of A[r, i] at words
+// 6 * (r * k + i) of T.  Unit t is vector t % vecs of item t / vecs; a
+// thread computes rows r0 .. r0 + MR - 1 for r0 = blockIdx.y * MR,
+// stepping gridDim.y * MR (all rows when gridDim.y is 1), with G input
+// loads in flight.  Every thread of a block runs the same number of
+// turns of the unit loop (a thread past the last unit loads and stores
+// nothing), so the matrix's indices, table loads and coefficient branches
+// are uniform.
+template <int MR, int G, class Tab>
+__device__ __forceinline__ void shared_matmul(const Tab& T, int m, int k,
+                                              const uint8_t* __restrict__ D,
+                                              uint8_t* __restrict__ out, int B,
+                                              long long C, long long vecs,
+                                              bool vec) {
+  const long long units = (long long)B * vecs;
+  for (long long base = (long long)blockIdx.x * kSmallThreads; base < units;
+       base += (long long)gridDim.x * kSmallThreads) {
+    const long long t = base + threadIdx.x;
+    const bool live = t < units;
+    const long long b = live ? t / vecs : 0;
+    const long long c0 = live ? (t - b * vecs) * kVec : 0;
+    const int nb = live ? (int)min((long long)kVec, C - c0) : 0;
+    const uint8_t* d = D + b * k * C + c0;
+    uint8_t* o = out + b * m * C + c0;
+    for (int r0 = blockIdx.y * MR; r0 < m; r0 += gridDim.y * MR) {
+      V16 acc[MR];
+#pragma unroll
+      for (int r = 0; r < MR; ++r) acc[r] = zero16();
+      for (int i0 = 0; i0 < k; i0 += G) {
+        V16 x[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          x[j] = i0 + j < k && live
+                     ? load16(d + (long long)(i0 + j) * C, nb, vec)
+                     : zero16();
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          if (i0 + j >= k) break;
+          const Sel4 s0 = nib_select(x[j].q.x), s1 = nib_select(x[j].q.y),
+                     s2 = nib_select(x[j].q.z), s3 = nib_select(x[j].q.w);
+#pragma unroll
+          for (int r = 0; r < MR; ++r) {
+            if (r0 + r < m) {
+              const int w = ((r0 + r) * k + i0 + j) * kNibWords;
+              const uint32_t l0 = T.word(w);
+              if (l0 == kNibOne) {
+                xor16(acc[r], x[j]);
+              } else if (l0 != 0u) {
+                const Nib tb = T.nib(w, l0);
+                acc[r].q.x ^= gf_mul4(s0, tb);
+                acc[r].q.y ^= gf_mul4(s1, tb);
+                acc[r].q.z ^= gf_mul4(s2, tb);
+                acc[r].q.w ^= gf_mul4(s3, tb);
+              }
+            }
+          }
+        }
+      }
+      if (live) {
+#pragma unroll
+        for (int r = 0; r < MR; ++r)
+          if (r0 + r < m) store16(o + (long long)(r0 + r) * C, acc[r], nb, vec);
+      }
+    }
+  }
+}
+
+// kernel 1 (and 8): the unroll strategy's matrices, m * k <= kMaxCoefs
+template <class Tab, int MR, int G>
+__global__ void __launch_bounds__(kSmallThreads, kMat1MinBlocks)
+matmul_batched_kernel(const __grid_constant__ Tab T, int m, int k,
+                      const uint8_t* __restrict__ D, uint8_t* __restrict__ out,
+                      int B, long long C, long long vecs, bool vec) {
+  shared_matmul<MR, G>(T, m, k, D, out, B, C, vecs, vec);
+}
+
+// kernel 2: the cols strategy's larger dense matrices, m * k <=
+// kColsMaxCoefs; the same body under its own name
+template <class Tab, int MR, int G>
+__global__ void __launch_bounds__(kSmallThreads, kMat2MinBlocks)
+matmul_cols_kernel(const __grid_constant__ Tab T, int m, int k,
+                   const uint8_t* __restrict__ D, uint8_t* __restrict__ out,
+                   int B, long long C, long long vecs, bool vec) {
+  shared_matmul<MR, G>(T, m, k, D, out, B, C, vecs, vec);
+}
+
 // Single-stripe fused delta  out[r] = P[r] ^ g[r] * (old ^ new); P and
 // out (m, C), old and new (C,).  Replaces delta_update.py:_delta_kernel,
 // the UPDATE path of kernels/ops.py:apply_parity_delta.
@@ -799,6 +888,96 @@ int launch_delta(bool has_parity, int tier, const uint8_t* G_host,
   }
 }
 
+template <bool COLS, class Tab, int MR, int G>
+int launch_shape(const Tab& T, int m, int k, const uint8_t* D, uint8_t* out,
+                 int B, long long C, long long vecs, bool vec, int groups,
+                 cudaStream_t s) {
+  const int bx = blocks_for((long long)B * vecs);
+  if (bx < 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(bx, groups);
+  if constexpr (COLS)
+    matmul_cols_kernel<Tab, MR, G><<<grid, kSmallThreads, 0, s>>>(
+        T, m, k, D, out, B, C, vecs, vec);
+  else
+    matmul_batched_kernel<Tab, MR, G><<<grid, kSmallThreads, 0, s>>>(
+        T, m, k, D, out, B, C, vecs, vec);
+  return (int)cudaGetLastError();
+}
+
+// The shape of kernel 1 or 2 for m rows over B * vecs vectors: when the
+// vectors fill the card (kFillThreads an SM), a thread takes every row in
+// passes of 2, 4 (m <= 2, m <= 4), kMat1Rows or kMat2Rows rows; otherwise
+// it takes two rows, the row groups side by side on blockIdx.y (at most
+// 16,384 of them, within the 65,535 a grid allows), so a B = 64 decode
+// runs five times the threads with a fifth of the work each.  The 2- and
+// 4-row shapes keep a small matrix off the 10-row body's 128 registers:
+// without them a (2, 8) / (4, 10) encode at B = 4096, C = 4 KB took
+// 0.1256 / 0.1934 ms against 0.0767 / 0.1348 (scripts/kernel_ab.py,
+// NVIDIA H100 80GB HBM3 at 700 W).
+template <bool COLS, class Tab>
+int launch_shared(const Tab& T, int m, int k, const uint8_t* D, uint8_t* out,
+                  int B, long long C, cudaStream_t s) {
+  const long long vecs = (C + kVec - 1) / kVec;
+  const bool vec = (C % kVec == 0) && aligned16(D) && aligned16(out);
+  const bool fills =
+      (long long)B * vecs >= (long long)sm_count() * kFillThreads;
+  if (!fills)
+    return launch_shape<COLS, Tab, 2, kMatSmallGroup>(
+        T, m, k, D, out, B, C, vecs, vec, (m + 1) / 2, s);
+  if (m <= 2)
+    return launch_shape<COLS, Tab, 2, kGroup>(T, m, k, D, out, B, C, vecs, vec,
+                                              1, s);
+  if (m <= 4)
+    return launch_shape<COLS, Tab, 4, kGroup>(T, m, k, D, out, B, C, vecs, vec,
+                                              1, s);
+  if constexpr (COLS)
+    return launch_shape<COLS, Tab, kMat2Rows, kGroup>(T, m, k, D, out, B, C,
+                                                      vecs, vec, 1, s);
+  else
+    return launch_shape<COLS, Tab, kMat1Rows, kGroup>(T, m, k, D, out, B, C,
+                                                      vecs, vec, 1, s);
+}
+
+template <bool COLS, int N>
+int launch_shared_tier(const uint8_t* tabs, long long nbytes, int m, int k,
+                       const uint8_t* D, uint8_t* out, int B, long long C,
+                       cudaStream_t s) {
+  CoefWords<N> T;
+  std::memcpy(T.w, tabs, (size_t)nbytes);
+  return launch_shared<COLS>(T, m, k, D, out, B, C, s);
+}
+
+// One launch of kernel 1 (COLS = false) or 2 over B items sharing the
+// (m, k) matrix whose tables (m*k*24 bytes, coefs.matrix_tables) lie on
+// the host and fit parameter tier `tier`, or, for kernel 2 with tier
+// kDeviceTier, lie on the card at `tabs`.
+template <bool COLS>
+int launch_shared_matmul(int tier, const uint8_t* tabs, int m, int k,
+                         const uint8_t* D, uint8_t* out, int B, long long C,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tier == kDeviceTier) {
+    if constexpr (COLS)
+      return launch_shared<COLS>(
+          DevWords{reinterpret_cast<const uint32_t*>(tabs)}, m, k, D, out, B,
+          C, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long nbytes = (long long)m * k * kNibWords * 4;
+  if (nbytes > tier_bytes(tier)) return (int)cudaErrorInvalidValue;
+  switch (tier) {
+    case 0:
+      return launch_shared_tier<COLS, kCoefTiers[0]>(tabs, nbytes, m, k, D,
+                                                     out, B, C, s);
+    case 1:
+      return launch_shared_tier<COLS, kCoefTiers[1]>(tabs, nbytes, m, k, D,
+                                                     out, B, C, s);
+    default:
+      return launch_shared_tier<COLS, kCoefTiers[2]>(tabs, nbytes, m, k, D,
+                                                     out, B, C, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -809,49 +988,29 @@ const char* gf_error_string(int err) {
 
 int gf_max_coefs() { return kMaxCoefs; }
 
-int gf_matmul_batched(const uint8_t* A_host, int m, int k,
-                      const uint8_t* tables, const uint8_t* D, uint8_t* out,
-                      int B, long long C, void* stream) {
-  if (m * k > kMaxCoefs || m <= 0 || k <= 0 || B <= 0 || C <= 0)
+// Kernel 1: `tier` indexes the parameter-struct sizes (gf_coef_tier) that
+// hold the matrix's host-built tables `tabs` (coefs.matrix_tables).
+int gf_matmul_batched(int tier, const uint8_t* tabs, int m, int k,
+                      const uint8_t* D, uint8_t* out, int B, long long C,
+                      void* stream) {
+  if (m <= 0 || k <= 0 || m * k > kMaxCoefs || B <= 0 || C <= 0)
     return (int)cudaErrorInvalidValue;
-  Coefs A;
-  for (int i = 0; i < m * k; ++i) A.a[i] = A_host[i];
-  const int smem = m * k * 256;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        matmul_batched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const long long tiles = (C + kTile - 1) / kTile;
-  const bool vec = (C % kVec == 0) && aligned16(D) && aligned16(out);
-  const int blocks_per_sm = smem > 0 ? (int)(200 * 1024 / smem) : 8;
-  const int grid = grid_for((long long)B * tiles,
-                            blocks_per_sm < 1 ? 1 : (blocks_per_sm > 8 ? 8 : blocks_per_sm));
-  matmul_batched_kernel<<<grid, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      A, m, k, tables, D, out, B, C, tiles, vec);
-  return (int)cudaGetLastError();
+  return launch_shared_matmul<false>(tier, tabs, m, k, D, out, B, C, stream);
 }
 
 int gf_cols_max_coefs() { return kColsMaxCoefs; }
 
 int gf01_max_cols() { return kGf01MaxCols; }
 
-int gf_matmul_cols_batched(const uint8_t* tables, const uint8_t* A, int m,
-                           int k, const uint8_t* D, uint8_t* out, int B,
-                           long long C, void* stream) {
-  if (m <= 0 || k <= 0 || m * k > kColsMaxCoefs || B <= 0 || C <= 0)
+// Kernel 2: as kernel 1, and tier kDeviceTier (-1) takes `tabs` as a
+// device pointer, for tables above the largest tier.
+int gf_matmul_cols_batched(int tier, const uint8_t* tabs, int m, int k,
+                           const uint8_t* D, uint8_t* out, int B, long long C,
+                           void* stream) {
+  if (m <= 0 || k <= 0 || (long long)m * k > kColsMaxCoefs || B <= 0 ||
+      C <= 0)
     return (int)cudaErrorInvalidValue;
-  const int lanes = lanes_for(C);
-  const long long tiles = tiles_for(C, lanes);
-  const bool vec = (C % kVec == 0) && aligned16(D) && aligned16(out);
-  const int per_block = kThreads / lanes;
-  const int grid = grid_for(((long long)B + per_block - 1) / per_block * tiles, 8);
-  matmul_cols_kernel<<<grid, kThreads, m * k,
-                       static_cast<cudaStream_t>(stream)>>>(
-      tables, A, m, k, D, out, B, C, lanes, tiles, vec);
-  return (int)cudaGetLastError();
+  return launch_shared_matmul<true>(tier, tabs, m, k, D, out, B, C, stream);
 }
 
 int gf01_matmul_batched(const uint32_t* masks, int M, int K, const uint8_t* D,
@@ -908,17 +1067,17 @@ int gf_delta_only_batched(int tier, const uint8_t* G, const uint8_t* X,
   return launch_delta(false, tier, G, nullptr, X, out, B, m, C, stream);
 }
 
-// Single-stripe A (*) D, D (k, C) -> out (m, C): the table kernel of
-// gf_matmul_batched with B = 1.  Replaces gf256_matmul.py:_gf_matmul_kernel
-// (kernels/ops.py encode_stripe/decode_stripe).  The TPU needed a rank-2
-// kernel only because a BlockSpec fixes the rank; the body is the same
-// one-lookup-per-product loop.  It walks ceil(C / 4096) tiles grid-stride,
-// so a wide stripe spreads over the SMs while one 4 KB chunk is one block
-// (a launch-bound call either way).  Matrices above the unroll rule go to
-// the column-loop or 0/1 kernels with B = 1 (the Python wrapper decides).
-int gf_matmul(const uint8_t* A_host, int m, int k, const uint8_t* tables,
-              const uint8_t* D, uint8_t* out, long long C, void* stream) {
-  return gf_matmul_batched(A_host, m, k, tables, D, out, 1, C, stream);
+// Single-stripe A (*) D, D (k, C) -> out (m, C): kernel 1 with B = 1.
+// Replaces gf256_matmul.py:_gf_matmul_kernel (kernels/ops.py
+// encode_stripe/decode_stripe).  The TPU needed a rank-2 kernel only
+// because a BlockSpec fixes the rank; the body is the same.  One thread a
+// 16-byte vector, so one 4 KB chunk is four 64-thread blocks and a 1 MiB
+// stripe 1,024 (a launch-bound call either way).  Matrices above the
+// unroll rule go to the column-loop or 0/1 kernels with B = 1 (the Python
+// wrapper decides).
+int gf_matmul(int tier, const uint8_t* tabs, int m, int k, const uint8_t* D,
+              uint8_t* out, long long C, void* stream) {
+  return gf_matmul_batched(tier, tabs, m, k, D, out, 1, C, stream);
 }
 
 int gf_delta_max_rows() { return kDeltaMaxRows; }

@@ -31,17 +31,19 @@ Three entry points, with the JAX package's signatures:
   degraded mutates).
 
 Bound: every kernel moves each input byte once and each output byte once
-(at B=4096, C=4096, (10, 8) that is 302 MB against ~0.1 ms at 3.35 TB/s);
-the arithmetic is a shared-memory lookup per product (the per-item
-kernels: a register nibble-table product), or an XOR where the
-coefficient is 1.  See the source note in ``csrc/gf256.cu`` for the
-design.  The ``gf01`` and ``cols`` matrices are copied to the device once
-per matrix and cached (``_device_matrix``): the encode matrix is fixed per
-code and decode matrices recur per erasure pattern.  The per-item
-matrices change with every call, so they travel by value in the launch
-parameters instead (``kernels/coefs.py``): as bytes, or for 0/1 matrices
-as row masks; the per-item wrapper copies nothing to the card and never
-waits on the stream.
+(at B=4096, C=4096, (10, 8) that is 302 MB against ~0.09 ms at 3.35
+TB/s).  The ``unroll`` and ``cols`` kernels (and ``gf_matmul``) take the
+shared matrix as its coefficients' nibble tables, built on the host once
+per matrix (``coefs.matrix_tables``, cached by the matrix's bytes with
+the strategy in ``_plan``: the encode matrix is fixed per code and the
+fused decode matrices recur per erasure pattern) and passed by value in
+the launch parameters, so those calls copy nothing to the card and never
+wait on the stream.  Only a ``cols`` matrix above the largest parameter
+tier (more than 1,360 coefficients) has its tables copied to the card,
+once per matrix, and cached (``_device_matrix``), as the ``gf01`` row
+masks are.  The per-item matrices change with every call, so they travel
+by value too (``kernels/coefs.py``): as bytes, or for 0/1 matrices as row
+masks.  See the source notes in ``csrc/gf256.cu`` for the designs.
 
 Dispatch (``kernels.dispatch``): a CUDA tensor launches the kernel, a
 CPU tensor takes the plain version of the same strategy.  Nothing falls
@@ -49,6 +51,8 @@ back.  The JAX entry points' ``block_c``/``interpret`` arguments and the
 tuner lookup have no counterpart yet.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -113,9 +117,45 @@ def _pack_rows(A: np.ndarray) -> np.ndarray:
 @_build.locked_cache(maxsize=512)
 def _device_matrix(strategy: str, raw: bytes, shape: tuple,
                    device: torch.device) -> torch.Tensor:
-    A = np.frombuffer(raw, dtype=np.uint8).reshape(shape).copy()
-    host = _pack_rows(A).view(np.int32) if strategy == "gf01" else A
-    return torch.from_numpy(host).to(device)
+    """A matrix as its kernel reads it from the card, copied once: the
+    ``gf01`` row masks, or a ``cols`` matrix's nibble tables."""
+    A = np.frombuffer(raw, dtype=np.uint8).reshape(shape)
+    host = (_pack_rows(A) if strategy == "gf01"
+            else coefs.matrix_tables(A)).view(np.int32)
+    return torch.from_numpy(host.copy()).to(device)
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(raw: bytes, shape: tuple, strategy: str | None) -> tuple:
+    """(strategy, tables, tier) of one matrix on the card, cached per
+    matrix: ``choose_strategy``'s answer and, for ``unroll`` and
+    ``cols``, the nibble tables as bytes with the parameter tier they fit;
+    above the largest tier, (None, ``coefs.DEVICE``): those tables are
+    built for the card alone (``_device_matrix``).  For ``gf01``,
+    (None, None)."""
+    A = np.frombuffer(raw, dtype=np.uint8).reshape(shape)
+    strategy = choose_strategy(A, strategy)
+    if strategy == "gf01":
+        return strategy, None, None
+    tier = coefs.matrix_tier(A.size * 4 * len(coefs.NIB_WORDS))
+    if tier == coefs.DEVICE:
+        return strategy, None, tier
+    return strategy, coefs.matrix_tables(A).tobytes(), tier
+
+
+@functools.cache
+def _limits() -> dict:
+    """The kernels' matrix limits, read from the library once."""
+    lib = _build.library()
+    return {"unroll": lib.gf_max_coefs(), "cols": lib.gf_cols_max_coefs(),
+            "gf01": lib.gf01_max_cols()}
+
+
+def _host_matrix(A) -> np.ndarray:
+    A = np.ascontiguousarray(A, dtype=np.uint8)
+    if A.ndim != 2:
+        raise ValueError(f"A must be (m, k), got {A.shape}")
+    return A
 
 
 # ---------------------------------------------------------------------------
@@ -206,51 +246,49 @@ def gf256_matmul_batched(A, data: torch.Tensor,
     """Batched A (*) data over GF(2^8): (m, k) host matrix, (B, k, C) uint8
     tensor -> (B, m, C) on the data's device.  ``strategy`` names the
     kernel body (``unroll``/``gf01``/``cols``); by default, and for a
-    name it does not know, ``choose_strategy`` picks it."""
-    A = np.ascontiguousarray(np.asarray(A, dtype=np.uint8))
-    if A.ndim != 2:
-        raise ValueError(f"A must be (m, k), got {A.shape}")
+    name it does not know, ``choose_strategy`` picks it.  On the card one
+    call is one launch.  The ``unroll`` and ``cols`` tables go into the
+    launch parameters, so those calls copy nothing to the card and do not
+    synchronize; a ``gf01`` matrix, and a ``cols`` matrix above 1,360
+    coefficients, is copied to the card at its first call (a pageable
+    copy, which waits on the stream) and cached."""
+    A = _host_matrix(A)
     m, k = A.shape
     if not isinstance(data, torch.Tensor) or data.dim() != 3:
         raise ValueError("data must be a (B, k, C) torch.Tensor")
     B, _, C = data.shape
-    strategy = choose_strategy(A, strategy)
     if not dispatch.decide(data).kernel:
-        if strategy == "gf01":
+        if choose_strategy(A, strategy) == "gf01":
             return gf01_matmul_batched_plain(A, data)
         return gf256_matmul_batched_plain(A, data)
+    raw = A.tobytes()
+    strategy, tabs, tier = _plan(raw, A.shape, strategy)
     dev = data.device
     _build.require(data, "data", torch.uint8, (B, k, C), dev)
     out = torch.empty((B, m, C), dtype=torch.uint8, device=dev)
     if B == 0 or m == 0 or k == 0 or C == 0:
         return out.zero_()
+    limit = _limits()[strategy]
+    if (k if strategy == "gf01" else m * k) > limit:
+        raise ValueError(f"matrix {(m, k)} exceeds the {strategy} kernel's "
+                         f"{limit} " + ("columns" if strategy == "gf01"
+                                        else "coefficients"))
     lib = _build.library()
     name = _KERNEL_OF[strategy]
-    with torch.cuda.device(dev):
-        if strategy == "unroll":
-            if m * k > lib.gf_max_coefs():
-                raise ValueError(f"matrix {(m, k)} exceeds the unroll "
-                                 f"kernel's {lib.gf_max_coefs()} coefficients")
-            err = lib.gf_matmul_batched(
-                A.ctypes.data, m, k, _build.tables(dev).data_ptr(),
-                data.data_ptr(), out.data_ptr(), B, C, _build.stream_ptr(dev))
-        elif strategy == "gf01":
-            if k > lib.gf01_max_cols():
-                raise ValueError(f"matrix {(m, k)} exceeds the gf01 "
-                                 f"kernel's {lib.gf01_max_cols()} columns")
-            masks = _device_matrix("gf01", A.tobytes(), A.shape, dev)
+    with _build.on_device(dev):
+        stream = _build.stream_ptr(dev)
+        if strategy == "gf01":
+            masks = _device_matrix("gf01", raw, A.shape, dev)
             err = lib.gf01_matmul_batched(
                 masks.data_ptr(), m, k, data.data_ptr(), out.data_ptr(), B, C,
-                _build.stream_ptr(dev))
+                stream)
         else:
-            if m * k > lib.gf_cols_max_coefs():
-                raise ValueError(f"matrix {(m, k)} exceeds the cols "
-                                 f"kernel's {lib.gf_cols_max_coefs()} "
-                                 f"coefficients")
-            a_dev = _device_matrix("cols", A.tobytes(), A.shape, dev)
-            err = lib.gf_matmul_cols_batched(
-                _build.tables(dev).data_ptr(), a_dev.data_ptr(), m, k,
-                data.data_ptr(), out.data_ptr(), B, C, _build.stream_ptr(dev))
+            if tier == coefs.DEVICE:
+                tabs = _device_matrix("cols", raw, A.shape, dev).data_ptr()
+            fn = (lib.gf_matmul_batched if strategy == "unroll"
+                  else lib.gf_matmul_cols_batched)
+            err = fn(tier, tabs, m, k, data.data_ptr(), out.data_ptr(), B, C,
+                     stream)
     _build.check(err, name)
     _build.count_launch(LAUNCHES, name)
     return out
@@ -258,17 +296,19 @@ def gf256_matmul_batched(A, data: torch.Tensor,
 
 def gf256_matmul(A, data: torch.Tensor) -> torch.Tensor:
     """Single-stripe A (*) data over GF(2^8): (m, k) host matrix, (k, C)
-    uint8 tensor -> (m, C) on the data's device."""
-    A = np.ascontiguousarray(np.asarray(A, dtype=np.uint8))
-    if A.ndim != 2:
-        raise ValueError(f"A must be (m, k), got {A.shape}")
+    uint8 tensor -> (m, C) on the data's device.  An ``unroll`` matrix
+    runs kernel ``gf_matmul`` (its tables by value, as the batched
+    wrapper's); any other a batch of one."""
+    A = _host_matrix(A)
     m, k = A.shape
     if not isinstance(data, torch.Tensor) or data.dim() != 2:
         raise ValueError("data must be a (k, C) torch.Tensor")
     C = data.shape[1]
-    strategy = choose_strategy(A)
-    if strategy != "unroll" or not dispatch.decide(data).kernel:
-        # the batch-of-one path: another kernel body, or a plain version
+    if not dispatch.decide(data).kernel:
+        return gf256_matmul_batched(A, data[None])[0]
+    strategy, tabs, tier = _plan(A.tobytes(), A.shape, None)
+    if strategy != "unroll":
+        # the batch-of-one path: another kernel body
         return gf256_matmul_batched(A, data[None], strategy)[0]
     dev = data.device
     _build.require(data, "data", torch.uint8, (k, C), dev)
@@ -276,10 +316,9 @@ def gf256_matmul(A, data: torch.Tensor) -> torch.Tensor:
     if m == 0 or k == 0 or C == 0:
         return out.zero_()
     lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.gf_matmul(A.ctypes.data, m, k, _build.tables(dev).data_ptr(),
-                            data.data_ptr(), out.data_ptr(), C,
-                            _build.stream_ptr(dev))
+    with _build.on_device(dev):
+        err = lib.gf_matmul(tier, tabs, m, k, data.data_ptr(), out.data_ptr(),
+                            C, _build.stream_ptr(dev))
     _build.check(err, "gf_matmul")
     _build.count_launch(LAUNCHES, "gf_matmul")
     return out

@@ -1,4 +1,4 @@
-"""Host pieces of the by-value coefficient kernels (4-7), on the CPU.
+"""Host pieces of the by-value kernels (1, 2 and 4-8), on the CPU.
 
 * The in-register product of ``csrc/gf256.cu`` (``nib_tables``,
   ``nib_lookup``, ``gf_mul4``), emulated step for step in numpy with
@@ -8,6 +8,11 @@
   and the reference's ``is01`` rule.
 * ``coefs.plan_launches``: every item in one launch, in order, each
   launch within the parameter tier it names.
+* Kernels 1, 2 and 8: the host-built nibble tables of a shared matrix
+  (``coefs.nib_words``, ``matrix_tables``, ``matrix_tier``) against the
+  emulated ``nib_tables`` and MUL_TABLE, their layout against the CUDA
+  source, the kernels' body emulated on them against the JAX package's
+  host product, and the wrappers' per-matrix plan.
 
 The kernels themselves run only on a card (``test_torch_gpu.py``).
 Tolerance: exact.
@@ -213,3 +218,135 @@ def test_tiers_are_the_kernel_source_tiers():
     m = re.search(r"kCoefTiers\[3\] = \{([^}]*)\}", src)
     assert m and tuple(int(v) for v in m.group(1).split(",")) == coefs.TIERS
     assert list(coefs.TIERS) == sorted(coefs.TIERS)
+
+
+# ---------------------------------------------------------------------------
+# kernels 1, 2 and 8: the shared matrix's nibble tables, built on the host
+# ---------------------------------------------------------------------------
+
+def _matrix(m, k, seed):
+    """A general (m, k) matrix with 0 and 1 coefficients among the rest."""
+    A = np.random.default_rng(seed).integers(2, 256, (m, k), dtype=np.uint8)
+    A.reshape(-1)[::5] = 0
+    A.reshape(-1)[1::7] = 1
+    return A
+
+
+def test_host_tables_give_the_mul_table_for_every_coefficient():
+    """``coefs.nib_words`` are the kernels' ``nib_tables`` word for word,
+    and through the emulated ``gf_mul4`` they give MUL_TABLE[g] for every
+    g and all 256 bytes."""
+    words = coefs.nib_words(np.arange(256))
+    assert words.shape == (256, 6) and words.dtype == np.uint32
+    for got, want in zip(np.moveaxis(words, -1, 0),
+                         nib_tables(np.arange(256, dtype=U32))):
+        np.testing.assert_array_equal(got, want)
+    t = tuple(words[:, j:j + 1] for j in range(6))
+    xs = np.arange(256, dtype=np.uint8).reshape(64, 4)
+    got = gf_mul4(nib_select(xs.view("<u4").reshape(1, 64).astype(U32)), t)
+    np.testing.assert_array_equal(
+        got.astype("<u4").view(np.uint8).reshape(256, 256), REF_MUL_TABLE)
+
+
+@pytest.mark.parametrize("m,k,tier", [(2, 8, 0), (10, 8, 1), (14, 10, 1),
+                                      (40, 30, 2), (64, 64, coefs.DEVICE)])
+def test_matrix_tables_layout_and_tier(m, k, tier):
+    """Six little-endian words a coefficient, row-major, in the smallest
+    tier that holds them; (64, 64)'s 96 KB exceed every tier and go to a
+    device buffer."""
+    A = _matrix(m, k, m * k)
+    tabs = coefs.matrix_tables(A)
+    assert tabs.dtype == np.dtype("<u4") and tabs.shape == (m * k * 6,)
+    assert tabs.nbytes == 24 * m * k
+    np.testing.assert_array_equal(tabs.reshape(m, k, 6), coefs.nib_words(A))
+    r, i = m - 1, k // 2
+    np.testing.assert_array_equal(tabs[6 * (r * k + i):6 * (r * k + i) + 6],
+                                  coefs.nib_words(A[r, i]))
+    assert coefs.matrix_tier(tabs.nbytes) == tier
+    if tier == coefs.DEVICE:
+        assert tabs.nbytes > coefs.TIERS[-1]
+    else:
+        assert tabs.nbytes <= coefs.TIERS[tier]
+        assert tier == 0 or tabs.nbytes > coefs.TIERS[tier - 1]
+
+
+def test_nib_layout_is_the_kernel_source():
+    """``NIB_WORDS`` is the field order of ``struct Nib``; ``kNibOne`` is
+    l0 of g = 1 (and g = 0's words are all 0, the skip); the largest tier
+    holds 1,360 coefficients."""
+    src = (Path(coefs.__file__).parent / "csrc" / "gf256.cu").read_text()
+    m = re.search(r"struct Nib \{\s*uint32_t (\w+), (\w+), (\w+);"
+                  r"\s*uint32_t (\w+), (\w+), (\w+);", src)
+    assert m and m.groups() == coefs.NIB_WORDS
+    one = re.search(r"kNibOne = (0x[0-9a-fA-F]+)u;", src)
+    assert int(one.group(1), 16) == coefs.nib_words(1)[0]
+    assert not coefs.nib_words(0).any()
+    assert (coefs.nib_words(np.arange(2, 256))[:, 0]
+            != coefs.nib_words(1)[0]).all()
+    assert int(re.search(r"kNibWords = (\d+);", src).group(1)) \
+        == len(coefs.NIB_WORDS)
+    assert int(re.search(r"kDeviceTier = (-?\d+);", src).group(1)) \
+        == coefs.DEVICE
+    assert coefs.TIERS[-1] // (4 * len(coefs.NIB_WORDS)) == 1360
+
+
+def _emulated_shared_matmul(A, D, rows):
+    """The body of kernels 1 and 2 in numpy: per group of ``rows`` output
+    rows, each input word's selectors once, then per row the coefficient's
+    host-built words: l0 = 0 skips, l0 = kNibOne XORs, else gf_mul4."""
+    m, k = A.shape
+    B, _, C = D.shape
+    tabs = coefs.matrix_tables(A).astype(U32).reshape(m, k, 6)
+    one = coefs.nib_words(1)[0]
+    words = np.ascontiguousarray(D).view("<u4").astype(U32)   # (B, k, C/4)
+    out = np.zeros((B, m, C // 4), dtype=U32)
+    for r0 in range(0, m, rows):
+        for i in range(k):
+            sel = nib_select(words[:, i])
+            for r in range(r0, min(m, r0 + rows)):
+                t = tabs[r, i]
+                if t[0] == 0:
+                    continue
+                out[:, r] ^= words[:, i] if t[0] == one \
+                    else gf_mul4(sel, tuple(t))
+    return out.astype("<u4").view(np.uint8)
+
+
+@pytest.mark.parametrize("m,k,rows", [(1, 1, 2), (2, 8, 2), (10, 8, 10),
+                                      (10, 8, 2), (8, 16, 10), (14, 10, 7),
+                                      (13, 10, 7), (40, 30, 7)])
+def test_emulated_shared_matmul_matches_the_reference(m, k, rows):
+    """The kernels' arithmetic on host-built tables against the JAX
+    package's host GF(2^8) product, item by item."""
+    from repro.core.gf256 import gf_matmul_np
+    A = _matrix(m, k, 7 * m + k)
+    D = np.random.default_rng(k).integers(0, 256, (3, k, 64), dtype=np.uint8)
+    got = _emulated_shared_matmul(A, D, rows)
+    for b in range(3):
+        np.testing.assert_array_equal(got[b], gf_matmul_np(A, D[b]))
+
+
+@pytest.mark.parametrize("shape,strategy,want", [
+    ((10, 8), None, "unroll"), ((2, 8), None, "unroll"),
+    ((14, 10), None, "cols"), ((64, 64), None, "cols"),
+    ((28, 32), "unroll", "unroll"), ((10, 8), "gf01", "cols"),
+    ((32, 128), None, "gf01")])
+def test_card_plan_is_built_once_per_matrix(shape, strategy, want):
+    """The wrappers' per-matrix plan: ``choose_strategy``'s body and, for
+    the nibble-table kernels, the tables as bytes with their tier (none
+    above the largest tier: the card's copy is built alone); a second
+    call with the same matrix returns the cached plan."""
+    import importlib
+    gm = importlib.import_module("repro_torch.kernels.gf256_matmul")
+    A = (np.random.default_rng(1).integers(0, 2, shape, dtype=np.uint8)
+         if want == "gf01" else _matrix(*shape, sum(shape)))
+    plan = gm._plan(A.tobytes(), A.shape, strategy)
+    assert plan[0] == gm.choose_strategy(A, strategy) == want
+    if want == "gf01":
+        assert plan[1:] == (None, None)
+    else:
+        tabs = coefs.matrix_tables(A)
+        assert plan[2] == coefs.matrix_tier(tabs.nbytes)
+        assert plan[1] == (None if plan[2] == coefs.DEVICE
+                           else tabs.tobytes())
+    assert gm._plan(A.copy().tobytes(), A.shape, strategy) is plan

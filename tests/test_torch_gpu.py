@@ -60,16 +60,57 @@ def _u8(rng, shape, device=None):
     return a if device is None else torch.from_numpy(a).to(device)
 
 
-@pytest.mark.parametrize("B", [1, 3, 64])
-@pytest.mark.parametrize("C", [16, 1000, 4096])
-@pytest.mark.parametrize("m,k", [(2, 8), (10, 8), (1, 4), (4, 10)])
+def _matrix(rng, m, k):
+    """A general (m, k) matrix with 0 and 1 coefficients among the rest."""
+    A = rng.integers(2, 256, (m, k), dtype=np.uint8)
+    A.reshape(-1)[::5] = 0
+    A.reshape(-1)[1::7] = 1
+    return A
+
+
+def _u8_card(key, shape, device):
+    """Random bytes made on the card from a seeded generator (large
+    batches; numpy would spend seconds on the host)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(zlib.crc32(repr(key).encode()))
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device=device,
+                         generator=gen)
+
+
+# kernels 1 and 2: every batch and width of the shared-matrix grid
+MATMUL_B = [0, 1, 3, 64, 4096]
+MATMUL_C = [16, 256, 1000, 4096]
+
+
+@pytest.mark.parametrize("B", MATMUL_B)
+@pytest.mark.parametrize("C", MATMUL_C)
+@pytest.mark.parametrize("m,k", [(1, 1), (2, 8), (10, 8), (8, 16), (1, 4),
+                                 (4, 10)])
 def test_matmul_batched_kernel_matches_plain(cuda, m, k, C, B):
-    rng = _rng("mm", m, k, C, B)
-    A, D = _u8(rng, (m, k)), _u8(rng, (B, k, C), cuda)
+    A = _matrix(_rng("mm", m, k), m, k)
+    assert choose_strategy(A) == "unroll"
+    D = _u8_card(("mm", m, k, C, B), (B, k, C), cuda)
     before = launch_counts()["gf_matmul_batched"]
     got = gf256_matmul_batched(A, D)
     assert torch.equal(got, gf256_matmul_batched_plain(A, D))
+    assert launch_counts()["gf_matmul_batched"] == before + (B > 0)
+
+
+@pytest.mark.parametrize("B", [1, 64, 4096])
+@pytest.mark.parametrize("m,k", [(28, 32), (896, 1), (1, 896)])
+def test_named_unroll_at_its_coefficient_limit(cuda, m, k, B):
+    """``strategy="unroll"`` holds up to 896 coefficients (21,504 bytes of
+    tables, the largest parameter tier); one more raises."""
+    A = _matrix(_rng("mm896", m, k), m, k)
+    D = _u8_card(("mm896", m, k, B), (B, k, 256), cuda)
+    before = launch_counts()["gf_matmul_batched"]
+    got = gf256_matmul_batched(A, D, "unroll")
+    assert torch.equal(got, gf256_matmul_batched_plain(A, D))
     assert launch_counts()["gf_matmul_batched"] == before + 1
+    with pytest.raises(ValueError, match="unroll"):
+        gf256_matmul_batched(np.ones((m, k + 1), np.uint8),
+                             torch.zeros((B, k + 1, 16), dtype=torch.uint8,
+                                         device=cuda), "unroll")
 
 
 @pytest.mark.parametrize("B", [1, 64])
@@ -127,14 +168,16 @@ def test_gf01_kernel_matches_plain(cuda, which, C, B):
     assert launch_counts()["gf01_matmul_batched"] == before + (B > 0)
 
 
-@pytest.mark.parametrize("B", [0, 1, 3, 64])
-@pytest.mark.parametrize("C", [256, 1000, 4096])
-@pytest.mark.parametrize("m,k", [(14, 10), (13, 10), (12, 20), (40, 30)])
+@pytest.mark.parametrize("B", MATMUL_B)
+@pytest.mark.parametrize("C", MATMUL_C)
+@pytest.mark.parametrize("m,k", [(14, 10), (13, 10), (12, 20), (40, 30),
+                                 (64, 64)])
 def test_cols_kernel_matches_plain(cuda, m, k, C, B):
-    rng = _rng("cols", m, k, C, B)
-    A, D = _u8(rng, (m, k)), _u8(rng, (B, k, C), cuda)
-    A[0, 0], A[-1, -1] = 0, 1                 # a zero and a one coefficient
+    """(64, 64) has 4,096 coefficients, above the largest parameter tier:
+    its tables lie in a device buffer."""
+    A = _matrix(_rng("cols", m, k), m, k)
     assert choose_strategy(A) == "cols"
+    D = _u8_card(("cols", m, k, C, B), (B, k, C), cuda)
     before = launch_counts()["gf_matmul_cols_batched"]
     got = gf256_matmul_batched(A, D)
     assert torch.equal(got, gf256_matmul_batched_plain(A, D))
@@ -316,9 +359,36 @@ def _by_value_case(name, B, C, rng, device):
 BY_VALUE = ["delta_apply", "delta_only", "fold_rs", "fold_rdp_01",
             "fold_rdp_general", "per_item_rdp_01", "per_item_rdp_general"]
 
+# kernels 1, 2 and 8: every shared matrix of the card tests up to the
+# largest parameter tier, and (64, 64) above it (its tables copied to the
+# card once, at the matrix's first call)
+MATMUL_BY_VALUE = ["unroll_1x1", "unroll_2x8", "unroll_10x8", "unroll_8x16",
+                   "unroll_28x32", "cols_14x10", "cols_13x10", "cols_40x30",
+                   "cols_64x64", "single_2x8", "single_10x8", "single_8x16"]
+
+
+def _matmul_case(name, B, C, rng, device):
+    """(wrapper, plain, args, kernel) for one of kernels 1, 2 and 8."""
+    kind, shape = name.split("_")
+    m, k = (int(v) for v in shape.split("x"))
+    A = _matrix(rng, m, k)
+    if kind == "single":
+        return (gf256_matmul, gf256_matmul_plain, (A, _u8(rng, (k, C), device)),
+                "gf_matmul")
+    D = _u8(rng, (B, k, C), device)
+    if kind == "unroll":
+        return (gf256_matmul_batched,
+                lambda A, D, _: gf256_matmul_batched_plain(A, D),
+                (A, D, "unroll"), "gf_matmul_batched")
+    return (gf256_matmul_batched, gf256_matmul_batched_plain, (A, D),
+            "gf_matmul_cols_batched")
+
 
 def _launches_of(wrapper, args):
-    """Launches one wrapper call makes: one per parameter-tier plan step."""
+    """Launches one wrapper call makes: one per parameter-tier plan step
+    (kernels 1, 2 and 8: one)."""
+    if wrapper in (gf256_matmul_batched, gf256_matmul):
+        return 1
     if wrapper is delta_apply_batched:
         B, m = args[1].shape
         return len(coefs.plan_launches(B, m))
@@ -379,6 +449,19 @@ def test_by_value_kernels_from_four_threads(cuda):
     every result stays right and no launch count is lost."""
     cases = [_by_value_case(name, 64, 4096, _rng("thr", name), cuda)
              for name in BY_VALUE]
+    _four_threads(cases)
+
+
+def test_matmul_kernels_from_four_threads(cuda):
+    """Kernels 1, 2 and 8 from four threads at once, as the sharded
+    cluster decodes: each matrix's first call (its plan and tables) races
+    the others', every result stays right and no launch count is lost."""
+    cases = [_matmul_case(name, 64, 4096, _rng("thr", name), cuda)
+             for name in MATMUL_BY_VALUE]
+    _four_threads(cases)
+
+
+def _four_threads(cases):
     wants = [plain(*args) for _, plain, args, _ in cases]
     reps, errors = 20, []
     before = launch_counts()
@@ -415,8 +498,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 import test_torch_gpu as t
 dev = torch.device("cuda")
-cases = [t._by_value_case(n, 64, 4096, t._rng("sync", n), dev)
-         for n in t.BY_VALUE]
+cases = t._every_by_value_case(dev)
 for wrapper, _, args, _ in cases:
     wrapper(*args)
 torch.cuda.synchronize()
@@ -429,16 +511,25 @@ print(json.dumps(sorted({ev.name for ev in p.events()
 """
 
 
+def _every_by_value_case(device):
+    """One B = 64, C = 4 KB call of each of kernels 4-7 in each
+    coefficient form and of kernels 1, 2 and 8 on each matrix."""
+    return ([_by_value_case(name, 64, 4096, _rng("sync", name), device)
+             for name in BY_VALUE]
+            + [_matmul_case(name, 64, 4096, _rng("sync", name), device)
+               for name in MATMUL_BY_VALUE])
+
+
 def test_by_value_wrappers_neither_copy_nor_wait(cuda):
-    """Given host coefficients, the wrappers of kernels 4-7 raise nothing
+    """Given host coefficients (or, for kernels 1, 2 and 8, a matrix they
+    have seen once), the wrappers of kernels 1, 2 and 4-8 raise nothing
     under sync-debug mode "error", and a profiler trace of their calls
     holds their kernels and no host-to-device copy."""
     import json
     import subprocess
     import sys
     from pathlib import Path
-    cases = [_by_value_case(name, 64, 4096, _rng("sync", name), cuda)
-             for name in BY_VALUE]
+    cases = _every_by_value_case(cuda)
     for wrapper, _, args, _ in cases:
         wrapper(*args)
     torch.cuda.synchronize()
@@ -454,8 +545,9 @@ def test_by_value_wrappers_neither_copy_nor_wait(cuda):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     names = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert any("per_item_kernel" in n for n in names), names
-    assert any("delta_batched_kernel" in n for n in names), names
+    for kernel in ("per_item_kernel", "delta_batched_kernel",
+                   "matmul_batched_kernel", "matmul_cols_kernel"):
+        assert any(kernel in n for n in names), (kernel, names)
     assert not [n for n in names if "HtoD" in n], names
 
 
@@ -483,11 +575,12 @@ def test_library_tiers_match_coefs(cuda):
 # cuckoo probe (the entry points of kernels/ops.py)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("C", [1, 1000, 4096, 1 << 20])
-@pytest.mark.parametrize("m,k", [(2, 8), (8, 8), (10, 8), (1, 4)])
+@pytest.mark.parametrize("C", [1, 16, 256, 1000, 4096, 1 << 20])
+@pytest.mark.parametrize("m,k", [(1, 1), (2, 8), (8, 8), (10, 8), (8, 16),
+                                 (1, 4)])
 def test_single_matmul_kernel_matches_plain(cuda, m, k, C):
-    rng = _rng("mm1", m, k, C)
-    A, D = _u8(rng, (m, k)), _u8(rng, (k, C), cuda)
+    A = _matrix(_rng("mm1", m, k), m, k)
+    D = _u8_card(("mm1", m, k, C), (k, C), cuda)
     before = launch_counts()["gf_matmul"]
     got = gf256_matmul(A, D)
     assert torch.equal(got, gf256_matmul_plain(A, D))
