@@ -17,20 +17,23 @@ in place of the card):
 3. kernels - each of the eleven hand-written kernels against its plain
              torch version on the card: the ten GF(2^8) and probe kernels
              byte-exact, the batched ones at B = 1, 64, 4096 and C = 4096,
-             1000 (and C = 256, RDP's sub-block row, for the RDP shapes),
-             the single-stripe ones at C = 4096, 1000 and 1 MiB, the probe
+             1000 (and C = 256, RDP's sub-block row, for the RDP shapes;
+             kernel 3 also at B = 36, on the RDP encode and its two- and
+             one-chunk decodes), the single-stripe ones at C = 4096, 1000
+             and 1 MiB (kernel 9 also at m = 4 and with 0/1 gammas), the probe
              at Q = 1, 64, 65,536 on a 2^20-bucket table; flash attention
              within its stated tolerance on the reference test's grid in
              fp32 and bf16, non-causal at S = 128 and 100, and the
              starcoder2-3b prefill shape; kernels 4-7 (coefficients in
              the launch parameters) also in their other coefficient form
              (0/1 masks or general bytes) and at a batch that splits
-             into several launches; the timed calls of kernels 1, 2 and
-             4-8 (coefficients, or for 1, 2 and 8 the shared matrix's
-             nibble tables, in the launch parameters) must show no
-             host-to-device copy in the trace and raise nothing under
-             sync-debug mode "error"; at the widths the main path gives
-             each kernel: CUDA-event time of a wrapper call, the
+             into several launches; the timed calls of kernels 1-9
+             (coefficients, or for 1, 2 and 8 the shared matrix's nibble
+             tables and for 3 its row masks, in the launch parameters)
+             must show no host-to-device copy in the trace and raise
+             nothing under sync-debug mode "error"; at the widths the
+             main path gives each kernel: CUDA-event time of a wrapper
+             call, the
              kernel's own device time per call from a ``torch.profiler``
              trace, the plain version's time, for attention the time of
              ``scaled_dot_product_attention`` (a yardstick the port never
@@ -274,11 +277,11 @@ def single_matmul_work(np, A, data):
 
 
 def single_delta_work(np, parity, g, old, new):
-    """Parity, old and new read once, parity written once, the gammas;
-    one multiply-XOR per nonzero gamma and byte."""
+    """Parity, old and new read once, parity written once, the gammas
+    (a byte each); one multiply-XOR per nonzero gamma and byte."""
     m, C = parity.shape
     g = np.asarray(g)
-    return 2 * m * C + 2 * C + 4 * m, int(np.count_nonzero(g & 255)) * C
+    return 2 * m * C + 2 * C + m, int(np.count_nonzero(g & 255)) * C
 
 
 def probe_work(np, num_buckets, h1, h2):
@@ -357,23 +360,30 @@ def kernel_specs(np, torch, dev):
     R = block_rep(rdp).encode
     r = R.shape[0] // 2
     rdp_dec = fused("rdp", 10, 8, range(2, 10), (0, 1, 8, 9))
+    # the one-chunk decode, the main path's most called RDP matrix (1-8
+    # set bits a row)
+    rdp_dec1 = fused("rdp", 10, 8, [p for p in range(10) if p != 3], (3,))
     assert gm.choose_strategy(rs_dec) == "unroll"
     assert gm.choose_strategy(f4_dec) == "cols" and f4_dec.shape == (14, 10)
     assert gm.choose_strategy(E14) == "unroll" and E14.shape == (4, 10)
     assert gm.choose_strategy(R) == "gf01" and R.shape == (32, 128)
     assert gm.choose_strategy(rdp_dec) == "gf01"
     assert rdp_dec.shape == (160, 128)
+    assert gm.choose_strategy(rdp_dec1) == "gf01"
+    assert rdp_dec1.shape == (128, 128)
 
     RS_C, RDP_C = (4096, 1000), (4096, 1000, 256)
 
-    def batched(check_C, time_C):
+    def batched(check_C, time_C, main_B=()):
         """The (B, C) grid a batched kernel is checked on, and its timed
-        points at the main path's width."""
-        return dict(check=[(B, C) for C in check_C for B in (1, 64, 4096)],
+        points at the main path's width (and batches ``main_B``)."""
+        return dict(check=[(B, C) for C in check_C
+                           for B in (1, 64, 4096, *main_B)],
                     timed=[("b4096", (4096, time_C), 20),
-                           ("b64", (64, time_C), 200)])
+                           ("b64", (64, time_C), 200)]
+                    + [(f"b{B}", (B, time_C), 200) for B in main_B])
 
-    def matmul(A, strategy, check_C, time_C):
+    def matmul(A, strategy, check_C, time_C, main_B=()):
         m, k = A.shape
         plain = (gm.gf01_matmul_batched_plain if strategy == "gf01"
                  else gm.gf256_matmul_batched_plain)
@@ -381,7 +391,7 @@ def kernel_specs(np, torch, dev):
                     kernel=gm.gf256_matmul_batched, plain=plain,
                     work=lambda a: matmul_work(np, *a,
                                                gf01=strategy == "gf01"),
-                    **batched(check_C, time_C))
+                    **batched(check_C, time_C, main_B))
 
     def general(Ms):
         """A general matrix of Ms's shape, with 0 and 1 entries beside
@@ -465,9 +475,11 @@ def kernel_specs(np, torch, dev):
                     check=[(4096,), (1000,), (WIDE,)],
                     timed=[("c4096", (4096,), 200), ("c1048576", (WIDE,), 20)])
 
-    def single_delta_make(C):
-        g = rng.integers(1, 256, 2).astype(np.int32)
-        return (u8((2, C)), g, u8((C,)), u8((C,)))
+    def single_delta_make(C, m=2, form=None):
+        g = rng.integers(1, 256, m).astype(np.int32)
+        if form == "01":            # a zero and a one gamma beside the rest
+            g[0], g[-1] = 0, 1
+        return (u8((m, C)), g, u8((C,)), u8((C,)))
 
     # the probe: 2^20 buckets (4 M slots, 90 % occupied, 36 MB of table
     # on the card), Q = 64 (a YCSB window) and Q = 65,536
@@ -492,10 +504,15 @@ def kernel_specs(np, torch, dev):
              cuda_name="matmul_cols_kernel", by_value=True,
              replaces="src/repro/kernels/gf256_matmul.py:124",
              cases={"decode_14x10": matmul(f4_dec, "cols", RS_C, 4096)}),
-        dict(name="gf01_matmul_batched", cuda_name="gf01_matmul_kernel",
-             replaces="src/repro/kernels/gf256_matmul.py:154",
-             cases={"encode_32x128": matmul(R, "gf01", RDP_C, 256),
-                    "decode_160x128": matmul(rdp_dec, "gf01", RDP_C, 256)}),
+        # either body: gf01_tile_kernel or gf01_direct_kernel; B 36 is the
+        # main path's most called (144, 128) decode's batch
+        dict(name="gf01_matmul_batched", cuda_name="gf01_",
+             by_value=True, replaces="src/repro/kernels/gf256_matmul.py:154",
+             cases={"encode_32x128": matmul(R, "gf01", RDP_C, 256, (36,)),
+                    "decode_160x128": matmul(rdp_dec, "gf01", RDP_C, 256,
+                                             (36,)),
+                    "decode_128x128": matmul(rdp_dec1, "gf01", RDP_C, 256,
+                                             (36,))}),
         dict(name="gf_per_item",
              cuda_name="per_item_kernel", by_value=True,
              replaces="src/repro/kernels/gf256_matmul.py:297",
@@ -526,12 +543,13 @@ def kernel_specs(np, torch, dev):
              cases={"encode_2x8": single(rs.parity_matrix),
                     "decode_8x8": single(inv)}),
         dict(name="gf_delta_update", cuda_name="delta_update_kernel",
-             replaces="src/repro/kernels/delta_update.py:28",
+             by_value=True, replaces="src/repro/kernels/delta_update.py:28",
              cases={"update_m2": dict(
                  make=single_delta_make, kernel=du.delta_update,
                  plain=du.delta_update_plain,
                  work=lambda a: single_delta_work(np, *a),
-                 check=[(4096,), (1000,), (WIDE,)],
+                 check=[(4096,), (1000,), (WIDE,), (4096, 2, "01"),
+                        (4096, 4), (1000, 4, "01"), (WIDE, 4, "01")],
                  timed=[("c4096", (4096,), 200),
                         ("c1048576", (WIDE,), 20)])}),
         dict(name="gf_cuckoo_probe", cuda_name="cuckoo_probe_kernel",
@@ -905,7 +923,7 @@ class ShapeLog:
 # the __global__ function of each kernel 1-8, as the profiler names it
 CUDA_NAMES = {"gf_matmul_batched": "matmul_batched_kernel",
               "gf_matmul_cols_batched": "matmul_cols_kernel",
-              "gf01_matmul_batched": "gf01_matmul_kernel",
+              "gf01_matmul_batched": "gf01_",
               "gf_per_item": "per_item_kernel",
               "gf_per_item_fold": "per_item_kernel",
               "gf_delta_apply_batched": "delta_batched_kernel",

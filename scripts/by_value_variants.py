@@ -15,7 +15,10 @@ them; for the shared-matrix kernels 1, 2 and 8 also ``kMat1Rows`` and
 the batch fills the card), ``kMat1MinBlocks`` and ``kMat2MinBlocks``
 (their ``__launch_bounds__`` blocks an SM, which cap their registers),
 ``kFillThreads`` (threads an SM below which rows are split across
-threads) and ``kMatSmallGroup`` (input loads in flight in that case).
+threads) and ``kMatSmallGroup`` (input loads in flight in that case);
+for the 0/1 kernel 3 ``kGf01FillBlocks`` (blocks an SM its tile body's
+row split aims for) and ``kGf01DirectPercent`` (the rule between its
+bodies: 0 takes the tile body always, a large value the direct body).
 Each variant is a space-separated list of ``NAME=VALUE``
 settings of them (the empty string is the source as it stands).  The
 script writes each variant's source with those constants replaced,
@@ -51,7 +54,8 @@ DEFAULT = ["", "kGroup=4", "kGroup=1", "kBlocksPerSm=0",
            "kSmallThreads=128"]
 # the __global__ functions whose registers and SASS are reported
 CUDA_NAMES = ("per_item_kernel", "delta_batched_kernel",
-              "matmul_batched_kernel", "matmul_cols_kernel")
+              "matmul_batched_kernel", "matmul_cols_kernel",
+              "gf01_tile_kernel", "gf01_direct_kernel", "delta_update_kernel")
 SASS_OPS = ("LDC", "ULDC", "PRMT", "LOP3", "LDG", "STG", "BRA", "STL", "LDL")
 
 
@@ -125,8 +129,8 @@ def build(variants: list[str], kernels: set) -> dict:
               flush=True)
         lib = ctypes.CDLL(str(out / f"v{i}.so"))
         for fn_name, (argtypes, restype) in _build.SIGNATURES.items():
-            if fn_name.startswith("gf_"):
-                fn = getattr(lib, fn_name)
+            fn = getattr(lib, fn_name, None)     # gf256.cu's entries only
+            if fn is not None:
                 fn.argtypes, fn.restype = list(argtypes), restype
         libs[v] = lib
     return libs
@@ -145,7 +149,9 @@ def _reported(name: str, kernels: set) -> bool:
             "gf_delta_only_batched": "delta_batched_kernel",
             "gf_matmul_batched": "matmul_batched_kernel",
             "gf_matmul": "matmul_batched_kernel",
-            "gf_matmul_cols_batched": "matmul_cols_kernel"}
+            "gf_matmul_cols_batched": "matmul_cols_kernel",
+            "gf01_matmul_batched": "gf01_",
+            "gf_delta_update": "delta_update_kernel"}
     return any(name.startswith(cuda[k]) for k in kernels if k in cuda)
 
 

@@ -8,14 +8,16 @@ of the parent commit) as the argument:
     python3 scripts/kernel_ab.py OTHER [--kernels gf_per_item_fold ...]
 
 (``--kernels gf_matmul_batched gf_matmul_cols_batched gf_matmul`` for the
-shared-matrix kernels 1, 2 and 8.)  For each checkout in the order this,
-other, other, this, a fresh process in that checkout builds its kernel
-library and runs its own ``chip_smoke.kernel_specs``: every timed point
-of the named kernels (default: kernels 4-7), with that checkout's inputs,
-wrapper and timers
-(``cuda_ms`` for the wrapper call, ``kernel_device_ms`` for the kernel's
-device time).  Prints the card's name and power limit, then one JSON line
-per kernel, case and point with each turn's wrapper and kernel ms.
+shared-matrix kernels 1, 2 and 8; ``--kernels gf01_matmul_batched
+gf_delta_update`` for the 0/1 kernel 3 and the single-stripe delta 9.)
+For each checkout in the order this, other, other, this, a fresh process
+in that checkout builds its kernel library and runs this checkout's
+``chip_smoke.kernel_specs`` on that checkout's package: every timed point
+of the named kernels (default: kernels 4-7), with the same inputs and
+timers for both and each checkout's wrappers and kernels (``cuda_ms`` for
+the wrapper call, ``kernel_device_ms`` for the kernel's device time).
+Prints the card's name and power limit, then one JSON line per kernel,
+case and point with each turn's wrapper and kernel ms.
 """
 from __future__ import annotations
 
@@ -29,10 +31,10 @@ ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ("gf_per_item", "gf_per_item_fold", "gf_delta_apply_batched",
            "gf_delta_only_batched")
 
-# run inside one checkout: its own chip_smoke and package
+# run inside one checkout: its package, this checkout's chip_smoke
 CHILD = r"""
 import json, sys
-sys.path.insert(0, "src")
+sys.path[:0] = ["src", sys.argv[2]]
 import numpy as np, torch
 import chip_smoke as cs
 from repro_torch.kernels import _build
@@ -56,7 +58,7 @@ for spec in cs.kernel_specs(np, torch, dev):
 
 
 def run(checkout: Path, kernels: str) -> list[dict]:
-    proc = subprocess.run([sys.executable, "-c", CHILD, kernels],
+    proc = subprocess.run([sys.executable, "-c", CHILD, kernels, str(ROOT)],
                           cwd=checkout, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"{checkout}: exit {proc.returncode}\n"

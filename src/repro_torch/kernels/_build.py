@@ -29,7 +29,6 @@ import tempfile
 import threading
 from pathlib import Path
 
-import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -49,7 +48,7 @@ SIGNATURES = {
     "gf01_max_cols": ((), _I),
     "gf_matmul_batched": ((_I, _P, _I, _I, _P, _P, _I, _L, _P), _I),
     "gf_matmul_cols_batched": ((_I, _P, _I, _I, _P, _P, _I, _L, _P), _I),
-    "gf01_matmul_batched": ((_P, _I, _I, _P, _P, _I, _L, _P), _I),
+    "gf01_matmul_batched": ((_I, _P, _I, _I, _L, _P, _P, _I, _L, _P), _I),
     "gf_coef_tier": ((_I,), _I),
     "gf_per_item": ((_I, _P, _I, _P, _P, _I, _I, _I, _L, _P), _I),
     "gf_per_item_fold": ((_I, _P, _I, _P, _P, _P, _I, _I, _I, _L, _P), _I),
@@ -57,7 +56,7 @@ SIGNATURES = {
     "gf_delta_only_batched": ((_I, _P, _P, _P, _I, _I, _L, _P), _I),
     "gf_matmul": ((_I, _P, _I, _I, _P, _P, _L, _P), _I),
     "gf_delta_max_rows": ((), _I),
-    "gf_delta_update": ((_P, _P, _I, _P, _P, _P, _P, _L, _P), _I),
+    "gf_delta_update": ((_P, _I, _P, _P, _P, _P, _L, _P), _I),
     "gf_cuckoo_probe": ((_P, _P, _P, _P, _P, _P, _P, _I, _P), _I),
     "flash_attention": ((_P, _P, _P, _P) + (_I,) * 6 + (_L,) * 9
                         + (ctypes.c_float, _I, _I, _P), _I),
@@ -177,20 +176,6 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().gf_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
-
-
-@locked_cache(maxsize=None)
-def _tables(device: torch.device) -> torch.Tensor:
-    from ..core import gf256
-    host = np.concatenate([gf256.MUL_TABLE.reshape(-1), gf256.EXP_TABLE,
-                           gf256.LOG_TABLE.astype(np.uint8)])
-    return torch.from_numpy(host).to(device)
-
-
-def tables(device: torch.device) -> torch.Tensor:
-    """The device table buffer the single-stripe delta kernel reads:
-    MUL_TABLE (65536) | EXP_TABLE (512) | LOG_TABLE (256), uint8."""
-    return _tables(torch.device(device))
 
 
 _NO_SWITCH = contextlib.nullcontext()

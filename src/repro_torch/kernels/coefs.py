@@ -1,11 +1,12 @@
 """Coefficients passed by value in the kernels' launch parameters.
 
-The batched delta kernels (6, 7) and the per-item kernels (4, 5) take
-their coefficients, and the shared-matrix kernels (1, 2, 8) their
-matrix's nibble tables, in a ``__grid_constant__`` parameter struct
-instead of a device buffer, so their wrappers copy nothing to the card
-and never wait on the stream (``csrc/gf256.cu``, "Coefficients by value"
-and "Shared-matrix products by value").  This module holds the host side
+The delta kernels (6, 7, 9) and the per-item kernels (4, 5) take their
+coefficients, the shared-matrix kernels (1, 2, 8) their matrix's nibble
+tables and the 0/1 kernel (3) its matrix's row masks, in a
+``__grid_constant__`` parameter struct instead of a device buffer, so
+their wrappers copy nothing to the card and never wait on the stream
+(``csrc/gf256.cu``, "Coefficients by value", "Shared-matrix products by
+value" and "The 0/1 product by value").  This module holds the host side
 of that, in plain numpy, so it runs and is tested on any host:
 
 * ``TIERS``: the byte sizes of the parameter struct the kernels are
@@ -20,12 +21,16 @@ of that, in plain numpy, so it runs and is tested on any host:
   32 bytes per item this way, against 256 as bytes.
 * ``per_item_coefs``: the form the per-item kernels get a batch of
   matrices in: row masks where they apply, else the bytes.
+* ``gamma_bytes``: the delta kernels' gammas as bytes, ``g & 255``.
 * ``matrix_tables``: a shared (m, k) matrix as its coefficients' nibble
   tables, six 32-bit words each (``struct Nib``: the products of the
   coefficient with the low and the high nibbles, ``NIB_WORDS``), 24 bytes
   a coefficient in row-major order; ``matrix_tier`` names the parameter
   tier they fit, or ``DEVICE`` above the largest (more than 1,360
   coefficients), where the wrapper keeps them in a device buffer instead.
+* ``matrix_masks``: a shared 0/1 (M, K) matrix as the 0/1 kernel's row
+  masks, ceil(K / 32) 32-bit words a row; ``matrix_tier`` names their
+  tier too (``DEVICE`` above 8,160 words).
 """
 from __future__ import annotations
 
@@ -107,6 +112,16 @@ def per_item_coefs(Ms: np.ndarray) -> tuple[int, np.ndarray]:
     return 0, Ms
 
 
+def gamma_bytes(gammas) -> np.ndarray:
+    """Gammas (a host array, a list, or a tensor, read back to the host
+    first, which waits on its stream) as the uint8 bytes the delta
+    kernels take: ``g & 255``, as the reference masks them."""
+    if hasattr(gammas, "cpu"):
+        gammas = gammas.cpu().numpy()
+    g = np.asarray(gammas)
+    return g if g.dtype == np.uint8 else (g & 255).astype(np.uint8)
+
+
 def _xtime(v: np.ndarray) -> np.ndarray:
     d = v << np.uint32(1)
     return d ^ ((d >> np.uint32(8)) * np.uint32(0x11D))
@@ -140,6 +155,18 @@ def matrix_tables(A: np.ndarray) -> np.ndarray:
 
 
 def matrix_tier(nbytes: int, tiers: tuple = TIERS) -> int:
-    """The smallest tier index whose struct holds ``nbytes`` of tables,
-    or ``DEVICE`` when none does."""
+    """The smallest tier index whose struct holds ``nbytes`` of tables
+    or masks, or ``DEVICE`` when none does."""
     return next((i for i, t in enumerate(tiers) if nbytes <= t), DEVICE)
+
+
+def matrix_masks(A: np.ndarray) -> np.ndarray:
+    """0/1 (M, K) matrix -> (M * ceil(K/32),) little-endian uint32 row
+    masks, row-major: bit j % 32 of word j // 32 of row o is set where
+    A[o, j] = 1."""
+    A = np.asarray(A, dtype=np.uint8)
+    M, K = A.shape
+    words = -(-K // 32)
+    packed = np.zeros((M, words * 4), dtype=np.uint8)
+    packed[:, :mask_bytes(K)] = _pack(A)
+    return packed.view("<u4").reshape(-1)

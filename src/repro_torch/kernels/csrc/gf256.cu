@@ -16,45 +16,30 @@
 //
 // The Pallas bodies decompose every product into 8 bit-planes because the
 // TPU's vector unit cannot gather bytes.  Here a GF(2^8) product is a
-// lookup:
+// lookup: every kernel but the probe looks bytes up four at a time with
+// __byte_perm in two 16-entry nibble tables of its coefficient, six
+// registers a coefficient (see "Coefficients by value" below).  Kernels
+// 4-7 and 9 build the tables in registers; kernels 1, 2 and 8 get them
+// built by the host, once per matrix, in their launch parameters.  A 0/1
+// coefficient needs no table at all: 1*x is a select, so
+// gf01_matmul_batched is pure XOR over the set bits of each matrix row
+// (packed into 32-bit masks, walked with __ffs), the per-item kernels walk
+// 0/1 rows the same way (the RDP deltas and seal folds are 0/1), and every
+// nibble-table kernel XORs whole 16-byte vectors when g = 1.  No kernel
+// stages a table in shared memory, and no wrapper copies coefficients to
+// the card on the main path.
 //
-//   * the shared-matrix products (kernels 1, 2 and 8) and the per-item and
-//     batched delta kernels (4-7) look bytes up four at a time with
-//     __byte_perm in two 16-entry nibble tables of their coefficient, six
-//     registers a coefficient (see "Coefficients by value" below); kernels
-//     4-7 build the tables in registers, kernels 1, 2 and 8 get them built
-//     by the host, once per matrix, in their launch parameters;
-//   * the single-stripe delta keeps the 512-byte EXP and 256-byte LOG
-//     tables in shared memory: g*x = x ? EXP[LOG[x] + LOG[g]] : 0;
-//   * a 0/1 coefficient needs no table at all: 1*x is a select, so
-//     gf01_matmul_batched is pure XOR over the set bits of each matrix
-//     row (packed into 32-bit masks and walked with __ffs), the per-item
-//     kernels walk 0/1 rows the same way (the RDP deltas and seal folds
-//     are 0/1), and every nibble-table kernel XORs whole 16-byte vectors
-//     when g = 1.
-//
-// Work split of the 0/1 kernel (3): a block is 256 threads and each thread
-// owns 16 contiguous bytes of a row.  RDP's sub-block rows are 256 bytes
-// (C/r at 4 KB chunks, r = 16), so a kernel that gave a block one
-// 4096-byte tile of one row would idle 15 of every 16 threads.  Instead
-// the host picks `lanes`, the threads per row (a power of two, 16 bytes
-// each, just enough to cover C up to 256 threads); the block stages one
-// item's (K, lanes*16) input tile in shared memory (32 KB at RDP's
-// (128, 256)), reading each input byte once, and its 256 / lanes row
-// groups XOR output rows out of it.  Blocks walk their units grid-stride.
-//
-// When C is a multiple of 16 and every pointer is 16-byte aligned the
-// bytes move as one 16-byte vector load/store per thread; otherwise
-// (C = 1000, say) the same loop runs a byte at a time and masks the
-// ragged tail.
+// Every kernel moves 16 bytes a thread: when C is a multiple of 16 and
+// every pointer is 16-byte aligned the bytes move as one 16-byte vector
+// load/store; otherwise (C = 1000, say) the same loop runs a byte at a
+// time and masks the ragged tail.
 //
 // Bound: each kernel moves every input byte once and every output byte
 // once; at the shapes of the coding path the floor is device-memory
 // bandwidth, or for the larger shared matrices the integer issue rate of
 // the nibble products (see their note).
 //
-// The single-stripe entries of kernels/ops.py and the index probe have
-// notes of their own beside their kernels below.
+// The index probe has a note of its own beside its kernel below.
 //
 // Every entry point launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError() so the caller can raise.
@@ -70,7 +55,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kVec = 16;
-constexpr int kTile = kThreads * kVec;
 // unroll kernel (1): the most coefficients of its shared (m, k) matrix
 // (its tables, 24 bytes a coefficient, always fit a parameter tier)
 constexpr int kMaxCoefs = 896;
@@ -82,15 +66,6 @@ constexpr int kGf01Smem = 96 * 1024;
 constexpr int kGf01MaxCols = kGf01Smem / kVec;
 // single-stripe delta: the m gammas travel in the kernel parameters
 constexpr int kDeltaMaxRows = 256;
-
-// Layout of the device table buffer the single-stripe delta reads:
-// MUL_TABLE (256*256) | EXP_TABLE (512) | LOG_TABLE as bytes (256).
-constexpr int kExpOff = 65536;
-constexpr int kLogOff = 65536 + 512;
-
-struct Gammas {
-  uint8_t g[kDeltaMaxRows];
-};
 
 union V16 {
   uint4 q;
@@ -127,74 +102,13 @@ __device__ __forceinline__ void xor16(V16& acc, const V16& x) {
   acc.q.w ^= x.q.w;
 }
 
-__device__ __forceinline__ void load_exp_log(const uint8_t* __restrict__ tables,
-                                             uint8_t* exp_s, uint8_t* log_s) {
-  for (int i = threadIdx.x; i < 512; i += blockDim.x)
-    exp_s[i] = tables[kExpOff + i];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    log_s[i] = tables[kLogOff + i];
-  __syncthreads();
-}
-
-// out[b, o] = XOR_{j : bit j of row o} D[b, j] for a 0/1 (M, K) matrix;
-// masks (M, words) uint32 in device memory, bit j % 32 of word j / 32.
-// One unit is (item, column tile of lanes*16 bytes): the block stages the
-// item's (K, lanes*16) input tile in shared memory once, then its
-// 256 / lanes row groups each XOR every (256 / lanes)-th output row out of
-// it, one 16-byte vector per thread per set bit.
-__global__ void __launch_bounds__(kThreads)
-gf01_matmul_kernel(const uint32_t* __restrict__ masks, int M, int K,
-                   int words, const uint8_t* __restrict__ D,
-                   uint8_t* __restrict__ out, int B, long long C, int lanes,
-                   long long tiles, bool vec) {
-  extern __shared__ uint4 tile[];  // K rows of `lanes` 16-byte vectors
-  const int per_block = blockDim.x / lanes;
-  const int sub = threadIdx.x / lanes, lane = threadIdx.x % lanes;
-  const long long units = (long long)B * tiles;
-  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
-    const long long b = u / tiles;
-    const long long c_base = (u % tiles) * lanes * kVec;
-    __syncthreads();  // the previous unit's reads of the tile are done
-    for (int v = threadIdx.x; v < K * lanes; v += blockDim.x) {
-      const int j = v / lanes;
-      const long long c0 = c_base + (long long)(v % lanes) * kVec;
-      V16 x;
-      if (c0 < C)
-        x = load16(D + (b * K + j) * C + c0, (int)min((long long)kVec, C - c0),
-                   vec);
-      else
-        x.q = make_uint4(0u, 0u, 0u, 0u);
-      tile[v] = x.q;
-    }
-    __syncthreads();
-    const long long c0 = c_base + (long long)lane * kVec;
-    if (c0 >= C) continue;
-    const int nb = (int)min((long long)kVec, C - c0);
-    for (int o = sub; o < M; o += per_block) {
-      V16 acc;
-      acc.q = make_uint4(0u, 0u, 0u, 0u);
-      const uint32_t* row = masks + (long long)o * words;
-      for (int w = 0; w < words; ++w) {
-        uint32_t bits = __ldg(row + w);
-        while (bits) {
-          const int j = w * 32 + __ffs(bits) - 1;
-          bits &= bits - 1;
-          V16 x;
-          x.q = tile[j * lanes + lane];
-          xor16(acc, x);
-        }
-      }
-      store16(out + (b * M + o) * C + c0, acc, nb, vec);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Coefficients by value: the per-item kernels (4, 5) and the batched delta
-// kernels (6, 7).
+// Coefficients by value: the per-item kernels (4, 5), the batched delta
+// kernels (6, 7) and the single-stripe delta (9).
 //
 // Replace gf256_matmul.py:_per_item_kernel / _per_item_fold_kernel and
-// delta_update.py:_delta_apply_batched_kernel / _delta_only_batched_kernel.
+// delta_update.py:_delta_apply_batched_kernel / _delta_only_batched_kernel
+// / _delta_kernel.
 // On the main path these run at B <= 64 (a YCSB window): a seal fold is
 // (64, 1, 1) x 4 KB or (64, 16, 16) x 256 B, a sealed UPDATE (64, 2) x
 // 4 KB, under a megabyte each.  So a call is bound by launch latency and
@@ -235,7 +149,8 @@ gf01_matmul_kernel(const uint32_t* __restrict__ masks, int M, int K,
 //
 // Bound: bytes, each input read once and each output written once:
 // (2m+1)*C per item for the delta with parity, (m+1)*C without; for the
-// per-item fold (2O + J)*C, without parity (O + J)*C.
+// per-item fold (2O + J)*C, without parity (O + J)*C; for the
+// single-stripe delta (2m+2)*C.
 // ---------------------------------------------------------------------------
 
 constexpr int kCoefTiers[3] = {512, 4096, 32640};
@@ -389,21 +304,26 @@ per_item_kernel(const __grid_constant__ CoefBytes<N> M, int mask_bytes,
 }
 
 // out[b, r] = (P[b, r] ^) G[b, r] * X[b]; G (B, m) bytes, X (B, C), P and
-// out (B, m, C).  HAS_PARITY = false is the delta-only body (kernel 7).
-// Unit t is vector t % vecs of item t / vecs, for all m rows.
-template <bool HAS_PARITY, int N>
-__global__ void __launch_bounds__(kSmallThreads)
-delta_batched_kernel(const __grid_constant__ CoefBytes<N> G,
-                     const uint8_t* __restrict__ P,
-                     const uint8_t* __restrict__ X, uint8_t* __restrict__ out,
-                     int B, int m, long long C, long long vecs, bool vec) {
+// out (B, m, C).  HAS_PARITY = false is the delta-only body (kernel 7);
+// OLD_NEW reads X ^ X2 in place of X (kernel 9: old and new, formed in
+// registers and never stored).  Unit t is vector t % vecs of item
+// t / vecs, for all m rows.
+template <bool HAS_PARITY, bool OLD_NEW, int N>
+__device__ __forceinline__ void delta_rows(const CoefBytes<N>& G,
+                                           const uint8_t* __restrict__ P,
+                                           const uint8_t* __restrict__ X,
+                                           const uint8_t* __restrict__ X2,
+                                           uint8_t* __restrict__ out, int B,
+                                           int m, long long C, long long vecs,
+                                           bool vec) {
   const long long units = (long long)B * vecs;
   for (long long t = (long long)blockIdx.x * kSmallThreads + threadIdx.x;
        t < units; t += (long long)gridDim.x * kSmallThreads) {
     const long long b = t / vecs;
     const long long c0 = (t - b * vecs) * kVec;
     const int nb = (int)min((long long)kVec, C - c0);
-    const V16 x = load16(X + b * C + c0, nb, vec);
+    V16 x = load16(X + b * C + c0, nb, vec);
+    if constexpr (OLD_NEW) xor16(x, load16(X2 + b * C + c0, nb, vec));
     for (int r0 = 0; r0 < m; r0 += kGroup) {
       V16 acc[kGroup];
 #pragma unroll
@@ -420,6 +340,32 @@ delta_batched_kernel(const __grid_constant__ CoefBytes<N> G,
       }
     }
   }
+}
+
+// kernels 6 (HAS_PARITY) and 7
+template <bool HAS_PARITY, int N>
+__global__ void __launch_bounds__(kSmallThreads)
+delta_batched_kernel(const __grid_constant__ CoefBytes<N> G,
+                     const uint8_t* __restrict__ P,
+                     const uint8_t* __restrict__ X, uint8_t* __restrict__ out,
+                     int B, int m, long long C, long long vecs, bool vec) {
+  delta_rows<HAS_PARITY, false>(G, P, X, nullptr, out, B, m, C, vecs, vec);
+}
+
+// Kernel 9, the single-stripe fused delta out[r] = P[r] ^ g[r] * (old ^
+// new), P and out (m, C), old and new (C,): kernel 6's body at B = 1 with
+// the xor of old and new formed in registers, so the call moves
+// (2m + 2) * C bytes (an `old ^ new` pass before kernel 6 would move 3 * C
+// more).  The m <= kDeltaMaxRows gammas always fit the smallest tier.
+// At C = 4 KB the grid is four 64-thread blocks, at 1 MiB 1,024.
+static_assert(kDeltaMaxRows <= kCoefTiers[0], "kernel 9's gammas, one tier");
+__global__ void __launch_bounds__(kSmallThreads)
+delta_update_kernel(const __grid_constant__ CoefBytes<kCoefTiers[0]> G,
+                    const uint8_t* __restrict__ P,
+                    const uint8_t* __restrict__ old,
+                    const uint8_t* __restrict__ nw, uint8_t* __restrict__ out,
+                    int m, long long C, long long vecs, bool vec) {
+  delta_rows<true, true>(G, P, old, nw, out, 1, m, C, vecs, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -505,10 +451,11 @@ constexpr int kMat2MinBlocks = 10;
 constexpr int kFillThreads = 512;
 // input loads a thread of such a grid issues together
 constexpr int kMatSmallGroup = 4;
-// tier index of tables in a device buffer (kernel 2 only)
+// tier index of words in a device buffer (kernels 2 and 3)
 constexpr int kDeviceTier = -1;
 
-// tables in the launch parameters, kCoefTiers bytes
+// words in the launch parameters, kCoefTiers bytes: kernel 1 and 2's
+// nibble tables, kernel 3's row masks
 template <int N>
 struct CoefWords {
   uint32_t w[N / 4];
@@ -525,7 +472,7 @@ struct CoefWords {
   }
 };
 
-// tables in a device buffer, for matrices above the largest tier
+// the same words in a device buffer, for matrices above the largest tier
 struct DevWords {
   const uint32_t* __restrict__ w;
   __device__ __forceinline__ uint32_t word(int i) const { return __ldg(w + i); }
@@ -627,47 +574,187 @@ matmul_cols_kernel(const __grid_constant__ Tab T, int m, int k,
   shared_matmul<MR, G>(T, m, k, D, out, B, C, vecs, vec);
 }
 
-// Single-stripe fused delta  out[r] = P[r] ^ g[r] * (old ^ new); P and
-// out (m, C), old and new (C,).  Replaces delta_update.py:_delta_kernel,
-// the UPDATE path of kernels/ops.py:apply_parity_delta.
+// ---------------------------------------------------------------------------
+// The 0/1 product by value: kernel 3.
 //
-// Bound: device-memory bytes, (2m + 2) * C: parity, old and new are each
-// read once and parity written once.  The xor of old and new is formed in
-// registers, never stored; a torch `old ^ new` followed by the batched
-// delta kernel would move 3 * C bytes more.  The m gammas (m <= 14 for
-// every code here) travel by value in the kernel parameters, so the
-// wrapper copies nothing to the card before the launch.  Each thread owns
-// 16 bytes of the row: it takes LOG of the xor once and spends one EXP
-// lookup per output byte; blocks walk 4096-byte tiles grid-stride.
+// Replaces gf256_matmul.py:_gf01_matmul_kernel: out[b, o] = XOR over the
+// set bits j of row o of D[b, j], for a 0/1 (M, K) matrix that every item
+// shares; D (B, K, C), out (B, M, C).  RDP(10,8)'s encode (32, 128) and
+// every RDP decode run here, at C = 256 (a sub-block row) and B up to a
+// YCSB window (64) on the main path, up to thousands in a recovery.  No
+// multiply at all: 1*x is a select.  What shapes the design is how often
+// each input is read and how uneven the rows are: the encode has 8-16 set
+// bits a row (11.5 on average); the fused decode of two lost data chunks
+// (160, 128) 10.9, its 32 rows of the lost chunks 8-72 and the other 128
+// one each; the one-chunk decodes (128, 128) and (144, 128) 1-8
+// (1.8-1.9).
+//
+//   * Row masks by value, built once per matrix.  The host packs each row
+//     into ceil(K/32) 32-bit words (bit j % 32 of word j / 32;
+//     gf256_matmul._plan, cached per matrix) and they travel in a
+//     __grid_constant__ CoefWords struct of the kCoefTiers sizes: 512 B for
+//     the encode, 2,048-2,560 B for the decodes.  Above the largest tier
+//     (more than 8,160 words) they lie in a device buffer copied once per
+//     matrix (DevWords), as kernel 2's tables.  The wrapper copies nothing
+//     to the card and never waits on the stream.
+//   * Two bodies, chosen on the host by the reads each makes.  The tile
+//     body stages one item's (K, lanes*16) input tile in shared memory
+//     (32 KB at (128, 256)) with cp.async, every load in flight at once
+//     and no register spent on it, then its row groups of `lanes` threads
+//     XOR their rows out of it: each input read once from device memory
+//     however often the matrix uses it.  The direct body gives one thread
+//     one 16-byte vector of one (item, row) pair and reads its set bits'
+//     vectors straight from L1/L2: no staging, no __syncthreads, and a
+//     sparse row reads only what it uses.  Per item vector the tile body
+//     stages K vectors a row split, the direct body reads nnz (the
+//     matrix's set bits), so the host takes the direct body when
+//     100 * nnz < kGf01DirectPercent * K * splits: the one-chunk decodes
+//     at small B, never the encode or a two-chunk decode.
+//   * A grid that fills the card.  When B * tiles tile blocks are fewer
+//     than kGf01FillBlocks an SM, the tile body splits its rows across
+//     blockIdx.y (each split re-stages its tile, from L2); the direct
+//     body is one thread a vector, 64-thread blocks.
+//   * Uneven rows.  Split y takes rows y, y + splits, ..., so a band of
+//     dense rows (a fused decode's rows of the lost chunks) spreads over
+//     every split and a warp's two rows are neighbours of like weight;
+//     each walk is an __ffs loop with kGroup loads in flight, its trip
+//     count per thread, not unrolled.
+//
+// Registers (ptxas -v, sm_90a, scripts/by_value_variants.py, no spills):
+// tile body 32, direct body 40.  Kernel ms on an NVIDIA H100 80GB HBM3 at
+// 700 W, C = 256 (scripts/by_value_variants.py): the direct body
+// everywhere read 0.285-0.301 / 0.0111 ms for the (160, 128) decode at
+// B = 4096 / 64 against the tile body's 0.164 / 0.0078, and the tile body
+// for the (128, 128) decode 0.0042-0.0048 ms at B = 36-64 against the
+// direct body's 0.0031-0.0037.  Rejected: staging through registers, 8
+// loads a thread (80 registers, 3 blocks an SM), 0.179-0.184 ms for the
+// (160, 128) decode at B = 4096; mask words loaded four at a time a row
+// ahead (48 registers) 0.194; 8 loads in flight in the walk (56
+// registers) 0.208; kGf01FillBlocks 1 or 4 moved nothing at B <= 64.
+//
+// Bound: bytes, (K + M) * C per item: each input read once and each output
+// written once; the XORs, nnz * C / 4 word operations an item, are far
+// below the integer issue rate.  At B = 64 the (160, 128) decode's 1,744
+// set bits read 28.6 MB of shared memory, about a microsecond of the
+// card's shared-memory bandwidth, on top of the launch and the staging.
+// ---------------------------------------------------------------------------
+
+// the tile body splits its rows across blockIdx.y until its grid holds
+// this many blocks an SM
+constexpr int kGf01FillBlocks = 2;
+// the host rule between the bodies (see above), in percent
+constexpr int kGf01DirectPercent = 100;
+
+// 16 bytes from device memory to shared memory without a register
+// (cp.async, L2 only), and the wait for every such copy of the thread
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_async_copies() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+template <class Tab>
 __global__ void __launch_bounds__(kThreads)
-delta_update_kernel(const uint8_t* __restrict__ tables, Gammas G, int m,
-                    const uint8_t* __restrict__ P,
-                    const uint8_t* __restrict__ old,
-                    const uint8_t* __restrict__ nw, uint8_t* __restrict__ out,
-                    long long C, long long tiles, bool vec) {
-  __shared__ uint8_t exp_s[512];
-  __shared__ uint8_t log_s[256];
-  load_exp_log(tables, exp_s, log_s);
-  for (long long u = blockIdx.x; u < tiles; u += gridDim.x) {
-    const long long c0 = u * kTile + (long long)threadIdx.x * kVec;
+gf01_tile_kernel(const __grid_constant__ Tab T, int M, int K, int words,
+                 const uint8_t* __restrict__ D, uint8_t* __restrict__ out,
+                 int B, long long C, int lane_bits, long long tiles,
+                 bool vec) {
+  extern __shared__ uint4 tile[];  // K rows of `lanes` 16-byte vectors
+  const int lanes = 1 << lane_bits;
+  const int per_block = kThreads >> lane_bits;
+  const int sub = threadIdx.x >> lane_bits, lane = threadIdx.x & (lanes - 1);
+  const int nvec = K << lane_bits;
+  const long long units = (long long)B * tiles;
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const long long b = u / tiles;
+    const long long c_base = (u - b * tiles) * lanes * kVec;
+    const uint8_t* d = D + b * K * C + c_base;
+    __syncthreads();  // the previous unit's reads of the tile are done
+    // every load of the tile in flight at once: asynchronous copies on the
+    // 16-byte path, one vector at a time on the byte path
+    for (int v = threadIdx.x; v < nvec; v += kThreads) {
+      const long long c = (long long)(v & (lanes - 1)) * kVec;
+      const uint8_t* src = d + (long long)(v >> lane_bits) * C + c;
+      if (c_base + c >= C)
+        tile[v] = make_uint4(0u, 0u, 0u, 0u);
+      else if (vec)
+        copy16_async(tile + v, src);
+      else
+        tile[v] = load16(src, (int)min((long long)kVec, C - c_base - c),
+                         false).q;
+    }
+    wait_async_copies();
+    __syncthreads();
+    const long long c0 = c_base + (long long)lane * kVec;
     if (c0 >= C) continue;
     const int nb = (int)min((long long)kVec, C - c0);
-    V16 x = load16(old + c0, nb, vec);
-    xor16(x, load16(nw + c0, nb, vec));
-    V16 lx;
+    // rows o = y + splits * (sub + per_block * i): neighbouring rows (a
+    // band of dense ones, like the lost chunks' rows of a fused decode)
+    // go to different splits
+    for (int o = blockIdx.y + gridDim.y * sub; o < M;
+         o += gridDim.y * per_block) {
+      V16 acc = zero16();
+      for (int w = 0; w < words; ++w) {
+        uint32_t bits = T.word(o * words + w);
+        const uint4* col = tile + ((w * 32) << lane_bits) + lane;
+        while (bits) {
+          V16 x[kGroup];
 #pragma unroll
-    for (int t = 0; t < kVec; ++t) lx.b[t] = log_s[x.b[t]];
-    for (int r = 0; r < m; ++r) {
-      V16 acc = load16(P + (long long)r * C + c0, nb, vec);
-      const int g = G.g[r];
-      if (g != 0) {
-        const int lg = log_s[g];
+          for (int i = 0; i < kGroup; ++i) {
+            x[i] = zero16();
+            if (bits) {
+              x[i].q = col[(__ffs(bits) - 1) << lane_bits];
+              bits &= bits - 1;
+            }
+          }
 #pragma unroll
-        for (int t = 0; t < kVec; ++t)
-          acc.b[t] ^= x.b[t] ? exp_s[lx.b[t] + lg] : (uint8_t)0;
+          for (int i = 0; i < kGroup; ++i) xor16(acc, x[i]);
+        }
       }
-      store16(out + (long long)r * C + c0, acc, nb, vec);
+      store16(out + (b * M + o) * C + c0, acc, nb, vec);
     }
+  }
+}
+
+template <class Tab>
+__global__ void __launch_bounds__(kSmallThreads)
+gf01_direct_kernel(const __grid_constant__ Tab T, int M, int K, int words,
+                   const uint8_t* __restrict__ D, uint8_t* __restrict__ out,
+                   int B, long long C, long long vecs, bool vec) {
+  const long long units = (long long)B * M * vecs;
+  for (long long t = (long long)blockIdx.x * kSmallThreads + threadIdx.x;
+       t < units; t += (long long)gridDim.x * kSmallThreads) {
+    const long long pair = t / vecs;  // b * M + o
+    const long long c0 = (t - pair * vecs) * kVec;
+    const int nb = (int)min((long long)kVec, C - c0);
+    const long long b = pair / M;
+    const int o = (int)(pair - b * M);
+    const uint8_t* d = D + b * K * C + c0;
+    V16 acc = zero16();
+    for (int w = 0; w < words; ++w) {
+      uint32_t bits = T.word(o * words + w);
+      const uint8_t* dw = d + (long long)w * 32 * C;
+      while (bits) {
+        V16 x[kGroup];
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          x[i] = zero16();
+          if (bits) {
+            x[i] = load16(dw + (long long)(__ffs(bits) - 1) * C, nb, vec);
+            bits &= bits - 1;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) xor16(acc, x[i]);
+      }
+    }
+    store16(out + pair * C + c0, acc, nb, vec);
   }
 }
 
@@ -978,6 +1065,72 @@ int launch_shared_matmul(int tier, const uint8_t* tabs, int m, int k,
   }
 }
 
+// tile bodies may take more than the default 48 KB of shared memory;
+// the attribute is set once per device and instantiation, not per call
+template <class Tab>
+cudaError_t allow_gf01_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev >= 0 && dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(gf01_tile_kernel<Tab>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kGf01Smem);
+  if (e == cudaSuccess && bit) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+// One launch of kernel 3 on masks T: the tile body, its rows split across
+// blockIdx.y while the grid is short of kGf01FillBlocks an SM, or the
+// direct body where it reads less (see the note above).
+template <class Tab>
+int launch_gf01(const Tab& T, int M, int K, long long nnz, const uint8_t* D,
+                uint8_t* out, int B, long long C, cudaStream_t s) {
+  const int words = (K + 31) / 32;
+  const bool vec = (C % kVec == 0) && aligned16(D) && aligned16(out);
+  int lanes = lanes_for(C);
+  while (lanes > 1 && (long long)K * lanes * kVec > kGf01Smem) lanes >>= 1;
+  const long long tiles = tiles_for(C, lanes);
+  const long long units = (long long)B * tiles;
+  const long long per_block = kThreads / lanes;
+  const long long most = (M + per_block - 1) / per_block;
+  const long long fill = (long long)sm_count() * kGf01FillBlocks;
+  long long splits = units >= fill ? 1 : (fill + units - 1) / units;
+  if (splits > most) splits = most;
+  if (100 * nnz < (long long)kGf01DirectPercent * K * splits) {
+    const long long vecs = (C + kVec - 1) / kVec;
+    const int grid = blocks_for((long long)B * M * vecs);
+    if (grid < 0) return (int)cudaErrorInvalidValue;
+    gf01_direct_kernel<Tab><<<grid, kSmallThreads, 0, s>>>(
+        T, M, K, words, D, out, B, C, vecs, vec);
+    return (int)cudaGetLastError();
+  }
+  const int smem = K * lanes * kVec;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = allow_gf01_smem<Tab>();
+    if (e != cudaSuccess) return (int)e;
+  }
+  int lane_bits = 0;
+  while ((1 << lane_bits) < lanes) ++lane_bits;
+  const int per_sm = (200 * 1024) / smem;
+  const dim3 grid(grid_for(units, per_sm < 1 ? 1 : (per_sm > 8 ? 8 : per_sm)),
+                  (unsigned)splits);
+  gf01_tile_kernel<Tab><<<grid, kThreads, smem, s>>>(
+      T, M, K, words, D, out, B, C, lane_bits, tiles, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int launch_gf01_tier(const uint8_t* masks, long long nbytes, int M, int K,
+                     long long nnz, const uint8_t* D, uint8_t* out, int B,
+                     long long C, cudaStream_t s) {
+  CoefWords<N> T;
+  std::memcpy(T.w, masks, (size_t)nbytes);
+  return launch_gf01(T, M, K, nnz, D, out, B, C, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1013,28 +1166,32 @@ int gf_matmul_cols_batched(int tier, const uint8_t* tabs, int m, int k,
   return launch_shared_matmul<true>(tier, tabs, m, k, D, out, B, C, stream);
 }
 
-int gf01_matmul_batched(const uint32_t* masks, int M, int K, const uint8_t* D,
-                        uint8_t* out, int B, long long C, void* stream) {
-  if (M <= 0 || K <= 0 || K > kGf01MaxCols || B <= 0 || C <= 0)
+// Kernel 3: `tier` indexes the parameter-struct sizes that hold the
+// matrix's host-built row masks `masks` (M * ceil(K/32) words), or with
+// tier kDeviceTier they lie on the card at `masks`; `nnz` is the
+// matrix's count of set bits.
+int gf01_matmul_batched(int tier, const uint8_t* masks, int M, int K,
+                        long long nnz, const uint8_t* D, uint8_t* out, int B,
+                        long long C, void* stream) {
+  if (M <= 0 || K <= 0 || K > kGf01MaxCols || B <= 0 || C <= 0 || nnz < 0)
     return (int)cudaErrorInvalidValue;
-  int lanes = lanes_for(C);
-  while (lanes > 1 && (long long)K * lanes * kVec > kGf01Smem) lanes >>= 1;
-  const int smem = K * lanes * kVec;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gf01_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kGf01Smem);
-    if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tier == kDeviceTier)
+    return launch_gf01(DevWords{reinterpret_cast<const uint32_t*>(masks)}, M,
+                       K, nnz, D, out, B, C, s);
+  const long long nbytes = (long long)M * ((K + 31) / 32) * 4;
+  if (nbytes > tier_bytes(tier)) return (int)cudaErrorInvalidValue;
+  switch (tier) {
+    case 0:
+      return launch_gf01_tier<kCoefTiers[0]>(masks, nbytes, M, K, nnz, D, out,
+                                             B, C, s);
+    case 1:
+      return launch_gf01_tier<kCoefTiers[1]>(masks, nbytes, M, K, nnz, D, out,
+                                             B, C, s);
+    default:
+      return launch_gf01_tier<kCoefTiers[2]>(masks, nbytes, M, K, nnz, D, out,
+                                             B, C, s);
   }
-  const long long tiles = tiles_for(C, lanes);
-  const bool vec = (C % kVec == 0) && aligned16(D) && aligned16(out);
-  const int per_sm = (200 * 1024) / smem;
-  const int grid = grid_for((long long)B * tiles,
-                            per_sm < 1 ? 1 : (per_sm > 8 ? 8 : per_sm));
-  gf01_matmul_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      masks, M, K, (K + 31) / 32, D, out, B, C, lanes, tiles, vec);
-  return (int)cudaGetLastError();
 }
 
 // Kernels 4-7: `tier` indexes the parameter-struct sizes (gf_coef_tier);
@@ -1082,18 +1239,21 @@ int gf_matmul(int tier, const uint8_t* tabs, int m, int k, const uint8_t* D,
 
 int gf_delta_max_rows() { return kDeltaMaxRows; }
 
-int gf_delta_update(const uint8_t* tables, const int32_t* G_host, int m,
-                    const uint8_t* P, const uint8_t* old, const uint8_t* nw,
-                    uint8_t* out, long long C, void* stream) {
+// Kernel 9: the m gamma bytes lie on the host.
+int gf_delta_update(const uint8_t* G_host, int m, const uint8_t* P,
+                    const uint8_t* old, const uint8_t* nw, uint8_t* out,
+                    long long C, void* stream) {
   if (m <= 0 || m > kDeltaMaxRows || C <= 0) return (int)cudaErrorInvalidValue;
-  Gammas G;
-  for (int r = 0; r < m; ++r) G.g[r] = (uint8_t)(G_host[r] & 255);
-  const long long tiles = (C + kTile - 1) / kTile;
+  CoefBytes<kCoefTiers[0]> G;
+  std::memcpy(G.b, G_host, (size_t)m);
+  const long long vecs = (C + kVec - 1) / kVec;
+  const int grid = blocks_for(vecs);
+  if (grid < 0) return (int)cudaErrorInvalidValue;
   const bool vec = (C % kVec == 0) && aligned16(P) && aligned16(old) &&
                    aligned16(nw) && aligned16(out);
-  const int grid = grid_for(tiles, 8);
-  delta_update_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tables, G, m, P, old, nw, out, C, tiles, vec);
+  delta_update_kernel<<<grid, kSmallThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      G, P, old, nw, out, m, C, vecs, vec);
   return (int)cudaGetLastError();
 }
 

@@ -6,10 +6,10 @@ gamma[b, r]·xor[b] into the m parity rows of its stripe.
 * ``delta_update(parity, gammas, old, new)``: one stripe, (m, C) parity,
   (m,) gammas, (C,) old and new bytes -> (m, C) updated parity, the
   entry of ``kernels/ops.py:apply_parity_delta``.  Kernel
-  ``gf_delta_update`` replaces ``_delta_kernel``: it reads old and new
-  itself and XORs them in registers, so the call moves (2m+2)·C bytes
-  (an ``old ^ new`` pass before the batched kernel would add 3·C), and
-  the gammas travel by value in the launch parameters.
+  ``gf_delta_update`` replaces ``_delta_kernel``: the batched body below
+  at B = 1, reading old and new itself and XORing them in registers, so
+  the call moves (2m+2)·C bytes (an ``old ^ new`` pass before the
+  batched kernel would add 3·C).
 
 * ``delta_apply_batched(parity, gammas, xor)``: (B, m, C) parity,
   (B, m) gammas, (B, C) xor -> (B, m, C) updated parity.  Kernel
@@ -27,15 +27,16 @@ gamma[b, r]·xor[b] into the m parity rows of its stripe.
 Bound: device-memory bytes, (2m+1)·C per item with parity and (m+1)·C
 without; the kernel reads the xor once and builds each gamma's nibble
 tables in registers (see ``csrc/gf256.cu``).  The gammas travel by value
-in the launch parameters (``kernels/coefs.py``), so the batched wrapper
-copies nothing to the card and never waits on the stream.
+in the launch parameters (``kernels/coefs.py``), so neither wrapper
+copies anything to the card or waits on the stream.
 
 Dispatch: a CUDA tensor launches the kernel, a CPU tensor takes the plain
 version below.  Nothing falls back.
 """
 from __future__ import annotations
 
-import numpy as np
+import functools
+
 import torch
 
 from . import _build, coefs, dispatch
@@ -80,11 +81,7 @@ def delta_apply_batched(parity: torch.Tensor | None, gammas,
         raise ValueError("xor must be a (B, C) torch.Tensor")
     if not dispatch.decide(xor).kernel:
         return delta_apply_batched_plain(parity, gammas, xor)
-    if isinstance(gammas, torch.Tensor):
-        gammas = gammas.cpu().numpy()
-    g = np.asarray(gammas)
-    if g.dtype != np.uint8:
-        g = (g & 255).astype(np.uint8)
+    g = coefs.gamma_bytes(gammas)
     dev = xor.device
     B, C = xor.shape
     if g.ndim != 2 or g.shape[0] != B:
@@ -128,17 +125,23 @@ def delta_update_plain(parity: torch.Tensor, gammas, old: torch.Tensor,
     return parity ^ _mul_flat(dev)[idx]
 
 
+@functools.cache
+def _max_rows() -> int:
+    """The single-stripe kernel's row limit, read from the library once."""
+    return _build.library().gf_delta_max_rows()
+
+
 def delta_update(parity: torch.Tensor, gammas, old: torch.Tensor,
                  new: torch.Tensor) -> torch.Tensor:
     """Single-stripe fused delta: parity (m, C) uint8, gammas (m,) ints
     (host array, or a tensor read back to the host), old/new (C,) uint8
-    -> the updated (m, C) parity on the parity's device."""
+    -> the updated (m, C) parity on the parity's device.  On the card the
+    gammas go into the launch parameters, so the call copies nothing to
+    the card and does not synchronize."""
     if not isinstance(parity, torch.Tensor) or parity.dim() != 2:
         raise ValueError("parity must be an (m, C) torch.Tensor")
     m, C = parity.shape
-    if isinstance(gammas, torch.Tensor):
-        gammas = gammas.cpu().numpy()
-    g = np.ascontiguousarray(np.asarray(gammas).astype(np.int32))
+    g = coefs.gamma_bytes(gammas)
     if g.shape != (m,):
         raise ValueError(f"gammas {g.shape} vs parity {(m, C)}")
     if not dispatch.decide(parity).kernel:
@@ -149,16 +152,14 @@ def delta_update(parity: torch.Tensor, gammas, old: torch.Tensor,
     _build.require(new, "new", torch.uint8, (C,), dev)
     if m == 0 or C == 0:
         return parity.clone()
+    if m > _max_rows():
+        raise ValueError(f"{m} parity rows exceed the kernel's {_max_rows()}")
     lib = _build.library()
-    if m > lib.gf_delta_max_rows():
-        raise ValueError(f"{m} parity rows exceed the kernel's "
-                         f"{lib.gf_delta_max_rows()}")
     out = torch.empty((m, C), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = lib.gf_delta_update(
-            _build.tables(dev).data_ptr(), g.ctypes.data, m,
-            parity.data_ptr(), old.data_ptr(), new.data_ptr(), out.data_ptr(),
-            C, _build.stream_ptr(dev))
+            g.tobytes(), m, parity.data_ptr(), old.data_ptr(), new.data_ptr(),
+            out.data_ptr(), C, _build.stream_ptr(dev))
     _build.check(err, "gf_delta_update")
     _build.count_launch(LAUNCHES, "gf_delta_update")
     return out

@@ -33,17 +33,19 @@ Three entry points, with the JAX package's signatures:
 Bound: every kernel moves each input byte once and each output byte once
 (at B=4096, C=4096, (10, 8) that is 302 MB against ~0.09 ms at 3.35
 TB/s).  The ``unroll`` and ``cols`` kernels (and ``gf_matmul``) take the
-shared matrix as its coefficients' nibble tables, built on the host once
-per matrix (``coefs.matrix_tables``, cached by the matrix's bytes with
-the strategy in ``_plan``: the encode matrix is fixed per code and the
-fused decode matrices recur per erasure pattern) and passed by value in
-the launch parameters, so those calls copy nothing to the card and never
-wait on the stream.  Only a ``cols`` matrix above the largest parameter
-tier (more than 1,360 coefficients) has its tables copied to the card,
-once per matrix, and cached (``_device_matrix``), as the ``gf01`` row
-masks are.  The per-item matrices change with every call, so they travel
-by value too (``kernels/coefs.py``): as bytes, or for 0/1 matrices as row
-masks.  See the source notes in ``csrc/gf256.cu`` for the designs.
+shared matrix as its coefficients' nibble tables, the ``gf01`` kernel as
+its rows' bit masks, built on the host once per matrix
+(``coefs.matrix_tables``/``matrix_masks``, cached by the matrix's bytes
+with the strategy in ``_plan``: the encode matrix is fixed per code and
+the fused decode matrices recur per erasure pattern) and passed by value
+in the launch parameters, so those calls copy nothing to the card and
+never wait on the stream.  Only a matrix above the largest parameter
+tier (a ``cols`` matrix of more than 1,360 coefficients, a ``gf01`` one
+of more than 8,160 mask words) has its words copied to the card, once
+per matrix, and cached (``_device_matrix``).  The per-item matrices
+change with every call, so they travel by value too
+(``kernels/coefs.py``): as bytes, or for 0/1 matrices as row masks.  See
+the source notes in ``csrc/gf256.cu`` for the designs.
 
 Dispatch (``kernels.dispatch``): a CUDA tensor launches the kernel, a
 CPU tensor takes the plain version of the same strategy.  Nothing falls
@@ -103,44 +105,37 @@ def choose_strategy(A: np.ndarray, strategy: str | None = None) -> str:
     return strategy
 
 
-def _pack_rows(A: np.ndarray) -> np.ndarray:
-    """0/1 (M, K) matrix -> (M, ceil(K/32)) uint32 row masks, bit j % 32 of
-    word j // 32 set where A[o, j] = 1 (the ``gf01`` kernel's layout)."""
-    M, K = A.shape
-    words = -(-K // 32)
-    packed = np.zeros((M, words * 4), dtype=np.uint8)
-    packed[:, :-(-K // 8)] = np.packbits(A.astype(bool), axis=1,
-                                         bitorder="little")
-    return packed.view("<u4")
+def _words(strategy: str, A: np.ndarray) -> np.ndarray:
+    """A matrix as its kernel reads it: the ``gf01`` row masks, or the
+    nibble tables of an ``unroll`` or ``cols`` matrix (uint32 words)."""
+    return (coefs.matrix_masks(A) if strategy == "gf01"
+            else coefs.matrix_tables(A))
 
 
 @_build.locked_cache(maxsize=512)
 def _device_matrix(strategy: str, raw: bytes, shape: tuple,
                    device: torch.device) -> torch.Tensor:
-    """A matrix as its kernel reads it from the card, copied once: the
-    ``gf01`` row masks, or a ``cols`` matrix's nibble tables."""
+    """The words of a matrix above the largest parameter tier on the
+    card, copied once."""
     A = np.frombuffer(raw, dtype=np.uint8).reshape(shape)
-    host = (_pack_rows(A) if strategy == "gf01"
-            else coefs.matrix_tables(A)).view(np.int32)
+    host = _words(strategy, A).view(np.int32)
     return torch.from_numpy(host.copy()).to(device)
 
 
 @functools.lru_cache(maxsize=512)
 def _plan(raw: bytes, shape: tuple, strategy: str | None) -> tuple:
-    """(strategy, tables, tier) of one matrix on the card, cached per
-    matrix: ``choose_strategy``'s answer and, for ``unroll`` and
-    ``cols``, the nibble tables as bytes with the parameter tier they fit;
-    above the largest tier, (None, ``coefs.DEVICE``): those tables are
-    built for the card alone (``_device_matrix``).  For ``gf01``,
-    (None, None)."""
+    """(strategy, words, tier, nnz) of one matrix on the card, cached per
+    matrix: ``choose_strategy``'s answer, the kernel's words as bytes
+    (``_words``) with the parameter tier they fit, and the matrix's
+    nonzero count (the ``gf01`` kernel picks its body by it).  Above the
+    largest tier the words are (None, ``coefs.DEVICE``): they are built
+    for the card alone (``_device_matrix``)."""
     A = np.frombuffer(raw, dtype=np.uint8).reshape(shape)
     strategy = choose_strategy(A, strategy)
-    if strategy == "gf01":
-        return strategy, None, None
-    tier = coefs.matrix_tier(A.size * 4 * len(coefs.NIB_WORDS))
-    if tier == coefs.DEVICE:
-        return strategy, None, tier
-    return strategy, coefs.matrix_tables(A).tobytes(), tier
+    words = _words(strategy, A)
+    tier = coefs.matrix_tier(words.nbytes)
+    return (strategy, None if tier == coefs.DEVICE else words.tobytes(),
+            tier, int(np.count_nonzero(A)))
 
 
 @functools.cache
@@ -247,11 +242,11 @@ def gf256_matmul_batched(A, data: torch.Tensor,
     tensor -> (B, m, C) on the data's device.  ``strategy`` names the
     kernel body (``unroll``/``gf01``/``cols``); by default, and for a
     name it does not know, ``choose_strategy`` picks it.  On the card one
-    call is one launch.  The ``unroll`` and ``cols`` tables go into the
-    launch parameters, so those calls copy nothing to the card and do not
-    synchronize; a ``gf01`` matrix, and a ``cols`` matrix above 1,360
-    coefficients, is copied to the card at its first call (a pageable
-    copy, which waits on the stream) and cached."""
+    call is one launch.  The matrix's tables or row masks go into the
+    launch parameters, so the call copies nothing to the card and does
+    not synchronize; only a matrix above the largest parameter tier is
+    copied to the card at its first call (a pageable copy, which waits on
+    the stream) and cached."""
     A = _host_matrix(A)
     m, k = A.shape
     if not isinstance(data, torch.Tensor) or data.dim() != 3:
@@ -262,7 +257,7 @@ def gf256_matmul_batched(A, data: torch.Tensor,
             return gf01_matmul_batched_plain(A, data)
         return gf256_matmul_batched_plain(A, data)
     raw = A.tobytes()
-    strategy, tabs, tier = _plan(raw, A.shape, strategy)
+    strategy, words, tier, nnz = _plan(raw, A.shape, strategy)
     dev = data.device
     _build.require(data, "data", torch.uint8, (B, k, C), dev)
     out = torch.empty((B, m, C), dtype=torch.uint8, device=dev)
@@ -275,19 +270,18 @@ def gf256_matmul_batched(A, data: torch.Tensor,
                                         else "coefficients"))
     lib = _build.library()
     name = _KERNEL_OF[strategy]
+    if tier == coefs.DEVICE:
+        words = _device_matrix(strategy, raw, A.shape, dev).data_ptr()
     with _build.on_device(dev):
         stream = _build.stream_ptr(dev)
         if strategy == "gf01":
-            masks = _device_matrix("gf01", raw, A.shape, dev)
-            err = lib.gf01_matmul_batched(
-                masks.data_ptr(), m, k, data.data_ptr(), out.data_ptr(), B, C,
-                stream)
+            err = lib.gf01_matmul_batched(tier, words, m, k, nnz,
+                                          data.data_ptr(), out.data_ptr(), B,
+                                          C, stream)
         else:
-            if tier == coefs.DEVICE:
-                tabs = _device_matrix("cols", raw, A.shape, dev).data_ptr()
             fn = (lib.gf_matmul_batched if strategy == "unroll"
                   else lib.gf_matmul_cols_batched)
-            err = fn(tier, tabs, m, k, data.data_ptr(), out.data_ptr(), B, C,
+            err = fn(tier, words, m, k, data.data_ptr(), out.data_ptr(), B, C,
                      stream)
     _build.check(err, name)
     _build.count_launch(LAUNCHES, name)
@@ -306,7 +300,7 @@ def gf256_matmul(A, data: torch.Tensor) -> torch.Tensor:
     C = data.shape[1]
     if not dispatch.decide(data).kernel:
         return gf256_matmul_batched(A, data[None])[0]
-    strategy, tabs, tier = _plan(A.tobytes(), A.shape, None)
+    strategy, tabs, tier, _ = _plan(A.tobytes(), A.shape, None)
     if strategy != "unroll":
         # the batch-of-one path: another kernel body
         return gf256_matmul_batched(A, data[None], strategy)[0]

@@ -46,7 +46,7 @@ def main(argv=None):
     if args.protect:
         ap.error("--protect needs the erasure-coded state store "
                  "(distributed/ecstore.py), which is not ported yet: "
-                 "ROADMAP.md, Queue 1 item 9")
+                 "ROADMAP.md, Queue 1 item 5")
 
     dev = dispatch.resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)

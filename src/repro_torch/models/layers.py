@@ -30,7 +30,7 @@ from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
 
 NEG_INF = -1e30
-_ROADMAP = "ROADMAP.md, Queue 1 item 7"
+_ROADMAP = "ROADMAP.md, Queue 1 item 3"
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -23,7 +23,7 @@ from .config import ModelConfig
 from .layers import (MLP, Attention, Embeddings, RMSNorm, attention_apply,
                      embed, mlp_apply, unembed)
 
-_ROADMAP = "ROADMAP.md, Queue 1 item 7"
+_ROADMAP = "ROADMAP.md, Queue 1 item 3"
 #: what each unported layer kind is, for the error
 _UNPORTED_KINDS = {"W": "local (windowed) attention", "L": "MLA",
                    "M": "MoE", "S": "Mamba-2", "R": "RG-LRU"}

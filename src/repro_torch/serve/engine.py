@@ -10,7 +10,7 @@ written in place.
 The reference's EC protection of the cache pages (``protect_cache``,
 ``refresh_cache_parity``, ``recover_cache_pages``) needs the erasure-coded
 state store of ``distributed/ecstore.py``, which is not ported yet
-(ROADMAP.md, Queue 1 item 9).
+(ROADMAP.md, Queue 1 item 5).
 """
 from __future__ import annotations
 

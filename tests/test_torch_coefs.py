@@ -13,6 +13,10 @@
   emulated ``nib_tables`` and MUL_TABLE, their layout against the CUDA
   source, the kernels' body emulated on them against the JAX package's
   host product, and the wrappers' per-matrix plan.
+* Kernel 3: the row masks the plan builds for a 0/1 matrix against a
+  bit-pack of the matrix, their tiers at RDP's matrices, and the device
+  route above the largest tier.  Kernel 9: the gamma bytes its wrapper
+  packs.
 
 The kernels themselves run only on a card (``test_torch_gpu.py``).
 Tolerance: exact.
@@ -330,23 +334,108 @@ def test_emulated_shared_matmul_matches_the_reference(m, k, rows):
     ((10, 8), None, "unroll"), ((2, 8), None, "unroll"),
     ((14, 10), None, "cols"), ((64, 64), None, "cols"),
     ((28, 32), "unroll", "unroll"), ((10, 8), "gf01", "cols"),
-    ((32, 128), None, "gf01")])
+    ((32, 128), None, "gf01"), ((300, 1000), None, "gf01")])
 def test_card_plan_is_built_once_per_matrix(shape, strategy, want):
-    """The wrappers' per-matrix plan: ``choose_strategy``'s body and, for
-    the nibble-table kernels, the tables as bytes with their tier (none
-    above the largest tier: the card's copy is built alone); a second
-    call with the same matrix returns the cached plan."""
+    """The wrappers' per-matrix plan: ``choose_strategy``'s body, the
+    kernel's words as bytes (the nibble tables, or for ``gf01`` the row
+    masks) with their tier (none above the largest tier: the card's copy
+    is built alone, and holds the same words) and the matrix's nonzero
+    count; a second call with the same matrix returns the cached plan."""
     import importlib
     gm = importlib.import_module("repro_torch.kernels.gf256_matmul")
     A = (np.random.default_rng(1).integers(0, 2, shape, dtype=np.uint8)
          if want == "gf01" else _matrix(*shape, sum(shape)))
     plan = gm._plan(A.tobytes(), A.shape, strategy)
     assert plan[0] == gm.choose_strategy(A, strategy) == want
-    if want == "gf01":
-        assert plan[1:] == (None, None)
-    else:
-        tabs = coefs.matrix_tables(A)
-        assert plan[2] == coefs.matrix_tier(tabs.nbytes)
-        assert plan[1] == (None if plan[2] == coefs.DEVICE
-                           else tabs.tobytes())
+    words = (coefs.matrix_masks(A) if want == "gf01"
+             else coefs.matrix_tables(A))
+    assert plan[2] == coefs.matrix_tier(words.nbytes)
+    assert plan[1] == (None if plan[2] == coefs.DEVICE else words.tobytes())
+    assert plan[3] == np.count_nonzero(A)
+    if plan[2] == coefs.DEVICE:
+        dev = gm._device_matrix(want, A.tobytes(), A.shape,
+                                torch.device("cpu"))
+        assert dev.numpy().tobytes() == words.tobytes()
     assert gm._plan(A.copy().tobytes(), A.shape, strategy) is plan
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: the row masks of a shared 0/1 matrix; kernel 9: its gammas
+# ---------------------------------------------------------------------------
+
+def _bit_words(A):
+    """Row masks by arithmetic: word w of row o is the sum of
+    A[o, j] << (j - 32 w) over the columns j of that word."""
+    M, K = A.shape
+    words = np.zeros((M, -(-K // 32)), dtype=np.uint64)
+    for j in range(K):
+        words[:, j // 32] += A[:, j].astype(np.uint64) << np.uint64(j % 32)
+    return words.astype("<u4")
+
+
+@pytest.mark.parametrize("M,K", [(32, 128), (40, 33), (200, 1)])
+def test_gf01_plan_holds_the_row_masks(M, K):
+    """The masks ``_plan`` builds for a ``gf01`` matrix (K = 128, a ragged
+    last word at K = 33, one column) are the matrix's bits, and no bit
+    past K is set."""
+    import importlib
+    gm = importlib.import_module("repro_torch.kernels.gf256_matmul")
+    A = (np.random.default_rng(M + K).random((M, K)) < 0.3).astype(np.uint8)
+    A[0, K - 1] = 1
+    strategy, words, tier, nnz = gm._plan(A.tobytes(), A.shape, None)
+    assert strategy == "gf01" and nnz == A.sum()
+    got = np.frombuffer(words, dtype="<u4").reshape(M, -1)
+    np.testing.assert_array_equal(got, _bit_words(A))
+    if K % 32:
+        assert (got[:, -1] >> np.uint32(K % 32) == 0).all()
+
+
+def _rdp_matrix(avail, wanted):
+    """RDP(10,8)'s encode matrix (``wanted`` None), or the fused decode
+    matrix the engine builds for one erasure pattern."""
+    from repro_torch.core.codes import make_code
+    from repro_torch.core.engine import NumpyEngine
+    eng = NumpyEngine(make_code("rdp", 10, 8))
+    if wanted is None:
+        return eng.rep.encode
+    return eng._fused_decode_matrix(
+        eng.plan_decode([avail], [wanted], 4096).groups[0])
+
+
+@pytest.mark.parametrize("avail,wanted,shape,tier,nnz", [
+    (None, None, (32, 128), 0, 369),
+    ([p for p in range(10) if p != 8], (8,), (144, 128), 1, 256),
+    (range(2, 10), (0, 1, 8, 9), (160, 128), 1, 1744)])
+def test_gf01_rdp_matrices_take_a_parameter_tier(avail, wanted, shape, tier,
+                                                 nnz):
+    """RDP's encode masks fit the 512-byte tier, its fused decodes' the
+    4,096-byte one: no main-path matrix goes to the card.  The set bits
+    (``nnz``, which picks kernel 3's body) are the ones ``csrc/gf256.cu``
+    states."""
+    import importlib
+    gm = importlib.import_module("repro_torch.kernels.gf256_matmul")
+    A = _rdp_matrix(avail, wanted)
+    assert A.shape == shape
+    plan = gm._plan(A.tobytes(), A.shape, None)
+    assert plan[0] == "gf01" and plan[2] == tier and plan[3] == nnz
+    assert len(plan[1]) == shape[0] * 4 * 4
+
+
+@pytest.mark.parametrize("form", ["int32", "int64", "list", "uint8",
+                                  "tensor_int32", "tensor_int64"])
+def test_gamma_bytes_are_the_low_bytes(form):
+    """The gammas kernel 9's wrapper (and kernel 6's) hands the kernel:
+    ``g & 255`` as uint8, from host arrays, lists and tensors, negative
+    and above 255 included."""
+    g = np.array([0, 1, 2, 255, 256, 300, -1, 1000, 77], dtype=np.int64)
+    want = (g & 255).astype(np.uint8)
+    if form == "uint8":
+        g = want
+    arg = {"int32": lambda: g.astype(np.int32),
+           "int64": lambda: g, "list": lambda: g.tolist(),
+           "uint8": lambda: g,
+           "tensor_int32": lambda: torch.from_numpy(g.astype(np.int32)),
+           "tensor_int64": lambda: torch.from_numpy(g)}[form]()
+    got = coefs.gamma_bytes(arg)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)

@@ -145,26 +145,46 @@ def test_delta_kernels_match_plain(cuda, m, C, B):
 
 
 def _rdp_matrix(which):
-    """RDP(10,8)'s (32, 128) encode matrix, or its (160, 128) fused decode
-    matrix for two lost data chunks with both parities re-encoded."""
+    """RDP(10,8)'s (32, 128) encode matrix, or a fused decode matrix: two
+    lost data chunks with both parities re-encoded (160, 128), a lost
+    parity chunk (144, 128) or one lost data chunk (128, 128); or, for
+    "wide", a 0/1 (300, 1000) matrix whose row masks (38,400 bytes) are
+    above the largest parameter tier."""
+    if which == "wide":
+        rng = _rng("gf01-wide")
+        return (rng.random((300, 1000)) < 0.05).astype(np.uint8)
     eng = NumpyEngine(make_code("rdp", 10, 8))
     if which == "encode":
         return eng.rep.encode
-    plan = eng.plan_decode([range(2, 10)], [(0, 1, 8, 9)], 4096)
+    avail, wanted = {"decode": (range(2, 10), (0, 1, 8, 9)),
+                     "decode144": ([p for p in range(10) if p != 8], (8,)),
+                     "decode128": ([p for p in range(10) if p != 3], (3,))
+                     }[which]
+    plan = eng.plan_decode([avail], [wanted], 4096)
     return eng._fused_decode_matrix(plan.groups[0])
 
 
-@pytest.mark.parametrize("B", [0, 1, 3, 64])
-@pytest.mark.parametrize("C", [256, 1000, 4096])
-@pytest.mark.parametrize("which", ["encode", "decode"])
+# kernel 3: the RDP matrices (the one-chunk decodes take the direct body at
+# small batches, the rest the tile body) at every batch and width, and a
+# matrix above the largest tier at the batches of the main path
+GF01_CASES = ([(w, C, B) for w in ("encode", "decode", "decode144",
+                                   "decode128")
+               for C in (256, 1000, 4096) for B in (0, 1, 3, 36, 64, 4096)]
+              + [("wide", C, B) for C in (256, 1000, 4096)
+                 for B in (1, 36, 64)])
+
+
+@pytest.mark.parametrize("which,C,B", GF01_CASES)
 def test_gf01_kernel_matches_plain(cuda, which, C, B):
     A = _rdp_matrix(which)
     assert choose_strategy(A) == "gf01"
-    D = _u8(_rng("g01", which, C, B), (B, 128, C), cuda)
+    K = A.shape[1]
+    D = _u8_card(("g01", which, C, B), (B, K, C), cuda)
     before = launch_counts()["gf01_matmul_batched"]
     got = gf256_matmul_batched(A, D)
     assert torch.equal(got, gf01_matmul_batched_plain(A, D))
-    assert torch.equal(got, gf256_matmul_batched_plain(A, D))
+    if B <= 64:
+        assert torch.equal(got, gf256_matmul_batched_plain(A, D))
     assert launch_counts()["gf01_matmul_batched"] == before + (B > 0)
 
 
@@ -219,8 +239,11 @@ def test_unaligned_views_take_the_byte_path(cuda):
     A = _u8(rng, (2, 8))
     assert torch.equal(gf256_matmul_batched(A, D),
                        gf256_matmul_batched_plain(A, D))
-    # the new kernels, on views of the same odd offset
-    for A, rows in ((_rdp_matrix("encode"), 128), (_u8(rng, (14, 10)), 10)):
+    # the new kernels, on views of the same odd offset (kernel 3 in its
+    # tile body, the encode, and its direct body, the one-chunk decode)
+    for A, rows in ((_rdp_matrix("encode"), 128),
+                    (_rdp_matrix("decode128"), 128),
+                    (_u8(rng, (14, 10)), 10)):
         R = flat[1:1 + 3 * rows * 256].view(3, rows, 256)
         assert torch.equal(gf256_matmul_batched(A, R),
                            gf256_matmul_batched_plain(A, R))
@@ -359,17 +382,25 @@ def _by_value_case(name, B, C, rng, device):
 BY_VALUE = ["delta_apply", "delta_only", "fold_rs", "fold_rdp_01",
             "fold_rdp_general", "per_item_rdp_01", "per_item_rdp_general"]
 
-# kernels 1, 2 and 8: every shared matrix of the card tests up to the
-# largest parameter tier, and (64, 64) above it (its tables copied to the
-# card once, at the matrix's first call)
+# kernels 1, 2, 3 and 8: every shared matrix of the card tests up to the
+# largest parameter tier, and (64, 64) and the wide 0/1 matrix above it
+# (their words copied to the card once, at the matrix's first call)
 MATMUL_BY_VALUE = ["unroll_1x1", "unroll_2x8", "unroll_10x8", "unroll_8x16",
                    "unroll_28x32", "cols_14x10", "cols_13x10", "cols_40x30",
-                   "cols_64x64", "single_2x8", "single_10x8", "single_8x16"]
+                   "cols_64x64", "single_2x8", "single_10x8", "single_8x16",
+                   "gf01_encode", "gf01_decode", "gf01_decode128",
+                   "gf01_wide"]
 
 
 def _matmul_case(name, B, C, rng, device):
-    """(wrapper, plain, args, kernel) for one of kernels 1, 2 and 8."""
+    """(wrapper, plain, args, kernel) for one of kernels 1, 2, 3 and 8;
+    kernel 3's at RDP's C = 256 whatever ``C`` is."""
     kind, shape = name.split("_")
+    if kind == "gf01":
+        A = _rdp_matrix(shape)
+        return (gf256_matmul_batched, gf01_matmul_batched_plain,
+                (A, _u8(rng, (B, A.shape[1], 256), device)),
+                "gf01_matmul_batched")
     m, k = (int(v) for v in shape.split("x"))
     A = _matrix(rng, m, k)
     if kind == "single":
@@ -386,8 +417,8 @@ def _matmul_case(name, B, C, rng, device):
 
 def _launches_of(wrapper, args):
     """Launches one wrapper call makes: one per parameter-tier plan step
-    (kernels 1, 2 and 8: one)."""
-    if wrapper in (gf256_matmul_batched, gf256_matmul):
+    (kernels 1, 2, 3, 8 and 9: one)."""
+    if wrapper in (gf256_matmul_batched, gf256_matmul, delta_update):
         return 1
     if wrapper is delta_apply_batched:
         B, m = args[1].shape
@@ -449,11 +480,12 @@ def test_by_value_kernels_from_four_threads(cuda):
     every result stays right and no launch count is lost."""
     cases = [_by_value_case(name, 64, 4096, _rng("thr", name), cuda)
              for name in BY_VALUE]
-    _four_threads(cases)
+    _four_threads(cases + [_single_delta_case(2, 4096, _rng("thr", "du"),
+                                              cuda)])
 
 
 def test_matmul_kernels_from_four_threads(cuda):
-    """Kernels 1, 2 and 8 from four threads at once, as the sharded
+    """Kernels 1, 2, 3 and 8 from four threads at once, as the sharded
     cluster decodes: each matrix's first call (its plan and tables) races
     the others', every result stays right and no launch count is lost."""
     cases = [_matmul_case(name, 64, 4096, _rng("thr", name), cuda)
@@ -511,20 +543,34 @@ print(json.dumps(sorted({ev.name for ev in p.events()
 """
 
 
+def _single_delta_case(m, C, rng, device):
+    """(wrapper, plain, args, kernel) for kernel 9, a zero and a one gamma
+    among the rest."""
+    G = rng.integers(0, 256, m).astype(np.int32)
+    G[0] = 0
+    G[1 % m] = 1
+    return (delta_update, delta_update_plain,
+            (_u8(rng, (m, C), device), G, _u8(rng, (C,), device),
+             _u8(rng, (C,), device)), "gf_delta_update")
+
+
 def _every_by_value_case(device):
     """One B = 64, C = 4 KB call of each of kernels 4-7 in each
-    coefficient form and of kernels 1, 2 and 8 on each matrix."""
+    coefficient form, of kernels 1, 2, 3 and 8 on each matrix (kernel 3
+    at C = 256) and of kernel 9 at m = 2."""
     return ([_by_value_case(name, 64, 4096, _rng("sync", name), device)
              for name in BY_VALUE]
             + [_matmul_case(name, 64, 4096, _rng("sync", name), device)
-               for name in MATMUL_BY_VALUE])
+               for name in MATMUL_BY_VALUE]
+            + [_single_delta_case(2, 4096, _rng("sync", "du"), device)])
 
 
 def test_by_value_wrappers_neither_copy_nor_wait(cuda):
-    """Given host coefficients (or, for kernels 1, 2 and 8, a matrix they
-    have seen once), the wrappers of kernels 1, 2 and 4-8 raise nothing
-    under sync-debug mode "error", and a profiler trace of their calls
-    holds their kernels and no host-to-device copy."""
+    """Given host coefficients (or, for kernels 1, 2, 3 and 8, a matrix
+    they have seen once), the wrappers of kernels 1-9 raise nothing under
+    sync-debug mode "error", and a profiler trace of their calls holds
+    their kernels (kernel 3 in both bodies) and no host-to-device
+    copy."""
     import json
     import subprocess
     import sys
@@ -546,7 +592,9 @@ def test_by_value_wrappers_neither_copy_nor_wait(cuda):
     assert proc.returncode == 0, proc.stderr[-2000:]
     names = json.loads(proc.stdout.strip().splitlines()[-1])
     for kernel in ("per_item_kernel", "delta_batched_kernel",
-                   "matmul_batched_kernel", "matmul_cols_kernel"):
+                   "matmul_batched_kernel", "matmul_cols_kernel",
+                   "gf01_tile_kernel", "gf01_direct_kernel",
+                   "delta_update_kernel"):
         assert any(kernel in n for n in names), (kernel, names)
     assert not [n for n in names if "HtoD" in n], names
 
@@ -605,14 +653,11 @@ def test_single_matmul_above_the_unroll_rule(cuda, shape, zero_one, kernel):
     assert after["gf_matmul"] == before["gf_matmul"]
 
 
-@pytest.mark.parametrize("C", [1, 1000, 4096, 1 << 20])
-@pytest.mark.parametrize("m", [1, 2, 14])
+@pytest.mark.parametrize("C", [1, 16, 1000, 4096, 1 << 20])
+@pytest.mark.parametrize("m", [1, 2, 4, 14])
 def test_delta_update_kernel_matches_plain(cuda, m, C):
-    rng = _rng("du", m, C)
-    G = rng.integers(0, 256, m).astype(np.int32)
-    G[0] = 0                                     # a zero gamma row
-    P = _u8(rng, (m, C), cuda)
-    old, new = _u8(rng, (C,), cuda), _u8(rng, (C,), cuda)
+    """A zero and a one gamma row among the rest (m = 1: a one)."""
+    P, G, old, new = _single_delta_case(m, C, _rng("du", m, C), cuda)[2]
     before = launch_counts()["gf_delta_update"]
     got = delta_update(P, G, old, new)
     assert torch.equal(got, delta_update_plain(P, G, old, new))

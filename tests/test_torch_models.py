@@ -266,4 +266,4 @@ def test_launch_serve_reduced_on_cpu():
 def test_launch_serve_protect_is_refused():
     out = _serve("--reduced", "--device", "cpu", "--protect")
     assert out.returncode != 0
-    assert "Queue 1 item 9" in out.stderr
+    assert "Queue 1 item 5" in out.stderr
