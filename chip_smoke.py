@@ -84,8 +84,32 @@ in place of the card):
              0.75, against the bf16 prefill and the twin's decode); a
              control, kernel 11 faulted in its last Q tile, must read
              above 0.75 against the twin; then
-             ``repro_torch.launch.serve`` at its defaults (4 x 32 prompt
-             tokens, 32 generated).
+             ``repro_torch.launch.serve --protect`` at its defaults (4 x
+             32 prompt tokens, 32 generated; the KV cache pages
+             erasure-coded over the 1 x 1 host mesh, RS(2,1)): the pages
+             of data position 0 rebuilt by ``recover_cache_pages(0)``
+             must equal the live cache pages byte for byte;
+10. train  - starcoder2-3b at full width, ``remat="full"``, B 2 x S 2,048
+             from ``SyntheticLM(seed 0)``, AdamW as ``launch.train`` sets
+             it, four steps, an ``ECCheckpoint`` RS(3,2) with 256-byte
+             pages over a (data 4, model 1) mesh updated after every step
+             (old ⊕ new through kernel 1): step 1's loss and gradient
+             norm within ``TRAIN_LOSS_TOL`` / ``TRAIN_GNORM_TOL`` of the
+             same step with the plain attention, and each layer's
+             attention weight gradients within ``TRAIN_ATTN_GRAD_TOL``
+             of the plain attention's (a control whose backward sums dK
+             over the first query tile alone must miss it); after the
+             last step the parity equals a fresh encode byte for byte,
+             every data position rebuilds byte for byte, and a flipped
+             parity byte must break the rebuild of a position it
+             protects; every loss finite; then ``launch.train --reduced --steps 20 --ec`` on
+             the card, whose loss must fall.  Kernel 11 (forward and
+             remat recompute) and kernel 1 must launch; kernel 1 is then
+             held against its plain version at the EC update's shape.
+             Prints loss, seconds and tokens/s per step, peak GB and the
+             EC encode, update and reconstruct ms.
+
+Every phase prints its seconds.
 
 While phases 4-8 run, ``ShapeLog`` counts each call of kernels 1-8 by
 shape, and after them its calls must add up to the launches those phases
@@ -93,7 +117,7 @@ counted (a call reached through a binding it does not wrap fails the
 run); then every shape is timed and each kernel's loss per run, calls x
 (kernel ms - bound ms), is printed beside its launches.
 Kernel 10 is also held against its plain version on the real object
-index of a server of the loaded RS testbed.  Every phase of 4-9 starts
+index of a server of the loaded RS testbed.  Every phase of 4-10 starts
 with the launch counts at 0 and reads them when it ends; launches made
 to compare a kernel with its plain version are not counted.  The line
 before the last is ``{"kernels": [...]}``;
@@ -102,6 +126,7 @@ the last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 from __future__ import annotations
 
 import copy
+import gc
 import importlib
 import json
 import subprocess
@@ -195,26 +220,34 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 def kernel_device_ms(torch, fn, reps: int, cuda_name: str):
     """The kernel's own device time per call, and the host-to-device
-    copies in the window: the durations of the CUDA kernels whose name
-    holds ``cuda_name`` in a ``torch.profiler`` (CUPTI) trace of ``reps``
-    calls of ``fn``, summed over ``reps`` (a call split into several
-    launches counts them all), and the trace's ``Memcpy HtoD`` events.
-    The time is None when the trace holds no such kernel (the profiler
-    saw no device activity)."""
+    copies in the window, from a ``torch.profiler`` (CUPTI) trace of
+    ``reps`` calls of ``fn``: the mean duration of the CUDA kernels whose
+    name holds ``cuda_name``, times the launches the wrappers counted in
+    the window, over ``reps`` (a call split into several launches counts
+    them all), and the trace's ``Memcpy HtoD`` events.  The count comes
+    from the wrappers because a trace can lose kernels: late in this
+    script's run, traces of 50 calls have held fewer than 50, which a sum
+    over the trace would read as a faster kernel.  None when the trace
+    kept no such kernel."""
+    from repro_torch.kernels import launch_counts
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    before = sum(launch_counts().values())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    launched = sum(launch_counts().values()) - before
     events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
     spans = [ev.time_range.elapsed_us() for ev in events
              if cuda_name in ev.name]
     htod = sum(1 for ev in events if "HtoD" in ev.name)
-    return (sum(spans) / reps / 1e3 if spans else None), htod
+    if not spans:
+        return None, htod
+    return sum(spans) / len(spans) * launched / reps / 1e3, htod
 
 
 def raises_no_sync(torch, fn) -> None:
@@ -577,9 +610,11 @@ def flash_work(q, k, v, causal):
 
 def flash_spec(torch, dev):
     """Kernel 11 on the grid of ``tests/test_flash_attention.py`` in fp32
-    and bf16, non-causal at S = 128 and at the ragged S = 100, and the
+    and bf16, non-causal at S = 128 and at the ragged S = 100, the
     starcoder2-3b prefill shape (B = 4, S = 2048, H = 24, KV = 2,
-    hd = 128) in fp32 and bf16, each element within its bound
+    hd = 128) in fp32 and bf16, and the train phase's shapes (B = 2 of
+    those; the reduced config's B = 2, S = 32, H = 4, KV = 2, hd = 16)
+    in bf16, each element within its bound
     (``kernels.flash_attention.tolerance``); timed at the prefill shape
     and at B = 1, S = 256 (launch-dominated) in bf16 and at the prefill
     shape in fp32, beside scaled_dot_product_attention.  bf16 runs the
@@ -608,7 +643,9 @@ def flash_spec(torch, dev):
               for g in ref_grid]
              + [(*g, False, dt) for dt in ("float32", "bfloat16")
                 for g in ((1, 128, 4, 4, 32), (1, 100, 2, 2, 16))]
-             + [prefill[:-1] + ("float32",), prefill])
+             + [prefill[:-1] + ("float32",), prefill,
+                (2, 2048, 24, 2, 128, True, "bfloat16"),     # the train step
+                (2, 32, 4, 2, 16, True, "bfloat16")])        # launch.train
     return dict(
         name="flash_attention",
         cuda_name=lambda a: (WGMMA_BODY if a[0].dtype == torch.bfloat16
@@ -1498,7 +1535,7 @@ def logit_err(torch, got, want):
                      for g, w in zip(got, want)))
 
 
-def run_model(np, torch, dev):
+def run_model(np, torch, dev, card):
     """starcoder2-3b on the card: (a) the prefill step ``Model.apply`` on
     4 x 2,048 tokens, which must launch kernel 11 once per layer and no
     other kernel, held against an fp32 twin with the same weights whose
@@ -1625,24 +1662,343 @@ def run_model(np, torch, dev):
     assert control_err > BF16_LOGIT_TOL, \
         f"the faulted control passes the bf16 check: {control_err}"
 
-    # (c) the launcher at the reference launcher's defaults
+    assert not any(decode_launches.values()), \
+        f"decode launched kernels: {decode_launches}"
+
+    # (c) the launcher at the reference launcher's defaults, with the KV
+    # cache pages EC-protected: it refreshes their parity after the
+    # decode, rebuilds data position 0's pages from it and prints whether
+    # they equal the live cache pages
     def run_serve():
         out_txt = io.StringIO()
         with contextlib.redirect_stdout(out_txt):
-            serve.main(["--arch", MODEL_ARCH, "--batch", "4",
-                        "--prompt-len", "32", "--gen", "32"])
+            serve.main(["--arch", MODEL_ARCH, "--batch", "4", "--prompt-len",
+                        "32", "--gen", "32", "--protect"])
         return out_txt.getvalue().splitlines()
 
     lines, serve_launches = launched_in(torch, run_serve)
     for line in lines:
-        log(f"launch.serve: {line}")
+        log(f"launch.serve --protect: {line}")
     assert any("tok/s" in line for line in lines), lines
-    served = {k: decode_launches[k] + serve_launches[k]
-              for k in serve_launches}
-    assert not any(served.values()), f"decode launched kernels: {served}"
+    recovered = [line for line in lines if "equal the live cache" in line]
+    log(f"launch.serve --protect [{card}]: {recovered}; launches "
+        f"{json.dumps(serve_launches)}")
+    assert len(recovered) == 1 and recovered[0].endswith(
+        "equal the live cache: True"), \
+        f"the recovered cache pages differ from the live cache: {lines}"
+    assert serve_launches["gf_matmul_batched"] > 0, serve_launches
+    others = {k: n for k, n in serve_launches.items()
+              if k != "gf_matmul_batched" and n}
+    assert not others, f"launch.serve launched other kernels: {others}"
     log(f"phase model: {time.perf_counter() - t_phase:.1f} s")
-    return prefill_launches, served, dict(
+    return prefill_launches, decode_launches, serve_launches, dict(
         prefill_s=prefill_s, peak_gb=peak_gb, **dec)
+
+
+# the train phase: starcoder2-3b at full width (remat "full"), B 2 x S 2048
+# from SyntheticLM(seed 0), AdamW as launch/train.py sets it, an
+# ECCheckpoint RS(3,2) with 256-byte pages over a (data 4, model 1) mesh
+# updated after every step (examples/train_ec_checkpoint.py's code)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+TRAIN_MESH = (4, 1)
+TRAIN_EC = dict(k=2, m=1, page_size=256)
+# Step 1 with kernel 11 against the same step with the plain attention,
+# both bf16 on the same weights and batch.  The two attentions differ by
+# at most 1e-4 + 2 bf16 ulps an element (kernels.flash_attention.
+# tolerance); the loss is an fp32 mean over 4,096 tokens (about 11.2 at
+# random weights) and the norm a sum over 4.3e9 gradients, so such
+# differences mostly average out.  On an H100 80GB HBM3 (700 W) the loss
+# differs by 3.9e-4 and the norm by 1.1e-4 relative, the same in every
+# run; the bounds are about five times that.
+TRAIN_LOSS_TOL = 2e-3
+TRAIN_GNORM_TOL = 5e-4
+# launch.train at its reduced config on the card
+TRAIN_LAUNCH_ARGS = ["--arch", MODEL_ARCH, "--reduced", "--steps", "20",
+                     "--ec"]
+
+
+# Each layer's attention weight gradients (wq, wk, wv, wo) at step 1 with
+# kernel 11 and the torch backward against the same with the plain
+# attention under autograd: |g - g_plain| / |g_plain| per leaf (Frobenius
+# norms), at most TRAIN_ATTN_GRAD_TOL over the 120 leaves.  A wrong dK or
+# dV past the backward's first query tile moves wk and wv, which the
+# global norm barely sees.  On an H100 80GB HBM3 (700 W) the largest
+# reading is 0.0218 (wk; wq 0.0214, wv and wo 0.0097), bf16 roundings
+# carried through 30 layers; the control reads 0.968 on wk.
+ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
+TRAIN_ATTN_GRAD_TOL = 0.05
+
+
+def plain_attention(fa):
+    """Kernel 11's plain version, differentiated by autograd: the check's
+    reference for step 1 alone, never the main path."""
+    def attention(q, k, v, *, causal=True, block_q=128, block_kv=128):
+        return fa.flash_attention_plain(q, k, v, causal=causal)
+    return attention
+
+
+def first_tile_dk(fa):
+    """The control's faulted attention backward: dK summed over the first
+    query tile alone, as if later tiles' contributions were dropped."""
+    real = fa.flash_attention_backward
+
+    def backward(q, k, v, out, dout, *, causal=True):
+        dq, _, dv = real(q, k, v, out, dout, causal=causal)
+        t = slice(0, fa.BWD_BLOCK_Q)
+        _, dk, _ = real(q[:, t], k, v, out[:, t], dout[:, t], causal=causal)
+        return dq, dk, dv
+    return backward
+
+
+def step1_grads(torch, model, params, batch, module, name, replacement):
+    """Step 1's loss, global gradient norm and copies of each layer's
+    attention weight gradients, with ``module.name`` replaced (None: as
+    the port runs)."""
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import make_loss_fn, value_and_grad
+    real = getattr(module, name)
+    if replacement is not None:
+        setattr(module, name, replacement)
+    try:
+        (loss, _), grads = value_and_grad(make_loss_fn(model), params, batch)
+        norm = float(global_norm(grads))
+    finally:
+        setattr(module, name, real)
+    attn = [{w: getattr(layer.attn, w).grad.clone() for w in ATTN_WEIGHTS}
+            for layer in model.layers]
+    del grads
+    for t in model.parameters():
+        t.grad = None
+    return float(loss), norm, attn
+
+
+def attn_grad_errors(got, want) -> dict:
+    """Per weight name, the largest |g - g_plain| / |g_plain| over the
+    layers."""
+    return {w: max(float((g[w].float() - p[w].float()).norm()
+                         / p[w].float().norm()) for g, p in zip(got, want))
+            for w in ATTN_WEIGHTS}
+
+
+def run_train(np, torch, dev, card, rows):
+    """Training at full width with an EC copy of the parameters: (1) step
+    1's loss and gradient norm with kernel 11 against the plain
+    attention's, and its attention weight gradients leaf by leaf, with a
+    control whose dK drops the later query tiles; four steps, each updating the parity from old ⊕ new; (2)
+    the parity equals a fresh encode; (3) every data position rebuilds
+    byte for byte; (4) a flipped parity byte must break the rebuild of a
+    position it protects; (5) every loss finite; then ``launch.train
+    --reduced --ec`` on the card, whose loss must fall.  Kernel 11 and
+    kernel 1 must launch.  Afterwards, outside the counted run, kernel 1
+    is held against its plain version at the EC update's shape and timed
+    there.  Returns the phase's launches and numbers."""
+    import contextlib
+    import io
+
+    import repro_torch.models.layers as layers
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.ecstore import ECConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.convert import param_tree
+    from repro_torch.train.checkpoint import ECCheckpoint
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gm = importlib.import_module("repro_torch.kernels.gf256_matmul")
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL_ARCH)
+    assert cfg.remat == "full", cfg.remat
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = Model(cfg, device=dev).init(gen)
+    params = param_tree(model)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0),
+                       device=dev)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # (1) step 1 without an update: the plain attention's loss, norm and
+    # attention weight gradients; kernel 11's gradients against them; the
+    # control, dK of the first query tile alone, must miss the bound
+    batch0 = data.batch(0)
+    plain_loss, plain_norm, plain_attn = step1_grads(
+        torch, model, params, batch0, layers, "flash_attention",
+        plain_attention(fa))
+    _, _, kernel_attn = step1_grads(torch, model, params, batch0, fa,
+                                    "flash_attention_backward", None)
+    attn_err = attn_grad_errors(kernel_attn, plain_attn)
+    del kernel_attn
+    _, _, faulted_attn = step1_grads(torch, model, params, batch0, fa,
+                                     "flash_attention_backward",
+                                     first_tile_dk(fa))
+    control_attn_err = attn_grad_errors(faulted_attn, plain_attn)
+    del faulted_attn, plain_attn
+    log(f"train [{card}] step 1 attention weight gradients, kernel 11 vs "
+        f"plain attention, max over layers of |g - g_plain| / |g_plain|: "
+        f"{json.dumps(attn_err)} (bound {TRAIN_ATTN_GRAD_TOL}); control "
+        f"(dK of the first query tile alone): {json.dumps(control_attn_err)}"
+        f", must exceed the bound")
+    assert max(attn_err.values()) <= TRAIN_ATTN_GRAD_TOL, attn_err
+    assert max(control_attn_err.values()) > TRAIN_ATTN_GRAD_TOL, \
+        f"the faulted backward passes the check: {control_attn_err}"
+
+    opt = make_optimizer("adamw", lr=1e-3,
+                         warmup_steps=min(20, TRAIN_STEPS // 5 + 1),
+                         total_steps=TRAIN_STEPS)
+    opt_state = opt.init(params)
+    mesh = make_mesh(TRAIN_MESH, ("data", "model"))
+    ec_cfg = ECConfig(**TRAIN_EC)
+    ec = ECCheckpoint(mesh, shd.param_specs(cfg, params, mesh), ec_cfg)
+    step_fn = make_train_step(model, opt, ec=ec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ec.create(params)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    losses, norms, step_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, opt_state, _, metrics = step_fn(params, opt_state, data.batch(i))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        log(f"train [{card}] step {i}: loss {losses[-1]}, grad norm "
+            f"{norms[-1]}, {step_s[-1]:.4f} s, "
+            f"{tokens / step_s[-1]:.1f} tok/s")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # an update whose old and new bytes are equal: the cost of one EC
+    # update (pack, pack-and-XOR, rotate, kernel 1, fold) at this state's
+    # size, and the parity must not change
+    before = ec.parity.clone()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    ec.stage(params)
+    ec.commit(params)
+    end.record()
+    end.synchronize()
+    update_ms = start.elapsed_time(end)
+    assert torch.equal(before, ec.parity), "a zero delta changed the parity"
+    del before, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) no stale parity: the parity after the last step is a fresh
+    # encode of the live parameters
+    fresh = ec.store.encode(params)
+    stale = int((fresh != ec.parity).sum())
+    del fresh
+    assert stale == 0, f"{stale} parity bytes differ from a fresh encode"
+    # (3) every data position rebuilds byte for byte; (4) the control
+    live = ec.store.local_pages(params)
+    A = TRAIN_MESH[0]
+    rec_ms = []
+    for f in range(A):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = ec.reconstruct(params, f)
+        torch.cuda.synchronize()
+        rec_ms.append((time.perf_counter() - t0) * 1e3)
+        assert torch.equal(rec[0], live[f]), f"position {f} rebuilds wrong"
+        del rec
+    # parity row 0 at position 0, stripe 0, protects class j of position
+    # (j - k) mod A; flip one byte of it and rebuild class 0's owner
+    victim = (0 - ec_cfg.k) % A
+    ec.parity[0, 0, 0, 0, 0] ^= 1
+    rec = ec.reconstruct(params, victim)
+    control_caught = not torch.equal(rec[0], live[victim])
+    ec.parity[0, 0, 0, 0, 0] ^= 1
+    del rec
+    assert control_caught, "a flipped parity byte left the rebuild intact"
+    # (5) finite losses
+    assert all(np.isfinite(losses)), losses
+    big = launch_counts()
+    assert big["flash_attention"] == 2 * cfg.num_layers * TRAIN_STEPS, big
+    assert big["gf_matmul_batched"] == \
+        1 + TRAIN_STEPS + 1 + 1 + (A + 1) * ec_cfg.k, big
+    # step 1 against the plain attention's
+    loss_err = abs(losses[0] - plain_loss)
+    norm_err = abs(norms[0] - plain_norm) / plain_norm
+    log(f"train [{card}] step 1 with kernel 11 vs plain attention: loss "
+        f"{losses[0]} vs {plain_loss} (|diff| {loss_err}, bound "
+        f"{TRAIN_LOSS_TOL}); grad norm {norms[0]} vs {plain_norm} "
+        f"(relative {norm_err}, bound {TRAIN_GNORM_TOL})")
+    assert loss_err <= TRAIN_LOSS_TOL, (loss_err, TRAIN_LOSS_TOL)
+    assert norm_err <= TRAIN_GNORM_TOL, (norm_err, TRAIN_GNORM_TOL)
+
+    # launch.train on the card (its own launches join the phase's)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        small = launch_train.main(TRAIN_LAUNCH_ARGS)
+    launch_s = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"launch.train: {line}")
+    assert small[-1] < small[0], f"launch.train's loss did not fall: {small}"
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    ec_pages = int(ec.parity.shape[-2] * ec_cfg.k)
+    ec_parity_gb = ec.parity.numel() / 1e9
+    del ec, model, params, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # kernel 1 at the EC update's shape against its plain version (not
+    # counted: a comparison); byte outputs compare by equality (their
+    # int32 difference would take 18 GB here)
+    items = live.view(-1, ec_cfg.k, ec_cfg.page_size)
+    gamma = ec_cfg.gamma
+    got = gm.gf256_matmul_batched(gamma, items)
+    want = gm.gf256_matmul_batched_plain(gamma, items)
+    torch.cuda.synchronize()
+    err = 0 if torch.equal(got, want) else int(
+        (got != want).sum())
+    del got, want
+    assert err == 0, f"kernel 1 at the EC shape: {err} bytes differ"
+    call = lambda: gm.gf256_matmul_batched(gamma, items)     # noqa: E731
+    ms = cuda_ms(torch, call, 3)
+    kernel_ms, htod = kernel_device_ms(torch, call, 3,
+                                       CUDA_NAMES["gf_matmul_batched"])
+    plain_ms = cuda_ms(torch, lambda: gm.gf256_matmul_batched_plain(
+        gamma, items), 1)
+    nbytes, ops = matmul_work(np, gamma, items)
+    b_ms, by = bound(nbytes, ops)
+    point = dict(shape=f"({gamma.shape[0]},{gamma.shape[1]})x"
+                 f"{tuple(items.shape)}", ms=ms, kernel_ms=kernel_ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                 bytes=nbytes, ops=ops, max_abs_err=err)
+    log(f"kernel gf_matmul_batched at the EC update's shape [{card}]: "
+        f"{json.dumps(point)}")
+    row = next(r for r in rows if r["name"] == "gf_matmul_batched")
+    row.setdefault("cases", {})["train_ec_update"] = point
+    del live, items
+    nums = dict(
+        tokens_per_step=tokens, losses=losses, grad_norms=norms,
+        step_s=step_s, tok_per_s=[tokens / s for s in step_s],
+        plain_step1_loss=plain_loss, plain_step1_grad_norm=plain_norm,
+        step1_loss_err=loss_err, step1_grad_norm_rel_err=norm_err,
+        step1_attn_grad_rel_err=attn_err,
+        control_attn_grad_rel_err=control_attn_err,
+        peak_gb=peak_gb, ec_pages=ec_pages,
+        ec_parity_gb=ec_parity_gb, ec_encode_ms=encode_ms,
+        ec_update_ms=update_ms, ec_reconstruct_ms=rec_ms,
+        control_caught=control_caught, launch_train_losses=small,
+        launch_train_s=launch_s, launches=launches,
+        phase_s=time.perf_counter() - t_phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase train: {nums['phase_s']:.1f} s")
+    return launches, nums
 
 
 def main() -> int:
@@ -1702,9 +2058,13 @@ def main() -> int:
     t0 = time.perf_counter()
     losses = main_path_losses(np, torch, dev, shapes)
     log(f"main-path shapes timed: {time.perf_counter() - t0:.1f} s")
-    by_phase["model_prefill"], by_phase["model_decode_serve"], model = \
-        run_model(np, torch, dev)
+    (by_phase["model_prefill"], by_phase["model_decode"],
+     by_phase["serve_protect"], model) = run_model(np, torch, dev, card)
     log("model phase:", json.dumps(model))
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_phase["train"], train = run_train(np, torch, dev, card, rows)
+    log(f"train phase [{card}]:", json.dumps(train))
     for row in rows:
         row["launches_by_phase"] = {p: n[row["name"]]
                                     for p, n in by_phase.items()}

@@ -1,0 +1,91 @@
+"""Collective building blocks over a stacked mesh axis: GF(2^8) scaling,
+XOR rings, compressed psum.
+
+The reference runs these inside ``shard_map`` bodies, one device per
+mesh position, with ``ppermute``/``all_gather`` between devices
+(``src/repro/distributed/collectives.py``).  The port holds every
+position on one card with the mesh axis as a tensor dimension ``dim``,
+so a ring shift is a roll along it and a reduction is a reduction over
+it; the results keep that dimension, holding at each position what the
+reference's position holds.
+
+``gf_scale_static`` multiplies by a static coefficient over GF(2^8).  On
+a CUDA tensor it is one launch of the shared-matrix product kernel
+(``kernels.gf256_matmul.gf256_matmul_batched`` with the (1, 1) matrix
+[gamma], kernel 1); on a CPU tensor it is the reference's bit-plane
+identity gamma*x = XOR_b bit_b(x) * (gamma*2^b) in torch.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..core import gf256
+from ..kernels import dispatch
+from ..kernels.gf256_matmul import gf256_matmul_batched
+
+
+@functools.lru_cache(maxsize=None)
+def _gamma_pows(gamma: int) -> tuple:
+    return tuple(int(gf256.MUL_TABLE[gamma, 1 << b]) for b in range(8))
+
+
+def gf_scale_static_plain(gamma: int, x: torch.Tensor) -> torch.Tensor:
+    """gamma * x by the bit-plane identity, in int32 as the reference."""
+    xi = x.to(torch.int32)
+    acc = torch.zeros_like(xi)
+    for b, g in enumerate(_gamma_pows(gamma)):
+        acc ^= ((xi >> b) & 1) * g
+    return acc.to(torch.uint8)
+
+
+def gf_scale_static(gamma: int, x: torch.Tensor) -> torch.Tensor:
+    """gamma * x over GF(2^8) for a static gamma; x uint8 of any shape
+    (its last dimension is the kernel's byte run)."""
+    gamma = int(gamma)
+    if gamma == 0:
+        return torch.zeros_like(x)
+    if gamma == 1:
+        return x
+    if not dispatch.decide(x).kernel or x.numel() == 0:
+        return gf_scale_static_plain(gamma, x)
+    flat = x.contiguous().reshape(-1, 1, x.shape[-1] if x.dim() else 1)
+    out = gf256_matmul_batched(np.array([[gamma]], np.uint8), flat)
+    return out.reshape(x.shape)
+
+
+def ring_shift(x: torch.Tensor, shift: int, dim: int = 0) -> torch.Tensor:
+    """Position i's block goes to (i + shift) mod A along ``dim``."""
+    return torch.roll(x, shifts=int(shift), dims=dim)
+
+
+def ring_xor_reduce(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """XOR of the blocks along ``dim``, at every position (the reference's
+    A - 1 shift-and-XOR steps)."""
+    acc = x.select(dim, 0).clone()
+    for i in range(1, x.shape[dim]):
+        acc ^= x.select(dim, i)
+    return acc.unsqueeze(dim).expand(x.shape)
+
+
+def compressed_psum(x: torch.Tensor, dim: int = 0, *, block: int = 256
+                    ) -> torch.Tensor:
+    """int8-quantized sum along ``dim`` (cross-pod gradient compression):
+    each position quantizes its block to int8 with per-block absmax
+    scales; the sum of the dequantized blocks lands at every position."""
+    xs = x.movedim(dim, 0)
+    A = xs.shape[0]
+    flat = xs.reshape(A, -1)
+    n = flat.shape[1]
+    pad = (-n) % block
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    blocks = flat.reshape(A, -1, block)
+    scale = torch.amax(torch.abs(blocks), dim=2, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    out = torch.sum(q.to(torch.float32) * scale, dim=0)
+    out = out.reshape(-1)[:n].reshape(xs.shape[1:])
+    return out.unsqueeze(dim).expand(x.shape)

@@ -8,7 +8,8 @@ probe and the models' attention, with plain torch versions beside them.
 * delta_update — P' = P ⊕ gamma·(D ⊕ D') parity maintenance, batched
   and single-stripe (old and new bytes fused in);
 * cuckoo_lookup — the batched 2-bucket x 4-slot object-index probe;
-* flash_attention — causal GQA attention, the models' prefill path.
+* flash_attention — causal GQA attention, the models' prefill and
+  training forward (differentiable; its backward is plain torch).
 
 ``ops`` holds the public single-stripe entry points; ``coefs`` the
 host side of the per-item and batched delta kernels' coefficients,

@@ -46,6 +46,15 @@ clusters, one CTA per GQA group, fp8.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor takes
 ``flash_attention_plain``.  Nothing falls back.
+
+Training: when autograd records (grad enabled and an input requires
+grad), ``flash_attention`` is a ``torch.autograd.Function`` whose forward
+is the same kernel call and whose backward is ``flash_attention_backward``,
+plain torch in fp32: the reference has no backward kernel either (its
+model differentiates its jnp scan), so that backward ports no TPU
+kernel.  It recomputes the softmax per query tile from q and k, so no
+(Sq, Skv) tensor per head outlives a tile; a Hopper backward kernel is
+left for later.
 """
 from __future__ import annotations
 
@@ -137,13 +146,91 @@ def _check(q, k, v, block_q, block_kv) -> None:
         raise ValueError(f"block sizes {block_q}, {block_kv}")
 
 
+#: query rows a tile of the backward: its (B, H, rows, Skv) fp32 scores
+#: stay near 100 MB at starcoder2-3b's B 2 x S 2,048
+BWD_BLOCK_Q = 256
+
+
+def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention`` at output ``out`` for the output
+    gradient ``dout``, in fp32, cast to the inputs' dtypes.  Per tile of
+    ``BWD_BLOCK_Q`` query rows: P = softmax(q kᵀ / sqrt(hd)) recomputed over
+    the keys the tile can see, dV += Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP −
+    rowsum(dO ∘ O)), dQ = dS K / sqrt(hd), dK += dSᵀ Q / sqrt(hd); the G
+    query heads of a KV head sum into its dK and dV."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    kf = k.float().permute(0, 2, 1, 3)                    # (B, KV, Skv, hd)
+    vf = v.float().permute(0, 2, 1, 3)
+    dq = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, KV, Skv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+
+    def heads(x, s0, s1):                                 # (B, KV, G, T, hd)
+        return x[:, s0:s1].float().reshape(B, s1 - s0, KV, G, hd) \
+            .permute(0, 2, 3, 1, 4)
+
+    for s0 in range(0, Sq, BWD_BLOCK_Q):
+        s1 = min(Sq, s0 + BWD_BLOCK_Q)
+        L = min(Skv, s1) if causal else Skv               # keys in view
+        qt, ot, dot = heads(q, s0, s1), heads(out, s0, s1), \
+            heads(dout, s0, s1)
+        kt, vt = kf[:, :, :L], vf[:, :, :L]
+        s = torch.einsum("bkgtd,bkld->bkgtl", qt, kt) * scale
+        if causal:
+            mask = (torch.arange(s0, s1, device=q.device)[:, None]
+                    >= torch.arange(L, device=q.device)[None, :])
+            s = s.masked_fill(~mask, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        del s
+        dv[:, :, :L] += torch.einsum("bkgtl,bkgtd->bkld", p, dot)
+        dp = torch.einsum("bkgtd,bkld->bkgtl", dot, vt)
+        rowsum = (dot * ot).sum(-1, keepdim=True)
+        ds = p * (dp - rowsum)
+        del p, dp
+        dq[:, s0:s1] = (torch.einsum("bkgtl,bkld->bkgtd", ds, kt) * scale) \
+            .permute(0, 3, 1, 2, 4).reshape(B, s1 - s0, H, hd)
+        dk[:, :, :L] += torch.einsum("bkgtl,bkgtd->bkld", ds, qt) * scale
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel 11 forward, ``flash_attention_backward`` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_kv):
+        out = _flash_forward(q, k, v, causal, block_q, block_kv)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout,
+                                              causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_kv: int = 128) -> torch.Tensor:
     """softmax(q kᵀ / sqrt(hd)) v per head, causal by absolute positions
     when ``causal``; q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq, H,
-    hd) in q's dtype, on q's device."""
+    hd) in q's dtype, on q's device.  Differentiable when autograd
+    records (the module notes)."""
     _check(q, k, v, block_q, block_kv)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, block_q, block_kv)
+    return _flash_forward(q, k, v, causal, block_q, block_kv)
+
+
+def _flash_forward(q, k, v, causal, block_q, block_kv) -> torch.Tensor:
+    """The kernel call (CUDA tensors) or the plain version (CPU)."""
     if not dispatch.decide(q).kernel:
         return flash_attention_plain(q, k, v, causal=causal)
     dev = q.device

@@ -8,8 +8,15 @@ weights, on the card unless asked for the CPU.
 
 Weights and prompts are drawn from ``--seed`` by a ``torch.Generator`` on
 the device.  The times are host-clock seconds around work that ends in a
-device synchronise.  ``--protect`` (EC-protected cache pages) needs the
-erasure-coded state store, not ported yet: it exits with an error.
+device synchronise.
+
+``--protect`` erasure-codes the KV cache pages after the prefill, as the
+reference does (the 1 x 1 host mesh, ``sharding.cache_specs``,
+``ECConfig(k=1, m=1, page_size=256)``), folds the decode's cache writes
+into the parity when the decode ends (``refresh_cache_parity``), and
+rebuilds the pages of data position 0 from the parity
+(``recover_cache_pages``), printing whether they equal the live cache
+pages byte for byte.
 """
 from __future__ import annotations
 
@@ -19,9 +26,12 @@ import time
 import torch
 
 from ..configs import get_config, get_reduced
+from ..distributed import sharding as shd
+from ..distributed.ecstore import ECConfig
 from ..kernels import dispatch
 from ..models import Model
 from ..serve.engine import ServeEngine
+from .mesh import make_host_mesh
 
 
 def _sync(dev: torch.device) -> None:
@@ -38,15 +48,11 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--protect", action="store_true",
-                    help="EC-protect the KV cache pages (not ported yet)")
+                    help="EC-protect the KV cache pages")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.protect:
-        ap.error("--protect needs the erasure-coded state store "
-                 "(distributed/ecstore.py), which is not ported yet: "
-                 "ROADMAP.md, Queue 1 item 5")
 
     dev = dispatch.resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -67,6 +73,12 @@ def main(argv=None):
     logits = eng.prefill({"tokens": prompts})
     _sync(dev)
     t_prefill = time.perf_counter() - t0
+    if args.protect:
+        mesh = make_host_mesh()
+        cspecs = shd.cache_specs(cfg, eng.cache_tree(), mesh)
+        eng.protect_cache(mesh, cspecs, ECConfig(k=1, m=1, page_size=256))
+        protected = eng.cache_snapshot()
+        print("cache pages EC-protected")
     first = torch.argmax(logits, dim=-1)
     t0 = time.perf_counter()
     res = eng.decode(args.gen, temperature=args.temperature,
@@ -77,6 +89,13 @@ def main(argv=None):
           f"decoded {args.gen} steps in {t_decode:.2f}s "
           f"({args.batch * args.gen / max(t_decode, 1e-9):.1f} tok/s)")
     print("sample tokens:", res.tokens[0][:16])
+    if args.protect:
+        eng.refresh_cache_parity(protected)
+        rec = eng.recover_cache_pages(0)
+        live = eng.ec_store.local_pages(eng.cache_tree())
+        print(f"recovered cache pages of data position 0 ({rec.shape[-2]} "
+              f"pages of {rec.shape[-1]} B) equal the live cache: "
+              f"{bool(torch.equal(rec[0], live[0]))}")
     return res
 
 

@@ -14,13 +14,48 @@ axis into the port's flat layer list (unit position ``u`` of repeat
 leaf into the parameter of the same name.  bf16 leaves arrive as
 ``ml_dtypes`` arrays; they are reinterpreted bit for bit through int16,
 so neither JAX nor ``ml_dtypes`` is imported here.
+
+``param_tree`` goes the other way without copying: the model's own
+parameters arranged as that tree, what the training step, the optimizers,
+the disk checkpoints and the erasure-coded state store walk.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..tree import Stacked, tree_map
 from .transformer import Model
+
+
+def _nest(named: dict) -> dict:
+    """{"attn.wq": t, ...} -> {"attn": {"wq": t}, ...}."""
+    out: dict = {}
+    for name, t in named.items():
+        *heads, last = name.split(".")
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = t
+    return out
+
+
+def param_tree(model: Model) -> dict:
+    """The model's parameters as the reference's ``Model.init`` tree
+    (module notes), leaves the model's own parameters: a ``blocks`` leaf
+    is a ``Stacked`` of the repeats' tensors, never a copy."""
+    n, R = len(model.unit), model.repeats
+
+    def layer(i):
+        return _nest(dict(model.layers[i].named_parameters()))
+
+    blocks = [tree_map(lambda *ts: Stacked(ts),
+                       *(layer(r * n + u) for r in range(R)))
+              if R else None for u in range(n)]
+    return {"embeddings": _nest(dict(model.embeddings.named_parameters())),
+            "final_norm": _nest(dict(model.final_norm.named_parameters())),
+            "blocks": blocks,
+            "tail": [layer(i) for i in range(R * n, len(model.layers))]}
 
 
 def _flatten(tree, prefix: str, out: dict) -> None:

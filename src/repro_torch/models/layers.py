@@ -16,7 +16,8 @@ The port of the JAX package's ``models/layers.py``, for the layer kind
   ``set_activation_mesh`` (GSPMD activation constraints) and its
   sequence- or head-parallel striping have no counterpart here.
 
-Serving takes no gradients: every parameter has ``requires_grad=False``.
+Parameters are made with ``requires_grad=False``, as serving takes no
+gradients; the training step (``train/train_step.py``) turns it on.
 """
 from __future__ import annotations
 

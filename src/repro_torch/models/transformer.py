@@ -8,7 +8,13 @@ each unit position's parameters on a leading ``repeats`` axis for
 ``nn.ModuleList`` in the reference's order - unit position ``u`` of
 repeat ``r`` is layer ``r * len(unit) + u``, then the tail - and run in a
 Python loop; ``models/convert.py`` unstacks a reference tree into it.
-``remat`` has no counterpart: serving takes no gradients.
+``forward`` (``model(batch)``) is the full-sequence forward; while
+autograd records, each unit is recomputed in the backward as
+``cfg.remat`` says (the reference's ``_remat``: "full" checkpoints the
+unit, "dots" keeps its matrix products' outputs, "none" keeps
+everything).  ``apply``, the serving forward, is ``forward`` without
+gradients.  ``cache_tree`` shows a cache in the reference's stacked
+layout.
 
 Configs with any other layer kind, M-RoPE, embedding inputs, an int8 KV
 cache or an attention logit softcap raise at construction.
@@ -17,8 +23,10 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..kernels import dispatch
+from ..tree import Stacked, tree_map
 from .config import ModelConfig
 from .layers import (MLP, Attention, Embeddings, RMSNorm, attention_apply,
                      embed, mlp_apply, unembed)
@@ -151,11 +159,36 @@ class Model(nn.Module):
     # -- forward ------------------------------------------------------------
     @torch.no_grad()
     def apply(self, batch: dict) -> torch.Tensor:
-        """batch["tokens"]: (B, S) integers on the model's device ->
-        logits (B, S, padded_vocab) in the activation dtype."""
+        """The serving forward: ``forward`` without gradients.
+        batch["tokens"]: (B, S) integers on the model's device -> logits
+        (B, S, padded_vocab) in the activation dtype."""
+        return self.forward(batch)
+
+    def _unit(self, x, positions, r: int):
+        n = len(self.unit)
+        for layer in self.layers[r * n:(r + 1) * n]:
+            x, _ = apply_layer(layer, x, self.cfg, positions)
+        return x
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        """The full-sequence forward (``apply``).  While autograd records,
+        each repeat of the unit is recomputed in the backward as
+        ``cfg.remat`` says (the tail layers are kept, as in the
+        reference)."""
         cfg = self.cfg
+        remat = cfg.remat if torch.is_grad_enabled() else "none"
         x, positions = self._embed_in(batch)
-        for layer in self.layers:
+        for r in range(self.repeats):
+            if remat == "full":
+                x = ckpt.checkpoint(self._unit, x, positions, r,
+                                    use_reentrant=False)
+            elif remat == "dots":
+                x = ckpt.checkpoint(self._unit, x, positions, r,
+                                    use_reentrant=False,
+                                    context_fn=_save_dots)
+            else:
+                x = self._unit(x, positions, r)
+        for layer in self.layers[self.repeats * len(self.unit):]:
             x, _ = apply_layer(layer, x, cfg, positions)
         x = self.final_norm(x, cfg.norm_eps)
         return unembed(self.embeddings, x, cfg)
@@ -173,6 +206,16 @@ class Model(nn.Module):
         layer order (the reference stacks them per unit position)."""
         return [self._layer_cache(batch, max_len, dtype)
                 for _ in self.layers]
+
+    def cache_tree(self, cache: list[dict]) -> dict:
+        """``cache`` in the reference's layout: {"blocks": one {"k", "v"}
+        per unit position, each stacked over the repeats, "tail": the
+        remainder layers'} - the port's tensors, not copies."""
+        n = len(self.unit)
+        blocks = [tree_map(lambda *ts: Stacked(ts),
+                           *(cache[r * n + u] for r in range(self.repeats)))
+                  if self.repeats else None for u in range(n)]
+        return {"blocks": blocks, "tail": list(cache[self.repeats * n:])}
 
     # -- decode step ----------------------------------------------------------
     @torch.no_grad()
@@ -192,3 +235,16 @@ class Model(nn.Module):
                                cache_len=int(cur_len))
         x = self.final_norm(x, cfg.norm_eps)
         return unembed(self.embeddings, x, cfg)[:, 0], cache
+
+
+def _save_dots():
+    """Selective-checkpoint contexts that keep matrix products' outputs
+    (the reference's ``dots_with_no_batch_dims_saveable``: ``x @ w``
+    reaches ``aten.mm``) and recompute the rest."""
+    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE

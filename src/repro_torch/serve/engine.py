@@ -7,10 +7,13 @@ forward); ``decode`` then generates greedily, or samples at
 ``temperature > 0`` from the engine's ``torch.Generator``.  The cache is
 written in place.
 
-The reference's EC protection of the cache pages (``protect_cache``,
-``refresh_cache_parity``, ``recover_cache_pages``) needs the erasure-coded
-state store of ``distributed/ecstore.py``, which is not ported yet
-(ROADMAP.md, Queue 1 item 5).
+KV cache pages can be erasure-coded across a mesh's data axis exactly
+like checkpoint pages (``protect_cache``): losing a position then costs a
+decode-from-k reconstruction (``recover_cache_pages``) instead of
+recomputing every live session's prefill - the paper's degraded GET
+applied to serving state.  The cache is written in place, so
+``refresh_cache_parity`` takes a copy of the cache as it was when the
+parity last covered it (``cache_snapshot``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..distributed.ecstore import ECConfig, ECStateStore
 from ..kernels import dispatch
 from ..models import Model
 
@@ -51,6 +55,8 @@ class ServeEngine:
             generator = torch.Generator(device=dev)
             generator.manual_seed(0)
         self.generator = generator
+        self.ec_store: ECStateStore | None = None
+        self.ec_parity = None
 
     def _step(self, tokens: torch.Tensor) -> torch.Tensor:
         if self.cur_len >= self.max_len:
@@ -88,6 +94,35 @@ class ServeEngine:
         tokens = (torch.stack(out, dim=1).cpu().numpy() if out
                   else np.zeros((self.batch_size, 0), np.int64))
         return GenerationResult(tokens, steps)
+
+
+    # -- EC protection of serving state -----------------------------------
+    def cache_tree(self, cache: list[dict] | None = None) -> dict:
+        """The cache (default: the live one) in the reference's stacked
+        layout, what ``sharding.cache_specs`` and the EC store take."""
+        return self.model.cache_tree(self.cache if cache is None else cache)
+
+    def cache_snapshot(self) -> list[dict]:
+        """A copy of the live cache."""
+        return [{k: t.clone() for k, t in layer.items()}
+                for layer in self.cache]
+
+    def protect_cache(self, mesh, cache_specs, ec_cfg: ECConfig | None = None):
+        self.ec_store = ECStateStore(mesh, cache_specs, ec_cfg)
+        self.ec_parity = self.ec_store.encode(self.cache_tree())
+        return self.ec_parity
+
+    def refresh_cache_parity(self, old_cache: list[dict]):
+        """Fold the cache's change since ``old_cache`` (a snapshot) into
+        the parity."""
+        assert self.ec_store is not None
+        self.ec_parity = self.ec_store.delta_update(
+            self.cache_tree(old_cache), self.cache_tree(), self.ec_parity)
+
+    def recover_cache_pages(self, failed_data_index: int):
+        assert self.ec_store is not None
+        return self.ec_store.reconstruct(self.cache_tree(), self.ec_parity,
+                                         failed_data_index)
 
 
 def greedy_generate(model: Model, prompt_tokens, steps: int,

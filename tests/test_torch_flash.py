@@ -14,10 +14,18 @@ a plain torch emulation of its bf16 arithmetic (``_wgmma_body``: 64-key
 tiles, the online softmax, P split into bf16 hi + lo terms, fp32 sums) is
 held against the plain version within ``tolerance``, and the same body
 with P rounded once to bf16 is shown to miss it.
+
+The training backward (``flash_attention_backward``, reached through
+``flash_attention``'s autograd function) is held element by element
+against autograd through the plain version, and in fp32 against
+``jax.vjp`` of the reference, at lengths of several ``BWD_BLOCK_Q``
+query tiles: max |got - want| <= ``BWD_TOL`` x max |want| per gradient.
+A backward whose dK sums the first tile alone must miss that bound.
 """
 import math
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +33,9 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro_torch.kernels import launch_counts
-from repro_torch.kernels.flash_attention import (FP32_TOL, NEG_INF,
+from repro_torch.kernels.flash_attention import (BWD_BLOCK_Q, FP32_TOL,
+                                                 NEG_INF,
+                                                 flash_attention_backward,
                                                  flash_attention,
                                                  flash_attention_plain,
                                                  tolerance, tolerance_ratio)
@@ -265,3 +275,79 @@ def test_single_bf16_p_exceeds_the_tolerance(B, Sq, Skv, H, KV, hd, causal):
     want = flash_attention_plain(q, k, v, causal=causal)
     got = _wgmma_body(q, k, v, causal=causal, split=False)
     assert tolerance_ratio(got, want) > 1.0
+
+
+# (B, Sq, Skv, H, KV, hd, causal): three 256-row query tiles, the last
+# ragged, GQA; a cross-length case whose keys outrun the queries
+BWD_GRID = [(1, 600, 600, 4, 2, 32, True),
+            (1, 600, 600, 4, 2, 32, False),
+            (2, 600, 700, 6, 2, 16, True)]
+# max |got - want| over max |want|, per gradient.  Measured at BWD_GRID:
+# fp32 <= 1.1e-6 against autograd (<= 9e-7 against jax.vjp); bf16
+# <= 6.3e-3, one and a half bf16 ulps of the largest element, from the
+# final rounding and from rowsum(dO * O) reading the rounded output.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+
+
+def _bwd_inputs(B, Sq, Skv, H, KV, hd, dtype):
+    q, _, _ = _qkv(B, Sq, H, KV, hd)
+    _, k, v = _qkv(B, Sq, H, KV, hd, Skv=Skv)
+    dout = np.random.default_rng(Sq + Skv).standard_normal(
+        q.shape).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(getattr(torch, dtype))
+                 for a in (q, k, v, dout))
+
+
+def _grads(fn, q, k, v, dout, causal):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves, causal=causal)
+    out.backward(dout)
+    return out.detach(), [t.grad for t in leaves]
+
+
+def _rel_err(got, want):
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", BWD_GRID)
+def test_backward_matches_autograd_of_plain(B, Sq, Skv, H, KV, hd, causal,
+                                            dtype):
+    """dq, dk, dv of ``flash_attention`` (its autograd function) against
+    autograd through ``flash_attention_plain``, over several query
+    tiles."""
+    assert Sq > 2 * BWD_BLOCK_Q
+    q, k, v, dout = _bwd_inputs(B, Sq, Skv, H, KV, hd, dtype)
+    _, got = _grads(flash_attention, q, k, v, dout, causal)
+    _, want = _grads(flash_attention_plain, q, k, v, dout, causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == w.dtype == q.dtype
+        assert _rel_err(g, w) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_matches_reference_vjp(causal):
+    """fp32 gradients against ``jax.vjp`` of the reference's attention."""
+    q, k, v, dout = _bwd_inputs(1, 600, 600, 4, 2, 32, "float32")
+    _, f = jax.vjp(lambda *a: ref_flash(*a, causal=causal),
+                   *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want = f(jnp.asarray(dout.numpy()))
+    out = flash_attention_plain(q, k, v, causal=causal)
+    got = flash_attention_backward(q, k, v, out, dout, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        assert _rel_err(g, np.array(w)) <= BWD_TOL["float32"], name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_missing_later_tiles_fails(causal, dtype):
+    """Control: dK summed over the first query tile alone (what a
+    backward that dropped later tiles' contributions would give) misses
+    ``BWD_TOL``."""
+    q, k, v, dout = _bwd_inputs(1, 600, 600, 4, 2, 32, dtype)
+    out, want = _grads(flash_attention_plain, q, k, v, dout, causal)
+    t = slice(0, BWD_BLOCK_Q)
+    _, dk_first, _ = flash_attention_backward(q[:, t], k, v, out[:, t],
+                                              dout[:, t], causal=causal)
+    assert _rel_err(dk_first, want[1]) > BWD_TOL[dtype]

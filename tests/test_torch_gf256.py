@@ -149,6 +149,13 @@ def test_import_hygiene_no_jax_no_reference():
             "import repro_torch.models, repro_torch.models.convert\n"
             "import repro_torch.serve, repro_torch.launch.serve\n"
             "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.distributed.ecstore, repro_torch.tree\n"
+            "import repro_torch.distributed.elastic\n"
+            "import repro_torch.train.checkpoint, repro_torch.train.train_step\n"
+            "import repro_torch.launch.train, repro_torch.launch.mesh\n"
+            "import repro_torch.data.pipeline\n"
+            "import repro_torch.examples.train_ec_checkpoint\n"
+            "import repro_torch.examples.serve_degraded\n"
             "from repro_torch.configs import ARCH_NAMES, get_config\n"
             "[get_config(a) for a in ARCH_NAMES]\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("

@@ -263,7 +263,11 @@ def test_launch_serve_reduced_on_cpu():
     assert "prefill 4x32 in" in out.stdout and "tok/s" in out.stdout
 
 
-def test_launch_serve_protect_is_refused():
+def test_launch_serve_protect_recovers_cache_pages():
+    """``--protect`` erasure-codes the KV cache pages, refreshes their
+    parity after the decode and rebuilds data position 0's pages, which
+    equal the live ones."""
     out = _serve("--reduced", "--device", "cpu", "--protect")
-    assert out.returncode != 0
-    assert "Queue 1 item 5" in out.stderr
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "cache pages EC-protected" in out.stdout
+    assert "equal the live cache: True" in out.stdout
