@@ -4,11 +4,11 @@ pages and demonstrate a degraded read (reconstruct lost cache pages).
     PYTHONPATH=src python -m repro_torch.examples.serve_degraded [--device cpu]
 
 The twin of the JAX package's ``examples/serve_degraded.py``, on
-starcoder2-3b's reduced config: the reference's example serves
-recurrentgemma-2b (RG-LRU and local attention layers), which the port's
-model does not build yet (ROADMAP.md, Queue 1 item 3).  The cache is
-protected with RS(3,2) over a (4, 1) mesh after the decode, and the pages
-of data position 0 are rebuilt from the others.
+recurrentgemma-2b's reduced config, as the reference's: a hybrid of
+RG-LRU and local-attention layers, whose serving state is the attention
+window's KV ring plus the recurrent states.  The cache is protected with
+RS(3,2) over a (4, 1) mesh after the decode, and the pages of data
+position 0 are rebuilt from the others.
 """
 import argparse
 
@@ -25,7 +25,7 @@ from repro_torch.serve.engine import ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="starcoder2-3b")
+    ap.add_argument("--arch", default="recurrentgemma-2b")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -47,8 +47,9 @@ def main(argv=None):
     res = eng.decode(gen_len - 1, first_tokens=first)
     print("generated tokens (seq 0):", res.tokens[0][:12])
 
-    # protect the serving state with EC - in production this runs
-    # continuously via delta parity updates (refresh_cache_parity)
+    # protect the serving state (KV window + recurrent states) with EC -
+    # in production this runs continuously via delta parity updates
+    # (refresh_cache_parity)
     mesh = make_mesh((4, 1), ("data", "model"))
     cspecs = shd.cache_specs(cfg, eng.cache_tree(), mesh)
     eng.protect_cache(mesh, cspecs, ECConfig(k=2, m=1, page_size=256))

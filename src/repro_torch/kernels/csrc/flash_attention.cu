@@ -8,7 +8,7 @@
 // the input dtype.  Masked scores are -1e30, as in the reference, not
 // -inf; keys at positions >= Skv are masked in every call.  q/k/v are read
 // in place, in their (B, S, heads, hd) layout, through their strides.  hd
-// is 16, 32, 64 or 128.
+// is 16, 32, 64, 112, 128 or 256.
 //
 // Bound.  At starcoder2-3b's prefill shape (B 4, S 2048, H 24, KV 2,
 // hd 128, bf16, causal) a call needs 4*B*H*hd*S(S+1)/2 = 1.03e11
@@ -55,6 +55,18 @@
 //     the split about half of it.  The row sums add the fp32 p.
 //   * epilogue: O / max(l, 1e-30), rounded to bf16, stored from registers.
 //
+// hd 112 (kimi-k2) takes the bf16 body with two 64-column panels; the
+// tensor maps zero-fill the second panel's last 16 columns, zero q and k
+// columns add 0 to Q K^T (7 k-steps of 16), O += P V is a wgmma
+// m64n112k16, and the epilogue stores columns 0..111 alone.
+//
+// hd 256 (recurrentgemma-2b): one warpgroup's O accumulator would take
+// 128 of a thread's 255 registers before S and P's two terms, so the CTA
+// has two consumer warpgroups (256 threads, Split<256>): both compute the
+// same S = Q K^T (16 k-steps) and the same P, and each accumulates 128
+// columns of O from its half of the V tile (two of its four panels).  Q
+// takes 32 KB of shared memory and each ring slot 32 KB: 97 KB a CTA.
+//
 // fp32 body, flash_attention_kernel<HD>: on the CUDA cores, since TF32
 // tensor cores keep about 10 bits and cannot hold the fp32 bound of 1e-4.
 // One block of 256 threads per (b*H + h, 64-row Q tile), KV tiles of 64
@@ -62,7 +74,8 @@
 // x hd/16 columns of the output, so a 16-byte shared load feeds 8 or more
 // FMAs; rows padded by 4 floats against bank conflicts; the next K or V
 // tile loads into registers while the current one is used, and two blocks
-// share an SM.
+// share an SM (one at hd 256, whose 150 KB of shared memory takes the
+// opt-in above 48 KB).
 //
 // Later work on the bf16 body: a producer warp with setmaxnreg, ping-pong
 // between two consumer warpgroups, overlapping the softmax with the next
@@ -141,7 +154,7 @@ __device__ __forceinline__ void store_tile(
 // addresses, no bank conflicts).
 template <int HD>
 struct Cols {
-  static constexpr int CW = HD >= 64 ? 4 : HD / 16;
+  static constexpr int CW = HD % 64 == 0 ? 4 : HD % 32 == 0 ? 2 : 1;
   static constexpr int NV = HD / (16 * CW);
   static constexpr int N = CW * NV;  // columns per thread
   __device__ static __forceinline__ int col(int n, int tx) {
@@ -191,8 +204,15 @@ constexpr int smem_floats() {
   return kBQ * (HD + kPad) + kBK * (HD + kPad) + kBQ * (kBK + kPad);
 }
 
+// blocks of the CUDA-core body an SM holds: its shared memory allows one
+// at hd 256
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+constexpr int blocks_per_sm() {
+  return HD > 128 ? 1 : 2;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm<HD>())
     flash_attention_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -529,6 +549,38 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 112, fp32) += A (64 x 16, bf16 in registers) B (16 x 112), B
+// read from shared memory MN-major (imm-trans-b = 1): hd 112
+__device__ __forceinline__ void wgmma_rs(float (&d)[56],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, fp32) += A (64 x 16, bf16 in registers) B (16 x 128), B read
 // from shared memory MN-major (imm-trans-b = 1)
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
@@ -564,13 +616,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// A 64-row tile of hd columns in shared memory: hd / kCols panels of
-// kRows x kCols, each row one swizzle span (the TMA box and the wgmma
-// swizzle atom agree), 8-row groups kSBO bytes apart.
+// A 64-row tile of hd columns in shared memory: ceil(hd / kCols) panels
+// of kRows x kCols, each row one swizzle span (the TMA box and the wgmma
+// swizzle atom agree), 8-row groups kSBO bytes apart.  At hd 112 the
+// second panel's last 16 columns are the tensor map's zero fill.
 template <int HD>
 struct Panels {
   static constexpr int kCols = HD < 64 ? HD : 64;
-  static constexpr int kCount = HD / kCols;
+  static constexpr int kCount = (HD + kCols - 1) / kCols;
   static constexpr int kBytes = kRows * kCols * 2;
   static constexpr int kTileBytes = kCount * kBytes;
   static constexpr uint32_t kSBO = 8 * kCols * 2;
@@ -604,8 +657,19 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
     tma_load(dst + p * P::kBytes, map, bar, p * P::kCols, head, row, batch);
 }
 
+// Consumer warpgroups of a CTA and the O columns each owns: at hd 256
+// one warpgroup's O accumulator would take 128 of a thread's 255
+// registers beside S and P's two terms, so two warpgroups split hd, each
+// computing the same S and P and accumulating 128 columns of O.
 template <int HD>
-__global__ void __launch_bounds__(128, 1)
+struct Split {
+  static constexpr int kWG = HD > 128 ? 2 : 1;
+  static constexpr int kCols = HD / kWG;
+  static constexpr int kThreads = 128 * kWG;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Split<HD>::kThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
@@ -626,8 +690,10 @@ __global__ void __launch_bounds__(128, 1)
     mbar_wait(slot_bar(n), (uint32_t)(n / kSlots) & 1);
   };
 
+  constexpr int ON = Split<HD>::kCols;  // O columns of this warpgroup
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int wg = tid / 128;
+  const int warp = tid % 128 / 32;
   const int lane = tid % 32;
   const int b = blockIdx.x / a.H;
   const int h = blockIdx.x % a.H;
@@ -662,11 +728,11 @@ __global__ void __launch_bounds__(128, 1)
   // column 8j + c + e with c = 2 (lane % 4)
   const int r = warp * 16 + lane / 4;
   const int c = 2 * (lane % 4);
-  float o[HD / 2];
+  float o[ON / 2];
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // this thread's part of each row's sum
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < ON / 2; ++i) o[i] = 0.f;
 
   mbar_wait(q_bar, 0);
   for (int t = 0; t < ntiles; ++t) {
@@ -725,7 +791,7 @@ __global__ void __launch_bounds__(128, 1)
         }
       l[i] = l[i] * alpha + sum;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < ON / 8; ++j) {
         o[4 * j + 2 * i] *= alpha;
         o[4 * j + 2 * i + 1] *= alpha;
       }
@@ -743,15 +809,17 @@ __global__ void __launch_bounds__(128, 1)
         split_bf16x2(sc[idx], sc[idx + 1], ph[kk][u], pl[kk][u]);
       }
 
-    // O += P V: V read key-major, the B operand transposed
+    // O += P V: V read key-major, the B operand transposed; this
+    // warpgroup's columns start at panel wg * ON / 64
     slot_wait(2 * t + 1);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv =
-          smem_desc(slot(2 * t + 1) + kk * 16 * P::kCols * 2, P::kBytes,
-                    P::kSBO, P::kLayout);
+      const uint64_t dv = smem_desc(
+          slot(2 * t + 1) + wg * (ON / P::kCols) * P::kBytes +
+              kk * 16 * P::kCols * 2,
+          P::kBytes, P::kSBO, P::kLayout);
       wgmma_rs(o, ph[kk], dv);
       wgmma_rs(o, pl[kk], dv);
     }
@@ -773,9 +841,9 @@ __global__ void __launch_bounds__(128, 1)
     if (qp >= a.Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     __nv_bfloat16* row =
-        a.o + (((long long)b * a.Sq + qp) * a.H + h) * HD + c;
+        a.o + (((long long)b * a.Sq + qp) * a.H + h) * HD + wg * ON + c;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < ON / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
           o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
   }
@@ -798,7 +866,9 @@ int dispatch_f32(const Args& a, int B, int hd, cudaStream_t stream) {
     case 16: return launch<16>(a, B, stream);
     case 32: return launch<32>(a, B, stream);
     case 64: return launch<64>(a, B, stream);
+    case 112: return launch<112>(a, B, stream);
     case 128: return launch<128>(a, B, stream);
+    case 256: return launch<256>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -870,7 +940,8 @@ int launch_wgmma(const CUtensorMap (&maps)[3], const TmaArgs& a, int B,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)(B * a.H), (unsigned)((a.Sq + kRows - 1) / kRows));
   flash_attention_wgmma_kernel<HD>
-      <<<grid, 128, smem, stream>>>(maps[0], maps[1], maps[2], a);
+      <<<grid, Split<HD>::kThreads, smem, stream>>>(maps[0], maps[1], maps[2],
+                                                    a);
   return (int)cudaGetLastError();
 }
 
@@ -880,7 +951,9 @@ int dispatch_bf16(const CUtensorMap (&maps)[3], const TmaArgs& a, int B,
     case 16: return launch_wgmma<16>(maps, a, B, stream);
     case 32: return launch_wgmma<32>(maps, a, B, stream);
     case 64: return launch_wgmma<64>(maps, a, B, stream);
+    case 112: return launch_wgmma<112>(maps, a, B, stream);
     case 128: return launch_wgmma<128>(maps, a, B, stream);
+    case 256: return launch_wgmma<256>(maps, a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

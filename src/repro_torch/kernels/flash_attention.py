@@ -18,6 +18,12 @@
     as two bf16 terms, hi = bf16(p) and lo = bf16(p - hi): one bf16
     rounding of P misses ``tolerance`` 9 to 15 times over
     (``tests/test_torch_flash.py`` emulates the body on the CPU).
+    At hd 112 the second 64-column panel is a quarter zero fill (the
+    tensor maps' out-of-bounds columns), Q Kᵀ takes 7 k-steps and
+    O += P V is a ``wgmma`` m64n112k16.  At hd 256 one warpgroup's O
+    accumulator would take 128 of a thread's 255 registers, so a CTA has
+    two consumer warpgroups that compute the same S and P and own 128
+    columns of O each.
   - float32: CUDA cores in fp32 (TF32 tensor cores keep about 10 bits
     and cannot hold ``FP32_TOL``).
 
@@ -70,7 +76,7 @@ LAUNCHES = {"flash_attention": 0}
 #: masked scores, as in the reference (not -inf)
 NEG_INF = -1e30
 #: head dims the kernel is built for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

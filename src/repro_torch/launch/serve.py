@@ -6,11 +6,17 @@ weights, on the card unless asked for the CPU.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
         --reduced --device cpu
 
+``--arch`` takes any of the ten names (``configs.ARCH_NAMES``).  Prompts
+are token ids for every arch, as in the reference's launcher (an
+embeddings config embeds them through its table).
+
 Weights and prompts are drawn from ``--seed`` by a ``torch.Generator`` on
 the device.  The times are host-clock seconds around work that ends in a
 device synchronise.
 
-``--protect`` erasure-codes the KV cache pages after the prefill, as the
+``--protect`` erasure-codes the cache pages after the prefill (every
+layer's serving state: KV, a local layer's ring, MLA latents, recurrent
+states), as the
 reference does (the 1 x 1 host mesh, ``sharding.cache_specs``,
 ``ECConfig(k=1, m=1, page_size=256)``), folds the decode's cache writes
 into the parity when the decode ends (``refresh_cache_parity``), and
@@ -30,6 +36,7 @@ from ..distributed import sharding as shd
 from ..distributed.ecstore import ECConfig
 from ..kernels import dispatch
 from ..models import Model
+from ..models import layers
 from ..serve.engine import ServeEngine
 from .mesh import make_host_mesh
 
@@ -68,6 +75,7 @@ def main(argv=None):
     print(f"{cfg.name} ({'reduced' if args.reduced else 'full width'}, "
           f"{cfg.num_layers} layers, {cfg.dtype}) on {name}")
 
+    layers.reset_op_paths()
     _sync(dev)
     t0 = time.perf_counter()
     logits = eng.prefill({"tokens": prompts})
@@ -89,6 +97,7 @@ def main(argv=None):
           f"decoded {args.gen} steps in {t_decode:.2f}s "
           f"({args.batch * args.gen / max(t_decode, 1e-9):.1f} tok/s)")
     print("sample tokens:", res.tokens[0][:16])
+    print("attention routes:", dict(sorted(layers.OP_PATHS.items())))
     if args.protect:
         eng.refresh_cache_parity(protected)
         rec = eng.recover_cache_pages(0)

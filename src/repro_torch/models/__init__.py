@@ -1,5 +1,7 @@
-"""Model substrate of the port: the dense decoder (layer kind "A"),
-prefill through the flash-attention kernel, decode over a KV cache."""
+"""Model substrate of the port: the decoder for every layer kind of the
+reference (global and local attention, MLA, MoE, Mamba-2, RG-LRU),
+prefill through the flash-attention kernel where attention is unmasked
+and causal, decode over a per-layer cache."""
 from .config import ModelConfig
 from .transformer import Model, apply_layer
 

@@ -1,9 +1,7 @@
-"""Core layers of the dense decoder: RMSNorm, RoPE, causal GQA attention
-(prefill through the flash kernel, decode over a cache), SwiGLU and the
-embeddings.
+"""Core layers: RMSNorm, RoPE and M-RoPE, GQA attention (global, local
+windows, int8 KV cache, logit softcap), MLA, SwiGLU and the embeddings.
 
-The port of the JAX package's ``models/layers.py``, for the layer kind
-``"A"`` (global attention + MLP).  Conventions:
+The port of the JAX package's ``models/layers.py``.  Conventions:
 
 * parameters live in ``nn.Module``s under the reference's names
   (``wq``, ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``, ``w_down``,
@@ -18,20 +16,43 @@ The port of the JAX package's ``models/layers.py``, for the layer kind
 
 Parameters are made with ``requires_grad=False``, as serving takes no
 gradients; the training step (``train/train_step.py``) turns it on.
+
+Attention routes.  An unmasked causal prefill (layer kinds "A" and "M",
+and "W" while the sequence fits one window) goes through
+``kernels.flash_attention``: kernel 11 on a CUDA tensor, its plain
+version on a CPU tensor.  A call with a sliding window, a per-row
+``kv_mask``, a ``q_offset`` or a logit softcap is computed here in torch
+(``_masked_blockwise``), as the reference computes it in its jnp scan
+and not in its Pallas kernel: Q and KV tiles of the config's sizes, an
+online softmax in fp32, tiles that the causal and window masks empty
+skipped, so no (Sq, Skv) tensor per head is built.  MLA and every decode
+step are plain torch, as in the reference.  ``OP_PATHS`` counts the
+calls of each route (``Model.describe()`` shows them).
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..kernels import dispatch
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
 
 NEG_INF = -1e30
-_ROADMAP = "ROADMAP.md, Queue 1 item 3"
+
+#: calls of each attention route since the last ``reset_op_paths``:
+#: "flash_attention:<dispatch path>" (kernel 11 or its plain version),
+#: "masked_blockwise:torch", "decode:torch", "decode_q8:torch",
+#: "mla_blockwise:torch", "mla_decode:torch"
+OP_PATHS: collections.Counter = collections.Counter()
+
+
+def reset_op_paths() -> None:
+    OP_PATHS.clear()
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -49,14 +70,27 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+#: elements drawn at once by ``init_normal`` (4 GB of fp32): a larger
+#: tensor - a full-width expert stack, 5.6e9 elements at kimi-k2 - is
+#: filled slice by slice along its first dimension, so its fp32 copy is
+#: never made whole; a smaller one is drawn in one call
+INIT_CHUNK = 1 << 30
+
+
 @torch.no_grad()
 def init_normal(p: torch.Tensor, generator: torch.Generator,
                 scale: float = 0.02) -> None:
     """Fill ``p`` with N(0, 1)·scale drawn in fp32 on its device, then
-    cast, as the reference's ``_init`` does."""
-    x = torch.randn(p.shape, generator=generator, device=p.device,
-                    dtype=torch.float32)
-    p.copy_(x.mul_(scale))
+    cast, as the reference's ``_init`` does; slices of at most
+    ``INIT_CHUNK`` elements at a time."""
+    if p.dim() == 0 or p.numel() <= INIT_CHUNK:
+        x = torch.randn(p.shape, generator=generator, device=p.device,
+                        dtype=torch.float32)
+        p.copy_(x.mul_(scale))
+        return
+    step = max(1, INIT_CHUNK // max(1, p[0].numel()))
+    for i in range(0, p.shape[0], step):
+        init_normal(p[i:i + step], generator, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -105,14 +139,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple[int, ...]):
+    """M-RoPE (Qwen2-VL): positions3 (3, B, S) for (t, h, w); the hd/2
+    frequency pairs split into ``sections`` (summing to hd/2), each
+    section rotated by its own position stream."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
+                            device=x.device)
+    sec_id = torch.as_tensor(np.repeat(np.arange(len(sections)), sections),
+                             device=x.device)
+    pos = positions3.float()[sec_id]                           # (half,B,S)
+    ang = torch.movedim(pos, 0, -1) * freqs                    # (B,S,half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def position_embed(cfg: ModelConfig, q, k, positions):
     if cfg.rope_kind == "rope":
         return (apply_rope(q, positions, cfg.rope_theta),
                 apply_rope(k, positions, cfg.rope_theta))
-    if cfg.rope_kind == "none":
-        return q, k
-    raise NotImplementedError(
-        f"rope_kind {cfg.rope_kind!r} is not ported yet ({_ROADMAP})")
+    if cfg.rope_kind == "mrope":
+        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
+    return q, k
 
 
 # ---------------------------------------------------------------------------
@@ -123,21 +179,160 @@ def blockwise_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
                         q_offset: int = 0, window: int = 0, kv_mask=None):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd).
 
-    Exact causal GQA attention over the full sequence: the reference's
-    online-softmax scan over KV tiles, computed by
-    ``kernels.flash_attention`` with the config's tile sizes (kernel 11
-    on a CUDA tensor, its plain version on a CPU tensor).  One device:
-    the reference's striping of Q tiles over a mesh's "model" axis has no
-    counterpart.  A sliding window, a per-row ``kv_mask``, a ``q_offset``
-    and a logit softcap are not ported: they raise.
+    The reference's online-softmax attention over KV tiles.  Query
+    positions are ``q_offset + i``, key positions ``j``; ``causal`` keeps
+    j <= i, ``window`` > 0 keeps i - j < window, ``kv_mask`` (B, Skv) bool
+    marks each row's valid keys, and ``cfg.attn_logit_softcap`` caps the
+    scaled scores with tanh.  Without any of those four the call goes to
+    ``kernels.flash_attention`` (kernel 11 on a CUDA tensor); with any it
+    runs ``_masked_blockwise`` in torch (module notes).  One device: the
+    reference's striping of Q tiles over a mesh's "model" axis has no
+    counterpart.
     """
     if window or kv_mask is not None or q_offset or cfg.attn_logit_softcap:
-        raise NotImplementedError(
-            "blockwise_attention with a window, kv_mask, q_offset or logit "
-            f"softcap (W layers, softcap configs) is not ported yet "
-            f"({_ROADMAP})")
+        OP_PATHS["masked_blockwise:torch"] += 1
+        return _masked_blockwise(q, k, v, cfg, causal=causal,
+                                 q_offset=q_offset, window=window,
+                                 kv_mask=kv_mask)
+    OP_PATHS[f"flash_attention:{dispatch.decide(q).path}"] += 1
     return flash_attention(q, k, v, causal=causal, block_q=cfg.attn_block_q,
                            block_kv=cfg.attn_block_kv)
+
+
+def _masked_blockwise(q, k, v, cfg: ModelConfig, *, causal: bool,
+                      q_offset: int, window: int, kv_mask):
+    """Online softmax in fp32 over Q tiles of ``attn_block_q`` and KV tiles
+    of ``attn_block_kv`` rows, GQA by head groups (no KV expansion): per
+    tile s = q kᵀ / sqrt(hd), tanh-capped if the config says, masked to
+    -1e30, then merged as the reference's ``kv_step`` merges it.  A KV tile
+    that the causal and window masks empty for a whole Q tile adds exactly
+    0 to a row that keeps any key, so it is skipped.  (A row that keeps no
+    key has no defined output; the reference returns the mean of the
+    values it visited.  No caller makes one: every query keeps its own
+    key.)"""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    bq = min(cfg.attn_block_q, max(Sq, 16))
+    bkv = min(cfg.attn_block_kv, Skv)
+    softcap = cfg.attn_logit_softcap
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    kf = k.permute(0, 2, 1, 3)                          # (B, KV, Skv, hd)
+    vf = v.permute(0, 2, 1, 3)
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    for q0 in range(0, Sq, bq):
+        q1 = min(Sq, q0 + bq)
+        qt = q[:, q0:q1].float().reshape(B, q1 - q0, KV, G, hd) \
+            .permute(0, 2, 3, 1, 4)                      # (B, KV, G, bq, hd)
+        qp = torch.arange(q_offset + q0, q_offset + q1, device=dev)[:, None]
+        lo_pos = q_offset + q0 - window + 1 if window else 0
+        hi_pos = q_offset + q1 - 1 if causal else Skv - 1
+        acc = torch.zeros((B, KV, G, q1 - q0, hd), dtype=torch.float32,
+                          device=dev)
+        m_run = torch.full((B, KV, G, q1 - q0), NEG_INF, dtype=torch.float32,
+                           device=dev)
+        l_run = torch.zeros_like(m_run)
+        for k0 in range(0, Skv, bkv):
+            k1 = min(Skv, k0 + bkv)
+            if k0 > hi_pos or k1 - 1 < lo_pos:
+                continue
+            s = torch.einsum("bkgqd,bktd->bkgqt", qt,
+                             kf[:, :, k0:k1].float()) * scale
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            kp = torch.arange(k0, k1, device=dev)[None, :]
+            mask = None
+            if causal:
+                mask = qp >= kp
+            if window:
+                w = qp - kp < window
+                mask = w if mask is None else mask & w
+            if mask is not None:
+                mask = mask[None, None, None]
+            if kv_mask is not None:
+                row = kv_mask[:, None, None, None, k0:k1]
+                mask = row if mask is None else mask & row
+            if mask is not None:
+                s = torch.where(mask, s, NEG_INF)
+            m = s.amax(dim=-1)
+            p = torch.exp(s - m[..., None])
+            l = p.sum(dim=-1)
+            o = torch.einsum("bkgqt,bktd->bkgqd", p, vf[:, :, k0:k1].float())
+            m_new = torch.maximum(m_run, m)
+            a = torch.exp(m_run - m_new)
+            b = torch.exp(m - m_new)
+            acc = acc * a[..., None] + o * b[..., None]
+            l_run = l_run * a + l * b
+            m_run = m_new
+        res = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        out[:, q0:q1] = res.permute(0, 3, 1, 2, 4).reshape(
+            B, q1 - q0, H, hd).to(q.dtype)
+    return out
+
+
+def local_attention(q, k, v, cfg: ModelConfig):
+    """Sliding-window attention (the reference's ``_local_attention``):
+    windows of ``cfg.local_window`` folded into the batch; each attends to
+    itself and the previous window, window 0's zero-padded previous keys
+    masked."""
+    B, S, H, hd = q.shape
+    W = cfg.local_window
+    nW = -(-S // W)
+    Sp = nW * W
+    if Sp != S:
+        pad = (0, 0, 0, 0, 0, Sp - S)
+        q, k, v = (nn.functional.pad(t, pad) for t in (q, k, v))
+    KV = k.shape[2]
+    qw = q.reshape(B, nW, W, H, hd)
+    kw = k.reshape(B, nW, W, KV, hd)
+    vw = v.reshape(B, nW, W, KV, hd)
+    prev_k = torch.cat([torch.zeros_like(kw[:, :1]), kw[:, :-1]], dim=1)
+    prev_v = torch.cat([torch.zeros_like(vw[:, :1]), vw[:, :-1]], dim=1)
+    kf = torch.cat([prev_k, kw], dim=2).reshape(B * nW, 2 * W, KV, hd)
+    vf = torch.cat([prev_v, vw], dim=2).reshape(B * nW, 2 * W, KV, hd)
+    qf = qw.reshape(B * nW, W, H, hd)
+    prev_valid = (torch.arange(nW, device=q.device) > 0)[None, :] \
+        .expand(B, nW).reshape(B * nW)
+    kv_mask = torch.cat([prev_valid[:, None].expand(B * nW, W),
+                         torch.ones((B * nW, W), dtype=torch.bool,
+                                    device=q.device)], dim=1)
+    out = blockwise_attention(qf, kf, vf, cfg, causal=True, q_offset=W,
+                              window=W, kv_mask=kv_mask)
+    return out.reshape(B, Sp, H, hd)[:, :S]
+
+
+def quantize_kv(x):
+    """Per-vector symmetric int8 (the reference's ``_quantize_kv``): x
+    (B, S, KV, hd) -> (int8, scale (B, S, KV) fp32).  ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127) \
+        .to(torch.int8)
+    return q, scale
+
+
+def decode_attention_q8(q, k8, ks, v8, vs, cur_len: int,
+                        softcap: float = 0.0):
+    """int8-KV decode: the scales factored out of the dots and applied
+    to the (B, KV, G, S) scores and probabilities."""
+    OP_PATHS["decode_q8:torch"] += 1
+    B, S, KV, hd = k8.shape
+    H = q.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qg.float(),
+                          k8.float()) / math.sqrt(hd)
+    scores = scores * ks.permute(0, 2, 1)[:, :, None, :]
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    valid = (torch.arange(S, device=q.device) < cur_len)[None, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    pv = p * vs.permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bkgs,bskh->bkgh", pv, v8.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cur_len: int,
@@ -146,6 +341,7 @@ def decode_attention(q, k_cache, v_cache, cur_len: int,
     ``cur_len`` entries are valid; scores in fp32.  Plain torch: the
     scores are (B, H, S), small for one token (not a Pallas kernel in the
     reference either)."""
+    OP_PATHS["decode:torch"] += 1
     B, S, KV, hd = k_cache.shape
     H = q.shape[2]
     G = H // KV
@@ -162,7 +358,7 @@ def decode_attention(q, k_cache, v_cache, cur_len: int,
 
 
 class Attention(nn.Module):
-    """Global GQA attention (layer kind "A")."""
+    """GQA attention (layer kinds "A", "M" and the windowed "W")."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -180,13 +376,18 @@ class Attention(nn.Module):
 
 
 def attention_apply(p: Attention, x, cfg: ModelConfig, positions, *,
-                    cache: dict | None = None, cache_len: int | None = None):
+                    local: bool = False, cache: dict | None = None,
+                    cache_len: int | None = None,
+                    valid_len: int | None = None):
     """x: (B, S, d).  Without a cache: causal attention over the whole
-    sequence; returns (out, {"k", "v"} of this sequence).  With a cache
-    (decode, S = 1): ``cache`` holds "k" and "v" of (B, Smax, KV, hd);
-    the new K/V are written at ``cache_len`` **in place** (the reference
-    returns a new cache) and attention runs over the first
-    ``cache_len + 1`` entries; returns (out, cache)."""
+    sequence (a ``local`` layer longer than ``cfg.local_window`` takes
+    ``local_attention``); returns (out, {"k", "v"} of this sequence).
+    With a cache (decode, S = 1): ``cache`` holds "k" and "v" of (B, Smax,
+    KV, hd), and for the int8 cache "k_scale" and "v_scale" of (B, Smax,
+    KV); the new K/V are written at slot ``cache_len`` **in place** (the
+    reference returns a new cache) and attention runs over the first
+    ``valid_len`` entries (default ``cache_len + 1``; a local layer's
+    ring passes its own); returns (out, cache)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p.wq).reshape(B, S, H, hd)
@@ -194,20 +395,183 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, positions, *,
     v = (x @ p.wv).reshape(B, S, KV, hd)
     q, k = position_embed(cfg, q, k, positions)
     if cache is None:
-        out = blockwise_attention(q, k, v, cfg, causal=True)
+        if local and cfg.local_window and cfg.local_window < S:
+            out = local_attention(q, k, v, cfg)
+        else:
+            out = blockwise_attention(q, k, v, cfg, causal=True)
         new_cache = {"k": k, "v": v}
     else:
         if S != 1:
             raise ValueError("the decode step is single-token")
-        if "k_scale" in cache:
-            raise NotImplementedError(
-                f"the int8 KV cache is not ported yet ({_ROADMAP})")
-        cache["k"][:, cache_len] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, cache_len] = v[:, 0].to(cache["v"].dtype)
-        out = decode_attention(q, cache["k"], cache["v"], cache_len + 1,
-                               cfg.attn_logit_softcap)
+        n_valid = cache_len + 1 if valid_len is None else valid_len
+        if "k_scale" in cache:                      # int8 KV cache
+            k8, ks = quantize_kv(k)
+            v8, vs = quantize_kv(v)
+            cache["k"][:, cache_len] = k8[:, 0]
+            cache["v"][:, cache_len] = v8[:, 0]
+            cache["k_scale"][:, cache_len] = ks[:, 0].to(
+                cache["k_scale"].dtype)
+            cache["v_scale"][:, cache_len] = vs[:, 0].to(
+                cache["v_scale"].dtype)
+            out = decode_attention_q8(q, cache["k"], cache["k_scale"],
+                                      cache["v"], cache["v_scale"], n_valid,
+                                      cfg.attn_logit_softcap)
+        else:
+            cache["k"][:, cache_len] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, cache_len] = v[:, 0].to(cache["v"].dtype)
+            out = decode_attention(q, cache["k"], cache["v"], n_valid,
+                                   cfg.attn_logit_softcap)
         new_cache = cache
     return out.reshape(B, S, H * hd) @ p.wo, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek style)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """Layer kind "L": a low-rank latent KV (``w_dkv`` -> ``kv_norm``,
+    up-projected per head by ``w_uk``/``w_uv``), a decoupled RoPE key
+    ``k_rope`` shared by the heads, and queries through a LoRA
+    (``w_dq`` -> ``q_norm`` -> ``w_uq``) or one ``wq``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, H = cfg.d_model, cfg.num_heads
+        r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+        nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        dt = torch_dtype(cfg.dtype)
+        self.w_dkv = _param((d, r + rope), dt, device)
+        self.kv_norm = RMSNorm(r, device)
+        self.w_uk = _param((r, H, nope), dt, device)
+        self.w_uv = _param((r, H, vdim), dt, device)
+        self.wo = _param((H * vdim, d), dt, device)
+        if qr:
+            self.w_dq = _param((d, qr), dt, device)
+            self.q_norm = RMSNorm(qr, device)
+            self.w_uq = _param((qr, H, nope + rope), dt, device)
+        else:
+            self.wq = _param((d, H, nope + rope), dt, device)
+
+    def reset(self, generator: torch.Generator) -> None:
+        self.kv_norm.reset()
+        for p in (self.w_dkv, self.w_uk, self.w_uv, self.wo):
+            init_normal(p, generator)
+        if hasattr(self, "w_dq"):
+            self.q_norm.reset()
+            init_normal(self.w_dq, generator)
+            init_normal(self.w_uq, generator)
+        else:
+            init_normal(self.wq, generator)
+
+
+def mla_apply(p: MLA, x, cfg: ModelConfig, positions, *,
+              cache: dict | None = None, cache_len: int | None = None):
+    """x: (B, S, d).  Without a cache: causal MLA over the sequence;
+    returns (out, {"latent" (B, S, r), "k_rope" (B, S, rope)}).  With a
+    cache (decode, S = 1): this token's latent and RoPE key are written at
+    ``cache_len`` in place and the absorbed decode runs over the first
+    ``cache_len + 1``; returns (out, cache)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    r, nope, vdim = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.v_head_dim
+    if hasattr(p, "w_dq"):
+        ql = rmsnorm(p.q_norm.scale, x @ p.w_dq)
+        q = torch.einsum("bsr,rhd->bshd", ql, p.w_uq)
+    else:
+        q = torch.einsum("bsd,dhe->bshe", x, p.wq)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv = x @ p.w_dkv                                          # (B,S,r+rope)
+    latent = rmsnorm(p.kv_norm.scale, ckv[..., :r])
+    k_rope = ckv[..., r:][:, :, None, :]                       # (B,S,1,rope)
+    q_rope, k_rope = position_embed(cfg, q_rope, k_rope, positions)
+    if cache is None:
+        out = _mla_blockwise(q_nope, q_rope, latent, k_rope, p, cfg)
+        new_cache = {"latent": latent, "k_rope": k_rope[:, :, 0, :]}
+    else:
+        if S != 1:
+            raise ValueError("the decode step is single-token")
+        cache["latent"][:, cache_len] = latent[:, 0].to(
+            cache["latent"].dtype)
+        cache["k_rope"][:, cache_len] = k_rope[:, 0, 0].to(
+            cache["k_rope"].dtype)
+        out = _mla_decode(q_nope, q_rope, cache["latent"], cache["k_rope"],
+                          p, cache_len + 1)
+        new_cache = cache
+    return out.reshape(B, S, H * vdim) @ p.wo, new_cache
+
+
+def _mla_blockwise(q_nope, q_rope, latent, k_rope, p: MLA, cfg: ModelConfig):
+    """Prefill: per KV tile the latent is up-projected to per-head keys
+    and values (in the weights' dtype, as the reference's einsums), scores
+    q_nope·k_nope + q_rope·k_rope in fp32 over sqrt(nope + rope), causal,
+    merged by the online softmax over Q tiles of ``attn_block_q`` and KV
+    tiles of ``attn_block_kv``; tiles past the diagonal are skipped (they
+    add exactly 0)."""
+    OP_PATHS["mla_blockwise:torch"] += 1
+    B, Sq, H, _ = q_nope.shape
+    vdim = cfg.v_head_dim
+    bq = min(cfg.attn_block_q, max(Sq, 16))
+    bkv = min(cfg.attn_block_kv, Sq)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    dev = q_nope.device
+    kr = k_rope[:, :, 0, :]
+    out = torch.empty((B, Sq, H, vdim), dtype=q_nope.dtype, device=dev)
+    tiles = []
+    for k0 in range(0, Sq, bkv):
+        k1 = min(Sq, k0 + bkv)
+        lat = latent[:, k0:k1]
+        tiles.append((k0, k1,
+                      torch.einsum("btr,rhd->bhtd", lat, p.w_uk).float(),
+                      torch.einsum("btr,rhd->bhtd", lat, p.w_uv).float(),
+                      kr[:, k0:k1].float()))
+    for q0 in range(0, Sq, bq):
+        q1 = min(Sq, q0 + bq)
+        qn = q_nope[:, q0:q1].float().permute(0, 2, 1, 3)      # (B,H,bq,e)
+        qr = q_rope[:, q0:q1].float().permute(0, 2, 1, 3)
+        qp = torch.arange(q0, q1, device=dev)[:, None]
+        acc = torch.zeros((B, H, q1 - q0, vdim), dtype=torch.float32,
+                          device=dev)
+        m_run = torch.full((B, H, q1 - q0), NEG_INF, dtype=torch.float32,
+                           device=dev)
+        l_run = torch.zeros_like(m_run)
+        for k0, k1, k_nope, v_blk, kr_blk in tiles:
+            if k0 > q1 - 1:
+                break
+            s = (torch.einsum("bhqd,bhtd->bhqt", qn, k_nope)
+                 + torch.einsum("bhqd,btd->bhqt", qr, kr_blk)) * scale
+            mask = qp >= torch.arange(k0, k1, device=dev)[None, :]
+            s = torch.where(mask, s, NEG_INF)
+            m = s.amax(dim=-1)
+            pr = torch.exp(s - m[..., None])
+            l = pr.sum(dim=-1)
+            o = torch.einsum("bhqt,bhtd->bhqd", pr, v_blk)
+            m_new = torch.maximum(m_run, m)
+            a = torch.exp(m_run - m_new)
+            b2 = torch.exp(m - m_new)
+            acc = acc * a[..., None] + o * b2[..., None]
+            l_run = l_run * a + l * b2
+            m_run = m_new
+        res = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        out[:, q0:q1] = res.permute(0, 2, 1, 3).to(q_nope.dtype)
+    return out
+
+
+def _mla_decode(q_nope, q_rope, latent_c, krope_c, p: MLA, cur_len: int):
+    """Absorbed decode: attention in latent space, O(S·r) per head."""
+    OP_PATHS["mla_decode:torch"] += 1
+    scale = 1.0 / math.sqrt(q_nope.shape[-1] + q_rope.shape[-1])
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, p.w_uk)      # (B,1,H,r)
+    s = (torch.einsum("bshr,btr->bhst", q_abs.float(), latent_c.float())
+         + torch.einsum("bshd,btd->bhst", q_rope.float(),
+                        krope_c.float())) * scale
+    S = latent_c.shape[1]
+    valid = (torch.arange(S, device=s.device) < cur_len)[None, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", pr, latent_c.float())
+    out = torch.einsum("bshr,rhd->bshd", ctx, p.w_uv.float())
+    return out.to(q_nope.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,4 @@
-"""Model assembly: the decoder stack for layer kind "A" (global GQA
-attention + SwiGLU MLP).
+"""Model assembly: the decoder stack for every layer kind.
 
 The port of the JAX package's ``models/transformer.py``.  The reference
 groups layers into repeating *units* of ``cfg.layer_pattern`` and stacks
@@ -16,8 +15,12 @@ everything).  ``apply``, the serving forward, is ``forward`` without
 gradients.  ``cache_tree`` shows a cache in the reference's stacked
 layout.
 
-Configs with any other layer kind, M-RoPE, embedding inputs, an int8 KV
-cache or an attention logit softcap raise at construction.
+Layer kinds (the reference's ``MIXER_KINDS``/``FFN_KINDS``): "A" global
+attention + MLP, "W" local (windowed) attention + MLP, "M" global
+attention + MoE, "L" MLA + MLP, "S" Mamba-2 alone, "R" RG-LRU + MLP.
+Inputs are token ids, or with ``input_mode="embeddings"`` (the audio and
+vision stubs) precomputed (B, S, d) embeddings; M-RoPE configs take (3,
+B, S) positions.
 """
 from __future__ import annotations
 
@@ -27,33 +30,21 @@ from torch.utils import checkpoint as ckpt
 
 from ..kernels import dispatch
 from ..tree import Stacked, tree_map
+from . import layers as L
 from .config import ModelConfig
-from .layers import (MLP, Attention, Embeddings, RMSNorm, attention_apply,
-                     embed, mlp_apply, unembed)
+from .layers import (MLA, MLP, Attention, Embeddings, RMSNorm,
+                     attention_apply, embed, mla_apply, mlp_apply,
+                     torch_dtype, unembed)
+from .mamba2 import Mamba2, mamba2_forward, mamba2_init_cache, mamba2_step
+from .moe import MoE, moe_apply
+from .rglru import RGLRU, rglru_forward, rglru_init_cache, rglru_step
 
-_ROADMAP = "ROADMAP.md, Queue 1 item 3"
-#: what each unported layer kind is, for the error
-_UNPORTED_KINDS = {"W": "local (windowed) attention", "L": "MLA",
-                   "M": "MoE", "S": "Mamba-2", "R": "RG-LRU"}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this port cannot run."""
-    for kind in sorted(set(cfg.layers)):
-        if kind != "A":
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} "
-                f"({_UNPORTED_KINDS.get(kind, 'unknown')}) is not ported "
-                f"yet ({_ROADMAP})")
-    unported = {"rope_kind": cfg.rope_kind == "mrope",
-                "input_mode": cfg.input_mode == "embeddings",
-                "kv_cache_dtype": cfg.kv_cache_dtype == "int8",
-                "attn_logit_softcap": bool(cfg.attn_logit_softcap)}
-    for field, bad in unported.items():
-        if bad:
-            raise NotImplementedError(
-                f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
-                f"yet ({_ROADMAP})")
+MIXER_KINDS = {"A": "attn", "W": "attn", "M": "attn", "L": "mla",
+               "S": "mamba", "R": "rglru"}
+FFN_KINDS = {"A": "mlp", "W": "mlp", "L": "mlp", "R": "mlp", "M": "moe",
+             "S": None}
+_MIXERS = {"attn": Attention, "mla": MLA, "mamba": Mamba2, "rglru": RGLRU}
+_FFNS = {"mlp": MLP, "moe": MoE}
 
 
 # ---------------------------------------------------------------------------
@@ -61,33 +52,62 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
-    """One "A" layer: ln1, attn, ln2, mlp (the reference's keys)."""
+    """One layer of ``kind``: ln1 and its mixer (attn, mla, mamba or
+    rglru), then, unless the kind has none, ln2 and its FFN (mlp or moe)
+    - the reference's keys."""
 
     def __init__(self, kind: str, cfg: ModelConfig, device):
         super().__init__()
-        if kind != "A":
-            raise NotImplementedError(f"layer kind {kind!r} ({_ROADMAP})")
+        if kind not in MIXER_KINDS:
+            raise ValueError(f"unknown layer kind {kind!r}")
+        self.kind = kind
         self.ln1 = RMSNorm(cfg.d_model, device)
-        self.attn = Attention(cfg, device)
-        self.ln2 = RMSNorm(cfg.d_model, device)
-        self.mlp = MLP(cfg, device)
+        mixer = MIXER_KINDS[kind]
+        setattr(self, mixer, _MIXERS[mixer](cfg, device))
+        ffn = FFN_KINDS[kind]
+        if ffn:
+            self.ln2 = RMSNorm(cfg.d_model, device)
+            setattr(self, ffn, _FFNS[ffn](cfg, device))
 
     def reset(self, generator: torch.Generator) -> None:
         self.ln1.reset()
-        self.attn.reset(generator)
-        self.ln2.reset()
-        self.mlp.reset(generator)
+        getattr(self, MIXER_KINDS[self.kind]).reset(generator)
+        ffn = FFN_KINDS[self.kind]
+        if ffn:
+            self.ln2.reset()
+            getattr(self, ffn).reset(generator)
 
 
 def apply_layer(layer: Layer, x, cfg: ModelConfig, positions, *,
-                cache=None, cache_len=None):
+                cache=None, cache_len=None, valid_len=None):
     """Returns (x, new_cache)."""
+    kind = layer.kind
     h = layer.ln1(x, cfg.norm_eps)
-    out, new_cache = attention_apply(layer.attn, h, cfg, positions,
-                                     cache=cache, cache_len=cache_len)
+    mixer = MIXER_KINDS[kind]
+    if mixer == "attn":
+        out, new_cache = attention_apply(
+            layer.attn, h, cfg, positions, local=(kind == "W"), cache=cache,
+            cache_len=cache_len, valid_len=valid_len)
+    elif mixer == "mla":
+        out, new_cache = mla_apply(layer.mla, h, cfg, positions, cache=cache,
+                                   cache_len=cache_len)
+    elif mixer == "mamba":
+        if cache is None:
+            out, new_cache = mamba2_forward(layer.mamba, h, cfg), None
+        else:
+            out, new_cache = mamba2_step(layer.mamba, h, cfg, cache)
+    else:
+        if cache is None:
+            out, new_cache = rglru_forward(layer.rglru, h, cfg), None
+        else:
+            out, new_cache = rglru_step(layer.rglru, h, cfg, cache)
     x = x + out
-    h = layer.ln2(x, cfg.norm_eps)
-    return x + mlp_apply(layer.mlp, h), new_cache
+    ffn = FFN_KINDS[kind]
+    if ffn:
+        h = layer.ln2(x, cfg.norm_eps)
+        x = x + (moe_apply(layer.moe, h, cfg) if ffn == "moe"
+                 else mlp_apply(layer.mlp, h))
+    return x, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +126,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        check_supported(cfg)
         dev = dispatch.resolve_device(device)
         self.cfg = cfg
         self.embeddings = Embeddings(cfg, dev)
@@ -146,21 +165,37 @@ class Model(nn.Module):
         self.final_norm.reset()
         return self
 
+    def describe(self) -> dict:
+        """Where the model runs and how its attention calls went since
+        ``layers.reset_op_paths()``: route -> calls (module notes of
+        ``layers``)."""
+        return {"device": str(self.device),
+                "attention": dispatch.describe(self.device),
+                "op_paths": dict(L.OP_PATHS)}
+
     # -- helpers ------------------------------------------------------------
     def _embed_in(self, batch: dict):
-        tokens = batch["tokens"]
-        x = embed(self.embeddings, tokens, self.cfg)
-        B, S = tokens.shape
+        cfg = self.cfg
+        if cfg.input_mode == "embeddings" and "embeddings" in batch:
+            x = batch["embeddings"].to(torch_dtype(cfg.dtype))
+            B, S = x.shape[:2]
+        else:
+            x = embed(self.embeddings, batch["tokens"], cfg)
+            B, S = batch["tokens"].shape
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+            if cfg.rope_kind == "mrope":
+                positions = positions[None].expand(3, B, S)
         return x, positions
 
     # -- forward ------------------------------------------------------------
     @torch.no_grad()
     def apply(self, batch: dict) -> torch.Tensor:
         """The serving forward: ``forward`` without gradients.
-        batch["tokens"]: (B, S) integers on the model's device -> logits
+        batch["tokens"]: (B, S) integers on the model's device, or for an
+        embeddings config batch["embeddings"] (B, S, d); optional
+        batch["positions"] ((B, S), or (3, B, S) for M-RoPE) -> logits
         (B, S, padded_vocab) in the activation dtype."""
         return self.forward(batch)
 
@@ -194,22 +229,46 @@ class Model(nn.Module):
         return unembed(self.embeddings, x, cfg)
 
     # -- cache --------------------------------------------------------------
-    def _layer_cache(self, batch: int, max_len: int, dtype):
-        cfg = self.cfg
-        shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+    def _layer_cache(self, kind: str, batch: int, max_len: int, dtype):
+        cfg, dev = self.cfg, self.device
+        mixer = MIXER_KINDS[kind]
+        if mixer == "attn":
+            S = max_len if kind != "W" else min(max_len, cfg.local_window)
+            shape = (batch, S, cfg.num_kv_heads, cfg.head_dim)
+            if cfg.kv_cache_dtype == "int8":
+                return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                        "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                        "k_scale": torch.zeros(shape[:-1],
+                                               dtype=torch.float32,
+                                               device=dev),
+                        "v_scale": torch.zeros(shape[:-1],
+                                               dtype=torch.float32,
+                                               device=dev)}
+            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if mixer == "mla":
+            return {"latent": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                          dtype=dtype, device=dev),
+                    "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                          dtype=dtype, device=dev)}
+        if mixer == "mamba":
+            return mamba2_init_cache(cfg, batch, dev)
+        return rglru_init_cache(cfg, batch, dev)
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> list[dict]:
-        """One {"k", "v"} cache of (batch, max_len, KV, hd) per layer, in
-        layer order (the reference stacks them per unit position)."""
-        return [self._layer_cache(batch, max_len, dtype)
-                for _ in self.layers]
+        """One cache per layer, in layer order (the reference stacks them
+        per unit position): attention {"k", "v"} of (batch, max_len, KV,
+        hd) in ``dtype`` (a "W" layer's ring holds min(max_len,
+        local_window) slots; the int8 cache adds "k_scale" and "v_scale");
+        MLA {"latent", "k_rope"}; Mamba-2 {"conv", "ssm"} and RG-LRU
+        {"conv", "h"} in fp32."""
+        return [self._layer_cache(layer.kind, batch, max_len, dtype)
+                for layer in self.layers]
 
     def cache_tree(self, cache: list[dict]) -> dict:
-        """``cache`` in the reference's layout: {"blocks": one {"k", "v"}
-        per unit position, each stacked over the repeats, "tail": the
+        """``cache`` in the reference's layout: {"blocks": one layer cache
+        per unit position, each leaf stacked over the repeats, "tail": the
         remainder layers'} - the port's tensors, not copies."""
         n = len(self.unit)
         blocks = [tree_map(lambda *ts: Stacked(ts),
@@ -221,18 +280,34 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, cache: list[dict], tokens: torch.Tensor,
                     cur_len: int, positions=None):
-        """tokens: (B,) integers; cur_len: tokens already in the cache.
-        Writes this token's K/V into ``cache`` in place and returns
-        (logits (B, padded_vocab), cache)."""
+        """tokens: (B,) integers, or (B, 1, d) embeddings for an embeddings
+        config; cur_len: tokens already in the cache.  Writes this token's
+        state into ``cache`` in place (a "W" layer at ring slot cur_len %
+        local_window, attending over min(cur_len + 1, local_window)
+        entries) and returns (logits (B, padded_vocab), cache)."""
         cfg = self.cfg
         B = tokens.shape[0]
-        x = embed(self.embeddings, tokens[:, None], cfg)
-        pos = (torch.full((B, 1), int(cur_len), dtype=torch.int64,
-                          device=x.device) if positions is None
-               else positions)
+        cur_len = int(cur_len)
+        if cfg.input_mode == "embeddings" and tokens.dim() == 3:
+            x = tokens.to(torch_dtype(cfg.dtype))
+        else:
+            x = embed(self.embeddings, tokens[:, None], cfg)
+        if positions is None:
+            pos = torch.full((B, 1), cur_len, dtype=torch.int64,
+                             device=x.device)
+            if cfg.rope_kind == "mrope":
+                pos = pos[None].expand(3, B, 1)
+        else:
+            pos = positions
+        W = cfg.local_window or 0
         for layer, layer_cache in zip(self.layers, cache):
-            x, _ = apply_layer(layer, x, cfg, pos, cache=layer_cache,
-                               cache_len=int(cur_len))
+            if layer.kind == "W" and W:
+                x, _ = apply_layer(layer, x, cfg, pos, cache=layer_cache,
+                                   cache_len=cur_len % W,
+                                   valid_len=min(cur_len + 1, W))
+            else:
+                x, _ = apply_layer(layer, x, cfg, pos, cache=layer_cache,
+                                   cache_len=cur_len)
         x = self.final_norm(x, cfg.norm_eps)
         return unembed(self.embeddings, x, cfg)[:, 0], cache
 

@@ -7,8 +7,10 @@ forward); ``decode`` then generates greedily, or samples at
 ``temperature > 0`` from the engine's ``torch.Generator``.  The cache is
 written in place.
 
-KV cache pages can be erasure-coded across a mesh's data axis exactly
-like checkpoint pages (``protect_cache``): losing a position then costs a
+The serving state of every layer kind - attention KV (a local layer's
+ring, an int8 cache with its scales), MLA latents, Mamba-2 and RG-LRU
+states - can be erasure-coded across a mesh's data axis exactly like
+checkpoint pages (``protect_cache``), in the reference's tree order: losing a position then costs a
 decode-from-k reconstruction (``recover_cache_pages``) instead of
 recomputing every live session's prefill - the paper's degraded GET
 applied to serving state.  The cache is written in place, so
@@ -68,12 +70,19 @@ class ServeEngine:
 
     # -- serving ---------------------------------------------------------
     def prefill(self, batch: dict) -> torch.Tensor:
-        """Run the prompt (batch["tokens"], (B, S)) token by token into
-        the cache; returns the logits after its last token."""
-        toks = torch.as_tensor(batch["tokens"], device=self.device)
+        """Run the prompt token by token into the cache: batch["tokens"]
+        (B, S), or for an embeddings config batch["embeddings"] (B, S, d),
+        fed as (B, 1, d) steps; returns the logits after its last
+        token."""
+        if "embeddings" in batch:
+            emb = torch.as_tensor(batch["embeddings"], device=self.device)
+            steps = [emb[:, t:t + 1] for t in range(emb.shape[1])]
+        else:
+            toks = torch.as_tensor(batch["tokens"], device=self.device)
+            steps = [toks[:, t] for t in range(toks.shape[1])]
         logits = None
-        for t in range(toks.shape[1]):
-            logits = self._step(toks[:, t])
+        for step in steps:
+            logits = self._step(step)
         return logits
 
     def decode(self, steps: int, temperature: float = 0.0,

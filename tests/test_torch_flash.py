@@ -92,6 +92,33 @@ def test_plain_matches_interpret_mode_pallas(B, S, H, KV, hd, bq, bkv):
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
 
 
+#: the head dims kernel 11 gained for kimi-k2 (112) and recurrentgemma-2b
+#: (256), causal and tile-aligned (the reference's Pallas body masks
+#: padded keys only through the causal test: ROADMAP Queue 3)
+NEW_HEAD_DIMS = [(1, 256, 8, 2, 112, 128, 128), (2, 256, 4, 1, 256, 64, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,bq,bkv", NEW_HEAD_DIMS)
+def test_plain_matches_reference_at_new_head_dims(B, S, H, KV, hd, bq, bkv,
+                                                  dtype):
+    arrs = _qkv(B, S, H, KV, hd)
+    got = _port(arrs, dtype, block_q=bq, block_kv=bkv)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got, _ref(arrs, dtype, block_q=bq,
+                                         block_kv=bkv), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, oracle(*arrs), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,bq,bkv", NEW_HEAD_DIMS)
+def test_plain_matches_interpret_mode_pallas_at_new_head_dims(B, S, H, KV, hd,
+                                                              bq, bkv):
+    arrs = _qkv(B, S, H, KV, hd)
+    got = _port(arrs, "float32", block_q=bq, block_kv=bkv)
+    want = _ref(arrs, "float32", block_q=bq, block_kv=bkv, interpret=True)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_non_causal_matches_reference(dtype):
     arrs = _qkv(1, 128, 4, 4, 32)
@@ -262,6 +289,20 @@ def _bf16_inputs(B, Sq, Skv, H, KV, hd):
 def test_split_p_body_holds_the_tolerance(B, Sq, Skv, H, KV, hd, causal):
     """The bf16 kernel's arithmetic (P split hi + lo) stays within
     ``tolerance`` of the plain version (about half of it: one bf16 ulp)."""
+    q, k, v = _bf16_inputs(B, Sq, Skv, H, KV, hd)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert tolerance_ratio(_wgmma_body(q, k, v, causal=causal), want) <= 1.0
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", [
+    (1, 1024, 1024, 10, 1, 256, True), (1, 1024, 1024, 8, 2, 112, True),
+    (1, 600, 300, 4, 2, 112, False)])
+def test_split_p_body_holds_the_tolerance_at_new_head_dims(B, Sq, Skv, H, KV,
+                                                           hd, causal):
+    """The same arithmetic at hd 256 (recurrentgemma-2b: each of the two
+    warpgroups sums its 128 columns of O from the same P, so the
+    emulation is the same) and hd 112 (kimi-k2: the zero-filled columns
+    add nothing)."""
     q, k, v = _bf16_inputs(B, Sq, Skv, H, KV, hd)
     want = flash_attention_plain(q, k, v, causal=causal)
     assert tolerance_ratio(_wgmma_body(q, k, v, causal=causal), want) <= 1.0

@@ -800,11 +800,14 @@ def test_sharded_cluster_on_card_matches_numpy_twin(cuda):
 # ---------------------------------------------------------------------------
 
 # (B, S, H, KV, hd, causal): tests/test_flash_attention.py's grid, its
-# non-causal case, a ragged non-causal case and cross lengths
+# non-causal case, a ragged non-causal case and cross lengths; hd 112
+# (kimi-k2) and 256 (recurrentgemma-2b) causal and ragged non-causal
 FLASH_GRID = [(2, 256, 4, 2, 64, True), (1, 200, 8, 8, 32, True),
               (2, 384, 6, 3, 128, True), (1, 64, 2, 1, 16, True),
               (1, 128, 4, 4, 32, False), (1, 100, 2, 2, 16, False),
-              (1, 1, 24, 2, 128, True), (3, 65, 12, 2, 128, True)]
+              (1, 1, 24, 2, 128, True), (3, 65, 12, 2, 128, True),
+              (2, 300, 8, 2, 112, True), (1, 100, 4, 2, 112, False),
+              (2, 300, 10, 1, 256, True), (1, 100, 4, 1, 256, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -863,7 +866,12 @@ WGMMA_GRID = (
        (2, 129, 1000, 8, 1, 128, True), (4, 1000, 129, 16, 4, 32, True)]
     + [(1, 100, 100, 2, 2, 16, False), (1, 200, 100, 2, 2, 128, False),
        (2, 1000, 700, 4, 2, 64, False)]
-    + [(4, 2048, 2048, 24, 2, 128, True)])
+    + [(4, 2048, 2048, 24, 2, 128, True)]
+    # hd 112 and 256: cross lengths, ragged non-causal, the kimi-k2 and
+    # recurrentgemma-2b prefill shapes
+    + [(1, 100, 300, 4, 2, 112, True), (1, 300, 100, 10, 1, 256, True),
+       (1, 200, 100, 4, 2, 112, False), (1, 200, 100, 4, 1, 256, False),
+       (1, 2048, 2048, 64, 8, 112, True), (4, 2048, 2048, 10, 1, 256, True)])
 
 
 def _bf16(rng, *shape):
@@ -911,6 +919,26 @@ def test_flash_dtype_picks_its_body(cuda, dtype, body):
     from torch.profiler import ProfilerActivity, profile
     rng = _rng("flash-body", str(dtype))
     q, k, v = (_bf16(rng, 1, 256, 4, 64).to(dtype) for _ in range(3))
+    flash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = {ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA}
+    assert [n for n in names if "flash_attention" in n] == \
+        [n for n in names if body in n] != []
+
+
+@pytest.mark.parametrize("hd,body", [
+    (112, "flash_attention_wgmma_kernel"), (256, "flash_attention_wgmma_kernel")])
+def test_flash_bf16_head_dims_pick_their_body(cuda, hd, body):
+    """bf16 at hd 112 and 256 runs the wgmma body (at 256 with two
+    consumer warpgroups splitting hd)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = _rng("flash-body-hd", hd)
+    q, k, v = (_bf16(rng, 1, 256, 4, hd) for _ in range(3))
     flash.flash_attention(q, k, v)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -1,14 +1,20 @@
 """The port's dense model, serving engine and launcher against the JAX
 package's.
 
-starcoder2-3b's reduced config runs in float32 and in bfloat16 with the
-reference's own weights, carried over by ``models.convert.
+The reduced configs of the three dense archs (starcoder2-3b,
+phi4-mini-3.8b, mistral-large-123b) run in float32 and in bfloat16 with
+the reference's own weights, carried over by ``models.convert.
 params_from_jax``; the same numpy tokens feed both sides.  On the CPU the
 port's attention takes the flash kernel's plain version.  Tolerances:
 ``Model.apply`` and ``decode_step`` logits within 1e-4 in float32 and
 2e-2 in bfloat16 (the reference's own decode test bound); greedy tokens
 equal in float32.  The configs of all ten architectures equal the
-reference's field by field.
+reference's field by field.  Every option of a layer (a local window with
+its ring cache, M-RoPE, embedding inputs, the int8 KV cache, a logit
+softcap) on starcoder2-3b's reduced config, and ``blockwise_attention``
+with a window, a ``q_offset`` or a ``kv_mask``, are held against the
+reference at the same tolerances.  The other seven archs' twins are in
+``test_torch_model_kinds.py``.
 """
 import dataclasses
 import subprocess
@@ -25,6 +31,7 @@ from repro.configs import ARCH_NAMES as REF_ARCH_NAMES
 from repro.configs import get_config as ref_get_config
 from repro.configs import get_reduced as ref_get_reduced
 from repro.models import Model as RefModel
+from repro.models.layers import blockwise_attention as ref_blockwise
 from repro.serve.engine import greedy_generate as ref_greedy_generate
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
 from repro_torch.kernels import launch_counts
@@ -47,15 +54,20 @@ def _tokens(vocab, shape, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, shape)
 
 
-@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+#: (arch, dtype) of the twins; starcoder2-3b's ids stay the dtype alone
+TWINS = [(a, dt) for a in DENSE for dt in ("float32", "bfloat16")]
+
+
+@pytest.fixture(scope="module", params=TWINS,
+                ids=[dt if a == ARCH else f"{a}-{dt}" for a, dt in TWINS])
 def twins(request):
     """(dtype, reference model, its params, the port's model with the
     same weights)."""
-    dtype = request.param
-    ref_cfg = ref_get_reduced(ARCH).scaled(dtype=dtype)
+    arch, dtype = request.param
+    ref_cfg = ref_get_reduced(arch).scaled(dtype=dtype)
     ref = RefModel(ref_cfg)
     params = ref.init(jax.random.PRNGKey(0))
-    model = Model(get_reduced(ARCH).scaled(dtype=dtype), device="cpu")
+    model = Model(get_reduced(arch).scaled(dtype=dtype), device="cpu")
     params_from_jax(model, jax.tree.map(np.asarray, params))
     return dtype, ref, params, model
 
@@ -80,19 +92,104 @@ def test_configs_equal_reference(arch, reduced):
 
 @pytest.mark.parametrize("arch", [a for a in REF_ARCH_NAMES
                                   if a not in DENSE])
-def test_model_raises_for_unported_archs(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_reduced(arch), device="cpu")
+def test_model_builds_every_arch_as_the_reference(arch):
+    """Every layer kind builds, and the parameter tree (``param_tree``)
+    and the cache tree (``cache_tree``) have the reference's paths,
+    shapes and dtypes."""
+    from repro_torch.models.convert import param_tree
+    from repro_torch.tree import leaves_with_path
+    ref = RefModel(ref_get_reduced(arch))
+    model = Model(get_reduced(arch), device="cpu")
+
+    def ref_leaves(tree):
+        flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+        return [(tuple(getattr(k, "key", getattr(k, "idx", None))
+                       for k in p), tuple(x.shape), str(x.dtype))
+                for p, x in flat]
+
+    def port_leaves(tree):
+        return [(p, tuple(x.shape), str(x.dtype).replace("torch.", ""))
+                for p, x in leaves_with_path(tree)]
+
+    want_p = ref_leaves(jax.eval_shape(ref.init, jax.random.PRNGKey(0)))
+    want_c = ref_leaves(jax.eval_shape(lambda: ref.init_cache(2, 24)))
+    assert port_leaves(param_tree(model)) == want_p
+    assert port_leaves(model.cache_tree(model.init_cache(2, 24))) == want_c
 
 
-@pytest.mark.parametrize("field,value", [
-    ("layer_pattern", "AW"), ("rope_kind", "mrope"),
-    ("input_mode", "embeddings"), ("kv_cache_dtype", "int8"),
-    ("attn_logit_softcap", 50.0)])
-def test_model_raises_for_unported_options(field, value):
-    cfg = get_reduced(ARCH).scaled(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg, device="cpu")
+#: each option of a layer on starcoder2-3b's reduced config, with what it
+#: needs to run: a window shorter than the sequence (its ring wraps in
+#: decode), M-RoPE sections summing to hd/2
+OPTIONS = [("layer_pattern", "AW"), ("rope_kind", "mrope"),
+           ("input_mode", "embeddings"), ("kv_cache_dtype", "int8"),
+           ("attn_logit_softcap", 50.0)]
+_OPTION_NEEDS = {"layer_pattern": dict(local_window=32),
+                 "rope_kind": dict(mrope_sections=(2, 3, 3))}
+
+
+@pytest.mark.parametrize("field,value", OPTIONS)
+def test_model_options_match_reference(field, value):
+    """``Model.apply`` and 96 ``decode_step``s in float32 within 1e-4 of
+    the reference, each option on: embeddings feed both as (B, S, d) and
+    (B, 1, d) steps, M-RoPE both with (3, B, S) positions whose streams
+    differ, the int8 cache's bytes after the decode equal (its scales
+    within 1e-6 relative)."""
+    over = dict(dtype="float32", **{field: value},
+                **_OPTION_NEEDS.get(field, {}))
+    ref = RefModel(ref_get_reduced(ARCH).scaled(**over))
+    params = ref.init(jax.random.PRNGKey(5))
+    model = params_from_jax(Model(get_reduced(ARCH).scaled(**over),
+                                  device="cpu"),
+                            jax.tree.map(np.asarray, params))
+    cfg = ref.cfg
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab_size, (B, S))
+    emb = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    pos3 = np.stack([np.arange(S)[None].repeat(B, 0) * f // 2
+                     for f in (2, 1, 3)]).astype(np.int32)
+    batch, tbatch = {}, {}
+    if field == "input_mode":
+        batch["embeddings"] = jnp.asarray(emb)
+        tbatch["embeddings"] = torch.from_numpy(emb)
+    else:
+        batch["tokens"] = jnp.asarray(toks)
+        tbatch["tokens"] = torch.from_numpy(toks)
+    if field == "rope_kind":
+        batch["positions"] = jnp.asarray(pos3)
+        tbatch["positions"] = torch.from_numpy(pos3).long()
+    want = np.asarray(ref.apply(params, batch))
+    got = model.apply(tbatch).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL["float32"], rtol=0)
+
+    cache = model.init_cache(B, S, dtype=torch.float32)
+    ref_cache = ref.init_cache(B, S, dtype=jnp.float32)
+    step = jax.jit(ref.decode_step)
+    for t in range(S):
+        if field == "input_mode":
+            tok, ttok = jnp.asarray(emb[:, t:t + 1]), \
+                torch.from_numpy(emb[:, t:t + 1])
+        else:
+            tok, ttok = jnp.asarray(toks[:, t]), torch.from_numpy(toks[:, t])
+        pos = tpos = None
+        if field == "rope_kind":
+            pos = jnp.asarray(pos3[:, :, t:t + 1])
+            tpos = torch.from_numpy(pos3[:, :, t:t + 1]).long()
+        got, cache = model.decode_step(cache, ttok, t, positions=tpos)
+        want, ref_cache = step(params, ref_cache, tok, jnp.int32(t), pos)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=TOL["float32"], rtol=0,
+                                   err_msg=f"position {t}")
+    if field == "kv_cache_dtype":
+        # the int8 bytes equal; the fp32 scales follow K and V, which the
+        # two packages' matrix products round apart by an ulp
+        tree = model.cache_tree(cache)["blocks"][0]
+        for name in ("k", "v", "k_scale", "v_scale"):
+            got, want = tree[name].materialize().numpy(), \
+                np.asarray(ref_cache["blocks"][0][name])
+            if name.endswith("scale"):
+                np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 def test_model_needs_a_card_unless_asked_for_the_cpu():
@@ -103,12 +200,28 @@ def test_model_needs_a_card_unless_asked_for_the_cpu():
 
 
 @pytest.mark.parametrize("kw", [dict(window=8), dict(q_offset=4),
-                                dict(kv_mask=torch.ones(1, 8, dtype=bool))])
-def test_blockwise_attention_raises_outside_the_slice(kw):
-    q = torch.zeros(1, 8, 4, 16)
-    k = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blockwise_attention(q, k, k, get_reduced(ARCH), **kw)
+                                dict(kv_mask=True)])
+def test_blockwise_attention_options_match_reference(kw):
+    """The masked route (torch tiles, not kernel 11) against the
+    reference's scan over several Q and KV tiles, fp32 within 1e-5."""
+    rng = np.random.default_rng(len(repr(kw)))
+    q = rng.standard_normal((2, 100, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 100, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 100, 2, 16)).astype(np.float32)
+    if "kv_mask" in kw:
+        mask = rng.random((2, 100)) < 0.7
+        mask[:, 0] = True                  # every row keeps a key
+        kw = dict(kv_mask=mask)
+    cfg = get_reduced(ARCH).scaled(dtype="float32")
+    want = np.asarray(ref_blockwise(
+        *(jnp.asarray(a) for a in (q, k, v)), ref_get_reduced(ARCH).scaled(
+            dtype="float32"), causal=True,
+        **{n: jnp.asarray(x) if n == "kv_mask" else x for n, x in kw.items()}))
+    got = blockwise_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), cfg, causal=True,
+        **{n: torch.from_numpy(x) if n == "kv_mask" else x
+           for n, x in kw.items()})
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------------------
