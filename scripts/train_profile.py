@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where a training step's time goes on the card: starcoder2-3b at full
-width (or ``--reduced``), B x S tokens from ``SyntheticLM``, AdamW as
-``launch.train`` sets it and an RS(3,2) ``ECCheckpoint`` over a (data 4,
-model 1) mesh, as chip_smoke's train phase runs them.
+"""Where a training step's time goes on the card: starcoder2-3b (or
+``--arch``) at full width (or ``--reduced``), B x S tokens from
+``SyntheticLM``, AdamW as ``launch.train`` sets it and an RS(3,2)
+``ECCheckpoint`` over a (data 4, model 1) mesh, as chip_smoke's train
+phases run them.
 
-    python3 scripts/train_profile.py [--reduced] [--batch 2] [--seq 2048]
+    python3 scripts/train_profile.py [--arch A] [--reduced] [--batch 2] [--seq 2048]
 
 After ``--warm`` steps it runs ``--steps`` steps of ``make_train_step``
 untraced and ``--steps`` more under ``torch.profiler`` (CUDA activity),
@@ -83,6 +84,7 @@ def _busy_us(intervals) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="starcoder2-3b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=2048)
@@ -114,7 +116,7 @@ def main(argv=None) -> int:
                           text=True).stdout.strip()
     print(card, flush=True)
     dev = torch.device("cuda")
-    cfg = (get_reduced if args.reduced else get_config)("starcoder2-3b")
+    cfg = (get_reduced if args.reduced else get_config)(args.arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     model = Model(cfg, device=dev).init(gen)

@@ -32,6 +32,7 @@ calls of each route (``Model.describe()`` shows them).
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 
 import numpy as np
@@ -50,9 +51,36 @@ NEG_INF = -1e30
 #: "mla_blockwise:torch", "mla_decode:torch"
 OP_PATHS: collections.Counter = collections.Counter()
 
+#: True while a checkpointed unit runs again in the backward
+#: (``recomputing``): its calls were counted in the forward
+_RECOMPUTING = False
+
 
 def reset_op_paths() -> None:
     OP_PATHS.clear()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of a remat recompute (``Model.forward``): ``OP_PATHS``
+    and ``moe.DROPS`` count each layer once per forward, not again when
+    ``torch.utils.checkpoint`` recomputes it."""
+    global _RECOMPUTING
+    prev, _RECOMPUTING = _RECOMPUTING, True
+    try:
+        yield
+    finally:
+        _RECOMPUTING = prev
+
+
+def counting() -> bool:
+    """Whether calls count now (not inside ``recomputing``)."""
+    return not _RECOMPUTING
+
+
+def _count(route: str) -> None:
+    if counting():
+        OP_PATHS[route] += 1
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -190,11 +218,11 @@ def blockwise_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
     counterpart.
     """
     if window or kv_mask is not None or q_offset or cfg.attn_logit_softcap:
-        OP_PATHS["masked_blockwise:torch"] += 1
+        _count("masked_blockwise:torch")
         return _masked_blockwise(q, k, v, cfg, causal=causal,
                                  q_offset=q_offset, window=window,
                                  kv_mask=kv_mask)
-    OP_PATHS[f"flash_attention:{dispatch.decide(q).path}"] += 1
+    _count(f"flash_attention:{dispatch.decide(q).path}")
     return flash_attention(q, k, v, causal=causal, block_q=cfg.attn_block_q,
                            block_kv=cfg.attn_block_kv)
 
@@ -317,7 +345,7 @@ def decode_attention_q8(q, k8, ks, v8, vs, cur_len: int,
                         softcap: float = 0.0):
     """int8-KV decode: the scales factored out of the dots and applied
     to the (B, KV, G, S) scores and probabilities."""
-    OP_PATHS["decode_q8:torch"] += 1
+    _count("decode_q8:torch")
     B, S, KV, hd = k8.shape
     H = q.shape[2]
     G = H // KV
@@ -341,7 +369,7 @@ def decode_attention(q, k_cache, v_cache, cur_len: int,
     ``cur_len`` entries are valid; scores in fp32.  Plain torch: the
     scores are (B, H, S), small for one token (not a Pallas kernel in the
     reference either)."""
-    OP_PATHS["decode:torch"] += 1
+    _count("decode:torch")
     B, S, KV, hd = k_cache.shape
     H = q.shape[2]
     G = H // KV
@@ -508,7 +536,7 @@ def _mla_blockwise(q_nope, q_rope, latent, k_rope, p: MLA, cfg: ModelConfig):
     merged by the online softmax over Q tiles of ``attn_block_q`` and KV
     tiles of ``attn_block_kv``; tiles past the diagonal are skipped (they
     add exactly 0)."""
-    OP_PATHS["mla_blockwise:torch"] += 1
+    _count("mla_blockwise:torch")
     B, Sq, H, _ = q_nope.shape
     vdim = cfg.v_head_dim
     bq = min(cfg.attn_block_q, max(Sq, 16))
@@ -559,7 +587,7 @@ def _mla_blockwise(q_nope, q_rope, latent, k_rope, p: MLA, cfg: ModelConfig):
 
 def _mla_decode(q_nope, q_rope, latent_c, krope_c, p: MLA, cur_len: int):
     """Absorbed decode: attention in latent space, O(S·r) per head."""
-    OP_PATHS["mla_decode:torch"] += 1
+    _count("mla_decode:torch")
     scale = 1.0 / math.sqrt(q_nope.shape[-1] + q_rope.shape[-1])
     q_abs = torch.einsum("bshd,rhd->bshr", q_nope, p.w_uk)      # (B,1,H,r)
     s = (torch.einsum("bshr,btr->bhst", q_abs.float(), latent_c.float())

@@ -13,21 +13,27 @@ in ``jax.lax.top_k``.  Expert weights are stacked (E, d, f).
 
 ``DROPS`` adds up, on the device, the assignments each call drops
 (``dropped_assignments()`` reads it), so a caller can show that a run
-dropped none.
+dropped none; a remat recompute adds nothing (``layers.recomputing``).
+Inside ``record_routes()`` each call's top-K experts are kept too, once
+a forward, so a check can compare two runs' routing.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
 
 from .config import ModelConfig
-from .layers import _param, init_normal, torch_dtype
+from .layers import _param, counting, init_normal, torch_dtype
 
 #: dropped and total assignments since the last ``reset_drops``, as
 #: device tensors (no host sync per call)
 DROPS: dict = {}
+#: each call's top-K experts (B, S, K) on the host, while
+#: ``record_routes`` is open
+_ROUTES: list | None = None
 
 
 def reset_drops() -> None:
@@ -37,6 +43,18 @@ def reset_drops() -> None:
 def dropped_assignments() -> tuple[int, int]:
     """(dropped, total) assignments since the last ``reset_drops``."""
     return (int(DROPS.get("dropped", 0)), int(DROPS.get("total", 0)))
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Yields a list that gets each MoE call's top-K experts (a CPU
+    tensor, (B, S, K)) in call order, not again in a remat recompute."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
 
 
 class MoE(nn.Module):
@@ -75,6 +93,8 @@ def moe_apply(p: MoE, x, cfg: ModelConfig):
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     top_w, top_e = route(p, x, cfg)
+    if _ROUTES is not None and counting():
+        _ROUTES.append(top_e.cpu())
     cap = max(int(math.ceil(S * K / E * cfg.moe_capacity_factor)), 4)
     dev = x.device
 
@@ -92,9 +112,9 @@ def moe_apply(p: MoE, x, cfg: ModelConfig):
         starts, 1, se)
     keep = pos_in_e < cap
     slot = torch.where(keep, se * cap + pos_in_e, E * cap)       # (B, S*K)
-    dropped = (~keep).sum()
-    DROPS["dropped"] = DROPS.get("dropped", 0) + dropped
-    DROPS["total"] = DROPS.get("total", 0) + B * S * K
+    if counting():
+        DROPS["dropped"] = DROPS.get("dropped", 0) + (~keep).sum()
+        DROPS["total"] = DROPS.get("total", 0) + B * S * K
 
     # dispatch: each kept assignment's token into its slot; the dropped
     # ones write zeros into the overflow row

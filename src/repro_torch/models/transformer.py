@@ -24,6 +24,8 @@ B, S) positions.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
@@ -216,7 +218,8 @@ class Model(nn.Module):
         for r in range(self.repeats):
             if remat == "full":
                 x = ckpt.checkpoint(self._unit, x, positions, r,
-                                    use_reentrant=False)
+                                    use_reentrant=False,
+                                    context_fn=_count_once)
             elif remat == "dots":
                 x = ckpt.checkpoint(self._unit, x, positions, r,
                                     use_reentrant=False,
@@ -312,11 +315,25 @@ class Model(nn.Module):
         return unembed(self.embeddings, x, cfg)[:, 0], cache
 
 
+def _count_once():
+    """Checkpoint contexts (forward, recompute): the recompute does not
+    count its calls again (``layers.recomputing``)."""
+    return contextlib.nullcontext(), L.recomputing()
+
+
 def _save_dots():
     """Selective-checkpoint contexts that keep matrix products' outputs
     (the reference's ``dots_with_no_batch_dims_saveable``: ``x @ w``
-    reaches ``aten.mm``) and recompute the rest."""
-    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
+    reaches ``aten.mm``) and recompute the rest, the recompute counting
+    nothing again."""
+    fwd, rec = ckpt.create_selective_checkpoint_contexts(_dots_policy)
+    return fwd, _both(rec, L.recomputing())
+
+
+@contextlib.contextmanager
+def _both(a, b):
+    with a, b:
+        yield
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

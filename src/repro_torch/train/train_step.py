@@ -18,8 +18,10 @@ from __future__ import annotations
 
 import torch
 
-from ..models import Model
-from ..tree import leaves, map_parts, tensors, tree_map
+from ..models import Model, layers, moe
+from ..models.convert import param_tree
+from ..tree import (leaves, leaves_with_path, map_parts, materialize,
+                    path_str, tensors, tree_map)
 from .optimizer import Optimizer, clip_scale, global_norm
 
 
@@ -47,6 +49,14 @@ def _param_tensors(params) -> list:
     return [t for leaf in leaves(params) for t in tensors(leaf)]
 
 
+def _grad(t: torch.Tensor) -> torch.Tensor:
+    # a parameter the loss does not read (the token table of an
+    # embeddings config) gets zeros, as jax.grad gives it
+    if t.grad is None:
+        t.grad = torch.zeros_like(t)
+    return t.grad
+
+
 def value_and_grad(loss_fn, params, batch):
     """((loss, aux), grads): the gradients of every parameter of
     ``params`` (made to require grad), as a tree like it."""
@@ -55,7 +65,7 @@ def value_and_grad(loss_fn, params, batch):
         t.grad = None
     loss, aux = loss_fn(params, batch)
     loss.backward()
-    grads = tree_map(lambda p: map_parts(lambda t: t.grad, p), params)
+    grads = tree_map(lambda p: map_parts(_grad, p), params)
     return (loss.detach(), aux), grads
 
 
@@ -86,6 +96,38 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         return params, opt_state, ec.parity, metrics
 
     return step
+
+
+def recorded_step(model: Model, optimizer: Optimizer, batch) -> dict:
+    """One step of ``make_train_step`` from ``model``'s parameters, with
+    what a check holds against another run of it: ``loss``,
+    ``grad_norm``, ``grads`` (as the optimizer gets them) and ``params``
+    (after the step), both float32 CPU copies by tree path (``"blocks/0/
+    attn/wq"``), ``op_paths`` (``layers.OP_PATHS``), ``drops``
+    (``moe.dropped_assignments()``) and ``routes`` (each MoE call's top-K
+    experts).  The counters are reset first."""
+    seen = {}
+
+    def apply(grads, state, p, scale):
+        seen["grads"] = _host_copy(grads)
+        return optimizer.apply(grads, state, p, scale)
+    layers.reset_op_paths()
+    moe.reset_drops()
+    params = param_tree(model)
+    step = make_train_step(model, Optimizer(optimizer.init, optimizer.update,
+                                            apply))
+    with moe.record_routes() as routes:
+        _, _, m = step(params, optimizer.init(params), batch)
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                grads=seen["grads"], params=_host_copy(params),
+                op_paths=dict(layers.OP_PATHS),
+                drops=moe.dropped_assignments(), routes=routes)
+
+
+def _host_copy(tree) -> dict:
+    return {path_str(k): materialize(t).detach().to("cpu", torch.float32,
+                                                     copy=True)
+            for k, t in leaves_with_path(tree)}
 
 
 def eval_step(model: Model):

@@ -319,10 +319,13 @@ def test_single_bf16_p_exceeds_the_tolerance(B, Sq, Skv, H, KV, hd, causal):
 
 
 # (B, Sq, Skv, H, KV, hd, causal): three 256-row query tiles, the last
-# ragged, GQA; a cross-length case whose keys outrun the queries
+# ragged, GQA; a cross-length case whose keys outrun the queries; the
+# head dims of kimi-k2 (112) and recurrentgemma-2b (256, one KV head)
 BWD_GRID = [(1, 600, 600, 4, 2, 32, True),
             (1, 600, 600, 4, 2, 32, False),
             (2, 600, 700, 6, 2, 16, True)]
+BWD_WIDE = [(1, 600, 600, 8, 2, 112, True),
+            (1, 600, 600, 4, 1, 256, True)]
 # max |got - want| over max |want|, per gradient.  Measured at BWD_GRID:
 # fp32 <= 1.1e-6 against autograd (<= 9e-7 against jax.vjp); bf16
 # <= 6.3e-3, one and a half bf16 ulps of the largest element, from the
@@ -352,7 +355,7 @@ def _rel_err(got, want):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", BWD_GRID)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", BWD_GRID + BWD_WIDE)
 def test_backward_matches_autograd_of_plain(B, Sq, Skv, H, KV, hd, causal,
                                             dtype):
     """dq, dk, dv of ``flash_attention`` (its autograd function) against
@@ -367,10 +370,14 @@ def test_backward_matches_autograd_of_plain(B, Sq, Skv, H, KV, hd, causal,
         assert _rel_err(g, w) <= BWD_TOL[dtype], name
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_backward_matches_reference_vjp(causal):
-    """fp32 gradients against ``jax.vjp`` of the reference's attention."""
-    q, k, v, dout = _bwd_inputs(1, 600, 600, 4, 2, 32, "float32")
+@pytest.mark.parametrize("shape,causal", [
+    pytest.param((1, 600, 600, 4, 2, 32), True, id="True"),
+    pytest.param((1, 600, 600, 4, 2, 32), False, id="False"),
+    *(pytest.param(p[:6], p[6], id=f"hd{p[5]}") for p in BWD_WIDE)])
+def test_backward_matches_reference_vjp(shape, causal):
+    """fp32 gradients against ``jax.vjp`` of the reference's attention, at
+    hd 32, 112 and 256."""
+    q, k, v, dout = _bwd_inputs(*shape, "float32")
     _, f = jax.vjp(lambda *a: ref_flash(*a, causal=causal),
                    *(jnp.asarray(t.numpy()) for t in (q, k, v)))
     want = f(jnp.asarray(dout.numpy()))

@@ -970,3 +970,122 @@ def test_model_apply_launches_flash_once_per_layer(cuda):
         err = float((logits.float() - full[:, t]).abs().max())
         assert err < 2e-2, (t, err)
     assert launch_counts()["flash_attention"] == cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_flash.py's bounds for the attention backward: max
+# |got - want| over max |want|, per gradient
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 600, 8, 2, 112), (1, 600, 4, 1, 256), (2, 2048, 10, 1, 256)])
+def test_flash_autograd_matches_plain_at_wide_heads(cuda, B, S, H, KV, hd,
+                                                    dtype):
+    """dq, dk, dv of ``flash_attention`` under autograd (kernel 11's
+    forward, ``flash_attention_backward``) against autograd through
+    ``flash_attention_plain``: kimi-k2's and recurrentgemma-2b's head
+    dims over several query tiles, and recurrentgemma-2b's training
+    shape."""
+    rng = _rng("flash-grad", B, S, H, KV, hd, str(dtype))
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, dtype) for shape in
+        ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, causal=True).backward(dout)
+        return [t.grad for t in leaves]
+    before = launch_counts()["flash_attention"]
+    got = grads(flash.flash_attention)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    want = grads(flash.flash_attention_plain)
+    for name, g, w in zip("qkv", got, want):
+        err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err <= BWD_TOL[dtype], (name, err)
+
+
+TRAIN_CASES = [(arch, 64) for arch in
+               ("llama4-maverick-400b-a17b", "kimi-k2-1t-a32b", "mamba2-370m",
+                "minicpm3-4b", "starcoder2-3b", "mistral-large-123b",
+                "phi4-mini-3.8b", "musicgen-medium", "qwen2-vl-7b",
+                "recurrentgemma-2b")] + [("recurrentgemma-2b", 96)]
+#: leaf -> bound where TRAIN_TOL does not hold (tests/test_torch_layer_grads
+#: .py states why for Mamba-2's A_log: its sum cancels up to 163 times)
+TRAIN_LEAF_TOL = {"blocks/0/mamba/A_log": 1e-3}
+TRAIN_TOL = 1e-5
+#: the parameters after the step: a tenth of step 1's learning rate (5e-4
+#: at warm-up).  AdamW moves an element by lr·g/(|g| + 1e-8), so where |g|
+#: is near 1e-8 a difference of 1e-10 between the card's and the CPU's
+#: sums moves it by ~1e-2·lr; the largest reading on an H100 80GB HBM3
+#: (700 W) is 1.17e-5 (phi4-mini's w_gate), and a flipped sign moves an
+#: element by 2·lr = 1e-3.
+TRAIN_PARAM_TOL = 5e-5
+
+
+def _adamw():
+    from repro_torch.train import optimizer as opt
+    return opt.make_optimizer("adamw", lr=1e-3, warmup_steps=2,
+                              total_steps=10)
+
+
+@pytest.mark.parametrize("arch,seq", TRAIN_CASES)
+def test_train_step_on_card_matches_cpu(cuda, arch, seq, monkeypatch):
+    """One fp32 step of each reduced arch (B 2, ``SyntheticLM``) on the
+    card, kernel 11 in every unmasked attention, against the same step
+    on the CPU from the same weights: the loss, norm, every gradient
+    (relative Frobenius), the parameters after AdamW, the attention
+    routes (kernel 11 where the CPU takes its plain version) and, for
+    MoE, the routing and the drop set."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.train.train_step import recorded_step
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_reduced(arch).scaled(dtype="float32")
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    data = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=2,
+        embed_dim=cfg.d_model if cfg.input_mode == "embeddings" else 0,
+        mrope=cfg.rope_kind == "mrope"), device="cpu").batch(0)
+    want = recorded_step(cpu, _adamw(), data)
+    got = recorded_step(card, _adamw(),
+                        {k: v.to(cuda) for k, v in data.items()})
+    torch.cuda.synchronize()
+    assert abs(got["loss"] - want["loss"]) <= TRAIN_TOL, (got, want)
+    norm = want["grad_norm"]
+    assert abs(got["grad_norm"] - norm) <= TRAIN_TOL * norm, (got, want)
+    errs = {}
+    assert list(got["grads"]) == list(want["grads"])
+    for name, w in want["grads"].items():
+        g = got["grads"][name]
+        if not w.any():
+            assert not g.any(), name
+        elif cfg.experts_per_token == 1 and name.endswith("moe/router"):
+            # zero in exact arithmetic (top-1 renormalised to 1)
+            assert max(float(g.norm()), float(w.norm())) <= 1e-8 * norm
+        else:
+            errs[name] = float((g - w).norm() / w.norm())
+    worst = max(errs, key=errs.get)
+    print(f"{arch} S {seq}: loss {got['loss']} vs {want['loss']}, norm "
+          f"{got['grad_norm']} vs {norm}, worst leaf {worst} {errs[worst]}")
+    for name, e in errs.items():
+        assert e <= TRAIN_LEAF_TOL.get(name, TRAIN_TOL), (name, e)
+    for name, w in want["params"].items():
+        assert float((got["params"][name] - w).abs().max()) \
+            <= TRAIN_PARAM_TOL, name
+    assert got["drops"] == want["drops"]
+    assert len(got["routes"]) == len(want["routes"]) == cfg.layers.count("M")
+    for g, w in zip(got["routes"], want["routes"]):
+        assert torch.equal(g, w)
+    assert {k.replace("cuda-kernel", "torch-cpu"): n
+            for k, n in got["op_paths"].items()} == want["op_paths"]
+    if "flash_attention:torch-cpu" in want["op_paths"]:
+        assert "flash_attention:cuda-kernel" in got["op_paths"]

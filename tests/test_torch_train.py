@@ -375,18 +375,20 @@ def _quiet(fn, *args):
     return result, out.getvalue()
 
 
-def test_launch_train_matches_reference_from_one_checkpoint(tmp_path):
+@pytest.mark.parametrize("arch", [ARCH, "recurrentgemma-2b", "mamba2-370m",
+                                  "kimi-k2-1t-a32b"])
+def test_launch_train_matches_reference_from_one_checkpoint(tmp_path, arch):
     """Both launchers resume from the same step-0 checkpoint (the
     reference's weights and optimizer state) and train four steps with an
     EC checkpoint; their losses agree."""
-    cfg = ref_get_reduced(ARCH)
+    cfg = ref_get_reduced(arch)
     params = RefModel(cfg).init(jax.random.PRNGKey(5))
     ro = ref_opt.make_optimizer("adamw", lr=1e-3, warmup_steps=1,
                                 total_steps=4)
     for d in ("ref", "port"):
         ref_ckpt.save_checkpoint(str(tmp_path / d), 0,
                                  {"p": params, "o": ro.init(params)})
-    args = ["--arch", ARCH, "--reduced", "--steps", "4", "--batch", "2",
+    args = ["--arch", arch, "--reduced", "--steps", "4", "--batch", "2",
             "--seq", "32", "--ec", "--log-every", "1"]
     want, _ = _quiet(ref_train.main, args + ["--ckpt-dir",
                                              str(tmp_path / "ref")])
