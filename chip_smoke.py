@@ -158,7 +158,27 @@ in place of the card):
              41-44 GB) in fp32: one AdamW step on the card against the
              same step on the CPU - loss, norm and every gradient leaf
              within 1e-5, the parameters after within 5e-5, the routing
-             and the dropped assignments equal.
+             and the dropped assignments equal;
+16. tune   - the shape tuner (``kernels/tune.py``) on the card at the
+             reference's CI shapes into a temporary cache named by
+             ``$MEMEC_TORCH_TUNE_CACHE``: every candidate byte-equal to
+             the plain version, each shape's winner printed with its µs
+             beside the µs of the body the built-in rule picks; with
+             that cache one call per shape launches the winner's kernel
+             (a per-item shape in the winner's coefficient form), with
+             the committed defaults (no ``cuda-kernel`` entry) today's;
+17. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
+             step at phase 12's cut (B 2 x S 2,048, remat "full",
+             AdamW, the 1 x 1 mesh), made on ``meta``, against the same
+             step on the card: the argument bytes asked of the allocator
+             and a ``FlopCounterMode`` count of the step (kernel 11 by
+             its formula) must equal the prediction; the predicted and
+             measured peaks and the step's share of 989 TFLOP/s are
+             printed, with the EC cells' collective bytes on the 16 x 16
+             mesh; then ``python -m repro_torch.launch.dryrun --mesh
+             single`` over the ten archs' decode and prefill cells,
+             after every timed phase, must record every cell ``ok`` or
+             ``skipped`` with its reason.
 
 Every phase prints its seconds.
 
@@ -168,7 +188,7 @@ counted (a call reached through a binding it does not wrap fails the
 run); then every shape is timed and each kernel's loss per run, calls x
 (kernel ms - bound ms), is printed beside its launches.
 Kernel 10 is also held against its plain version on the real object
-index of a server of the loaded RS testbed.  Every phase of 4-15 starts
+index of a server of the loaded RS testbed.  Every phase of 4-17 starts
 with the launch counts at 0 and reads them when it ends; launches made
 to compare a kernel with its plain version are not counted.  The line
 before the last is ``{"kernels": [...]}``;
@@ -180,9 +200,11 @@ import copy
 import gc
 import importlib
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -213,6 +235,10 @@ SHARDED_OPS = dict(A=20_000, degraded=5_000, hot=4_000)
 # keys ``rebalance`` moves in one pass; the rest stay forwarded and
 # readable (an uncapped pass moves ~100,000 keys at this load)
 REBALANCE_MOVES = 20_000
+# the dry-run CLI's cells in the dryrun phase, the ten archs' decode and
+# prefill: ~40 s of the host's CPU (minicpm3-4b's tiled MLA prefill ~31 s
+# of it) where every cell takes ~70 s
+CLI_SHAPES = ("decode_32k", "prefill_32k")
 
 
 def log(*parts):
@@ -984,23 +1010,23 @@ class ShapeLog:
             return call
 
         def single(fn):
-            def call(A, data):
+            def call(A, data, strategy=None):
                 A8 = np.ascontiguousarray(A, dtype=np.uint8)
                 if (data.is_cuda and data.numel() and A8.size
-                        and gm.choose_strategy(A8) == "unroll"):
+                        and gm.choose_strategy(A8, strategy) == "unroll"):
                     self.note("gf_matmul", (A8.shape, tuple(data.shape)), A8)
-                return fn(A, data)
+                return fn(A, data, strategy)
             return call
 
         def per_item(fn):
-            def call(Ms, blocks, parity=None):
+            def call(Ms, blocks, parity=None, strategy=None):
                 if blocks.is_cuda and blocks.numel() and np.size(Ms):
                     Ms8 = np.array(Ms.cpu() if hasattr(Ms, "cpu") else Ms,
                                    dtype=np.uint8)
                     self.note("gf_per_item" if parity is None
                               else "gf_per_item_fold",
                               (Ms8.shape, tuple(blocks.shape)), Ms8)
-                return fn(Ms, blocks, parity)
+                return fn(Ms, blocks, parity, strategy)
             return call
 
         def delta(fn):
@@ -2837,6 +2863,286 @@ def run_train_moe(np, torch, dev, card):
     return total, nums
 
 
+def run_tune(np, torch, dev, card):
+    """The shape tuner on the card (``kernels.tune.autotune_ci_shapes``)
+    into a temporary cache named by ``$MEMEC_TORCH_TUNE_CACHE``: first
+    every candidate of every shape against the plain version, byte for
+    byte (not counted); then the sweep, each shape's winner and its µs
+    beside the µs of the body the built-in rule picks; then, with that
+    cache, one call per shape must launch the winner's kernel (for a
+    per-item shape, in the winner's coefficient form), and with the
+    committed defaults (no ``cuda-kernel`` entry) today's body.  Returns
+    the phase's launches (sweep and steered calls) and its numbers."""
+    import os
+    import tempfile
+    import warnings
+
+    from repro_torch.kernels import (coefs, dispatch, launch_counts,
+                                     reset_launch_counts, tune)
+    gm = importlib.import_module("repro_torch.kernels.gf256_matmul")
+    du = importlib.import_module("repro_torch.kernels.delta_update")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    matmul, per_item = tune.ci_shapes()
+    cases = []
+    for A, chunk, batch in matmul:
+        A = np.ascontiguousarray(A, dtype=np.uint8)
+        data = u8(batch, A.shape[1], chunk)
+        cases.append(("matmul", A, batch, (data,)))
+    for M, chunk, batch in per_item:
+        Ms = np.ascontiguousarray(np.broadcast_to(M, (batch,) + M.shape))
+        cases.append(("delta_per_item", Ms, batch,
+                      (u8(batch, M.shape[1], chunk),
+                       u8(batch, M.shape[0], chunk))))
+
+    def call(op, A, batch, tensors, strategy=None):
+        if op == "delta_per_item":
+            blocks, parity = tensors
+            return du.delta_apply_per_item_batched(parity, A, blocks,
+                                                   strategy=strategy)
+        if batch == 1:
+            return gm.gf256_matmul(A, tensors[0][0], strategy=strategy)
+        return gm.gf256_matmul_batched(A, tensors[0], strategy=strategy)
+
+    def plain(op, A, batch, tensors):
+        if op == "delta_per_item":
+            return gm.gf256_matmul_per_item_plain(A, tensors[0], tensors[1])
+        if batch == 1:
+            return gm.gf256_matmul_plain(A, tensors[0][0])
+        return gm.gf256_matmul_batched_plain(A, tensors[0])
+
+    # every candidate's bytes against the plain version (not counted)
+    checked = 0
+    for op, A, batch, tensors in cases:
+        m, k = A.shape[-2:]
+        want = plain(op, A, batch, tensors)
+        for cand in tune.candidates(op, dispatch.CUDA, m=m, k=k,
+                                    is01=coefs.is01(A)):
+            got = call(op, A, batch, tensors, cand["strategy"])
+            assert torch.equal(got, want), (op, A.shape, batch, cand)
+            checked += 1
+    torch.cuda.synchronize()
+
+    forms = []
+    real_host = gm.per_item_host
+
+    def spy(Ms, strategy):
+        out = real_host(Ms, strategy)
+        forms.append("gf01" if out[0] else "cols")
+        return out
+
+    def kernel_of(op, A, batch, strategy):
+        """(kernel, per-item form) a call with ``strategy`` launches."""
+        if op == "delta_per_item":
+            k = A.shape[-1]
+            form = ("gf01" if strategy != "cols" and coefs.is01(A)
+                    and k <= coefs.MAX_MASK_COLS else "cols")
+            return "gf_per_item_fold", form
+        s = gm.choose_strategy(A, strategy)
+        return ("gf_matmul" if batch == 1 and s == "unroll"
+                else gm._KERNEL_OF[s]), None
+
+    def steered(label):
+        """One call per shape with the active cache; each must launch the
+        kernel (and form) its cache entry names, or the rule's."""
+        total = dict.fromkeys(launch_counts(), 0)
+        gm.per_item_host = spy
+        try:
+            for op, A, batch, tensors in cases:
+                m, k = A.shape[-2:]
+                entry = tune.lookup(op, dispatch.CUDA, k=k, m=m,
+                                    chunk=tensors[0].shape[-1], batch=batch,
+                                    cls=tune.matrix_cls(A))
+                want = kernel_of(op, A, batch,
+                                 entry["strategy"] if entry else None)
+                forms.clear()
+                reset_launch_counts()
+                call(op, A, batch, tensors)
+                torch.cuda.synchronize()
+                n = launch_counts()
+                launched = {kk: v for kk, v in n.items() if v}
+                assert launched == {want[0]: 1}, (label, op, A.shape,
+                                                  entry, launched)
+                if want[1]:
+                    assert forms == [want[1]], (label, entry, forms)
+                for kk, v in n.items():
+                    total[kk] += v
+        finally:
+            gm.per_item_host = real_host
+        return total
+
+    saved = os.environ.get(tune.ENV)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[tune.ENV] = os.path.join(tmp, "tune.json")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # "not found": it is new
+                tune.load_cache(reload=True)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            results = tune.autotune_ci_shapes(verbose=False, device=dev)
+            torch.cuda.synchronize()
+            sweep_s = time.perf_counter() - t0
+            launches = launch_counts()
+            tuned = steered("tuned")
+            tune.save()
+            saved_cache = json.loads(Path(tune.cache_path()).read_text())
+        finally:
+            if saved is None:
+                os.environ.pop(tune.ENV, None)
+            else:
+                os.environ[tune.ENV] = saved
+            tune.load_cache(reload=True)
+    assert not any(k.split("/")[1] == dispatch.CUDA
+                   for k in tune.load_cache()), "defaults hold card entries"
+    default = steered("defaults")
+    winners = []
+    for (op, A, batch, tensors), res in zip(cases, results):
+        rule = (gm.choose_strategy(A) if op == "matmul"
+                else kernel_of(op, A, batch, None)[1])
+        winners.append({
+            "op": op, "shape": f"k{A.shape[-1]}m{A.shape[-2]}"
+                                f"c{tensors[0].shape[-1]}b{batch}",
+            "winner": res["strategy"], "winner_us": res["timings"][
+                res["strategy"]], "rule": rule,
+            "rule_us": res["timings"].get(rule), "timings": res["timings"]})
+    for w in winners:
+        log(f"tune [{card}]: {json.dumps(w)}")
+    for kk in launches:
+        launches[kk] += tuned[kk]
+    nums = dict(candidates_checked=checked, sweep_s=sweep_s,
+                entries=len(saved_cache["entries"]), winners=winners,
+                default_launches={k: v for k, v in default.items() if v},
+                phase_s=time.perf_counter() - t_phase)
+    log(f"phase tune: {nums['phase_s']:.1f} s")
+    return launches, nums
+
+
+def run_dryrun(np, torch, dev, card):
+    """The dry run against the card.  ``launch.dryrun.run_cell`` counts
+    starcoder2-3b ``train_4k`` cut to the train phase's B 2 x S 2,048
+    (remat "full", AdamW) on the 1 x 1 mesh, on ``meta``; the same cell
+    (``dryrun.build_cell``) is then built on the card: the bytes asked of
+    the allocator (``requested_bytes``, before its rounding into blocks)
+    once the parameters, optimizer state and batch exist must equal the
+    predicted argument bytes, and a
+    ``FlopCounterMode`` count of one real step (kernel 11 by its
+    formula) must equal the predicted FLOPs.  The predicted and measured
+    peaks and the step's seconds beside ``t_compute`` (a share of 989
+    TFLOP/s) are printed, with the EC cells' collective bytes on the
+    16 x 16 mesh beside the reference chain docstring's per-link 80·S and
+    18·S pages; last, ``python -m repro_torch.launch.dryrun --mesh single
+    --shape S`` for each of ``CLI_SHAPES`` (the ten archs' cells), run
+    after every timed phase so that its CPU load falls on none, must
+    record each ``ok`` or ``skipped`` with its reason.
+    Returns the phase's launches (the card step) and its numbers."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (dispatch, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    cut = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    mesh = make_host_mesh()
+    t0 = time.perf_counter()
+    pred = dryrun.run_cell(MODEL_ARCH, "train_4k", mesh, optimizer="adamw",
+                           **cut)
+    cfg = get_config(MODEL_ARCH).scaled(remat="full")
+    shape = dryrun.cell_shape("train_4k", **cut)
+    with dispatch.dry_run():
+        whole = dryrun.count_cell(cfg, shape, mesh, "adamw")
+    predict_s = time.perf_counter() - t0
+    assert whole["flops"] == pred["flops_total"], (whole, pred)
+
+    def requested(which):
+        return torch.cuda.memory_stats()[f"requested_bytes.all.{which}"]
+
+    _free(torch)
+    base = requested("current")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    cell = dryrun.build_cell(cfg, shape, mesh, optimizer="adamw",
+                             device=dev, generator=gen)
+    torch.cuda.synchronize()
+    args_bytes = requested("current") - base
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with FlopCounterMode(display=False) as fc:
+        cell.step()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    flops = int(fc.get_total_flops())
+    peak = requested("peak") - base
+    peak_allocated = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    _, _, metrics = cell.step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    assert launches["flash_attention"] == 2 * cfg.num_layers, launches
+    assert bool(torch.isfinite(metrics["loss"])), metrics
+    del cell, metrics
+    _free(torch)
+    nums = dict(
+        predicted_argument_bytes=pred["argument_bytes_one_card"],
+        measured_argument_bytes=args_bytes,
+        predicted_flops=pred["flops_total"], measured_flops=flops,
+        predicted_peak_bytes=whole["peak"],
+        predicted_peak_extrapolated=pred["peak_bytes_one_card"],
+        measured_peak_bytes=peak, measured_peak_allocated=peak_allocated,
+        step_s=step_s,
+        t_compute_s=pred["t_compute"], t_memory_s=pred["t_memory"],
+        share_of_989=pred["flops_total"] / step_s / BF16_FLOPS_PER_S,
+        flops_by_op=pred["flops_by_op"], predict_s=predict_s)
+    log(f"dryrun [{card}]: {json.dumps(nums)}")
+    assert args_bytes == nums["predicted_argument_bytes"], nums
+    assert flops == pred["flops_total"], nums
+
+    ec = {}
+    for op in ("update", "update_chain"):
+        res = dryrun.run_cell("ecstore", op, "single")
+        block = (res["meta"]["bytes_per_device"] // 4096 // 8) * 4096
+        ec[op] = dict(bytes=res["collective_bytes_per_device"],
+                      pages_of_S=res["collective_bytes_per_device"] / block,
+                      reference_per_link_pages_of_S={"update": 80,
+                                                     "update_chain": 18}[op])
+    log(f"dryrun EC cells, 16 x 16 mesh, RS(10,8), per device: "
+        f"{json.dumps(ec)}")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as out:
+        for shape_name in CLI_SHAPES:
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+                 "single", "--shape", shape_name, "--out", out],
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                capture_output=True, text=True, timeout=300)
+            assert proc.returncode == 0, (proc.stdout[-3000:]
+                                          + proc.stderr[-3000:])
+        records = [json.loads(Path(out, f).read_text())
+                   for f in sorted(os.listdir(out))]
+    assert len(records) == 10 * len(CLI_SHAPES), len(records)
+    status = {}
+    for r in records:
+        assert r["status"] in ("ok", "skipped"), r
+        assert r["status"] == "ok" or r["reason"], r
+        status[r["status"]] = status.get(r["status"], 0) + 1
+    nums.update(ec_cells=ec, cli_cells=status,
+                cli_s=time.perf_counter() - t0,
+                phase_s=time.perf_counter() - t_phase)
+    log(f"dryrun CLI --mesh single, {', '.join(CLI_SHAPES)}: "
+        f"{json.dumps(status)} in {nums['cli_s']:.1f} s")
+    log(f"phase dryrun: {nums['phase_s']:.1f} s")
+    return launches, nums
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2918,6 +3224,10 @@ def main() -> int:
     log(f"train-families phase [{card}]:", json.dumps(train_families))
     by_phase["train_moe"], train_moe = run_train_moe(np, torch, dev, card)
     log(f"train-moe phase [{card}]:", json.dumps(train_moe))
+    by_phase["tune"], tuned = run_tune(np, torch, dev, card)
+    log(f"tune phase [{card}]:", json.dumps(tuned))
+    by_phase["dryrun"], dry = run_dryrun(np, torch, dev, card)
+    log(f"dryrun phase [{card}]:", json.dumps(dry))
     for row in rows:
         row["launches_by_phase"] = {p: n[row["name"]]
                                     for p, n in by_phase.items()}

@@ -6,23 +6,29 @@ the root of another checkout of the repo (say an unpacked ``git archive``
 of the parent commit) as the argument:
 
     python3 scripts/kernel_ab.py OTHER [--kernels gf_per_item_fold ...]
+                                       [--turns N]
 
 (``--kernels gf_matmul_batched gf_matmul_cols_batched gf_matmul`` for the
 shared-matrix kernels 1, 2 and 8; ``--kernels gf01_matmul_batched
-gf_delta_update`` for the 0/1 kernel 3 and the single-stripe delta 9.)
-For each checkout in the order this, other, other, this, a fresh process
+gf_delta_update`` for the 0/1 kernel 3 and the single-stripe delta 9;
+``--kernels flash_attention`` for kernel 11, ``chip_smoke.flash_spec``.)
+For each checkout in the order this, other, other, this (``--turns N``
+repeats that order N times), a fresh process
 in that checkout builds its kernel library and runs this checkout's
-``chip_smoke.kernel_specs`` on that checkout's package: every timed point
-of the named kernels (default: kernels 4-7), with the same inputs and
-timers for both and each checkout's wrappers and kernels (``cuda_ms`` for
-the wrapper call, ``kernel_device_ms`` for the kernel's device time).
+``chip_smoke.kernel_specs`` and ``flash_spec`` on that checkout's
+package: every timed point of the named kernels (default: kernels 4-7),
+with the same inputs and timers for both and each checkout's wrappers and
+kernels (``cuda_ms`` for the wrapper call, ``kernel_device_ms`` for the
+kernel's device time).
 Prints the card's name and power limit, then one JSON line per kernel,
-case and point with each turn's wrapper and kernel ms.
+case and point with each turn's wrapper and kernel ms and each side's
+median wrapper ms.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -41,7 +47,7 @@ from repro_torch.kernels import _build
 _build.library()
 dev = torch.device("cuda")
 names = set(sys.argv[1].split(","))
-for spec in cs.kernel_specs(np, torch, dev):
+for spec in cs.kernel_specs(np, torch, dev) + [cs.flash_spec(torch, dev)]:
     if spec["name"] not in names:
         continue
     for cname, case in spec["cases"].items():
@@ -49,7 +55,10 @@ for spec in cs.kernel_specs(np, torch, dev):
             args = case["make"](*shape)
             call = lambda: case["kernel"](*args)
             ms = cs.cuda_ms(torch, call, reps)
-            k = cs.kernel_device_ms(torch, call, reps, spec["cuda_name"])
+            cuda_name = spec["cuda_name"]
+            if callable(cuda_name):
+                cuda_name = cuda_name(args)
+            k = cs.kernel_device_ms(torch, call, reps, cuda_name)
             print(json.dumps(dict(kernel=spec["name"], case=cname,
                                   point=label, ms=ms,
                                   kernel_ms=k[0] if isinstance(k, tuple)
@@ -71,14 +80,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", type=Path)
     ap.add_argument("--kernels", nargs="+", default=list(KERNELS))
+    ap.add_argument("--turns", type=int, default=1)
     a = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     kernels = ",".join(a.kernels)
     rows: dict[tuple, dict] = {}
-    for tag, root in (("this", ROOT), ("other", a.other.resolve()),
-                      ("other", a.other.resolve()), ("this", ROOT)):
+    other = a.other.resolve()
+    order = (("this", ROOT), ("other", other), ("other", other),
+             ("this", ROOT)) * a.turns
+    for tag, root in order:
         for r in run(root, kernels):
             row = rows.setdefault((r["kernel"], r["case"], r["point"]),
                                   dict(kernel=r["kernel"], case=r["case"],
@@ -86,6 +98,8 @@ def main() -> int:
             row.setdefault(f"{tag}_ms", []).append(r["ms"])
             row.setdefault(f"{tag}_kernel_ms", []).append(r["kernel_ms"])
     for row in rows.values():
+        for tag in ("this", "other"):
+            row[f"{tag}_median_ms"] = statistics.median(row[f"{tag}_ms"])
         print(json.dumps(row), flush=True)
     return 0
 

@@ -14,10 +14,19 @@ a CUDA tensor it is one launch of the shared-matrix product kernel
 (``kernels.gf256_matmul.gf256_matmul_batched`` with the (1, 1) matrix
 [gamma], kernel 1); on a CPU tensor it is the reference's bit-plane
 identity gamma*x = XOR_b bit_b(x) * (gamma*2^b) in torch.
+
+Where a position's block moves to another position (``ring_shift``, and
+the EC store's rotations, rolled XORs and rebuild gathers), the mover
+calls ``note_permute`` or ``note_send``: inside ``recording``
+(``launch/cost_analysis.py``) that counts the bytes the positions would
+send to other cards, the reference's ``collective-permute``; outside it
+costs one attribute read.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -49,15 +58,53 @@ def gf_scale_static(gamma: int, x: torch.Tensor) -> torch.Tensor:
         return torch.zeros_like(x)
     if gamma == 1:
         return x
-    if not dispatch.decide(x).kernel or x.numel() == 0:
+    if dispatch.decide(x).path == dispatch.TORCH_CPU or x.numel() == 0:
         return gf_scale_static_plain(gamma, x)
     flat = x.contiguous().reshape(-1, 1, x.shape[-1] if x.dim() else 1)
     out = gf256_matmul_batched(np.array([[gamma]], np.uint8), flat)
     return out.reshape(x.shape)
 
 
+#: the active ``recording`` callback of this thread (``.callback``), as
+#: ``dispatch.dry_run`` is kept: a count in one thread sees no other
+#: thread's moves (the sharded cluster's workers)
+_recorder = threading.local()
+
+
+@contextlib.contextmanager
+def recording(callback):
+    """Call ``callback(nbytes)`` with the bytes of every move between
+    positions that this thread makes while the context is active."""
+    prev = getattr(_recorder, "callback", None)
+    _recorder.callback = callback
+    try:
+        yield
+    finally:
+        _recorder.callback = prev
+
+
+def _note(nbytes: int) -> None:
+    callback = getattr(_recorder, "callback", None)
+    if callback is not None:
+        callback(nbytes)
+
+
+def note_permute(x: torch.Tensor, dim: int, shift: int) -> None:
+    """Every position along ``dim`` of ``x`` (every position's block)
+    sends its block ``shift`` positions on; nothing moves when the shift
+    is a multiple of the axis."""
+    if int(shift) % x.shape[dim]:
+        _note(x.numel() * x.element_size())
+
+
+def note_send(blocks: torch.Tensor) -> None:
+    """The positions holding ``blocks`` send them to other positions."""
+    _note(blocks.numel() * blocks.element_size())
+
+
 def ring_shift(x: torch.Tensor, shift: int, dim: int = 0) -> torch.Tensor:
     """Position i's block goes to (i + shift) mod A along ``dim``."""
+    note_permute(x, dim, shift)
     return torch.roll(x, shifts=int(shift), dims=dim)
 
 

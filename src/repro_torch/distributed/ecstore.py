@@ -62,7 +62,7 @@ import torch
 from ..core.codes import RSCode
 from ..kernels.gf256_matmul import gf256_matmul_batched
 from ..tree import Stacked, leaves, leaves_with_path, path_str
-from .collectives import gf_scale_static, ring_shift
+from .collectives import gf_scale_static, note_permute, note_send, ring_shift
 from .sharding import local_leaf_view
 
 
@@ -201,6 +201,7 @@ def _rotate_lists_(pages: torch.Tensor, cfg: ECConfig, data_dim: int):
         if not shift:
             continue
         plane = cls.select(-2, j)
+        note_permute(plane, data_dim, shift)
         for c in range(math.gcd(A, shift)):
             tmp = plane.select(data_dim, c).clone()
             i = c
@@ -215,6 +216,7 @@ def _xor_rolled_(dst: torch.Tensor, src: torch.Tensor, shift: int,
     """dst ^= roll(src, shift) along ``dim``, without the roll's copy."""
     A = src.shape[dim]
     t = shift % A
+    note_permute(src, dim, t)
     if t == 0:
         dst ^= src
         return
@@ -334,6 +336,8 @@ def _rebuild(pages, parity, cfg: ECConfig, data_dim: int, f: int,
             srcs.append(cls.select(data_dim, at).select(-2, pos)
                         if row is None else
                         parity.select(data_dim, at).select(-3, row))
+            if at != f:
+                note_send(srcs[-1])
         items = torch.stack(srcs, dim=-2).reshape(-1, len(srcs), page)
         row_coefs = np.array([[c for c, _, _ in terms]], dtype=np.uint8)
         rec.select(-2, j).copy_(gf256_matmul_batched(row_coefs, items)

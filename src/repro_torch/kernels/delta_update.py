@@ -30,17 +30,20 @@ tables in registers (see ``csrc/gf256.cu``).  The gammas travel by value
 in the launch parameters (``kernels/coefs.py``), so neither wrapper
 copies anything to the card or waits on the stream.
 
-Dispatch: a CUDA tensor launches the kernel, a CPU tensor takes the plain
-version below.  Nothing falls back.
+Dispatch: a CUDA tensor launches the kernel, a CPU tensor runs
+``cpu_gf256`` (the plain versions below stay the tests' oracle).
+Nothing falls back.
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
-from . import _build, coefs, dispatch
-from .gf256_matmul import _batch_chunks, _mul_flat, gf256_matmul_per_item_batched
+from . import _build, coefs, cpu_gf256, dispatch
+from .gf256_matmul import (_batch_chunks, _mul_flat, _tuned,
+                           gf256_matmul_per_item_batched)
 
 #: launches of each kernel by its wrapper (plain versions do not count)
 LAUNCHES = {"gf_delta_apply_batched": 0, "gf_delta_only_batched": 0,
@@ -80,7 +83,7 @@ def delta_apply_batched(parity: torch.Tensor | None, gammas,
     if not isinstance(xor, torch.Tensor) or xor.dim() != 2:
         raise ValueError("xor must be a (B, C) torch.Tensor")
     if not dispatch.decide(xor).kernel:
-        return delta_apply_batched_plain(parity, gammas, xor)
+        return cpu_gf256.delta_batched(coefs.gamma_bytes(gammas), xor, parity)
     g = coefs.gamma_bytes(gammas)
     dev = xor.device
     B, C = xor.shape
@@ -145,7 +148,7 @@ def delta_update(parity: torch.Tensor, gammas, old: torch.Tensor,
     if g.shape != (m,):
         raise ValueError(f"gammas {g.shape} vs parity {(m, C)}")
     if not dispatch.decide(parity).kernel:
-        return delta_update_plain(parity, g, old, new)
+        return cpu_gf256.delta_single(parity, g, old, new)
     dev = parity.device
     _build.require(parity, "parity", torch.uint8, (m, C), dev)
     _build.require(old, "old", torch.uint8, (C,), dev)
@@ -166,10 +169,18 @@ def delta_update(parity: torch.Tensor, gammas, old: torch.Tensor,
 
 
 def delta_apply_per_item_batched(parity: torch.Tensor | None, Ms,
-                                 blocks: torch.Tensor) -> torch.Tensor:
+                                 blocks: torch.Tensor,
+                                 strategy: str | None = None) -> torch.Tensor:
     """Per-item-matrix delta fold: ``Ms`` (B, O, J) host matrices,
     ``blocks`` (B, J, C), ``parity`` (B, O, C) folded in when given; for
     ``parity=None`` the bare (B, O, C) deltas.  The dispatch-routed front
-    door for ``gf256_matmul_per_item_batched``; the tuner lookup of the
-    JAX package comes with the tuner."""
-    return gf256_matmul_per_item_batched(Ms, blocks, parity)
+    door for ``gf256_matmul_per_item_batched``: a ``strategy`` left
+    unnamed comes from the tuning cache's ``delta_per_item`` entry for
+    the shape, where it has one."""
+    if isinstance(Ms, torch.Tensor):
+        Ms = Ms.cpu().numpy()
+    if strategy is None and isinstance(blocks, torch.Tensor) \
+            and blocks.dim() == 3 and blocks.shape[0] and np.size(Ms):
+        strategy = _tuned("delta_per_item", dispatch.decide(blocks).path, Ms,
+                          chunk=blocks.shape[2], batch=blocks.shape[0])
+    return gf256_matmul_per_item_batched(Ms, blocks, parity, strategy)

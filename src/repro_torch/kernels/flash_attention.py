@@ -51,7 +51,17 @@ warpgroups, softmax overlapped with the next Q Kᵀ, persistent CTAs,
 clusters, one CTA per GQA group, fp8.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor takes
-``flash_attention_plain``.  Nothing falls back.
+``flash_attention_plain``.  Nothing falls back.  The kernel's call is the
+custom op ``torch.ops.repro_torch.flash_attention`` where something
+watches the dispatcher: on a ``meta`` tensor (``launch/dryrun.py``) its
+fake implementation gives the output's shape, and its FLOP formula
+(``flash_flops``: 4·B·H·hd per (query, key) pair the causal mask keeps)
+tells ``torch.utils.flop_counter.FlopCounterMode`` what the kernel
+computes, so a dry run and a count on the card see the same kernel the
+same way.  The ctypes launch alone would be invisible to it.  With no
+dispatch mode active (every run but a count) a CUDA tensor calls the
+launch directly: the op's trip through the dispatcher costs microseconds
+of host time a call.
 
 Training: when autograd records (grad enabled and an input requires
 grad), ``flash_attention`` is a ``torch.autograd.Function`` whose forward
@@ -67,6 +77,8 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build, dispatch
 
@@ -236,12 +248,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _flash_forward(q, k, v, causal, block_q, block_kv) -> torch.Tensor:
-    """The kernel call (CUDA tensors) or the plain version (CPU)."""
-    if not dispatch.decide(q).kernel:
+    """The kernel call (CUDA tensors, or its shape on meta) or the plain
+    version (CPU)."""
+    path = dispatch.decide(q).path
+    if path == dispatch.TORCH_CPU:
         return flash_attention_plain(q, k, v, causal=causal)
+    if path == dispatch.CUDA:
+        _check_kernel_inputs(q, k, v)
+        if _get_current_dispatch_mode() is None:
+            return _launch(q, k, v, bool(causal))
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal))
+
+
+def causal_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """(query, key) pairs the kernel computes: query i sees keys 0..i
+    (capped at Skv) when causal, every key otherwise."""
+    if not causal:
+        return Sq * Skv
+    n = min(Sq, Skv)
+    return n * (n + 1) // 2 + (Sq - n) * Skv
+
+
+def flash_flops(q_shape, k_shape, causal: bool) -> int:
+    """Operations of one kernel call: 2 per multiply-add of Q Kᵀ and of P V
+    over the pairs ``causal_pairs`` keeps."""
+    B, Sq, H, hd = q_shape
+    return 4 * B * H * hd * causal_pairs(Sq, k_shape[1], causal)
+
+
+def _check_kernel_inputs(q, k, v) -> None:
     dev = q.device
-    B, Sq, H, hd = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
+    hd = q.shape[3]
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q: dtype {q.dtype}, the kernel takes float32 "
                         f"and bfloat16")
@@ -259,6 +296,14 @@ def _flash_forward(q, k, v, causal, block_q, block_kv) -> torch.Tensor:
                              f"hd must be contiguous and every stride a "
                              f"multiple of {vec} elements; got strides "
                              f"{t.stride()}")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """One launch of kernel 11 (inputs checked by the caller)."""
+    dev = q.device
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
     if B == 0 or Sq == 0 or H == 0:
         return out
@@ -272,3 +317,18 @@ def _flash_forward(q, k, v, causal, block_q, block_kv) -> torch.Tensor:
     _build.check(err, "flash_attention")
     _build.count_launch(LAUNCHES, "flash_attention")
     return out
+
+
+_flash_op = torch.library.custom_op("repro_torch::flash_attention", _launch,
+                                    mutates_args=(), device_types="cuda")
+
+
+@_flash_op.register_fake
+def _flash_shape(q, k, v, causal):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flop_formula(q_shape, k_shape, v_shape, causal, *, out_shape=None,
+                        **kwargs) -> int:
+    return flash_flops(q_shape, k_shape, causal)

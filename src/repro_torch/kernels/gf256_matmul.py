@@ -48,9 +48,12 @@ change with every call, so they travel by value too
 the source notes in ``csrc/gf256.cu`` for the designs.
 
 Dispatch (``kernels.dispatch``): a CUDA tensor launches the kernel, a
-CPU tensor takes the plain version of the same strategy.  Nothing falls
-back.  The JAX entry points' ``block_c``/``interpret`` arguments and the
-tuner lookup have no counterpart yet.
+CPU tensor runs ``cpu_gf256``, the counterpart of the reference's XLA
+formulations.  Nothing falls back.  A strategy left unnamed comes from
+the tuning cache (``kernels/tune.py``) where it has an entry for the
+call's path and shape, else from the built-in rule, as in the reference.
+The JAX entry points' ``block_c``/``interpret`` arguments have no
+counterpart.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ import functools
 import numpy as np
 import torch
 
-from . import _build, coefs, dispatch
+from . import _build, coefs, cpu_gf256, dispatch
 
 #: launches of each kernel by its wrapper (plain versions do not count)
 LAUNCHES = {"gf_matmul_batched": 0, "gf_matmul_cols_batched": 0,
@@ -233,15 +236,58 @@ def gf256_matmul_per_item_plain(Ms, blocks: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# wrappers: CUDA tensors -> kernel, CPU tensors -> plain version
+# wrappers: CUDA tensors -> kernel, CPU tensors -> cpu_gf256
 # ---------------------------------------------------------------------------
+
+_tune = None       # kernels.tune, imported at the first lookup
+
+
+def _tuned(op: str, path: str, A, *, chunk: int,
+           batch: int) -> str | None:
+    """The tuning cache's strategy for a call with matrix (or per-item
+    matrices) ``A``, or None."""
+    global _tune
+    tune = _tune
+    if tune is None:
+        # not at import: ``python -m repro_torch.kernels.tune`` runs it
+        from . import tune
+        _tune = tune
+    if not tune.active(op, path):
+        return None
+    A = np.asarray(A, dtype=np.uint8)
+    m, k = A.shape[-2:]
+    entry = tune.lookup(op, path, k=k, m=m, chunk=chunk, batch=batch,
+                        cls=tune.matrix_cls(A))
+    return entry.get("strategy") if entry else None
+
+
+def _cpu_strategy(strategy: str | None) -> str | None:
+    return strategy if strategy in cpu_gf256.STRATEGIES else None
+
+
+@torch.library.custom_op("repro_torch::gf256_product", mutates_args=(),
+                         device_types="cpu")
+def _meta_product(data: torch.Tensor, m: int) -> torch.Tensor:
+    """The shared-matrix product's output shape (B, m, C) for a dry run:
+    one op that reads ``data`` and writes the output, as the kernel does
+    (``launch/cost_analysis.py`` counts its bytes).  Only its fake
+    implementation ever runs, on meta tensors."""
+    raise RuntimeError("gf256_product gives shapes only (meta tensors)")
+
+
+@_meta_product.register_fake
+def _meta_product_shape(data, m):
+    return data.new_empty((data.shape[0], m, data.shape[2]))
+
 
 def gf256_matmul_batched(A, data: torch.Tensor,
                          strategy: str | None = None) -> torch.Tensor:
     """Batched A (*) data over GF(2^8): (m, k) host matrix, (B, k, C) uint8
     tensor -> (B, m, C) on the data's device.  ``strategy`` names the
-    kernel body (``unroll``/``gf01``/``cols``); by default, and for a
-    name it does not know, ``choose_strategy`` picks it.  On the card one
+    kernel body (``unroll``/``gf01``/``cols``), or on the CPU the
+    ``cpu_gf256`` formulation; by default the tuning cache's entry for
+    the shape, else (and for a name the path does not know)
+    ``choose_strategy`` or ``cpu_gf256.default_strategy``.  On the card one
     call is one launch.  The matrix's tables or row masks go into the
     launch parameters, so the call copies nothing to the card and does
     not synchronize; only a matrix above the largest parameter tier is
@@ -252,10 +298,14 @@ def gf256_matmul_batched(A, data: torch.Tensor,
     if not isinstance(data, torch.Tensor) or data.dim() != 3:
         raise ValueError("data must be a (B, k, C) torch.Tensor")
     B, _, C = data.shape
-    if not dispatch.decide(data).kernel:
-        if choose_strategy(A, strategy) == "gf01":
-            return gf01_matmul_batched_plain(A, data)
-        return gf256_matmul_batched_plain(A, data)
+    path = dispatch.decide(data).path
+    if path == dispatch.META:
+        return torch.ops.repro_torch.gf256_product(data, m)
+    if strategy is None and B and m:
+        strategy = _tuned("matmul", path, A, chunk=C, batch=B)
+    if path != dispatch.CUDA:
+        return cpu_gf256.matmul_batched(A, data,
+                                        strategy=_cpu_strategy(strategy))
     raw = A.tobytes()
     strategy, words, tier, nnz = _plan(raw, A.shape, strategy)
     dev = data.device
@@ -288,19 +338,24 @@ def gf256_matmul_batched(A, data: torch.Tensor,
     return out
 
 
-def gf256_matmul(A, data: torch.Tensor) -> torch.Tensor:
+def gf256_matmul(A, data: torch.Tensor,
+                 strategy: str | None = None) -> torch.Tensor:
     """Single-stripe A (*) data over GF(2^8): (m, k) host matrix, (k, C)
-    uint8 tensor -> (m, C) on the data's device.  An ``unroll`` matrix
-    runs kernel ``gf_matmul`` (its tables by value, as the batched
-    wrapper's); any other a batch of one."""
+    uint8 tensor -> (m, C) on the data's device.  The strategy is
+    chosen as the batched wrapper's, from the cache's batch-1 entry: an
+    ``unroll`` matrix runs kernel ``gf_matmul`` (its tables by value, as
+    the batched wrapper's); any other a batch of one."""
     A = _host_matrix(A)
     m, k = A.shape
     if not isinstance(data, torch.Tensor) or data.dim() != 2:
         raise ValueError("data must be a (k, C) torch.Tensor")
     C = data.shape[1]
-    if not dispatch.decide(data).kernel:
-        return gf256_matmul_batched(A, data[None])[0]
-    strategy, tabs, tier, _ = _plan(A.tobytes(), A.shape, None)
+    path = dispatch.decide(data).path
+    if strategy is None and m:
+        strategy = _tuned("matmul", path, A, chunk=C, batch=1)
+    if path != dispatch.CUDA:
+        return cpu_gf256.matmul(A, data, strategy=_cpu_strategy(strategy))
+    strategy, tabs, tier, _ = _plan(A.tobytes(), A.shape, strategy)
     if strategy != "unroll":
         # the batch-of-one path: another kernel body
         return gf256_matmul_batched(A, data[None], strategy)[0]
@@ -318,16 +373,28 @@ def gf256_matmul(A, data: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def per_item_host(Ms: np.ndarray, strategy: str | None) -> tuple:
+    """(mask bytes per row, host coefficients) of a per-item batch on the
+    card: ``cols`` takes the bytes; any other strategy the
+    ``coefs.per_item_coefs`` rule (row masks for 0/1 matrices with J <=
+    32, the ``gf01`` form)."""
+    if strategy == "cols":
+        return 0, np.ascontiguousarray(Ms)
+    return coefs.per_item_coefs(Ms)
+
+
 def gf256_matmul_per_item_batched(Ms, blocks: torch.Tensor,
-                                  parity: torch.Tensor | None = None
+                                  parity: torch.Tensor | None = None,
+                                  strategy: str | None = None
                                   ) -> torch.Tensor:
     """Per-item matrices: (B, O, J) host matrices (a tensor is read back
     to the host first, which waits on its stream), (B, J, C) uint8 tensor
     -> (B, O, C), with ``parity`` (B, O, C) XORed in when given.  On the
-    card the matrices go into the launch parameters (row masks when they
-    are 0/1 with J <= 32, else bytes), so the call copies nothing to the
-    card and does not synchronize; a batch whose matrices exceed the
-    largest parameter tier runs as several launches."""
+    card the matrices go into the launch parameters in the form
+    ``per_item_host`` gives for ``strategy``, so the call copies nothing
+    to the card and does not synchronize; a batch whose matrices exceed
+    the largest parameter tier runs as several launches.  On the CPU
+    ``strategy`` names the ``cpu_gf256`` formulation."""
     if isinstance(Ms, torch.Tensor):
         Ms = Ms.cpu().numpy()
     Ms = np.asarray(Ms, dtype=np.uint8)
@@ -338,7 +405,8 @@ def gf256_matmul_per_item_batched(Ms, blocks: torch.Tensor,
         raise ValueError("blocks must be a (B, J, C) torch.Tensor")
     C = blocks.shape[2]
     if not dispatch.decide(blocks).kernel:
-        return gf256_matmul_per_item_plain(Ms, blocks, parity)
+        return cpu_gf256.matmul_per_item(Ms, blocks, parity,
+                                         strategy=_cpu_strategy(strategy))
     dev = blocks.device
     _build.require(blocks, "blocks", torch.uint8, (B, J, C), dev)
     if parity is not None:
@@ -347,7 +415,7 @@ def gf256_matmul_per_item_batched(Ms, blocks: torch.Tensor,
            if parity is None else torch.empty_like(parity))
     if B == 0 or O == 0 or J == 0 or C == 0:
         return out.copy_(parity) if parity is not None else out.zero_()
-    mb, host = coefs.per_item_coefs(Ms)
+    mb, host = per_item_host(Ms, strategy)
     per_item = host.size // B
     # host bytes go to ctypes as a char pointer, cheaper than .ctypes.data
     hb = host.tobytes()

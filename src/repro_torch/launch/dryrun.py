@@ -1,0 +1,443 @@
+"""Dry run of every (arch x shape x mesh) cell: the counterpart of the JAX
+package's ``launch/dryrun.py``.
+
+The reference lowers and compiles each cell's step over a fleet mesh of
+virtual devices and reads XLA's memory and cost analyses.  The port has
+no compiler to ask: it builds the cell's model, optimizer state and
+inputs on the ``meta`` device (``kernels.dispatch.dry_run``: nothing is
+allocated), runs the step there once and counts it
+(``launch/cost_analysis.py``): matrix-product FLOPs, bytes of every op,
+the peak of live bytes, the bytes moved between mesh positions, and the
+argument bytes each device of the mesh holds under
+``distributed/sharding.py``'s specs.
+
+* A cell's repeated layer unit is run at 1 and at 2 repeats and the
+  counts extrapolated to the config's depth: every repeat is the same
+  program, so FLOPs and bytes extrapolate exactly; the arguments are
+  counted at full depth.  The peak's place in a training step moves with
+  depth, so its extrapolation is an estimate (``peak_extrapolated``);
+  ``count_cell`` counts one depth whole.
+* The mesh's positions run as one program on one card: FLOPs and bytes
+  per device are the program's divided by the devices (an even split);
+  the peak is given for one card running the whole program.  Model cells
+  have no SPMD collectives here (their fields are null, with the reason);
+  the EC cells count their explicit moves (``collective-permute``).
+* Roofline terms use the H100 SXM data sheet: 989 TFLOP/s bf16 dense,
+  3.35 TB/s HBM3, and 450 GB/s of NVLink each way per card, which holds
+  only between cards of one NVLink domain (every permute one hop, as
+  the domain's switch connects all pairs).  They are counts and data-sheet
+  terms, not measurements.
+
+Special pseudo-arch ``ecstore``: the MemEC parity delta update (``update``,
+``update_chain``) and the decode-from-k reconstruction (``reconstruct``)
+over the mesh, the paper's own technique as a cell.
+
+Run: ``python -m repro_torch.launch.dryrun [--arch A] [--shape S] [--mesh
+single|multi|both] [--optimizer adamw8bit] [--remat full] [--attn ...]
+[--kv ...] [--tag T] [--out DIR]``: one JSON file a cell in ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import time
+
+import torch
+
+from ..configs import ARCH_NAMES, get_config
+from ..configs.shapes import SHAPES, ShapeSpec, input_specs, shape_applicable
+from ..distributed import sharding as shd
+from ..distributed.ecstore import (ECConfig, parity_delta_update,
+                                   parity_delta_update_chain,
+                                   reconstruct_failed)
+from ..kernels import dispatch
+from ..models import Model, layers, moe
+from ..models.convert import param_tree
+from ..tree import Stacked, leaves
+from ..train.optimizer import make_optimizer
+from ..train.train_step import make_train_step
+from . import cost_analysis as ca
+from .mesh import Mesh, make_host_mesh, make_production_mesh
+
+# NVIDIA H100 SXM data sheet (roofline terms)
+PEAK_FLOPS = 989e12        # bf16 dense FLOP/s
+HBM_BW = 3.35e12           # HBM3 bytes/s
+NVLINK_BW = 450e9          # bytes/s each way per card, within one NVLink domain
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+NO_SPMD = ("no SPMD collectives: the mesh's positions run as one program "
+           "on one card (sharded execution over cards is ROADMAP Queue 1 "
+           "item 5)")
+
+
+def _mesh(mesh) -> Mesh:
+    if isinstance(mesh, Mesh):
+        return mesh
+    if mesh == "host":
+        return make_host_mesh()
+    return make_production_mesh(multi_pod=(mesh == "multi"))
+
+
+def _mesh_name(mesh: Mesh) -> str:
+    return {(16, 16): "single", (2, 16, 16): "multi"}.get(
+        tuple(mesh.axis_sizes), "x".join(map(str, mesh.axis_sizes)))
+
+
+@contextlib.contextmanager
+def _counters_kept():
+    """The dry run's calls leave ``OP_PATHS`` and ``DROPS`` as they were."""
+    paths, drops = dict(layers.OP_PATHS), dict(moe.DROPS)
+    try:
+        yield
+    finally:
+        layers.OP_PATHS.clear()
+        layers.OP_PATHS.update(paths)
+        moe.DROPS.clear()
+        moe.DROPS.update(drops)
+
+
+# ---------------------------------------------------------------------------
+# cell construction
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Cell:
+    """A built cell: ``step()`` runs it once; ``args`` are the (tree,
+    specs) pairs of its arguments; ``model`` its model."""
+    step: object
+    args: list
+    model: Model
+    meta: dict
+
+    def tensors(self) -> list:
+        """The argument tensors on the model's device (an optimizer's step
+        count lives on the host)."""
+        dev = self.model.device
+        return [t for tree, _ in self.args for leaf in leaves(tree)
+                for t in (leaf.parts if isinstance(leaf, Stacked) else [leaf])
+                if isinstance(t, torch.Tensor) and t.device == dev]
+
+    def device_bytes(self) -> int:
+        """Bytes of the arguments' storages on the model's device (what
+        the card's allocator is asked for: ``requested_bytes``)."""
+        return ca.storage_bytes(self.tensors())
+
+
+def make_inputs(cfg, shape: ShapeSpec, device, generator=None) -> dict:
+    """The cell's inputs: meta tensors, or random token ids (and
+    embeddings, positions) on ``device`` from ``generator``."""
+    out = {}
+    for name, spec in input_specs(cfg, shape).items():
+        if torch.device(device).type == "meta" or name == "cur_len":
+            out[name] = spec.meta() if name != "cur_len" else \
+                torch.tensor(shape.seq_len - 1, dtype=spec.dtype)
+        elif spec.dtype.is_floating_point:
+            out[name] = torch.randn(spec.shape, generator=generator,
+                                    device=device).to(spec.dtype)
+        elif name == "positions":
+            S = spec.shape[-1]
+            out[name] = torch.arange(S, device=device, dtype=spec.dtype) \
+                .expand(spec.shape).contiguous()
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, spec.shape,
+                                      generator=generator, device=device,
+                                      dtype=spec.dtype)
+    return out
+
+
+def cell_shape(shape_name: str, batch: int | None = None,
+               seq: int | None = None) -> ShapeSpec:
+    """The named shape, with its batch and sequence cut when given."""
+    shape = SHAPES[shape_name]
+    return dataclasses.replace(shape, global_batch=batch or shape.global_batch,
+                               seq_len=seq or shape.seq_len)
+
+
+def build_cell(cfg, shape: ShapeSpec, mesh: Mesh, *, optimizer="adamw8bit",
+               device="meta", generator=None) -> Cell:
+    """The cell's model, state, inputs and step on ``device`` (``meta``
+    inside ``dispatch.dry_run``, or the card, with random weights from
+    ``generator``)."""
+    model = Model(cfg, device=device)
+    if torch.device(device).type != "meta":
+        model.init(generator)
+    params = param_tree(model)
+    batch = make_inputs(cfg, shape, device, generator)
+    pspecs = shd.param_specs(cfg, params, mesh)
+    bspecs = shd.batch_specs(cfg, batch, mesh)
+    meta = {"params": sum(math.prod(x.shape) for x in leaves(params)),
+            "model_params": cfg.param_count(),
+            "active_params": cfg.active_param_count()}
+    if shape.kind == "train":
+        opt = make_optimizer(optimizer, total_steps=10000)
+        opt_state = opt.init(params)
+        train = make_train_step(model, opt)
+        ospecs = _opt_specs(opt_state, pspecs, mesh)
+
+        def step():
+            return train(params, opt_state, batch)
+        return Cell(step, [(params, pspecs), (opt_state, ospecs),
+                           (batch, bspecs)], model, meta)
+    if shape.kind == "prefill":
+        return Cell(lambda: model.apply(batch), [(params, pspecs),
+                                                 (batch, bspecs)], model, meta)
+    cache = model.init_cache(shape.global_batch, shape.seq_len,
+                             dtype=torch.bfloat16)
+    cspecs = shd.cache_specs(cfg, model.cache_tree(cache), mesh)
+
+    def serve():
+        return model.decode_step(cache, batch["tokens"], shape.seq_len - 1,
+                                 batch.get("positions"))
+    return Cell(serve, [(params, pspecs), (model.cache_tree(cache), cspecs),
+                        (batch, bspecs)], model, meta)
+
+
+def _opt_specs(opt_state, pspecs, mesh) -> dict:
+    """The reference's ``_opt_specs``: moments (keys m, v, f) take their
+    parameter's spec where the ranks agree; quantized {q, s} moments and
+    everything else are replicated."""
+    def rec(o, p=None):
+        if isinstance(o, dict):
+            if set(o) == {"q", "s"}:
+                return {"q": shd.P(), "s": shd.P()}
+            return {k: rec(v, p.get(k) if isinstance(p, dict) else None)
+                    for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return type(o)(rec(v, p[i] if isinstance(p, (list, tuple))
+                               and i < len(p) else None)
+                           for i, v in enumerate(o))
+        if o is None:
+            return None
+        if isinstance(p, shd.P) and len(p) == len(o.shape):
+            return shd.fit_spec(p, o.shape, mesh)
+        return shd.P()
+    return {k: rec(v, pspecs) if k in ("m", "v", "f") else rec(v)
+            for k, v in opt_state.items()}
+
+
+def build_ec_cell(mesh: Mesh, *, bytes_per_device: int = 1 << 28,
+                  op: str = "update"):
+    """The MemEC parity collectives over the mesh: ``bytes_per_device`` of
+    protected state per position (default 256 MiB, as the reference).
+    Returns (step, args, meta)."""
+    cfg = ECConfig()
+    sizes = tuple(mesh.axis_sizes)
+    pages_local = bytes_per_device // cfg.page_size
+    pages_local -= pages_local % cfg.k
+    S = pages_local // cfg.k
+    data_dim = mesh.axis_names.index(cfg.axis)
+    state = torch.empty(sizes + (pages_local, cfg.page_size),
+                        dtype=torch.uint8, device="meta")
+    parity = torch.empty(sizes + (cfg.m, S, cfg.page_size),
+                         dtype=torch.uint8, device="meta")
+    sspec = shd.P(*mesh.axis_names, None, None)
+    pspec = shd.P(*mesh.axis_names, None, None, None)
+    if op == "reconstruct":
+        def step():
+            return reconstruct_failed(state, parity, 3, cfg, data_dim)
+    else:
+        upd = (parity_delta_update_chain if op == "update_chain"
+               else parity_delta_update)
+
+        def step():
+            return upd(state, parity, cfg, data_dim)
+    # the global arrays carry the mesh axes; a position holds one block
+    args = [(state, sspec), (parity, pspec)]
+    meta = {"bytes_per_device": bytes_per_device,
+            "ec": f"RS({cfg.n},{cfg.k})"}
+    return step, args, meta
+
+
+# ---------------------------------------------------------------------------
+# counting
+# ---------------------------------------------------------------------------
+
+def count_cell(cfg, shape, mesh, optimizer="adamw8bit") -> dict:
+    """Run the cell once on meta (inside ``dispatch.dry_run``) at the
+    config's depth and count it."""
+    cell = build_cell(cfg, shape, mesh, optimizer=optimizer)
+    with ca.Count(cell.tensors()) as c:
+        cell.step()
+    return {"flops": c.flops, "bytes": c.bytes, "peak": c.peak_bytes,
+            "flops_by_op": c.flops_by_op}
+
+
+def _depth(cfg, repeats: int):
+    unit = len(cfg.layer_pattern)
+    tail = cfg.num_layers % unit
+    return cfg.scaled(num_layers=repeats * unit + tail)
+
+
+def count_model_cell(cfg, shape: ShapeSpec, mesh: Mesh,
+                     optimizer="adamw8bit") -> dict:
+    """Counts of the cell at the config's full depth: run at 1 and 2
+    repeats of the layer unit and extrapolated (a config of at most 2
+    repeats runs as it is)."""
+    R = cfg.num_layers // len(cfg.layer_pattern)
+    if R <= 2:
+        out = count_cell(cfg, shape, mesh, optimizer)
+        out["extrapolated_from"] = None
+        return out
+    one = count_cell(_depth(cfg, 1), shape, mesh, optimizer)
+    two = count_cell(_depth(cfg, 2), shape, mesh, optimizer)
+    out = {k: one[k] + (R - 1) * (two[k] - one[k])
+           for k in ("flops", "bytes", "peak")}
+    out["flops_by_op"] = {
+        op: one["flops_by_op"].get(op, 0) + (R - 1) * (
+            two["flops_by_op"].get(op, 0) - one["flops_by_op"].get(op, 0))
+        for op in set(one["flops_by_op"]) | set(two["flops_by_op"])}
+    out["extrapolated_from"] = [1, 2]
+    return out
+
+
+def _config(arch, remat, attn, kv):
+    over = {"remat": remat}
+    if attn is not None:
+        over["attn_parallel"] = attn
+    if kv is not None:
+        over["kv_cache_dtype"] = kv
+    return get_config(arch).scaled(**over)
+
+
+def run_cell(arch: str, shape_name: str, mesh="single", *,
+             optimizer="adamw8bit", remat="full", attn=None, kv=None,
+             batch: int | None = None, seq: int | None = None) -> dict:
+    """One cell's record: counts per device, the roofline terms, and the
+    model FLOPs (6·N·D) against the counted ones.  ``mesh``: "single"
+    (16 x 16), "multi" (2 x 16 x 16), "host" (1 x 1) or a ``Mesh``;
+    ``batch``/``seq`` cut the shape."""
+    mesh = _mesh(mesh)
+    n_dev = mesh.size
+    base = {"arch": arch, "shape": shape_name, "mesh": _mesh_name(mesh),
+            "devices": n_dev}
+    t0 = time.perf_counter()
+    with dispatch.dry_run(), _counters_kept():
+        if arch == "ecstore":
+            op = shape_name if shape_name in ("update", "update_chain",
+                                              "reconstruct") else "update"
+            step, args, meta = build_ec_cell(mesh, op=op)
+            with ca.Count([t for t, _ in args]) as c, torch.no_grad():
+                step()
+            counts = {"flops": c.flops, "bytes": c.bytes,
+                      "peak": c.peak_bytes, "flops_by_op": c.flops_by_op,
+                      "extrapolated_from": None}
+            arg_bytes = ca.argument_bytes(args, mesh)
+            arg_dev = sum(t.numel() for t, _ in args)
+            coll = {k: 0 for k in COLLECTIVES}
+            coll["collective-permute"] = c.permute_bytes // n_dev
+            counts_c = {"collective-permute": c.permutes}
+        else:
+            cfg = _config(arch, remat, attn, kv)
+            shape = cell_shape(shape_name, batch, seq)
+            ok, why = shape_applicable(cfg, shape)
+            if not ok:
+                return dict(base, status="skipped", reason=why)
+            counts = count_model_cell(cfg, shape, mesh, optimizer)
+            full = build_cell(cfg, shape, mesh, optimizer=optimizer)
+            arg_bytes = ca.argument_bytes(full.args, mesh)
+            arg_dev = full.device_bytes()
+            meta = full.meta
+            coll = counts_c = None
+    flops, nbytes = counts["flops"], counts["bytes"]
+    res = dict(base, status="ok", build_s=round(time.perf_counter() - t0, 2),
+               flops_total=flops, bytes_total=nbytes,
+               flops_per_device=flops / n_dev,
+               bytes_per_device=nbytes / n_dev,
+               flops_by_op=counts["flops_by_op"],
+               argument_bytes_per_device=arg_bytes,
+               argument_bytes_one_card=arg_dev,
+               peak_bytes_one_card=counts["peak"],
+               peak_extrapolated=counts["extrapolated_from"] is not None,
+               extrapolated_from=counts["extrapolated_from"], meta=meta)
+    res["t_compute"] = res["flops_per_device"] / PEAK_FLOPS
+    res["t_memory"] = res["bytes_per_device"] / HBM_BW
+    if coll is None:
+        res.update(collective_bytes_per_device=None,
+                   collective_wire_bytes_per_device=None, collectives=None,
+                   collective_wire=None, collective_counts=None,
+                   collective_note=NO_SPMD, t_collective=None)
+    else:
+        total = sum(coll.values())
+        res.update(collective_bytes_per_device=total,
+                   collective_wire_bytes_per_device=total,
+                   collectives=coll, collective_wire=dict(coll),
+                   collective_counts=counts_c,
+                   collective_note="NVLink: every permute is one hop",
+                   t_collective=total / NVLINK_BW)
+    terms = {k: res[f"t_{k}"] for k in ("compute", "memory", "collective")
+             if res[f"t_{k}"] is not None}
+    res["bottleneck"] = max(terms, key=terms.get)
+    if arch != "ecstore":
+        mf = model_flops(cfg, shape)
+        res["model_flops_per_device"] = mf / n_dev
+        res["useful_flops_ratio"] = (mf / flops) if flops else 0.0
+    return res
+
+
+def model_flops(cfg, shape: ShapeSpec) -> float:
+    """6·N·D (dense) / 6·N_active·D (MoE); prefill 2·N·D; decode 2·N·B."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "decode":
+        return 2.0 * n_active * shape.global_batch
+    tokens = shape.global_batch * shape.seq_len
+    return (6.0 if shape.kind == "train" else 2.0) * n_active * tokens
+
+
+def all_cells() -> list:
+    cells = [(arch, s) for arch in ARCH_NAMES for s in SHAPES]
+    cells += [("ecstore", "update"), ("ecstore", "update_chain"),
+              ("ecstore", "reconstruct")]
+    return cells
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", choices=["single", "multi", "both"],
+                    default="both")
+    ap.add_argument("--optimizer", default="adamw8bit")
+    ap.add_argument("--remat", default="full")
+    ap.add_argument("--attn", default=None, choices=["seq", "head", "auto"])
+    ap.add_argument("--kv", default=None, choices=["bfloat16", "int8"])
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--out", default="build/dryrun")
+    args = ap.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    cells = [(a, s) for a, s in all_cells()
+             if (not args.arch or a == args.arch)
+             and (not args.shape or s == args.shape)]
+    meshes = {"single": ["single"], "multi": ["multi"],
+              "both": ["single", "multi"]}[args.mesh]
+    failed, t0 = 0, time.perf_counter()
+    for arch, shape in cells:
+        for mesh in meshes:
+            tag = f"{arch}__{shape}__{mesh}" + (f"__{args.tag}"
+                                                if args.tag else "")
+            try:
+                res = run_cell(arch, shape, mesh, optimizer=args.optimizer,
+                               remat=args.remat, attn=args.attn, kv=args.kv)
+            except Exception as e:  # noqa: BLE001 - recorded per cell
+                failed += 1
+                res = {"arch": arch, "shape": shape, "mesh": mesh,
+                       "status": "error", "error": f"{type(e).__name__}: {e}"}
+            with open(os.path.join(args.out, tag + ".json"), "w") as f:
+                json.dump(res, f, indent=1)
+            extra = (res.get("reason") or res.get("error") or
+                     f"bottleneck={res['bottleneck']} "
+                     f"t=({res['t_compute']:.4g},{res['t_memory']:.4g},"
+                     f"{res['t_collective'] or 0:.4g})s "
+                     f"build {res['build_s']}s")
+            print(f"[{tag}] {res['status']}: {extra}", flush=True)
+    print(f"{len(cells) * len(meshes)} records in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

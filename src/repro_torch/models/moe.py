@@ -112,7 +112,7 @@ def moe_apply(p: MoE, x, cfg: ModelConfig):
         starts, 1, se)
     keep = pos_in_e < cap
     slot = torch.where(keep, se * cap + pos_in_e, E * cap)       # (B, S*K)
-    if counting():
+    if counting() and dev.type != "meta":     # a dry run has no values
         DROPS["dropped"] = DROPS.get("dropped", 0) + (~keep).sum()
         DROPS["total"] = DROPS.get("total", 0) + B * S * K
 

@@ -1,0 +1,372 @@
+"""``repro_torch.launch.dryrun`` and ``launch/cost_analysis.py`` against the
+JAX package's ``launch/dryrun.py`` and ``launch/hlo_analysis.py``.
+
+One subprocess (8 forced host devices; ``repro.launch.dryrun`` sets
+``XLA_FLAGS`` when imported) lowers and compiles the reference's cells,
+with ``repro.launch.dryrun.get_config`` pointed at ``get_reduced`` in that
+process only, while this process counts the port's cells on ``meta``:
+
+1. FLOPs, for starcoder2-3b, recurrentgemma-2b and llama4-maverick (MoE),
+   reduced, x train_4k, prefill_32k and decode_32k, on the 1 x 1 host
+   mesh (the whole program; on the (4, 2) mesh GSPMD computes some dots
+   on every "model" position, which the port's even split does not
+   model).  The reference side is the sum of its HLO's ``dot``
+   instructions times their loops' trip counts (``analyze``'s ``flops``
+   also counts elementwise ops); the port side is ``FlopCounterMode``'s
+   count.  They differ only in attention, which the test derives:
+
+   - the reference's blockwise attention computes every (Q tile, KV
+     tile) pair of a padded Sq_p x Skv_p, 4·B·H·hd·Sq_p·Skv_p a forward,
+     and a training step holds it 4 times (forward, the ``full`` remat's
+     recompute, and the backward's two products per forward product);
+   - the port's flash route (layer kinds A and M at these lengths) counts
+     kernel 11 by its formula, 4·B·H·hd per causal (query, key) pair, in
+     the forward and the recompute, and its backward
+     (``flash_attention_backward``) 10·B·H·hd·rows·L for each tile of
+     ``BWD_BLOCK_Q`` query rows that sees L keys.
+
+   Every other product agrees exactly: tolerance 0 on integers.
+2. Argument bytes per device, on the host mesh and on (4, 2), against
+   ``compiled.memory_analysis().argument_size_in_bytes``: exact.
+3. The EC pseudo-cells on (4, 2) at the reference's 256 MiB a device:
+   the systolic ``update_chain`` runs the reference's ppermutes, and its
+   collective-permute operand bytes equal ``analyze``'s.  The port's
+   direct ``update`` and its ``reconstruct`` move other blocks than the
+   reference's (one rotation per class and one rolled XOR per parity
+   row; a gather of each class's survivors instead of a ring XOR-reduce),
+   so each side is held to its own derivation.  Wire bytes: the port
+   counts one NVLink hop a permute (wire = operand); ``analyze`` counts
+   torus hops by device id.
+"""
+import importlib
+import json
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from conftest import subprocess_env
+from repro_torch.configs import get_reduced
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.kernels import dispatch
+from repro_torch.launch import cost_analysis as ca
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh, make_test_mesh
+from repro_torch.models import layers, moe
+
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+
+ARCHS = ("starcoder2-3b", "recurrentgemma-2b", "llama4-maverick-400b-a17b")
+CELLS = [(a, s) for a in ARCHS for s in ("train_4k", "prefill_32k",
+                                         "decode_32k")]
+EC_OPS = ("update", "update_chain", "reconstruct")
+
+REFERENCE = """
+import json, re
+import jax
+from jax.sharding import NamedSharding, PartitionSpec as P
+import repro.launch.dryrun as dr
+from repro.configs import get_reduced
+from repro.launch import hlo_analysis as ha
+from repro.launch.mesh import make_host_mesh, make_test_mesh
+dr.get_config = get_reduced
+
+def dot_flops(text):
+    comps = ha.parse_hlo(text)
+    memo = {}
+    def cost(name, stack=()):
+        if name in memo:
+            return memo[name]
+        if name in stack or name not in comps:
+            return 0
+        c, tot = comps[name], 0
+        for ins in c.instrs:
+            if ins.op == "while":
+                m = ha._TRIP_RE.search(ins.attrs)
+                b = ha._BODY_RE.search(ins.attrs)
+                if b:
+                    tot += (int(m.group(1)) if m else 1) * cost(
+                        b.group(1), stack + (name,))
+                continue
+            if ins.op == "dot":
+                relems, _ = ha._shape_elems_bytes(ins.result_type)
+                ld = ha._dims(c.shapes.get(ins.operands[0], ""))
+                cm = ha._CONTRACT_RE.search(ins.attrs)
+                k = 1
+                for i in (cm.group(1).split(",") if cm and cm.group(1)
+                          else []):
+                    k *= ld[int(i)]
+                tot += 2 * relems * k
+                continue
+            for rx in (ha._CALLS_RE, ha._TOAPPLY_RE):
+                for mm in rx.finditer(ins.attrs):
+                    tot += cost(mm.group(1), stack + (name,))
+            mb = ha._BRANCH_RE.search(ins.attrs)
+            if mb:
+                subs = re.findall(r"%([\\w\\.\\-]+)", mb.group(1))
+                tot += max([cost(s, stack + (name,)) for s in subs] or [0])
+        memo[name] = tot
+        return tot
+    return cost(comps["__entry__"].name)
+
+def compiled(step, args, in_sh, out_sh, mesh):
+    named = lambda t: jax.tree.map(lambda s: NamedSharding(mesh, s), t,
+                                   is_leaf=lambda x: isinstance(x, P))
+    with mesh:
+        return jax.jit(step, in_shardings=named(in_sh),
+                       out_shardings=named(out_sh)).lower(*args).compile()
+
+out = {"cells": {}, "ec": {}}
+for arch, shape in CELLS:
+    row = {}
+    for name, mesh in (("host", make_host_mesh()),
+                       ("4x2", make_test_mesh(4, 2))):
+        (step, args, in_sh, out_sh, meta), _ = dr.build_cell(
+            arch, shape, mesh, optimizer="adamw8bit", remat="full")
+        comp = compiled(step, args, in_sh, out_sh, mesh)
+        row[name + "_args"] = comp.memory_analysis().argument_size_in_bytes
+        if name == "host":
+            row["dot_flops"] = dot_flops(comp.as_text())
+    out["cells"][arch + "/" + shape] = row
+mesh = make_test_mesh(4, 2)
+for op in EC_OPS:
+    step, args, in_sh, out_sh, meta = dr.build_ec_cell(mesh, op=op)
+    comp = compiled(step, args, in_sh, out_sh, mesh)
+    a = ha.analyze(comp.as_text())
+    out["ec"][op] = {
+        "operand": a["collective_op_bytes"].get("collective-permute", 0),
+        "wire": a["collective_wire_bytes"].get("collective-permute", 0),
+        "count": a["collective_counts"].get("collective-permute", 0),
+        "args": comp.memory_analysis().argument_size_in_bytes}
+print(json.dumps(out))
+"""
+
+
+def _port_cells() -> dict:
+    out = {}
+    for arch, shape in CELLS:
+        row = {"host": dryrun.run_cell(arch, shape, "host")}
+        cfg = get_reduced(arch).scaled(remat="full")
+        with dispatch.dry_run():
+            cell = dryrun.build_cell(cfg, SHAPES[shape], make_test_mesh(4, 2))
+        row["4x2_args"] = ca.argument_bytes(cell.args, make_test_mesh(4, 2))
+        out[f"{arch}/{shape}"] = row
+    out["ec"] = {op: dryrun.run_cell("ecstore", op, make_test_mesh(4, 2))
+                 for op in EC_OPS}
+    return out
+
+
+@pytest.fixture(scope="module")
+def both():
+    """(port, reference) results; the reference compiles in a subprocess
+    while the port counts here."""
+    env = subprocess_env()
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["JAX_PLATFORMS"] = "cpu"
+    code = (f"CELLS = {CELLS!r}\nEC_OPS = {EC_OPS!r}\n"
+            + textwrap.dedent(REFERENCE))
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        saved = dryrun.get_config
+        dryrun.get_config = get_reduced
+        try:
+            port = _port_cells()
+        finally:
+            dryrun.get_config = saved
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-4000:]
+    return port, json.loads(out.strip().splitlines()[-1])
+
+
+def _attention(cfg, shape, n_calls_per_layer, flash_count):
+    """(port, reference) attention FLOPs of the flash-route layers of a
+    cell (module notes)."""
+    B, S = shape.global_batch, shape.seq_len
+    H, hd = cfg.num_heads, cfg.head_dim
+    per_call = fa.flash_flops((B, S, H, hd), (B, S), True)
+    assert flash_count % (n_calls_per_layer * per_call) == 0
+    n_layers = flash_count // (n_calls_per_layer * per_call)
+    bq = min(cfg.attn_block_q, max(S, 16))
+    bkv = min(cfg.attn_block_kv, S)
+    Sq_p, Skv_p = -(-S // bq) * bq, -(-S // bkv) * bkv
+    ref = n_layers * (16 if shape.kind == "train" else 4) \
+        * B * H * hd * Sq_p * Skv_p
+    port = flash_count
+    if shape.kind == "train":
+        T = fa.BWD_BLOCK_Q
+        tiles = sum((min(S, s0 + T) - s0) * min(S, s0 + T)
+                    for s0 in range(0, S, T))
+        port += n_layers * 10 * B * H * hd * tiles
+    return n_layers, port, ref
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_matmul_flops_equal_reference(both, arch, shape):
+    port, ref = both
+    cell = port[f"{arch}/{shape}"]["host"]
+    want = ref["cells"][f"{arch}/{shape}"]["dot_flops"]
+    cfg = get_reduced(arch)
+    spec = SHAPES[shape]
+    flash = cell["flops_by_op"].get("repro_torch.flash_attention", 0)
+    n_layers, port_attn, ref_attn = _attention(
+        cfg, spec, 2 if spec.kind == "train" else 1, flash)
+    flash_kinds = sum(k in "AM" for k in cfg.layers)
+    assert n_layers == (flash_kinds if spec.kind != "decode" else 0)
+    assert cell["flops_total"] - port_attn == want - ref_attn, (
+        cell["flops_by_op"], want, port_attn, ref_attn)
+    assert cell["flops_per_device"] == cell["flops_total"]
+
+
+@pytest.mark.parametrize("mesh", ("host", "4x2"))
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_argument_bytes_equal_reference(both, arch, shape, mesh):
+    port, ref = both
+    row = port[f"{arch}/{shape}"]
+    got = (row["host"]["argument_bytes_per_device"] if mesh == "host"
+           else row["4x2_args"])
+    assert got == ref["cells"][f"{arch}/{shape}"][f"{mesh}_args"]
+
+
+@pytest.mark.parametrize("op", EC_OPS)
+def test_ec_collectives(both, op):
+    """Argument bytes equal the reference's for every EC cell.  Collective
+    bytes equal ``analyze``'s for ``update_chain`` only: that is the one
+    cell whose moves are the reference's.  ``update`` and ``reconstruct``
+    move other blocks in the port (a deviation, ROADMAP Queue 3), so there
+    each side is held to a derivation of its own algorithm, not to the
+    other."""
+    port, ref = both
+    cell, want = port["ec"][op], ref["ec"][op]
+    k, m, A, n_dev = 8, 2, 4, 8
+    block = (1 << 28) // 4096 // k * 4096               # S pages of a class
+    assert cell["argument_bytes_per_device"] == want["args"]
+    got = cell["collectives"]["collective-permute"]
+    assert cell["collective_wire"]["collective-permute"] == got
+    if op == "update_chain":                # the reference's own ppermutes
+        assert got == want["operand"] == (k * m + m * (m - 1) // 2) * block
+        assert cell["collective_counts"]["collective-permute"] \
+            == want["count"]
+    elif op == "update":
+        # reference: m*k gamma-scaled permutes; port: the k - 1 class
+        # rotations and m rolled rows whose shift is not 0 mod A
+        assert want["operand"] == m * k * block
+        moves = sum(j % A != 0 for j in range(1, k)) \
+            + sum((k + r) % A != 0 for r in range(m))
+        assert got == moves * block
+    else:
+        # reference: a ring XOR-reduce of A - 1 shifts per class; port: each
+        # class's survivors not on the failed position sent to it, from each
+        # of the 2 model columns, averaged over the 8 devices
+        assert want["operand"] == k * (A - 1) * block
+        f, sends = 3, 0
+        from repro_torch.distributed import ecstore
+        for j in range(k):
+            for pos, _ in ecstore._decode_coeffs(k, m, j):
+                sends += (f - j + pos) % A != f
+        assert got == sends * block * 2 // n_dev
+
+
+def test_cli_full_config_and_skips(tmp_path):
+    """The CLI at full width: one cell counted, a sub-quadratic shape
+    skipped with its reason, every record written."""
+    for shape in ("decode_32k", "long_500k"):
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "starcoder2-3b", "--shape", shape, "--mesh", "single",
+             "--out", str(tmp_path)], env=subprocess_env(),
+            capture_output=True, text=True, timeout=300)
+        assert p.returncode == 0, p.stderr[-3000:]
+    ok = json.loads((tmp_path / "starcoder2-3b__decode_32k__single.json")
+                    .read_text())
+    assert ok["status"] == "ok" and ok["devices"] == 256
+    assert ok["collective_bytes_per_device"] is None
+    assert "one card" in ok["collective_note"]
+    assert ok["bottleneck"] in ("compute", "memory")
+    assert ok["extrapolated_from"] == [1, 2]
+    skip = json.loads((tmp_path / "starcoder2-3b__long_500k__single.json")
+                      .read_text())
+    assert skip["status"] == "skipped" and "sub-quadratic" in skip["reason"]
+
+
+def test_depth_extrapolation_is_exact():
+    """Counting at 1 and 2 repeats and extrapolating gives the FLOPs and
+    bytes of the whole depth (4 repeats, reduced starcoder2-3b, train);
+    the peak moves within the step as depth grows, so its extrapolation
+    is only flagged as one."""
+    cfg = get_reduced("starcoder2-3b").scaled(num_layers=4)
+    shape = dryrun.cell_shape("train_4k", batch=2, seq=64)
+    mesh = make_host_mesh()
+    with dispatch.dry_run():
+        whole = dryrun.count_cell(cfg, shape, mesh, "adamw")
+        est = dryrun.count_model_cell(cfg, shape, mesh, "adamw")
+    assert est["extrapolated_from"] == [1, 2]
+    assert est["flops"] == whole["flops"]
+    assert est["bytes"] == whole["bytes"]
+    assert est["peak"] > 0 and whole["peak"] > 0
+
+
+def test_meta_only_inside_the_dry_run():
+    """``meta`` passes dispatch only inside ``dry_run``, and a dry run
+    leaves the route and drop counters as they were."""
+    with pytest.raises(ValueError):
+        dispatch.decide(torch.device("meta"))
+    with pytest.raises(ValueError):
+        dispatch.resolve_device("meta")
+    layers.reset_op_paths()
+    moe.reset_drops()
+    layers.OP_PATHS["x"] = 1
+    saved = dryrun.get_config
+    dryrun.get_config = get_reduced
+    try:
+        dryrun.run_cell("llama4-maverick-400b-a17b", "prefill_32k", "host",
+                        batch=2, seq=64)
+    finally:
+        dryrun.get_config = saved
+    assert dict(layers.OP_PATHS) == {"x": 1} and moe.DROPS == {}
+    layers.reset_op_paths()
+
+
+def test_cost_analysis_counts_bytes_and_peak():
+    """Bytes: every op's operands and results, views free; peak: the live
+    storages' bytes."""
+    with dispatch.dry_run():
+        a = torch.empty((256, 256), device="meta")         # 256 KiB
+        with ca.Count([a]) as c:
+            b = a * 2                                      # reads a, writes b
+            v = b.view(-1)                                 # free
+            del b, v
+            d = a.sum()                                    # reads a, 4 bytes
+    assert c.bytes == 3 * a.nbytes + 4
+    assert c.peak_bytes == 2 * a.nbytes
+    assert c.flops == 0 and d.shape == ()
+    x = torch.empty((2, 64, 32), device="meta")
+    with ca.Count() as c:
+        torch.bmm(x, x.transpose(1, 2))
+    assert c.flops == 2 * 2 * 64 * 64 * 32
+
+
+def test_recording_counts_only_its_own_thread():
+    """A count sees the moves its thread makes, not those another thread
+    (a sharded cluster's worker) makes at the same time."""
+    import threading
+
+    from repro_torch.distributed import collectives
+    x = torch.zeros((4, 1024), dtype=torch.uint8)
+    seen = []
+    with collectives.recording(seen.append):
+        worker = threading.Thread(target=collectives.ring_shift, args=(x, 1))
+        worker.start()
+        worker.join()
+        assert seen == []
+        collectives.ring_shift(x, 1)
+        collectives.ring_shift(x, 4)              # a full turn moves nothing
+    collectives.ring_shift(x, 1)                  # outside the context
+    assert seen == [x.numel()]

@@ -158,6 +158,9 @@ def test_import_hygiene_no_jax_no_reference():
             "import repro_torch.examples.serve_degraded\n"
             "import repro_torch.models.moe, repro_torch.models.mamba2\n"
             "import repro_torch.models.rglru, repro_torch.configs.shapes\n"
+            "import repro_torch.kernels.cpu_gf256, repro_torch.kernels.tune\n"
+            "import repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.cost_analysis\n"
             "from repro_torch.configs import ARCH_NAMES, get_config\n"
             "[get_config(a) for a in ARCH_NAMES]\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("

@@ -1089,3 +1089,152 @@ def test_train_step_on_card_matches_cpu(cuda, arch, seq, monkeypatch):
             for k, n in got["op_paths"].items()} == want["op_paths"]
     if "flash_attention:torch-cpu" in want["op_paths"]:
         assert "flash_attention:cuda-kernel" in got["op_paths"]
+
+
+# ---------------------------------------------------------------------------
+# the shape tuner and the dry run on the card
+# ---------------------------------------------------------------------------
+
+def _tune_cases(cuda):
+    from repro_torch.kernels import tune
+    rng = _rng("tune")
+    matmul, per_item = tune.ci_shapes()
+    cases = [("matmul", np.ascontiguousarray(A, np.uint8), batch,
+              _u8(rng, (batch, A.shape[1], chunk), cuda))
+             for A, chunk, batch in matmul]
+    cases += [("delta_per_item",
+               np.ascontiguousarray(np.broadcast_to(M, (batch,) + M.shape)),
+               batch, _u8(rng, (batch, M.shape[1], chunk), cuda),
+               _u8(rng, (batch, M.shape[0], chunk), cuda))
+              for M, chunk, batch in per_item]
+    return cases
+
+
+def test_tune_candidates_match_plain(cuda):
+    """Every strategy the tuner may pick, at every shape it tunes, gives
+    the plain version's bytes."""
+    from repro_torch.kernels import dispatch, tune
+    du = importlib.import_module("repro_torch.kernels.delta_update")
+    for op, A, batch, data, *parity in _tune_cases(cuda):
+        cands = tune.candidates(op, dispatch.CUDA, m=A.shape[-2],
+                                k=A.shape[-1], is01=coefs.is01(A))
+        assert cands
+        for cand in cands:
+            s = cand["strategy"]
+            if op == "delta_per_item":
+                got = du.delta_apply_per_item_batched(parity[0], A, data,
+                                                      strategy=s)
+                want = gf256_matmul_per_item_plain(A, data, parity[0])
+            elif batch == 1:
+                got = gf256_matmul(A, data[0], strategy=s)
+                want = gf256_matmul_plain(A, data[0])
+            else:
+                got = gf256_matmul_batched(A, data, strategy=s)
+                want = gf256_matmul_batched_plain(A, data)
+            assert torch.equal(got, want), (op, A.shape, batch, s)
+
+
+def test_tuned_entries_launch_their_kernels(cuda, tmp_path, monkeypatch):
+    """A ``cuda-kernel`` entry steers the call: ``cols`` for the RS encode
+    rows (batched and single-stripe) launches the column-loop kernel in
+    place of the unrolled ones, and ``cols`` for the RDP per-item shape
+    sends bytes in place of row masks; without the cache the rule's
+    kernels run."""
+    import json
+
+    from repro_torch.kernels import dispatch, reset_launch_counts, tune
+    gm = importlib.import_module("repro_torch.kernels.gf256_matmul")
+    du = importlib.import_module("repro_torch.kernels.delta_update")
+    cases = _tune_cases(cuda)
+    entries = {}
+    for op, A, batch, data, *_ in cases:
+        entries[tune.key(op, dispatch.CUDA, k=A.shape[-1], m=A.shape[-2],
+                         chunk=data.shape[-1], batch=batch,
+                         cls=tune.matrix_cls(A))] = {"strategy": "cols",
+                                                     "block_c": 0}
+    path = tmp_path / "tune.json"
+    path.write_text(json.dumps({"version": 1, "entries": entries}))
+    forms = []
+    real = gm.per_item_host
+    monkeypatch.setattr(gm, "per_item_host", lambda Ms, s: forms.append(
+        real(Ms, s)[0]) or real(Ms, s))
+    for cached in (True, False):
+        if cached:
+            monkeypatch.setenv(tune.ENV, str(path))
+        else:
+            monkeypatch.delenv(tune.ENV)
+        tune.load_cache(reload=True)
+        for op, A, batch, data, *parity in cases:
+            forms.clear()
+            reset_launch_counts()
+            if op == "delta_per_item":
+                du.delta_apply_per_item_batched(parity[0], A, data)
+                want = "gf_per_item_fold"
+                assert forms == [0 if cached or not coefs.is01(A)
+                                 else coefs.mask_bytes(A.shape[-1])]
+            elif batch == 1:
+                gf256_matmul(A, data[0])
+                want = ("gf_matmul_cols_batched" if cached else
+                        {"unroll": "gf_matmul", "gf01": "gf01_matmul_batched",
+                         "cols": "gf_matmul_cols_batched"}[
+                            choose_strategy(A)])
+            else:
+                gf256_matmul_batched(A, data)
+                want = gm._KERNEL_OF["cols" if cached
+                                     else choose_strategy(A)]
+            torch.cuda.synchronize()
+            assert {k: v for k, v in launch_counts().items() if v} \
+                == {want: 1}, (cached, op, A.shape, batch)
+    tune.load_cache(reload=True)
+
+
+def test_flash_flops_counted_on_card_as_on_meta(cuda):
+    """``FlopCounterMode`` counts kernel 11 by its formula on the card and
+    on meta alike: 4·B·H·hd per causal pair."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import dispatch
+    shape_q, shape_k = (2, 256, 8, 64), (2, 256, 2, 64)
+    want = flash.flash_flops(shape_q, shape_k, True)
+    for dev in (cuda, "meta"):
+        with dispatch.dry_run():
+            q = torch.zeros(shape_q, dtype=torch.bfloat16, device=dev)
+            k = torch.zeros(shape_k, dtype=torch.bfloat16, device=dev)
+            with FlopCounterMode(display=False) as fc:
+                out = flash.flash_attention(q, k, k)
+        assert out.shape == shape_q and fc.get_total_flops() == want, dev
+
+
+def test_dryrun_predicts_a_reduced_train_step(cuda):
+    """The dry run's argument bytes and FLOPs for a reduced starcoder2-3b
+    train step (B 2 x S 256, AdamW) equal what the same step asks of the
+    card's allocator (``requested_bytes``) and counts there."""
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_reduced("starcoder2-3b").scaled(remat="full")
+    shape = dryrun.cell_shape("train_4k", batch=2, seq=256)
+    mesh = make_host_mesh()
+    with dispatch.dry_run():
+        pred = dryrun.count_cell(cfg, shape, mesh, "adamw")
+        want_args = dryrun.build_cell(cfg, shape, mesh,
+                                      optimizer="adamw").device_bytes()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    cell = dryrun.build_cell(cfg, shape, mesh, optimizer="adamw",
+                             device=cuda, generator=gen)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["requested_bytes.all.current"] \
+        - base == want_args
+    with FlopCounterMode(display=False) as fc:
+        cell.step()
+    torch.cuda.synchronize()
+    assert fc.get_total_flops() == pred["flops"]
