@@ -167,7 +167,26 @@ in place of the card):
              that cache one call per shape launches the winner's kernel
              (a per-item shape in the winner's coefficient form), with
              the committed defaults (no ``cuda-kernel`` entry) today's;
-17. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
+17. ranks  - the EC store with one mesh position per rank
+             (``distributed/ranks.py``): ranks spawned with
+             ``torch.multiprocessing`` on this card under gloo (NCCL
+             refuses two ranks on one card), initialised through a
+             ``file://`` store, joined within a deadline.  (a)
+             starcoder2-3b's parameters at full width and depth laid out
+             over (data 4, model 1), RS(3,2) with 256-byte pages: each
+             rank gets its blocks of the parent's parameters (shared, not
+             copied) and runs ``ECCheckpoint(comm=...)``: ``create``, a
+             ``stage``/``commit`` around a seeded in-place change, and the
+             rebuild of data index 0; (b) RS(10,8) with 4 KB pages over
+             (12, 1) on 64 MiB of seeded pages a rank: encode, the delta
+             update, the systolic chain, the pair rebuild of (0, 5) both
+             ways.  Each result equals the stacked store's, computed
+             first on the card, byte for byte; each rank sends m*k*S
+             pages an update and (A - 1)*k*S a rebuild, launches kernel
+             1 and takes no CPU or plain path; prints per rank the
+             seconds and bytes of each operation, its launches and
+             ``op_paths``;
+18. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
              step at phase 12's cut (B 2 x S 2,048, remat "full",
              AdamW, the 1 x 1 mesh), made on ``meta``, against the same
              step on the card: the argument bytes asked of the allocator
@@ -188,7 +207,7 @@ counted (a call reached through a binding it does not wrap fails the
 run); then every shape is timed and each kernel's loss per run, calls x
 (kernel ms - bound ms), is printed beside its launches.
 Kernel 10 is also held against its plain version on the real object
-index of a server of the loaded RS testbed.  Every phase of 4-17 starts
+index of a server of the loaded RS testbed.  Every phase of 4-18 starts
 with the launch counts at 0 and reads them when it ends; launches made
 to compare a kernel with its plain version are not counted.  The line
 before the last is ``{"kernels": [...]}``;
@@ -3024,6 +3043,286 @@ def run_tune(np, torch, dev, card):
     return launches, nums
 
 
+# the ranks phase: (a) the training copy's layout (``TRAIN_MESH``,
+# ``TRAIN_EC``: the reference example's code, mesh and page) on
+# starcoder2-3b's parameters at full width and depth, one rank a
+# position; (b) the production code, RS(10,8) with 4 KB pages over
+# (12, 1), on ``RANKS_CODE_BYTES`` of seeded pages a rank.  Gloo ranks on
+# ``cuda:0`` (NCCL refuses two ranks on one card), joined within a
+# deadline that kills them
+RANKS_SEED = 23
+RANKS_CODE = dict(k=8, m=2, page_size=4096)
+RANKS_CODE_MESH = (12, 1)
+RANKS_CODE_BYTES = 64 << 20
+RANKS_PAIR = (0, 5)
+RANKS_DEADLINE = {"state": 300.0, "code": 180.0}
+
+
+def flip_leaves(torch, tree, specs, flips, mesh=None, coords=None):
+    """The seeded in-place change of the ranks phase: every byte of leaf i
+    XORed with ``flips[i]`` (an involution).  With ``mesh`` and
+    ``coords``: only the blocks that position writes
+    (``sharding.writes_block``), so that the ranks sharing a leaf's
+    storage change each byte once."""
+    from repro_torch.distributed.sharding import writes_block
+    from repro_torch.tree import Stacked, leaves
+    for leaf, spec, c in zip(leaves(tree), leaves(specs), flips):
+        if mesh is not None and not writes_block(spec, mesh, coords):
+            continue
+        for part in (leaf.parts if isinstance(leaf, Stacked) else [leaf]):
+            v = part.detach()
+            v = v.unsqueeze(0) if v.dim() == 0 else v
+            v.view(torch.uint8).bitwise_xor_(c)
+
+
+def _rank_timed(torch, ops, name, fn, *args):
+    """``fn(*args)`` on a rank between two synchronisations: its wall s
+    and the bytes the rank sent (``collectives.recording``)."""
+    from repro_torch.distributed.collectives import recording
+    sent = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording(sent.append):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    ops[name] = {"s": time.perf_counter() - t0, "bytes_sent": sum(sent)}
+    return out
+
+
+def _differ(torch, got, want) -> int:
+    """Bytes of ``got`` that differ from ``want`` (0 when equal)."""
+    if tuple(got.shape) != tuple(want.shape):
+        return got.numel() or 1
+    return 0 if torch.equal(got, want) else int((got != want).sum())
+
+
+def rank_state_body(comm, local, specs, ec_kw, flips, want):
+    """Ranks phase (a), one rank: ``ECCheckpoint(comm=...)`` on the rank's
+    blocks of the parent's parameters (shared, not copied): ``create``,
+    ``stage``, the seeded in-place change of the blocks the rank writes
+    (between barriers, so no rank packs a shared block while another
+    changes it), ``commit``, and the rebuild of data index 0, each held
+    byte for byte against the stacked store's result at the rank's
+    coordinate (``want``, computed by the parent on the card)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.ecstore import ECConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train.checkpoint import ECCheckpoint
+    torch.cuda.set_device(0)
+    cfg = ECConfig(**ec_kw)
+    ec = ECCheckpoint(comm.mesh, specs, cfg, comm)
+    ops, diff = {}, {}
+    reset_launch_counts()
+    _rank_timed(torch, ops, "create", ec.create, local)
+    diff["create"] = _differ(torch, ec.parity, want["create"])
+    _rank_timed(torch, ops, "stage", ec.stage, local)
+    dist.barrier()
+    _rank_timed(torch, ops, "change", flip_leaves, torch, local, specs,
+                flips, comm.mesh, comm.coords)
+    dist.barrier()
+    _rank_timed(torch, ops, "commit", ec.commit, local)
+    diff["commit"] = _differ(torch, ec.parity, want["commit"])
+    rec = _rank_timed(torch, ops, "reconstruct0", ec.reconstruct, local, 0)
+    diff["reconstruct0"] = _differ(torch, rec, want["rebuild0"])
+    return dict(coords=comm.coords, pages=int(ec.parity.shape[1]) * cfg.k,
+                ops=ops, diff=diff, launches=launch_counts(),
+                op_paths=dict(comm.op_paths),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def rank_code_body(comm, pages, xor, ec_kw, pair, want):
+    """Ranks phase (b), one rank: ``rank_encode_parity``, then
+    ``rank_parity_delta_update`` and ``rank_parity_delta_update_chain`` of
+    a seeded delta, then the pair rebuild of ``pair`` both ways, each held
+    byte for byte against the stacked store's (``want``)."""
+    import torch
+    from repro_torch.distributed import ecstore
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.set_device(0)
+    cfg = ecstore.ECConfig(**ec_kw)
+    ops, diff = {}, {}
+    reset_launch_counts()
+    enc = _rank_timed(torch, ops, "encode", ecstore.rank_encode_parity,
+                      pages, cfg, comm)
+    diff["encode"] = _differ(torch, enc, want["encode"])
+    for name, fn in (("update", ecstore.rank_parity_delta_update),
+                     ("update_chain",
+                      ecstore.rank_parity_delta_update_chain)):
+        got = _rank_timed(torch, ops, name, fn, xor, enc, cfg, comm)
+        diff[name] = _differ(torch, got, want[name])
+    f1, f2 = pair
+    for a, b in ((f1, f2), (f2, f1)):
+        got = _rank_timed(torch, ops, f"pair{a}_{b}",
+                          ecstore.rank_reconstruct_failed_pair, pages, enc,
+                          a, b, cfg, comm)
+        diff[f"pair{a}_{b}"] = _differ(torch, got, want[f"pair{a}_{b}"])
+    return dict(coords=comm.coords, pages=int(pages.shape[0]), ops=ops,
+                diff=diff, launches=launch_counts(),
+                op_paths=dict(comm.op_paths))
+
+
+def _check_ranks(results, label, sends, card) -> dict:
+    """Every rank's results equal the stacked store's, its bytes sent
+    equal ``sends[op]`` (bytes of one call), kernel 1 launched and every
+    product took the kernel; returns the launches summed over ranks."""
+    total = {}
+    for res in results:
+        log(f"ranks {label} [{card}] rank at {tuple(res['coords'])}: "
+            f"{json.dumps({k: res[k] for k in res if k != 'coords'})}")
+        assert not any(res["diff"].values()), (label, res["coords"],
+                                               res["diff"])
+        for op, want in sends.items():
+            got = res["ops"][op]["bytes_sent"]
+            assert got == want, (label, res["coords"], op, got, want)
+        assert res["launches"]["gf_matmul_batched"] > 0, res["launches"]
+        assert set(res["op_paths"].values()) == {"cuda-kernel"}, \
+            res["op_paths"]
+        for name, n in res["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def run_ranks(np, torch, dev, card):
+    """The EC store with one mesh position per rank
+    (``distributed/ranks.py``), spawned ranks under gloo on this card
+    (module notes at ``RANKS_SEED``): (a) starcoder2-3b's parameters over
+    ``TRAIN_MESH`` with ``TRAIN_EC`` through ``ECCheckpoint(comm=...)``,
+    (b) ``RANKS_CODE`` over ``RANKS_CODE_MESH``.  The parent computes the
+    stacked store's results on the card first; every rank must equal
+    them at its coordinate byte for byte, send m*k*S pages an update and
+    (A - 1)*k*S a rebuild, launch kernel 1 and take no CPU or plain path.
+    A failed or hung rank fails the phase.  Returns the ranks' launches
+    and the numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ecstore
+    from repro_torch.distributed import ranks as rk
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.convert import param_tree
+    from repro_torch.tree import Stacked, leaves, tree_map
+    t_phase = time.perf_counter()
+    nums = {"allocated_gb_before": torch.cuda.memory_allocated() / 1e9}
+
+    # (a) the paper's state at full size
+    t0 = time.perf_counter()
+    cfg = get_config(MODEL_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = Model(cfg, device=dev).init(gen)
+    params = tree_map(lambda x: Stacked(p.detach() for p in x.parts)
+                      if isinstance(x, Stacked) else x.detach(),
+                      param_tree(model))
+    mesh = make_mesh(TRAIN_MESH, ("data", "model"))
+    specs = shd.param_specs(cfg, params, mesh)
+    ec_cfg = ecstore.ECConfig(**TRAIN_EC)
+    store = ecstore.ECStateStore(mesh, specs, ec_cfg)
+    flips = [int(c) for c in np.random.default_rng(RANKS_SEED).integers(
+        1, 256, len(leaves(params)))]
+    with torch.no_grad():
+        enc_old = store.encode(params)
+        flip_leaves(torch, params, specs, flips)
+        enc_new = store.encode(params)
+        rebuilt = store.reconstruct(params, enc_new, 0)
+        live = store.pack(params)
+        assert torch.equal(rebuilt[0], live[0]), "stacked rebuild of 0"
+        del live
+        rebuild0 = rebuilt[0, 0]
+        assert not torch.equal(enc_old, enc_new), "the change changed nothing"
+        flip_leaves(torch, params, specs, flips)
+    torch.cuda.synchronize()
+    _free(torch)
+    P = int(enc_old.shape[-2]) * ec_cfg.k
+    S, page, A = P // ec_cfg.k, ec_cfg.page_size, TRAIN_MESH[0]
+    nums["state"] = dict(pages_per_rank=P, gb_per_rank=P * page / 1e9,
+                         stacked_s=time.perf_counter() - t0)
+    log(f"ranks (a): starcoder2-3b, {mesh.axis_sizes} mesh, "
+        f"RS({ec_cfg.n},{ec_cfg.k}) {page}-byte pages: {P} pages "
+        f"({P * page / 1e9:.3f} GB) a rank; no cut")
+    def rank_of(at):
+        local = tree_map(lambda leaf, spec: shd.local_block(leaf, spec,
+                                                            mesh, at),
+                         params, specs)
+        return (local, specs, TRAIN_EC, flips,
+                {"create": enc_old[at], "commit": enc_new[at],
+                 "rebuild0": rebuild0})
+    rank_args = [rank_of(mesh.coords(r)) for r in range(mesh.size)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
+        res = rk.launch(rank_state_body, mesh, rank_args,
+                        init_file=os.path.join(tmp, "init"),
+                        timeout=RANKS_DEADLINE["state"])
+    nums["state"]["spawn_s"] = time.perf_counter() - t0
+    update = ec_cfg.m * ec_cfg.k * S * page
+    launches = _check_ranks(res, "(a)", {
+        "create": update, "commit": update,
+        "reconstruct0": (A - 1) * ec_cfg.k * S * page}, card)
+    with torch.no_grad():
+        after = store.encode(params)
+        assert torch.equal(after, enc_new), \
+            "the ranks' in-place change is not the parent's"
+    nums["state"]["ranks"] = [dict(coords=x["coords"], ops=x["ops"],
+                                   launches=x["launches"]["gf_matmul_batched"],
+                                   peak_gb=x["peak_gb"]) for x in res]
+    del rank_args, enc_old, enc_new, rebuilt, rebuild0, after, store
+    del params, model
+    _free(torch)
+    torch.cuda.ipc_collect()
+
+    # (b) the production code on seeded pages
+    mesh = make_mesh(RANKS_CODE_MESH, ("data", "model"))
+    cfg_b = ecstore.ECConfig(**RANKS_CODE)
+    A, page = RANKS_CODE_MESH[0], cfg_b.page_size
+    P = RANKS_CODE_BYTES // page
+    S = P // cfg_b.k
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(RANKS_SEED)
+    pages, xor = (torch.randint(0, 256, RANKS_CODE_MESH + (P, page),
+                                dtype=torch.uint8, device=dev, generator=gen)
+                  for _ in range(2))
+    enc = ecstore.encode_parity(pages, cfg_b)
+    want = {"encode": enc,
+            "update": ecstore.parity_delta_update(xor, enc, cfg_b),
+            "update_chain": ecstore.parity_delta_update_chain(xor, enc,
+                                                              cfg_b)}
+    f1, f2 = RANKS_PAIR
+    for a, b in ((f1, f2), (f2, f1)):
+        rec = ecstore.reconstruct_failed_pair(pages, enc, a, b, A, cfg_b)
+        assert torch.equal(rec[0, 0], pages[a, 0]), "stacked pair rebuild"
+        want[f"pair{a}_{b}"] = rec
+    torch.cuda.synchronize()
+    rank_args = []
+    for r in range(mesh.size):
+        at = mesh.coords(r)
+        rank_args.append((pages[at], xor[at], RANKS_CODE, RANKS_PAIR,
+                          {k: v[at] for k, v in want.items()}))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
+        res = rk.launch(rank_code_body, mesh, rank_args,
+                        init_file=os.path.join(tmp, "init"),
+                        timeout=RANKS_DEADLINE["code"])
+    update = cfg_b.m * cfg_b.k * S * page
+    rebuild = (A - 1) * cfg_b.k * S * page
+    more = _check_ranks(res, "(b)", {
+        "encode": update, "update": update,
+        "update_chain": (cfg_b.k * cfg_b.m + cfg_b.m * (cfg_b.m - 1) // 2)
+        * S * page,
+        f"pair{f1}_{f2}": rebuild, f"pair{f2}_{f1}": rebuild}, card)
+    for name, n in more.items():
+        launches[name] = launches.get(name, 0) + n
+    nums["code"] = dict(pages_per_rank=P, spawn_s=time.perf_counter() - t0,
+                        ranks=[dict(coords=x["coords"], ops=x["ops"])
+                               for x in res])
+    del rank_args, pages, xor, enc, want, rec
+    _free(torch)
+    torch.cuda.ipc_collect()
+    nums["allocated_gb_after"] = torch.cuda.memory_allocated() / 1e9
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase ranks: {nums['phase_s']:.1f} s")
+    return launches, nums
+
+
 def run_dryrun(np, torch, dev, card):
     """The dry run against the card.  ``launch.dryrun.run_cell`` counts
     starcoder2-3b ``train_4k`` cut to the train phase's B 2 x S 2,048
@@ -3226,6 +3525,8 @@ def main() -> int:
     log(f"train-moe phase [{card}]:", json.dumps(train_moe))
     by_phase["tune"], tuned = run_tune(np, torch, dev, card)
     log(f"tune phase [{card}]:", json.dumps(tuned))
+    by_phase["ranks"], ranks = run_ranks(np, torch, dev, card)
+    log(f"ranks phase [{card}]:", json.dumps(ranks))
     by_phase["dryrun"], dry = run_dryrun(np, torch, dev, card)
     log(f"dryrun phase [{card}]:", json.dumps(dry))
     for row in rows:

@@ -1,13 +1,21 @@
-"""Collective building blocks over a stacked mesh axis: GF(2^8) scaling,
-XOR rings, compressed psum.
+"""Collective building blocks: GF(2^8) scaling, XOR rings, compressed
+psum, in two forms.
 
 The reference runs these inside ``shard_map`` bodies, one device per
 mesh position, with ``ppermute``/``all_gather`` between devices
-(``src/repro/distributed/collectives.py``).  The port holds every
-position on one card with the mesh axis as a tensor dimension ``dim``,
-so a ring shift is a roll along it and a reduction is a reduction over
-it; the results keep that dimension, holding at each position what the
-reference's position holds.
+(``src/repro/distributed/collectives.py``).  The port has them twice:
+
+* stacked (``ring_shift``, ``ring_xor_reduce``, ``compressed_psum``):
+  every position on one card, the mesh axis a tensor dimension ``dim``;
+  a ring shift is a roll along it and a reduction a reduction over it,
+  and the results keep that dimension, holding at each position what the
+  reference's position holds;
+* per rank (``rank_ring_shift``, ``rank_ring_xor_reduce``,
+  ``rank_compressed_psum``): one position's block on one rank of a
+  process group, moved by a communicator (``distributed/ranks.py``), step
+  for step as the reference: a shift is one send and one receive, the
+  XOR-reduce A - 1 shift-and-XOR steps, the psum an ``all_gather`` of
+  int8 payloads and fp32 scales summed in data order.
 
 ``gf_scale_static`` multiplies by a static coefficient over GF(2^8).  On
 a CUDA tensor it is one launch of the shared-matrix product kernel
@@ -15,12 +23,12 @@ a CUDA tensor it is one launch of the shared-matrix product kernel
 [gamma], kernel 1); on a CPU tensor it is the reference's bit-plane
 identity gamma*x = XOR_b bit_b(x) * (gamma*2^b) in torch.
 
-Where a position's block moves to another position (``ring_shift``, and
-the EC store's rotations, rolled XORs and rebuild gathers), the mover
-calls ``note_permute`` or ``note_send``: inside ``recording``
-(``launch/cost_analysis.py``) that counts the bytes the positions would
-send to other cards, the reference's ``collective-permute``; outside it
-costs one attribute read.
+Where a position's block moves to another position (``ring_shift``, the
+stacked EC store's rotations, rolled XORs and rebuild gathers, and every
+send of a rank's communicator), the mover calls ``note_permute`` or
+``note_send``: inside ``recording`` (``launch/cost_analysis.py``) that
+counts the bytes the positions send to other cards, the reference's
+``collective-permute``; outside it costs one attribute read.
 """
 from __future__ import annotations
 
@@ -136,3 +144,50 @@ def compressed_psum(x: torch.Tensor, dim: int = 0, *, block: int = 256
     out = torch.sum(q.to(torch.float32) * scale, dim=0)
     out = out.reshape(-1)[:n].reshape(xs.shape[1:])
     return out.unsqueeze(dim).expand(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# rank forms: one position's block, moved by a communicator
+# ---------------------------------------------------------------------------
+
+def rank_ring_shift(x: torch.Tensor, comm, shift: int) -> torch.Tensor:
+    """Send x to data index (d + shift) mod A; receive from (d - shift)."""
+    return comm.shift(x, shift)
+
+
+def rank_ring_xor_reduce(x: torch.Tensor, comm) -> torch.Tensor:
+    """XOR of the column's blocks, on every rank: A - 1 steps, each a
+    shift by one and an XOR (the reference's ``fori_loop``)."""
+    return rank_ring_xor_reduce_(x.clone(), comm)
+
+
+def rank_ring_xor_reduce_(acc: torch.Tensor, comm) -> torch.Tensor:
+    """``rank_ring_xor_reduce`` into ``acc``, the rank's block, in place
+    (no copy of the block)."""
+    buf = acc
+    for _ in range(comm.axis_size - 1):
+        buf = comm.shift(buf, 1)
+        acc ^= buf
+    return acc
+
+
+def rank_compressed_psum(x: torch.Tensor, comm, *, block: int = 256
+                         ) -> torch.Tensor:
+    """int8-quantized sum over the column (cross-pod gradient
+    compression): the rank quantizes its block to int8 with per-block
+    absmax scales, gathers every rank's payload and scales, and sums the
+    dequantized blocks in data order."""
+    shape = x.shape
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    pad = (-n) % block
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    blocks = flat.reshape(-1, block)
+    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    qg = comm.all_gather(q)                         # (A, nb, block) int8
+    sg = comm.all_gather(scale)                     # (A, nb, 1) fp32
+    out = torch.sum(qg.to(torch.float32) * sg, dim=0)
+    return out.reshape(-1)[:n].reshape(shape)

@@ -1,5 +1,4 @@
-"""EC in-memory state store: the paper's architecture over a mesh held on
-one card.
+"""EC in-memory state store: the paper's architecture over a mesh.
 
 MemEC's roles map onto the mesh's **data axis** (A positions per model
 column).  Stripe lists (paper §4.3) are *rotationally symmetric*, as in
@@ -12,41 +11,61 @@ Layout per position: its state bytes -> pages (P, page) uint8, page p of
 class j = p mod k and stripe s = p div k belongs to list (d - j) mod A;
 its parity (m, P//k, page): row r protects list (d - k - r) mod A.
 
-The reference runs one device per position inside ``shard_map`` and moves
-the gamma-scaled deltas with ``ppermute``.  Here every position lies on
-the card, stacked: every function takes and returns the global arrays the
-reference's ``out_specs`` produce - pages ``(A_data, A_model..., P,
-page)``, parity ``(A_data, A_model..., m, P/k, page)``, the mesh axes in
-the mesh's order and ``data_dim`` naming the data axis among them - with
-the same bytes.
+The reference runs one device per position inside ``shard_map``.  The
+port holds the positions in one of two ways, with the same bytes; they
+move different blocks between positions.
 
-The products run on the shared-matrix kernel (kernel 1,
-``kernels.gf256_matmul.gf256_matmul_batched``, on a CUDA tensor; its plain
-version on a CPU tensor), with no loop over pages or stripes:
+**Stacked on one card** (``launch.train``, ``serve --protect``, the
+train phases of ``chip_smoke.py``): every function takes and returns the
+global arrays the reference's ``out_specs`` produce - pages ``(A_data,
+A_model..., P, page)``, parity ``(A_data, A_model..., m, P/k, page)``,
+the mesh axes in the mesh's order and ``data_dim`` naming the data axis
+among them.  The products run on the shared-matrix kernel (kernel 1,
+``kernels.gf256_matmul.gf256_matmul_batched``, on a CUDA tensor; its
+plain version on a CPU tensor), with no loop over pages or stripes, and
+the moves are in-card copies chosen for that:
 
 * encode and the delta update (``_fold_parity``): each class j of the
-  page buffer is rotated in place along the data axis by j positions, so
-  that item (l, s) holds stripe s of list l with its k members in order;
-  one kernel-1 call with the (m, k) parity matrix then computes every
-  list's m parity pages, and row r is XORed into the parity buffer
-  rolled by k + r positions: one launch per update, whatever the
-  state's size (the wrapper splits nothing);
+  page buffer is rotated in place along the data axis by j positions
+  (k - 1 moves of a class), so that item (l, s) holds stripe s of list
+  l with its k members in order; one kernel-1 call with the (m, k) parity
+  matrix computes every list's m parity pages, and row r is XORed into
+  the parity buffer rolled by k + r positions (m moves): one launch per
+  update, whatever the state's size;
 * reconstruction (``reconstruct_failed``, ``reconstruct_failed_pair``):
-  for each class j the survivors' pages are gathered into a (items,
-  survivors, page) batch and one kernel-1 call with the (1, survivors)
-  decode row rebuilds that class: k launches.
+  for each class j the survivors' pages are gathered at the failed
+  position into a (items, survivors, page) batch and one kernel-1 call
+  with the (1, survivors) decode row rebuilds that class: k launches;
+* ``parity_delta_update_chain`` keeps the reference's m*k
+  scale-and-shift steps (``collectives.gf_scale_static``).
 
-The systolic variant ``parity_delta_update_chain`` keeps the reference's
-m*k scale-and-shift steps (``collectives.gf_scale_static``, kernel 1 on
-the card with a (1, 1) matrix).
+**One position per rank** (``rank_*``, and ``ECStateStore`` with a
+``comm`` from ``distributed/ranks.py``): the reference's per-device
+bodies, line for line, on the rank's own ``(P, page)`` pages and ``(m,
+P/k, page)`` parity, moving the reference's blocks:
+
+* ``rank_parity_delta_update`` (and ``rank_encode_parity``): m*k sends
+  of a class's gamma-scaled pages, (S, page) each, with shift
+  (k + r - j) mod A;
+* ``rank_parity_delta_update_chain``: the systolic ring, k*m + m(m-1)/2
+  shifts by one;
+* ``rank_reconstruct_failed`` and ``rank_reconstruct_failed_pair``: each
+  rank's masked, coefficient-scaled contribution to each class, XOR-
+  reduced over the ring: (A - 1)*k shifts.
+
+A rank's products are one kernel-1 call per update (the (m*k, k) matrix
+whose row r*k + j holds gamma[r, j] in column j gives every scaled class
+at once) and at most 1 + m per class of a rebuild, on the card as on
+the stacked store; the sends stay the reference's.
 
 One difference from the reference: its single-failure reconstruction
 picks parity row 0 at list position k, not k mod A, and a data member at
 list position pos, not pos mod A, so on a mesh of A <= k positions it
 drops those terms (on the 1 x 1 host mesh with k = m = 1 it rebuilds
-zeros).  The port wraps both mod A, as the reference's own encode and
-pair reconstruction do; where k + m <= A (every mesh the reference's tests
-use) the two agree byte for byte.
+zeros).  The port wraps both mod A in both forms, as the reference's own
+encode and pair reconstruction do, so a rank equals the stacked store on
+every mesh; where k + m <= A (every mesh the reference's tests use) both
+agree with the reference byte for byte.
 
 Storage overhead: m/k (25 % for RS(10,8)) vs 100 %+ for replication.
 """
@@ -60,9 +79,11 @@ import numpy as np
 import torch
 
 from ..core.codes import RSCode
+from ..kernels import dispatch
 from ..kernels.gf256_matmul import gf256_matmul_batched
 from ..tree import Stacked, leaves, leaves_with_path, path_str
-from .collectives import gf_scale_static, note_permute, note_send, ring_shift
+from .collectives import (gf_scale_static, note_permute, note_send,
+                          rank_ring_xor_reduce_, ring_shift)
 from .sharding import local_leaf_view
 
 
@@ -364,20 +385,11 @@ def reconstruct_failed(pages: torch.Tensor, parity: torch.Tensor,
     return _rebuild(pages, parity, cfg, data_dim, failed, terms)
 
 
-def reconstruct_failed_pair(pages: torch.Tensor, parity: torch.Tensor,
-                            f1: int, f2: int, axis_size: int,
-                            cfg: ECConfig, data_dim: int = 0
-                            ) -> torch.Tensor:
-    """Rebuild position f1's pages when positions {f1, f2} are both lost
-    (m >= 2 tolerance).  Call twice (swapping f1/f2) to rebuild both.
-
-    Positions are relative to list l = f1 - j: f1 sits at data position
-    j, f2 at pos2 = (f2 - f1 + j) mod A (a data member iff pos2 < k),
-    parity row r's owner at (k + r) mod A."""
-    A = axis_size
-    if pages.shape[data_dim] != A:
-        raise ValueError(f"axis_size {A}, pages {tuple(pages.shape)}")
-
+def _pair_terms(cfg: ECConfig, f1: int, f2: int, A: int):
+    """``terms_of`` for rebuilding f1 when f1 and f2 are lost: list l =
+    f1 - j holds f1 at data position j, f2 at pos2 = (f2 - f1 + j) mod A
+    (a data member iff pos2 < k), parity row r's owner at (k + r) mod
+    A."""
     def terms(j):
         pos2 = (f2 - f1 + j) % A
         data_missing = [j] + ([pos2] if pos2 < cfg.k else [])
@@ -394,8 +406,187 @@ def reconstruct_failed_pair(pages: torch.Tensor, parity: torch.Tensor,
         return [(c, pos, None if pos < cfg.k else pos - cfg.k)
                 for pos, c in _decode_coeffs_pair(cfg.k, cfg.m, j, other,
                                                   rows)]
+    return terms
 
-    return _rebuild(pages, parity, cfg, data_dim, int(f1) % A, terms)
+
+def reconstruct_failed_pair(pages: torch.Tensor, parity: torch.Tensor,
+                            f1: int, f2: int, axis_size: int,
+                            cfg: ECConfig, data_dim: int = 0
+                            ) -> torch.Tensor:
+    """Rebuild position f1's pages when positions {f1, f2} are both lost
+    (m >= 2 tolerance).  Call twice (swapping f1/f2) to rebuild both.
+
+    Positions are relative to list l = f1 - j: f1 sits at data position
+    j, f2 at pos2 = (f2 - f1 + j) mod A (a data member iff pos2 < k),
+    parity row r's owner at (k + r) mod A."""
+    A = axis_size
+    if pages.shape[data_dim] != A:
+        raise ValueError(f"axis_size {A}, pages {tuple(pages.shape)}")
+    return _rebuild(pages, parity, cfg, data_dim, int(f1) % A,
+                    _pair_terms(cfg, f1, f2, A))
+
+
+# ---------------------------------------------------------------------------
+# core EC ops on one rank (the reference's per-device bodies)
+# ---------------------------------------------------------------------------
+
+def _rank_check(pages: torch.Tensor, cfg: ECConfig) -> tuple:
+    if pages.dtype != torch.uint8 or pages.dim() != 2:
+        raise ValueError(f"pages {tuple(pages.shape)} {pages.dtype}: "
+                         f"expected (P, page) uint8")
+    Pn, page = pages.shape
+    if page != cfg.page_size or Pn % cfg.k:
+        raise ValueError(f"pages (P {Pn}, page {page}) for k {cfg.k}, "
+                         f"page {cfg.page_size}")
+    return Pn // cfg.k, page
+
+
+@functools.lru_cache(maxsize=None)
+def _scaling_matrix(k: int, m: int) -> np.ndarray:
+    """(m*k, k): row r*k + j holds gamma[r, j] in column j."""
+    gamma = ECConfig(k=k, m=m).gamma
+    out = np.zeros((m * k, k), dtype=np.uint8)
+    for r in range(m):
+        for j in range(k):
+            out[r * k + j, j] = gamma[r, j]
+    out.setflags(write=False)
+    return out
+
+
+def _scaled_classes(pages: torch.Tensor, cfg: ECConfig, comm,
+                    op: str) -> torch.Tensor:
+    """gamma[r, j] * (class j of ``pages``) for every (r, j), one
+    kernel-1 call: ``(S, m*k, page)``, column r*k + j."""
+    S, page = _rank_check(pages, cfg)
+    comm.op_paths[op] = dispatch.decide(pages).path
+    return gf256_matmul_batched(_scaling_matrix(cfg.k, cfg.m),
+                                pages.contiguous().view(S, cfg.k, page))
+
+
+def _rank_fold_(xor_pages: torch.Tensor, parity: torch.Tensor,
+                cfg: ECConfig, comm, op: str = "update") -> torch.Tensor:
+    """parity ^= the parity of ``xor_pages``, in place: the reference's
+    ``parity_delta_update``, m*k gamma-scaled sends."""
+    S, page = _rank_check(xor_pages, cfg)
+    if tuple(parity.shape) != (cfg.m, S, page) or \
+            parity.dtype != torch.uint8:
+        raise ValueError(f"parity {tuple(parity.shape)} {parity.dtype}, "
+                         f"expected {(cfg.m, S, page)} uint8")
+    A = comm.axis_size
+    scaled = _scaled_classes(xor_pages, cfg, comm, op)
+    for r in range(cfg.m):
+        for j in range(cfg.k):
+            parity[r] ^= comm.shift(scaled[:, r * cfg.k + j],
+                                    (cfg.k + r - j) % A)
+    return parity
+
+
+def rank_parity_delta_update(xor_pages: torch.Tensor, parity: torch.Tensor,
+                             cfg: ECConfig, comm) -> torch.Tensor:
+    """P' = P ⊕ gamma·(D ⊕ D') routed to the rotated parity owners, on one
+    rank: xor_pages (P, page) this rank's delta, parity (m, P//k, page)
+    its parity; m*k gamma-scaled sends, shift (k + r - j) mod A.  Returns
+    the new parity; the inputs are kept."""
+    return _rank_fold_(xor_pages, parity.clone(), cfg, comm)
+
+
+def rank_parity_delta_update_chain(xor_pages: torch.Tensor,
+                                   parity: torch.Tensor, cfg: ECConfig,
+                                   comm) -> torch.Tensor:
+    """The reference's systolic variant on one rank: at step t the rank
+    XORs gamma[r, t] * (its class-t delta) into the m bundles passing
+    through it, then forwards them one hop; row r then travels r more
+    hops to its owner.  k*m + m(m-1)/2 shifts by one."""
+    S, page = _rank_check(xor_pages, cfg)
+    scaled = _scaled_classes(xor_pages, cfg, comm, "update_chain")
+    bundles = [torch.zeros((S, page), dtype=torch.uint8,
+                           device=xor_pages.device) for _ in range(cfg.m)]
+    for t in range(cfg.k):
+        for r in range(cfg.m):
+            bundles[r] ^= scaled[:, r * cfg.k + t]
+        bundles = [comm.shift(b, 1) for b in bundles]
+    out = parity.clone()
+    for r in range(cfg.m):
+        b = bundles[r]
+        for _ in range(r):
+            b = comm.shift(b, 1)
+        out[r] ^= b
+    return out
+
+
+def rank_encode_parity(pages: torch.Tensor, cfg: ECConfig,
+                       comm) -> torch.Tensor:
+    """Full encode on one rank = delta update from an all-zero parity."""
+    S, page = _rank_check(pages, cfg)
+    parity = torch.zeros((cfg.m, S, page), dtype=torch.uint8,
+                         device=pages.device)
+    return _rank_fold_(pages, parity, cfg, comm, "encode")
+
+
+def _rank_rebuild(pages, parity, cfg: ECConfig, comm, f: int, terms_of,
+                  op: str) -> torch.Tensor:
+    """Position f's pages on every rank of its column.  ``terms_of(j)``
+    lists class j's survivors as (coefficient, position in list f - j,
+    parity row or None for a data member); the rank scales those it holds
+    (list position pos lies on data index (f - j + pos) mod A) and the
+    ring XOR-reduces each class's contributions."""
+    S, page = _rank_check(pages, cfg)
+    A, d = comm.axis_size, comm.index
+    comm.op_paths[op] = dispatch.decide(pages).path
+    cls = pages.contiguous().view(S, cfg.k, page)
+    out = torch.empty((S, cfg.k, page), dtype=torch.uint8,
+                      device=pages.device)
+    for j in range(cfg.k):
+        data_row = np.zeros((1, cfg.k), dtype=np.uint8)
+        contrib = None
+        for coeff, pos, row in terms_of(j):
+            if (f - j + pos) % A != d:
+                continue
+            if row is None:
+                data_row[0, pos] = coeff
+                continue
+            term = gf256_matmul_batched(
+                np.array([[coeff]], np.uint8),
+                parity[row].contiguous().view(S, 1, page)).view(S, page)
+            contrib = term if contrib is None else contrib.bitwise_xor_(term)
+        if data_row.any():
+            term = gf256_matmul_batched(data_row, cls).view(S, page)
+            contrib = term if contrib is None else contrib.bitwise_xor_(term)
+        if contrib is None:
+            contrib = torch.zeros((S, page), dtype=torch.uint8,
+                                  device=pages.device)
+        out[:, j] = rank_ring_xor_reduce_(contrib, comm)
+    return out.view(S * cfg.k, page)
+
+
+def rank_reconstruct_failed(pages: torch.Tensor, parity: torch.Tensor,
+                            failed: int, cfg: ECConfig, comm
+                            ) -> torch.Tensor:
+    """Rebuild the pages of data index ``failed`` on one rank: every rank
+    contributes its coefficient-scaled chunk of each class, masked to the
+    survivors the decode uses (k - 1 data members and parity row 0), and
+    a ring XOR-reduce lands the result on every rank of the column.
+    Returns (P, page)."""
+    failed = int(failed) % comm.axis_size
+
+    def terms(j):
+        return [(c, pos, None if pos < cfg.k else 0)
+                for pos, c in _decode_coeffs(cfg.k, cfg.m, j)]
+
+    return _rank_rebuild(pages, parity, cfg, comm, failed, terms,
+                         "reconstruct")
+
+
+def rank_reconstruct_failed_pair(pages: torch.Tensor, parity: torch.Tensor,
+                                 f1: int, f2: int, cfg: ECConfig, comm
+                                 ) -> torch.Tensor:
+    """Rebuild data index f1's pages on one rank when f1 and f2 are both
+    lost (``reconstruct_failed_pair``'s terms, each rank scaling those it
+    holds, XOR-reduced over the ring).  Call twice (swapping f1/f2) to
+    rebuild both."""
+    A = comm.axis_size
+    return _rank_rebuild(pages, parity, cfg, comm, int(f1) % A,
+                         _pair_terms(cfg, f1, f2, A), "reconstruct_pair")
 
 
 # ---------------------------------------------------------------------------
@@ -405,36 +596,56 @@ def reconstruct_failed_pair(pages: torch.Tensor, parity: torch.Tensor,
 class ECStateStore:
     """Erasure-coded in-memory protection of a state tree laid out over a
     mesh (``launch.mesh.Mesh``) by ``state_specs`` (``sharding.P`` per
-    leaf).  Parity is an ``(A_data, A_other..., m, P/k, page)`` uint8
-    tensor on the state's device."""
+    leaf).
 
-    def __init__(self, mesh, state_specs, cfg: ECConfig | None = None):
+    Without ``comm`` every position is stacked on one card: the methods
+    take the whole tree and parity is an ``(A_data, A_other..., m, P/k,
+    page)`` uint8 tensor on the state's device.  With ``comm``
+    (``distributed.ranks.RankComm``, or ``CountingComm``) the store is one
+    rank's: the methods take the rank's local tree (its blocks,
+    ``sharding.local_block``) and return its ``(P, page)`` pages and
+    ``(m, P/k, page)`` parity, moving the reference's blocks (module
+    notes)."""
+
+    def __init__(self, mesh, state_specs, cfg: ECConfig | None = None,
+                 comm=None):
         self.mesh = mesh
         self.cfg = cfg or ECConfig()
         self.state_specs = state_specs
         if self.cfg.axis not in mesh.axis_names:
             raise ValueError(f"axis {self.cfg.axis!r} not in mesh "
                              f"{mesh.axis_names}")
+        if comm is not None and (comm.mesh != mesh
+                                 or comm.axis != self.cfg.axis):
+            raise ValueError(f"comm on {comm.mesh} axis {comm.axis!r}, "
+                             f"store on {mesh} axis {self.cfg.axis!r}")
         self.data_dim = tuple(mesh.axis_names).index(self.cfg.axis)
+        self.comm = comm
 
     def pack(self, state, out: torch.Tensor | None = None,
              xor: bool = False) -> torch.Tensor:
-        """The state's pages ``(A..., P, page)``: a new tensor, or written
-        (``xor``: XORed) into ``out``, a page buffer of that shape."""
+        """The state's pages ``(A..., P, page)`` (a rank's ``(P, page)``):
+        a new tensor, or written (``xor``: XORed) into ``out``, a page
+        buffer of that shape."""
         cfg = self.cfg
         flat = None if out is None else out.view(out.shape[:-2] + (-1,))
-        flat = pack_bytes(state, self.state_specs, self.mesh, out=flat,
+        mesh = self.mesh if self.comm is None else None
+        flat = pack_bytes(state, self.state_specs, mesh, out=flat,
                           xor=xor, pad_to=cfg.k * cfg.page_size)
         return flat.view(flat.shape[:-1] + (-1, cfg.page_size))
 
     def local_pages(self, state) -> torch.Tensor:
-        """(A_data, A_other..., P, page) global view of state pages."""
+        """(A_data, A_other..., P, page) global view of state pages (a
+        rank's (P, page))."""
         return self.pack(state)
 
     def fold(self, pages: torch.Tensor, parity: torch.Tensor) -> None:
-        """parity ^= the parity of ``pages``, in place; ``pages`` is used
-        as scratch (rotated in place)."""
-        _fold_parity(pages, parity, self.cfg, self.data_dim)
+        """parity ^= the parity of ``pages``, in place; the stacked store
+        uses ``pages`` as scratch (rotated in place), a rank's keeps it."""
+        if self.comm is None:
+            _fold_parity(pages, parity, self.cfg, self.data_dim)
+        else:
+            _rank_fold_(pages, parity, self.cfg, self.comm)
 
     def zero_parity(self, pages: torch.Tensor) -> torch.Tensor:
         """An all-zero parity buffer for ``pages``."""
@@ -457,6 +668,10 @@ class ECStateStore:
         return new
 
     def reconstruct(self, state, parity, failed_index: int) -> torch.Tensor:
-        """Pages of the failed data-axis position (at every position)."""
+        """Pages of the failed data-axis position (at every position; on
+        a rank, ``(P, page)``)."""
+        if self.comm is not None:
+            return rank_reconstruct_failed(self.pack(state), parity,
+                                           failed_index, self.cfg, self.comm)
         return reconstruct_failed(self.pack(state), parity, failed_index,
                                   self.cfg, self.data_dim)

@@ -19,9 +19,10 @@ replicated (norms, biases, small vectors).
 What ``shard_map`` gave the reference is ``local_view``: the slice of a
 leaf a (pod, data, model) position holds - along every dimension its spec
 maps to mesh axes, that position's block; a replicated leaf whole at
-every position.  All positions sit on one card (``launch/mesh.py``), so
+every position.  For the store stacked on one card (``launch/mesh.py``)
 the views of every position come back as one strided view with the mesh
-axes as its leading dimensions.
+axes as its leading dimensions; ``local_block`` is one position's, what a
+rank of ``distributed/ranks.py`` packs its own state from.
 """
 from __future__ import annotations
 
@@ -47,6 +48,10 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple(self)!r}"
+
+    def __getnewargs__(self) -> tuple:
+        # pickle (a spec sent to a rank) rebuilds through ``__new__``
+        return tuple(self)
 
 
 def _batch_axes(mesh) -> tuple:
@@ -268,3 +273,24 @@ def local_leaf_view(leaf, spec: P, mesh):
         return Stacked(local_view(p, P(*spec[1:]), mesh)
                        for p in leaf.parts)
     return local_view(leaf, spec, mesh)
+
+
+def local_block(leaf, spec: P, mesh, coords):
+    """The block of a leaf that the position at mesh coordinate ``coords``
+    holds: ``local_leaf_view`` indexed there, a view of the leaf (a
+    ``Stacked`` of its parts' blocks for a ``Stacked`` leaf)."""
+    at = tuple(int(c) for c in coords)
+    view = local_leaf_view(leaf, spec, mesh)
+    if isinstance(view, Stacked):
+        return Stacked(v[at] for v in view.parts)
+    return view[at]
+
+
+def writes_block(spec: P, mesh, coords) -> bool:
+    """Whether the position at ``coords`` is the one that writes its block
+    of a leaf laid out by ``spec`` in place: a block is shared by the
+    positions along every mesh axis the spec does not name, and the
+    first of them (coordinate 0 on each such axis) writes it."""
+    named = {a for entry in spec for a in _entry_axes(entry)}
+    return all(c == 0 for a, c in zip(mesh.axis_names, coords)
+               if a not in named)

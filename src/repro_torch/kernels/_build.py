@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -89,32 +90,45 @@ def _digest() -> str:
 def build() -> Path:
     """Compile the kernels (once per source hash) and return the library.
 
-    Concurrent builds are safe: each compiles and links in a temporary
-    directory and renames the library into place atomically."""
+    Processes that arrive at once (the ranks of ``distributed/ranks.py``,
+    each importing the package anew) take an exclusive ``flock`` on the
+    build directory's lock file, which the kernel drops when its holder
+    exits, so one of them compiles and the others load its library; the
+    build itself compiles and links in a temporary directory and renames
+    the library into place atomically."""
     lib = BUILD_DIR / f"libkernels_{_digest()}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-            objs = [os.path.join(tmpdir, f"{Path(s).stem}.o")
-                    for s in SOURCES]
-            procs = [subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                for s, o in zip(SOURCES, objs)]
-            outs = [(s, p.communicate()[0], p.returncode)
-                    for s, p in zip(SOURCES, procs)]
-            failed = [f"{s} ({rc}):\n{out}" for s, out, rc in outs if rc]
-            if failed:
-                raise RuntimeError("nvcc failed: " + "\n".join(failed))
-            tmp = os.path.join(tmpdir, "lib.so")
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
-                                   *objs], capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, lib)
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            _compile(lib)
     return lib
+
+
+def _compile(lib: Path) -> None:
+    """nvcc each source in parallel, link, and rename into ``lib``."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, f"{Path(s).stem}.o")
+                for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        outs = [(s, p.communicate()[0], p.returncode)
+                for s, p in zip(SOURCES, procs)]
+        failed = [f"{s} ({rc}):\n{out}" for s, out, rc in outs if rc]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = os.path.join(tmpdir, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
 
 
 def library() -> ctypes.CDLL:

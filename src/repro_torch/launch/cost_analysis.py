@@ -21,8 +21,9 @@ program does:
   before it rounds them into its blocks).
 * collectives: bytes the mesh positions send each other, where the port
   moves a position's block to another explicitly
-  (``distributed.collectives.note_permute``/``note_send``: ``ring_shift``
-  and the EC store's rotations, rolled XORs and rebuild gathers).  All of
+  (``distributed.collectives.note_permute``/``note_send``: ``ring_shift``,
+  the stacked EC store's rotations, rolled XORs and rebuild gathers, and
+  every send of a rank's communicator, ``distributed/ranks.py``).  All of
   them are ``collective-permute``s.  On one card nothing crosses a link;
   the count is what a mesh of cards would send.
 

@@ -17,11 +17,15 @@ argument bytes each device of the mesh holds under
   counted at full depth.  The peak's place in a training step moves with
   depth, so its extrapolation is an estimate (``peak_extrapolated``);
   ``count_cell`` counts one depth whole.
-* The mesh's positions run as one program on one card: FLOPs and bytes
-  per device are the program's divided by the devices (an even split);
-  the peak is given for one card running the whole program.  Model cells
-  have no SPMD collectives here (their fields are null, with the reason);
-  the EC cells count their explicit moves (``collective-permute``).
+* A model cell's positions run as one program on one card: FLOPs and
+  bytes per device are the program's divided by the devices (an even
+  split); the peak is given for one card running the whole program.
+  Model cells have no SPMD collectives here (their fields are null, with
+  the reason).
+* An EC cell runs one device's program: the rank body of one position
+  (``distributed/ranks.py``, ``ecstore.rank_*``) on its own block, so its
+  counts and peak are a device's, and its sends, counted by a
+  ``CountingComm``, are the reference's ``collective-permute``s.
 * Roofline terms use the H100 SXM data sheet: 989 TFLOP/s bf16 dense,
   3.35 TB/s HBM3, and 450 GB/s of NVLink each way per card, which holds
   only between cards of one NVLink domain (every permute one hop, as
@@ -51,9 +55,10 @@ import torch
 from ..configs import ARCH_NAMES, get_config
 from ..configs.shapes import SHAPES, ShapeSpec, input_specs, shape_applicable
 from ..distributed import sharding as shd
-from ..distributed.ecstore import (ECConfig, parity_delta_update,
-                                   parity_delta_update_chain,
-                                   reconstruct_failed)
+from ..distributed.ecstore import (ECConfig, rank_parity_delta_update,
+                                   rank_parity_delta_update_chain,
+                                   rank_reconstruct_failed)
+from ..distributed.ranks import CountingComm
 from ..kernels import dispatch
 from ..models import Model, layers, moe
 from ..models.convert import param_tree
@@ -71,8 +76,8 @@ NVLINK_BW = 450e9          # bytes/s each way per card, within one NVLink domain
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 NO_SPMD = ("no SPMD collectives: the mesh's positions run as one program "
-           "on one card (sharded execution over cards is ROADMAP Queue 1 "
-           "item 5)")
+           "on one card (a model is not yet trained or served across "
+           "ranks)")
 
 
 def _mesh(mesh) -> Mesh:
@@ -222,32 +227,31 @@ def _opt_specs(opt_state, pspecs, mesh) -> dict:
 
 def build_ec_cell(mesh: Mesh, *, bytes_per_device: int = 1 << 28,
                   op: str = "update"):
-    """The MemEC parity collectives over the mesh: ``bytes_per_device`` of
-    protected state per position (default 256 MiB, as the reference).
-    Returns (step, args, meta)."""
+    """The MemEC parity collectives over the mesh, as one device runs
+    them: the rank body of mesh position 0 (``ecstore.rank_*``) on its
+    own ``bytes_per_device`` of protected state (default 256 MiB, as the
+    reference) and its parity, on ``meta``, its moves counted by a
+    ``ranks.CountingComm``.  Returns (step, args, meta)."""
     cfg = ECConfig()
-    sizes = tuple(mesh.axis_sizes)
     pages_local = bytes_per_device // cfg.page_size
     pages_local -= pages_local % cfg.k
     S = pages_local // cfg.k
-    data_dim = mesh.axis_names.index(cfg.axis)
-    state = torch.empty(sizes + (pages_local, cfg.page_size),
-                        dtype=torch.uint8, device="meta")
-    parity = torch.empty(sizes + (cfg.m, S, cfg.page_size),
-                         dtype=torch.uint8, device="meta")
-    sspec = shd.P(*mesh.axis_names, None, None)
-    pspec = shd.P(*mesh.axis_names, None, None, None)
+    comm = CountingComm(mesh, (0,) * len(mesh.axis_names), cfg.axis)
+    state = torch.empty((pages_local, cfg.page_size), dtype=torch.uint8,
+                        device="meta")
+    parity = torch.empty((cfg.m, S, cfg.page_size), dtype=torch.uint8,
+                         device="meta")
     if op == "reconstruct":
         def step():
-            return reconstruct_failed(state, parity, 3, cfg, data_dim)
+            return rank_reconstruct_failed(state, parity, 3, cfg, comm)
     else:
-        upd = (parity_delta_update_chain if op == "update_chain"
-               else parity_delta_update)
+        upd = (rank_parity_delta_update_chain if op == "update_chain"
+               else rank_parity_delta_update)
 
         def step():
-            return upd(state, parity, cfg, data_dim)
-    # the global arrays carry the mesh axes; a position holds one block
-    args = [(state, sspec), (parity, pspec)]
+            return upd(state, parity, cfg, comm)
+    # one position's block, whole on its device
+    args = [(state, shd.P()), (parity, shd.P())]
     meta = {"bytes_per_device": bytes_per_device,
             "ec": f"RS({cfg.n},{cfg.k})"}
     return step, args, meta
@@ -323,13 +327,16 @@ def run_cell(arch: str, shape_name: str, mesh="single", *,
             step, args, meta = build_ec_cell(mesh, op=op)
             with ca.Count([t for t, _ in args]) as c, torch.no_grad():
                 step()
-            counts = {"flops": c.flops, "bytes": c.bytes,
-                      "peak": c.peak_bytes, "flops_by_op": c.flops_by_op,
+            # one device's counts; every position runs the same body
+            counts = {"flops": c.flops * n_dev, "bytes": c.bytes * n_dev,
+                      "peak": c.peak_bytes,
+                      "flops_by_op": {k: v * n_dev
+                                      for k, v in c.flops_by_op.items()},
                       "extrapolated_from": None}
             arg_bytes = ca.argument_bytes(args, mesh)
             arg_dev = sum(t.numel() for t, _ in args)
             coll = {k: 0 for k in COLLECTIVES}
-            coll["collective-permute"] = c.permute_bytes // n_dev
+            coll["collective-permute"] = c.permute_bytes
             counts_c = {"collective-permute": c.permutes}
         else:
             cfg = _config(arch, remat, attn, kv)

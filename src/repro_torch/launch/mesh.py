@@ -1,15 +1,20 @@
-"""Meshes as values: named axis sizes over one card.
+"""Meshes as values: named axis sizes.
 
 The reference builds ``jax.sharding.Mesh`` objects over real devices
-(``src/repro/launch/mesh.py``).  The port runs every mesh position on one
-card: a mesh here is only its axis names and sizes, and state laid out
-over it carries the mesh's axes as leading tensor dimensions, in the
-mesh's axis order (``distributed/ecstore.py``: pages ``(A_data,
-A_model, P, page)``).  ``distributed/sharding.py`` says which slice of a
-leaf each position holds.
+(``src/repro/launch/mesh.py``).  Here a mesh is only its axis names and
+sizes, and the port holds its positions in one of two ways:
 
-``make_production_mesh`` describes the reference's fleet meshes (16 x 16
-and 2 x 16 x 16 chips); nothing in the port runs them on one card.
+* stacked on one card: state laid out over the mesh carries the mesh's
+  axes as leading tensor dimensions, in the mesh's axis order
+  (``distributed/ecstore.py``: pages ``(A_data, A_model, P, page)``);
+* one position per rank of a ``torch.distributed`` process group
+  (``distributed/ranks.py``): rank r holds position ``coords(r)``,
+  row-major in the axis order, the order in which the stacked arrays
+  (and the reference's global ``out_specs`` arrays) index positions.
+
+``distributed/sharding.py`` says which slice of a leaf each position
+holds.  ``make_production_mesh`` describes the reference's fleet meshes
+(16 x 16 and 2 x 16 x 16 chips); nothing in the port runs them.
 """
 from __future__ import annotations
 
@@ -37,6 +42,26 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.axis_sizes)
+
+    def coords(self, rank: int) -> tuple:
+        """The mesh coordinate of ``rank``, row-major in axis order."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} on a mesh of {self.size}")
+        out = []
+        for n in reversed(self.axis_sizes):
+            rank, c = divmod(rank, int(n))
+            out.append(c)
+        return tuple(reversed(out))
+
+    def rank_of(self, coords) -> int:
+        """The rank at mesh coordinate ``coords`` (``coords``' inverse)."""
+        if len(coords) != len(self.axis_sizes) or any(
+                not 0 <= c < n for c, n in zip(coords, self.axis_sizes)):
+            raise ValueError(f"coords {tuple(coords)} on {self.axis_sizes}")
+        rank = 0
+        for c, n in zip(coords, self.axis_sizes):
+            rank = rank * int(n) + int(c)
+        return rank
 
 
 def make_mesh(shape, axes) -> Mesh:

@@ -14,7 +14,10 @@ written stacked, as the reference holds it.
 EC path (hot): ``ECCheckpoint`` wraps ``distributed.ecstore.ECStateStore``;
 parity lives on the state's device and is refreshed every step.  Recovery
 reconstructs a lost data-axis position from k survivors without touching
-disk.
+disk.  Without a ``comm`` the checkpoint holds every mesh position stacked
+on one card; with one (``distributed.ranks.RankComm``) it is one rank's:
+``create``/``update``/``stage``/``commit``/``reconstruct`` take the rank's
+local tree (``sharding.local_block``) and keep its pages and parity.
 """
 from __future__ import annotations
 
@@ -140,10 +143,12 @@ class ECCheckpoint:
     reference's.  For state updated in place, ``stage(state)`` packs the
     old bytes into a page buffer kept between steps and ``commit(state)``
     XORs the new bytes into it and folds the delta into the parity: no
-    second copy of the state, one kernel launch per update."""
+    second copy of the state, one kernel launch per update.  ``comm``:
+    one rank's checkpoint (module notes)."""
 
-    def __init__(self, mesh, state_specs, cfg: ECConfig | None = None):
-        self.store = ECStateStore(mesh, state_specs, cfg)
+    def __init__(self, mesh, state_specs, cfg: ECConfig | None = None,
+                 comm=None):
+        self.store = ECStateStore(mesh, state_specs, cfg, comm)
         self.parity = None
         self._pages = None
 

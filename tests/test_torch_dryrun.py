@@ -29,14 +29,12 @@ process only, while this process counts the port's cells on ``meta``:
 2. Argument bytes per device, on the host mesh and on (4, 2), against
    ``compiled.memory_analysis().argument_size_in_bytes``: exact.
 3. The EC pseudo-cells on (4, 2) at the reference's 256 MiB a device:
-   the systolic ``update_chain`` runs the reference's ppermutes, and its
-   collective-permute operand bytes equal ``analyze``'s.  The port's
-   direct ``update`` and its ``reconstruct`` move other blocks than the
-   reference's (one rotation per class and one rolled XOR per parity
-   row; a gather of each class's survivors instead of a ring XOR-reduce),
-   so each side is held to its own derivation.  Wire bytes: the port
-   counts one NVLink hop a permute (wire = operand); ``analyze`` counts
-   torus hops by device id.
+   each counts one position's rank body (``ecstore.rank_*``), which
+   sends the reference's blocks, so argument bytes, collective-permute
+   operand bytes and permute counts equal ``analyze``'s for ``update``,
+   ``update_chain`` and ``reconstruct``.  Wire bytes: the port counts one
+   NVLink hop a permute (wire = operand); ``analyze`` counts torus hops
+   by device id.
 """
 import importlib
 import json
@@ -237,41 +235,24 @@ def test_argument_bytes_equal_reference(both, arch, shape, mesh):
 
 @pytest.mark.parametrize("op", EC_OPS)
 def test_ec_collectives(both, op):
-    """Argument bytes equal the reference's for every EC cell.  Collective
-    bytes equal ``analyze``'s for ``update_chain`` only: that is the one
-    cell whose moves are the reference's.  ``update`` and ``reconstruct``
-    move other blocks in the port (a deviation, ROADMAP Queue 3), so there
-    each side is held to a derivation of its own algorithm, not to the
-    other."""
+    """Every EC cell counts one device's rank body, which sends the
+    reference's blocks: argument bytes, collective-permute operand bytes
+    and the number of permutes equal ``analyze``'s, and the bytes follow
+    the reference's formulas (m*k blocks for ``update``, k*m + m(m-1)/2
+    for ``update_chain``, (A - 1)*k for ``reconstruct``)."""
     port, ref = both
     cell, want = port["ec"][op], ref["ec"][op]
-    k, m, A, n_dev = 8, 2, 4, 8
+    k, m, A = 8, 2, 4
     block = (1 << 28) // 4096 // k * 4096               # S pages of a class
     assert cell["argument_bytes_per_device"] == want["args"]
     got = cell["collectives"]["collective-permute"]
     assert cell["collective_wire"]["collective-permute"] == got
-    if op == "update_chain":                # the reference's own ppermutes
-        assert got == want["operand"] == (k * m + m * (m - 1) // 2) * block
-        assert cell["collective_counts"]["collective-permute"] \
-            == want["count"]
-    elif op == "update":
-        # reference: m*k gamma-scaled permutes; port: the k - 1 class
-        # rotations and m rolled rows whose shift is not 0 mod A
-        assert want["operand"] == m * k * block
-        moves = sum(j % A != 0 for j in range(1, k)) \
-            + sum((k + r) % A != 0 for r in range(m))
-        assert got == moves * block
-    else:
-        # reference: a ring XOR-reduce of A - 1 shifts per class; port: each
-        # class's survivors not on the failed position sent to it, from each
-        # of the 2 model columns, averaged over the 8 devices
-        assert want["operand"] == k * (A - 1) * block
-        f, sends = 3, 0
-        from repro_torch.distributed import ecstore
-        for j in range(k):
-            for pos, _ in ecstore._decode_coeffs(k, m, j):
-                sends += (f - j + pos) % A != f
-        assert got == sends * block * 2 // n_dev
+    assert got == want["operand"]
+    assert cell["collective_counts"]["collective-permute"] == want["count"]
+    blocks = {"update": m * k, "update_chain": k * m + m * (m - 1) // 2,
+              "reconstruct": (A - 1) * k}[op]
+    assert got == blocks * block
+    assert want["count"] == blocks
 
 
 def test_cli_full_config_and_skips(tmp_path):

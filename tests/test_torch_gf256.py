@@ -151,6 +151,7 @@ def test_import_hygiene_no_jax_no_reference():
             "import repro_torch.kernels.flash_attention\n"
             "import repro_torch.distributed.ecstore, repro_torch.tree\n"
             "import repro_torch.distributed.elastic\n"
+            "import repro_torch.distributed.ranks\n"
             "import repro_torch.train.checkpoint, repro_torch.train.train_step\n"
             "import repro_torch.launch.train, repro_torch.launch.mesh\n"
             "import repro_torch.data.pipeline\n"

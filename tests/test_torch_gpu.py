@@ -1238,3 +1238,52 @@ def test_dryrun_predicts_a_reduced_train_step(cuda):
         cell.step()
     torch.cuda.synchronize()
     assert fc.get_total_flops() == pred["flops"]
+
+
+@pytest.mark.parametrize("k,m,page", [(2, 1, 256), (1, 1, 4096)])
+def test_ranks_on_the_card_match_the_stacked_store(cuda, tmp_path, k, m,
+                                                   page):
+    """Two gloo ranks sharing the card (``distributed/ranks.py``): each
+    rank's encode, delta update and rebuild of data index 0 equal the
+    stacked store's on the card at its coordinate, byte for byte; each
+    rank launched kernel 1, took the kernel path and sent (A - 1)*k*S
+    pages a rebuild and an update's m*k*S but the shifts by a multiple of
+    A, which send nothing.  The compressed psum of fp32 blocks is within
+    1e-6 of the largest |sum| of the stacked one."""
+    import _rank_worker
+    from repro_torch.distributed import collectives, ecstore, ranks
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, 1), ("data", "model"))
+    cfg = ecstore.ECConfig(k=k, m=m, page_size=page)
+    rng = _rng("ranks", k, m, page)
+    P = 64 * k
+    pages, xor = (torch.from_numpy(_u8(rng, (2, 1, P, page)))
+                  for _ in range(2))
+    grads = torch.from_numpy(rng.standard_normal((2, 1, 5, 70))
+                             .astype(np.float32))
+    res = ranks.launch(_rank_worker.cuda_body, mesh,
+                       [(pages, xor, grads, k, m, page)] * mesh.size,
+                       init_file=str(tmp_path / "init"), timeout=120.0)
+    psum = collectives.compressed_psum(grads.to(cuda), dim=0, block=64)
+    on_card = pages.to(cuda)
+    enc = ecstore.encode_parity(on_card, cfg)
+    want = {"encode": enc,
+            "update": ecstore.parity_delta_update(xor.to(cuda), enc, cfg),
+            "reconstruct": ecstore.reconstruct_failed(on_card, enc, 0, cfg)}
+    # a shift by a multiple of A (k + r - j = 2 here) keeps its block
+    A, block = mesh.axis_sizes[0], P // k * page
+    update = sum((k + r - j) % A != 0 for r in range(m)
+                 for j in range(k)) * block
+    sends = {"encode": update, "update": update,
+             "reconstruct": (A - 1) * k * block}
+    for r, out in enumerate(res):
+        at = mesh.coords(r)
+        for name, w in want.items():
+            np.testing.assert_array_equal(out[name], w[at].cpu().numpy())
+        # the psum's gather goes through gloo, staged via host memory
+        np.testing.assert_allclose(out["psum"], psum[at].cpu().numpy(),
+                                   rtol=0, atol=1e-6 * float(
+                                       psum.abs().max()))
+        assert out["sent"] == sends, out["sent"]
+        assert out["launches"]["gf_matmul_batched"] > 0, out["launches"]
+        assert set(out["op_paths"].values()) == {"cuda-kernel"}
