@@ -186,7 +186,31 @@ in place of the card):
              1 and takes no CPU or plain path; prints per rank the
              seconds and bytes of each operation, its launches and
              ``op_paths``;
-18. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
+18. model-ranks - starcoder2-3b at full width and depth, bf16, over
+             (data 2, model 2): four gloo ranks on this card, each holding
+             its blocks of the parent's one-card model (shared, not
+             copied) and running ``models/ranked.py``'s ``RankModel``:
+             a prefill of 2 x 2,048 and 8 decode steps (teacher-forced
+             with the one-card model's tokens, a cache of 8 positions
+             split 4 + 4 over "model") with ``attn_parallel="seq"``, a
+             prefill and 2 decode steps with "head".  Each rank's logits
+             block must stay within ``MODEL_RANKS_TWIN_MULTIPLE`` (2)
+             times the one-card bf16 logits' distance from an fp32 twin,
+             measured in the run, of the one-card model's; kernel 11
+             launches once a layer a prefill on every rank and every
+             rank's ``op_paths`` show ``cuda-kernel`` only.  Before the
+             spawn, kernel 11 on a stripe (``flash_attention(stripe=)``)
+             is held against the plain version with the same stripe at
+             the rank shape (1,024 query rows, two 512-row segments, on
+             2,048 keys) and at a ragged S of 1,500 (the second stripe's
+             last 548 rows past the keys), a launch with the wrong stripe index must miss the bound,
+             and the stripe launch is timed beside the plain version and
+             ``scaled_dot_product_attention`` with the stripe's mask (its
+             device time from a profiler trace and from the replay of a
+             CUDA graph of 20 launches, ``graph_device_ms``).
+             Prints per rank its bytes sent by kind, the seconds of a
+             prefill and of a decode step, and its peak GB;
+19. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
              step at phase 12's cut (B 2 x S 2,048, remat "full",
              AdamW, the 1 x 1 mesh), made on ``meta``, against the same
              step on the card: the argument bytes asked of the allocator
@@ -207,7 +231,7 @@ counted (a call reached through a binding it does not wrap fails the
 run); then every shape is timed and each kernel's loss per run, calls x
 (kernel ms - bound ms), is printed beside its launches.
 Kernel 10 is also held against its plain version on the real object
-index of a server of the loaded RS testbed.  Every phase of 4-18 starts
+index of a server of the loaded RS testbed.  Every phase of 4-19 starts
 with the launch counts at 0 and reads them when it ends; launches made
 to compare a kernel with its plain version are not counted.  The line
 before the last is ``{"kernels": [...]}``;
@@ -312,6 +336,30 @@ def cuda_ms(torch, fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_device_ms(torch, fn, reps: int) -> float:
+    """Device time per call of ``fn``: CUDA events around one replay of a
+    CUDA graph that holds ``reps`` calls, captured after a warm-up.  The
+    wrapper's host work runs once, at capture, so the replay is the
+    kernels back to back; unlike ``kernel_device_ms`` it needs no
+    profiler trace, which late in this script's run can keep no kernel
+    at all."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -1654,7 +1702,9 @@ def faulted_attention(torch, fa):
     recomputed by plain torch with the faulty mask."""
     import math
 
-    def attention(q, k, v, *, causal=True, block_q=128, block_kv=128):
+    def attention(q, k, v, *, causal=True, block_q=128, block_kv=128,
+                  stripe=None):
+        assert stripe is None, "the control fault is for unstriped calls"
         out = fa.flash_attention(q, k, v, causal=causal, block_q=block_q,
                                  block_kv=block_kv)
         S, H, hd = q.shape[1], q.shape[2], q.shape[3]
@@ -1675,11 +1725,12 @@ def checked_attention(torch, fa, inner, ratios):
     """Kernel 11 (or ``inner``, a control) held per call against its plain
     version on the inputs the model gives it: each call's worst
     |got - want| / ``tolerance`` goes into ``ratios``."""
-    def attention(q, k, v, *, causal=True, block_q=128, block_kv=128):
+    def attention(q, k, v, *, causal=True, block_q=128, block_kv=128,
+                  stripe=None):
         out = inner(q, k, v, causal=causal, block_q=block_q,
-                    block_kv=block_kv)
-        ratios.append(fa.tolerance_ratio(
-            out, fa.flash_attention_plain(q, k, v, causal=causal)))
+                    block_kv=block_kv, stripe=stripe)
+        ratios.append(fa.tolerance_ratio(out, fa.flash_attention_plain(
+            q, k, v, causal=causal, stripe=stripe)))
         return out
     return attention
 
@@ -2212,8 +2263,10 @@ ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
 def plain_attention(fa):
     """Kernel 11's plain version, differentiated by autograd: the check's
     reference for step 1 alone, never the main path."""
-    def attention(q, k, v, *, causal=True, block_q=128, block_kv=128):
-        return fa.flash_attention_plain(q, k, v, causal=causal)
+    def attention(q, k, v, *, causal=True, block_q=128, block_kv=128,
+                  stripe=None):
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        stripe=stripe)
     return attention
 
 
@@ -3082,7 +3135,7 @@ def _rank_timed(torch, ops, name, fn, *args):
     sent = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with recording(sent.append):
+    with recording(lambda n, kind: sent.append(n)):
         out = fn(*args)
     torch.cuda.synchronize()
     ops[name] = {"s": time.perf_counter() - t0, "bytes_sent": sum(sent)}
@@ -3323,6 +3376,251 @@ def run_ranks(np, torch, dev, card):
     return launches, nums
 
 
+# the model-ranks phase: starcoder2-3b at full width and depth over
+# (data 2, model 2), one rank a position, gloo on this card
+MODEL_RANKS_MESH = (2, 2)
+MODEL_RANKS_PREFILL = (2, 2048)
+MODEL_RANKS_DECODE = {"seq": 8, "head": 2}
+MODEL_RANKS_RAGGED = 1500
+MODEL_RANKS_TWIN_MULTIPLE = 2
+MODEL_RANKS_DEADLINE = 600.0
+
+
+def stripe_checks(torch, dev, cfg, card) -> dict:
+    """Kernel 11 on the stripes a (2, 2) rank of ``cfg`` launches: at the
+    rank shape (S 2,048) and at ``MODEL_RANKS_RAGGED``, each stripe index
+    against the plain version with the same stripe, within the
+    per-element bound; the same rows launched with the other stripe index
+    must miss it (the faulted control).  The rank shape's second stripe
+    (its heavier) is timed (a wrapper call, and the kernel's device time
+    from a profiler trace) beside the plain version and
+    ``scaled_dot_product_attention`` with the stripe's boolean mask (a
+    yardstick the port never calls); its bound takes the causal pairs the
+    stripe keeps."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.ranked import seq_stripe
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    M = MODEL_RANKS_MESH[1]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {}
+    for S in (MODEL_RANKS_PREFILL[1], MODEL_RANKS_RAGGED):
+        k, v = (torch.randn((1, S, KV, hd), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        for m in range(M):
+            st = seq_stripe(cfg, S, M, m)
+            stripe = (st["bq"], M, m)
+            q = torch.randn((1, st["rows"], H, hd), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            before = launch_counts()["flash_attention"]
+            got = fa.flash_attention(q, k, v, stripe=stripe)
+            torch.cuda.synchronize()
+            assert launch_counts()["flash_attention"] == before + 1
+            want = fa.flash_attention_plain(q, k, v, stripe=stripe)
+            ratio = fa.tolerance_ratio(got, want)
+            wrong = fa.tolerance_ratio(fa.flash_attention(
+                q, k, v, stripe=(st["bq"], M, 1 - m)), want)
+            out[f"S{S}_m{m}"] = dict(stripe=list(stripe), rows=st["rows"],
+                                     valid=st["valid"], ratio=ratio,
+                                     wrong_stripe_ratio=wrong)
+            assert ratio <= 1.0, (S, m, ratio)
+            assert wrong > 1.0, f"a wrong stripe holds at S {S}: {wrong}"
+            if S != MODEL_RANKS_PREFILL[1] or m != M - 1:
+                continue
+            mask = (fa.stripe_positions(st["rows"], stripe, dev)[:, None]
+                    >= torch.arange(S, device=dev)[None, :])
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+            ops = fa.flash_flops(q.shape, k.shape, True, stripe)
+            b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_PER_S)
+            out["timed"] = dict(
+                shape=[1, st["rows"], S, H, KV, hd], stripe=list(stripe),
+                ms=cuda_ms(torch, lambda: fa.flash_attention(
+                    q, k, v, stripe=stripe), 50),
+                kernel_ms=kernel_device_ms(torch, lambda: fa.flash_attention(
+                    q, k, v, stripe=stripe), 20, WGMMA_BODY)[0],
+                graph_ms=graph_device_ms(torch, lambda: fa.flash_attention(
+                    q, k, v, stripe=stripe), 20),
+                plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(
+                    q, k, v, stripe=stripe), 5),
+                library_ms=cuda_ms(
+                    torch, lambda: torch.nn.functional
+                    .scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True), 20),
+                bound_ms=b_ms, bound_by=b_by, ops=ops, card=card)
+    return out
+
+
+def rank_model_body(comm, cfg, local, tokens, want):
+    """Model-ranks phase, one rank: ``RankModel`` on the rank's blocks
+    (shared with the parent, not copied), for each attention mode a
+    prefill and teacher-forced decode steps, each held against the
+    one-card model's logits block of this rank (``want``: views of the
+    parent's logits), after a warm-up prefill of 64 tokens; their
+    seconds, bytes sent by kind, launches, ``op_paths`` and the peak."""
+    import torch
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.distributed.ranks import rank_comms
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import layers
+    from repro_torch.models.ranked import RankModel
+    torch.cuda.set_device(0)
+    layers.set_activation_mesh(rank_comms(comm))
+    out = {"coords": comm.coords}
+    # a short warm-up prefill: the first gathers, the staging buffers'
+    # growth and the first launches stay out of the timed calls
+    RankModel(cfg, local).apply({"tokens": tokens[:, :64]})
+    launches = None
+    for mode, steps in MODEL_RANKS_DECODE.items():
+        model = RankModel(cfg.scaled(attn_parallel=mode), local)
+        sent = {"prefill": {}, "decode": {}}
+
+        def note(part):
+            def add(n, kind):
+                sent[part][kind] = sent[part].get(kind, 0) + n
+            return add
+        layers.reset_op_paths()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording(note("prefill")):
+            logits = model.apply({"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        n = launch_counts()
+        launches = n if launches is None else {
+            k: launches[k] + n[k] for k in n}
+        err = float((logits.float() - want["prefill"].float()).abs().max())
+        del logits
+        cache = model.init_cache(tokens.shape[0], MODEL_RANKS_DECODE["seq"],
+                                 dtype=torch.bfloat16)
+        dec_err, t0 = 0.0, time.perf_counter()
+        with recording(note("decode")):
+            for t in range(steps):
+                lg, cache = model.decode_step(cache, tokens[:, t], t)
+                dec_err = max(dec_err, float(
+                    (lg.float() - want["decode"][:, t].float()).abs().max()))
+        torch.cuda.synchronize()
+        out[mode] = dict(prefill_s=prefill_s,
+                         decode_s_per_step=(time.perf_counter() - t0) / steps,
+                         prefill_err=err, decode_err=dec_err,
+                         flash_launches=n["flash_attention"],
+                         other_launches={k: v for k, v in n.items()
+                                         if v and k != "flash_attention"},
+                         sent=sent, op_paths=dict(model.op_paths),
+                         routes=dict(layers.OP_PATHS))
+        del cache, model
+    layers.set_activation_mesh(None)
+    out["launches"] = launches
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def run_model_ranks(np, torch, dev, card):
+    """starcoder2-3b over (data 2, model 2), one rank a position
+    (``models/ranked.py``), against the one-card model on the same
+    weights: kernel 11's stripes first (``stripe_checks``), then the
+    one-card bf16 model's prefill and ``MODEL_RANKS_DECODE["seq"]``
+    decode steps and an fp32 twin's, whose distance from them, times
+    ``MODEL_RANKS_TWIN_MULTIPLE``, bounds each rank's logits block in
+    both attention modes.  Returns the ranks' launches (their main
+    path's, summed) and the phase's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ranks as rk
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.convert import param_tree
+    from repro_torch.models.ranked import batch_rows
+    from repro_torch.tree import Stacked, tree_map
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL_ARCH)
+    nums = {"stripes": stripe_checks(torch, dev, cfg, card)}
+    log(f"model-ranks kernel 11 stripes [{card}]: "
+        f"{json.dumps(nums['stripes'])}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = Model(cfg, device=dev).init(gen)
+    B, S = MODEL_RANKS_PREFILL
+    P = MODEL_RANKS_DECODE["seq"]
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=dev)
+
+    def decode(m, dtype):
+        cache = m.init_cache(B, P, dtype=dtype)
+        outs = []
+        for t in range(P):
+            lg, cache = m.decode_step(cache, toks[:, t], t)
+            outs.append(lg)
+        return torch.stack(outs, dim=1)
+
+    logits = model.apply({"tokens": toks})
+    dec = decode(model, torch.bfloat16)
+    twin = Model(cfg.scaled(dtype="float32"), device=dev)
+    twin.load_state_dict(model.state_dict())
+    bound_prefill = MODEL_RANKS_TWIN_MULTIPLE * logit_err(
+        torch, logits, twin.apply({"tokens": toks}))
+    bound_decode = MODEL_RANKS_TWIN_MULTIPLE * logit_err(
+        torch, dec, decode(twin, torch.float32))
+    del twin
+    _free(torch)
+    torch.cuda.synchronize()
+    mesh = make_mesh(MODEL_RANKS_MESH, ("data", "model"))
+    params = tree_map(lambda x: Stacked(p.detach() for p in x.parts)
+                      if isinstance(x, Stacked) else x.detach(),
+                      param_tree(model))
+    specs = shd.param_specs(cfg, params, mesh)
+    A, M = MODEL_RANKS_MESH
+    Vl = cfg.padded_vocab // M
+    rank_args = []
+    for r in range(mesh.size):
+        a, m = mesh.coords(r)
+        r0, r1 = batch_rows(B, A, a)
+        local = tree_map(lambda leaf, spec: shd.local_block(
+            leaf, spec, mesh, (a, m)), params, specs)
+        rank_args.append((cfg, local, toks, {
+            "prefill": logits[r0:r1, :, m * Vl:(m + 1) * Vl],
+            "decode": dec[r0:r1, :, m * Vl:(m + 1) * Vl]}))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="model_ranks_") as tmp:
+        res = rk.launch(rank_model_body, mesh, rank_args,
+                        init_file=os.path.join(tmp, "init"),
+                        timeout=MODEL_RANKS_DEADLINE)
+    nums["spawn_s"] = time.perf_counter() - t0
+    nums.update(bound_prefill=bound_prefill, bound_decode=bound_decode)
+    launches = None
+    for x in res:
+        log(f"model-ranks [{card}] rank at {tuple(x['coords'])}: "
+            f"{json.dumps({k: x[k] for k in x if k != 'coords'})}")
+        for mode in MODEL_RANKS_DECODE:
+            got = x[mode]
+            assert got["prefill_err"] <= bound_prefill, (x["coords"], mode,
+                                                         got["prefill_err"])
+            assert got["decode_err"] <= bound_decode, (x["coords"], mode,
+                                                       got["decode_err"])
+            assert got["flash_launches"] == cfg.num_layers, got
+            assert not got["other_launches"], got
+            assert got["op_paths"] == {"flash_attention": "cuda-kernel"}, got
+            assert not any(k.startswith("masked") for k in got["routes"])
+        launches = x["launches"] if launches is None else {
+            k: launches[k] + x["launches"][k] for k in launches}
+    nums["ranks"] = [{k: x[k] for k in ("coords", "peak_gb", "seq", "head")}
+                     for x in res]
+    del rank_args, logits, dec, params, model
+    _free(torch)
+    torch.cuda.ipc_collect()
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"model-ranks [{card}]: logit bounds (2 x the one-card bf16 "
+        f"distance from its fp32 twin) prefill {bound_prefill}, decode "
+        f"{bound_decode}; worst rank prefill "
+        f"{max(x[m]['prefill_err'] for x in res for m in MODEL_RANKS_DECODE)}"
+        f", decode "
+        f"{max(x[m]['decode_err'] for x in res for m in MODEL_RANKS_DECODE)}")
+    log(f"phase model-ranks: {nums['phase_s']:.1f} s")
+    return launches, nums
+
+
 def run_dryrun(np, torch, dev, card):
     """The dry run against the card.  ``launch.dryrun.run_cell`` counts
     starcoder2-3b ``train_4k`` cut to the train phase's B 2 x S 2,048
@@ -3527,6 +3825,13 @@ def main() -> int:
     log(f"tune phase [{card}]:", json.dumps(tuned))
     by_phase["ranks"], ranks = run_ranks(np, torch, dev, card)
     log(f"ranks phase [{card}]:", json.dumps(ranks))
+    by_phase["model_ranks"], model_ranks = run_model_ranks(np, torch, dev,
+                                                           card)
+    log(f"model-ranks phase [{card}]:", json.dumps(model_ranks))
+    stripe = model_ranks["stripes"]["timed"]
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["stripe"] = stripe
     by_phase["dryrun"], dry = run_dryrun(np, torch, dev, card)
     log(f"dryrun phase [{card}]:", json.dumps(dry))
     for row in rows:

@@ -81,7 +81,7 @@ def main() -> int:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, k.shape[1], H, k.shape[2], hd, *q.stride()[:3],
                  *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(hd), 1,
-                 1, stream)
+                 0, 1, 0, 1, stream)
         assert err == 0, f"CUDA error {err}"
         return out
 

@@ -20,9 +20,14 @@ package: every timed point of the named kernels (default: kernels 4-7),
 with the same inputs and timers for both and each checkout's wrappers and
 kernels (``cuda_ms`` for the wrapper call, ``kernel_device_ms`` for the
 kernel's device time).
+Each point's output, from the same seeded inputs on both sides, is
+hashed (SHA-256 of its bytes): ``bit_equal`` says whether every turn of
+both checkouts gave the same bytes, so a change that must leave a kernel's
+results alone (kernel 11's unstriped calls under query stripes) is held
+to the other checkout's kernel bit for bit.
 Prints the card's name and power limit, then one JSON line per kernel,
-case and point with each turn's wrapper and kernel ms and each side's
-median wrapper ms.
+case and point with each turn's wrapper and kernel ms, each side's
+median wrapper ms and ``bit_equal``.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ KERNELS = ("gf_per_item", "gf_per_item_fold", "gf_delta_apply_batched",
 
 # run inside one checkout: its package, this checkout's chip_smoke
 CHILD = r"""
-import json, sys
+import hashlib, json, sys
 sys.path[:0] = ["src", sys.argv[2]]
 import numpy as np, torch
 import chip_smoke as cs
@@ -59,10 +64,14 @@ for spec in cs.kernel_specs(np, torch, dev) + [cs.flash_spec(torch, dev)]:
             if callable(cuda_name):
                 cuda_name = cuda_name(args)
             k = cs.kernel_device_ms(torch, call, reps, cuda_name)
+            out = call()
+            digest = (hashlib.sha256(out.contiguous().view(torch.uint8)
+                                     .cpu().numpy().tobytes()).hexdigest()
+                      if isinstance(out, torch.Tensor) else None)
             print(json.dumps(dict(kernel=spec["name"], case=cname,
                                   point=label, ms=ms,
                                   kernel_ms=k[0] if isinstance(k, tuple)
-                                  else k)), flush=True)
+                                  else k, digest=digest)), flush=True)
 """
 
 
@@ -97,9 +106,13 @@ def main() -> int:
                                        point=r["point"]))
             row.setdefault(f"{tag}_ms", []).append(r["ms"])
             row.setdefault(f"{tag}_kernel_ms", []).append(r["kernel_ms"])
+            row.setdefault("digests", []).append(r["digest"])
     for row in rows.values():
         for tag in ("this", "other"):
             row[f"{tag}_median_ms"] = statistics.median(row[f"{tag}_ms"])
+        digests = row.pop("digests")
+        row["bit_equal"] = (None if None in digests
+                            else len(set(digests)) == 1)
         print(json.dumps(row), flush=True)
     return 0
 

@@ -27,8 +27,10 @@ Where a position's block moves to another position (``ring_shift``, the
 stacked EC store's rotations, rolled XORs and rebuild gathers, and every
 send of a rank's communicator), the mover calls ``note_permute`` or
 ``note_send``: inside ``recording`` (``launch/cost_analysis.py``) that
-counts the bytes the positions send to other cards, the reference's
-``collective-permute``; outside it costs one attribute read.
+counts the bytes the positions send to other cards, by the kind of the
+reference's collective (``collective-permute`` for a shift or a rotation;
+``all-gather`` and ``all-reduce`` for a rank communicator's gathers and
+sums); outside it costs one attribute read.
 """
 from __future__ import annotations
 
@@ -79,10 +81,14 @@ def gf_scale_static(gamma: int, x: torch.Tensor) -> torch.Tensor:
 _recorder = threading.local()
 
 
+PERMUTE = "collective-permute"
+
+
 @contextlib.contextmanager
 def recording(callback):
-    """Call ``callback(nbytes)`` with the bytes of every move between
-    positions that this thread makes while the context is active."""
+    """Call ``callback(nbytes, kind)`` with the bytes and the collective's
+    kind of every move between positions that this thread makes while the
+    context is active."""
     prev = getattr(_recorder, "callback", None)
     _recorder.callback = callback
     try:
@@ -91,10 +97,11 @@ def recording(callback):
         _recorder.callback = prev
 
 
-def _note(nbytes: int) -> None:
+def note_bytes(nbytes: int, kind: str = PERMUTE) -> None:
+    """``nbytes`` sent to other positions by a collective of ``kind``."""
     callback = getattr(_recorder, "callback", None)
     if callback is not None:
-        callback(nbytes)
+        callback(int(nbytes), kind)
 
 
 def note_permute(x: torch.Tensor, dim: int, shift: int) -> None:
@@ -102,12 +109,12 @@ def note_permute(x: torch.Tensor, dim: int, shift: int) -> None:
     sends its block ``shift`` positions on; nothing moves when the shift
     is a multiple of the axis."""
     if int(shift) % x.shape[dim]:
-        _note(x.numel() * x.element_size())
+        note_bytes(x.numel() * x.element_size())
 
 
-def note_send(blocks: torch.Tensor) -> None:
+def note_send(blocks: torch.Tensor, kind: str = PERMUTE) -> None:
     """The positions holding ``blocks`` send them to other positions."""
-    _note(blocks.numel() * blocks.element_size())
+    note_bytes(blocks.numel() * blocks.element_size(), kind)
 
 
 def ring_shift(x: torch.Tensor, shift: int, dim: int = 0) -> torch.Tensor:

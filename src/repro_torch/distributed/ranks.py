@@ -8,27 +8,42 @@ collectives.py``).  Here a position can be a rank: rank r holds position
 (``ecstore.rank_*``, ``collectives.rank_*``), and a communicator moves
 its blocks.
 
-* ``RankComm(mesh)`` wraps the default process group, which the caller
-  initialised with the backend of its choice: the rank's mesh coordinate,
-  and the subgroup of its data-axis column (the ranks that differ from it
-  on the data axis only; every rank creates every column's group, in one
-  order).  ``shift(x, s)`` sends ``x`` to data index (d + s) mod A and
-  receives from (d - s) mod A, as one ``dist.batch_isend_irecv``;
-  ``all_gather(x)`` gathers the column's blocks in data order.
+* ``RankComm(mesh, axis="data")`` wraps the default process group, which
+  the caller initialised with the backend of its choice: the rank's mesh
+  coordinate, and the subgroup of its column along ``axis`` (the ranks
+  that differ from it on that axis only; every rank creates every
+  column's group, in one order).  ``shift(x, s)`` sends ``x`` to index
+  (d + s) mod A and receives from (d - s) mod A, as one
+  ``dist.batch_isend_irecv``; ``all_gather(x)`` gathers the column's
+  blocks in axis order (under gloo as A - 1 such exchanges, under NCCL
+  one ``dist.all_gather``); ``all_reduce(x)`` sums them
+  (``dist.all_reduce``), the same sum on every rank of the column.
+* ``rank_comms(comm)`` pairs a rank's data-axis communicator (``launch``
+  builds it) with its model-axis one, ``RankComm(mesh, "model")``, built
+  after it on every rank (gloo deadlocks when ranks create groups in
+  different orders): what a model's forward on a rank moves
+  (``models/ranked.py``).
 * The transport follows ``dist.get_backend()``: under NCCL the tensors
   stay on the device; gloo's point-to-point ops take CPU tensors only, so
   under gloo a CUDA tensor is staged through two pinned host buffers of
   the rank, reused across calls, ``STAGE_BYTES`` at a time.
 * Every byte a rank sends goes through ``collectives.note_send``, so
-  ``collectives.recording`` counts the traffic the rank really sends.  A
-  shift by a multiple of A sends nothing: the block stays on the rank.
-* ``CountingComm(mesh, coords)`` runs a rank body on ``meta`` tensors
-  without a group (``launch/dryrun.py``): ``shift`` notes ``x``'s bytes
-  and returns ``torch.empty_like(x)``.  It notes every shift, one of a
-  multiple of A included, as the reference's HLO holds a
+  ``collectives.recording`` counts the traffic the rank really sends, by
+  the reference's collective kinds: a shift is a ``collective-permute``
+  of x's bytes (none for a multiple of A: the block stays on the rank);
+  an all-gather sends x to the A - 1 others; an all-reduce counts
+  2·(A - 1)/A of x's bytes, the ring algorithm's share a rank sends (the
+  reference's ``analyze`` counts an all-reduce's wire bytes so), rounded
+  down.  A column of one rank sends nothing.
+* ``CountingComm(mesh, coords, axis)`` runs a rank body on ``meta``
+  tensors without a group (``launch/dryrun.py``): ``shift``,
+  ``all_gather`` and ``all_reduce`` note what ``RankComm`` notes and
+  return an empty tensor of the result's shape.  It notes every shift, one
+  of a multiple of A included, as the reference's HLO holds a
   ``collective-permute`` for every ``ppermute``; with no such shift (every
   mesh the ranks run on in the tests and ``chip_smoke.py``) the two
-  count the same bytes.
+  count the same bytes.  ``counting_comms(mesh, coords)`` is
+  ``rank_comms``' twin.
 
 ``launch(fn, mesh, rank_args, init_file=...)`` spawns one process per
 rank (``torch.multiprocessing``, spawn), initialises the group through a
@@ -48,22 +63,26 @@ import itertools
 import queue
 import time
 import traceback
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
-from .collectives import note_send
+from .collectives import PERMUTE, note_bytes, note_send
+
+GATHER = "all-gather"
+REDUCE = "all-reduce"
 
 #: bytes a gloo rank stages through host memory per exchange
 STAGE_BYTES = 64 << 20
 
 
 class _Column:
-    """A position's place on its data-axis column: ``coords`` on ``mesh``,
-    data index ``index`` of ``axis_size``, and the ranks of the column in
-    data order (``members``).  ``op_paths`` records the dispatch path each
-    EC operation's GF(2^8) products took on the rank (as the coding
-    engines' ``op_paths``)."""
+    """A position's place on its column along ``axis``: ``coords`` on
+    ``mesh``, index ``index`` of ``axis_size`` on the axis, and the ranks
+    of the column in axis order (``members``).  ``op_paths`` records the
+    dispatch path each EC operation's GF(2^8) products took on the rank
+    (as the coding engines' ``op_paths``)."""
 
     def __init__(self, mesh, coords, axis: str = "data"):
         if axis not in mesh.axis_names:
@@ -83,6 +102,18 @@ class _Column:
         c = list(self.coords)
         c[self.data_dim] = i
         return tuple(c)
+
+    def _note_gather(self, x: torch.Tensor) -> None:
+        """x sent to each other index (the A - 1 exchanges of a gather)."""
+        for _ in range(self.axis_size - 1):
+            note_send(x, GATHER)
+
+    def _note_reduce(self, x: torch.Tensor) -> None:
+        """A ring all-reduce's bytes a rank sends, 2 (A - 1) / A of x: a
+        model, not a measurement, as gloo and NCCL pick their own
+        algorithm; the rank and its ``CountingComm`` note the same."""
+        A = self.axis_size
+        note_bytes(2 * (A - 1) * x.numel() * x.element_size() // A, REDUCE)
 
 
 class RankComm(_Column):
@@ -142,7 +173,7 @@ class RankComm(_Column):
             return x.clone(memory_format=torch.contiguous_format)
         dst = self.members[(self.index + s) % A]
         src = self.members[(self.index - s) % A]
-        note_send(x)
+        note_send(x, PERMUTE)
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         if not self._staged(x):
             self._exchange(x.contiguous(), out, dst, src)
@@ -164,24 +195,53 @@ class RankComm(_Column):
         return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``(A, *x.shape)``: every data index's block of the column, in
-        data order."""
+        """``(A, *x.shape)``: every index's block of the column, in axis
+        order."""
         A = self.axis_size
-        for _ in range(A - 1):
-            note_send(x)
+        self._note_gather(x)
         out = torch.empty((A,) + tuple(x.shape), dtype=x.dtype,
                           device=x.device)
-        if not self._staged(x):
+        if self.backend != "gloo":
             dist.all_gather(list(out.unbind(0)), x.contiguous(),
                             group=self.group)
             return out
+        # gloo: A - 1 ring exchanges of x, point to point (gloo's own
+        # all-gather moves a third of their bytes a second on one host)
+        out[self.index].copy_(x)
+        staged = self._staged(x)
+        if staged:
+            nb = x.numel() * x.element_size()
+            send_buf, recv_buf = self._buffers(x.device, nb)
+            send = send_buf[:nb].view(x.dtype).view(x.shape)
+            send.copy_(x)
+            recv = recv_buf[:nb].view(x.dtype).view(x.shape)
+        else:
+            send = x.contiguous()
+        for s in range(1, A):
+            src = (self.index - s) % A
+            self._exchange(send, recv if staged else out[src],
+                           self.members[(self.index + s) % A],
+                           self.members[src])
+            if staged:
+                out[src].copy_(recv)
+        return out
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the column's blocks, in x's dtype: a new tensor
+        like ``x`` (contiguous), the same on every rank of the column."""
+        out = x.clone(memory_format=torch.contiguous_format)
+        if self.axis_size == 1:
+            return out
+        self._note_reduce(x)
+        if not self._staged(x):
+            dist.all_reduce(out, group=self.group)
+            return out
         nb = x.numel() * x.element_size()
-        send_buf, recv_buf = self._buffers(x.device, A * nb)
-        send = send_buf[:nb].view(x.dtype).view(x.shape)
-        send.copy_(x)
-        parts = recv_buf[:A * nb].view(x.dtype).view(out.shape)
-        dist.all_gather(list(parts.unbind(0)), send, group=self.group)
-        out.copy_(parts)
+        buf = self._buffers(x.device, nb)[0][:nb].view(x.dtype) \
+            .view(x.shape)
+        buf.copy_(out)
+        dist.all_reduce(buf, group=self.group)
+        out.copy_(buf)
         return out
 
 
@@ -190,8 +250,44 @@ class CountingComm(_Column):
     (module notes)."""
 
     def shift(self, x: torch.Tensor, s: int) -> torch.Tensor:
-        note_send(x)
+        note_send(x, PERMUTE)
         return torch.empty_like(x)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        self._note_gather(x)
+        return x.new_empty((self.axis_size,) + tuple(x.shape))
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        if self.axis_size > 1:
+            self._note_reduce(x)
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+class AxisComms(NamedTuple):
+    """A rank's communicators of a (data, model) mesh."""
+    data: _Column
+    model: _Column
+
+    @property
+    def mesh(self):
+        return self.data.mesh
+
+    @property
+    def coords(self) -> tuple:
+        return self.data.coords
+
+
+def rank_comms(data: RankComm) -> AxisComms:
+    """This rank's data-axis communicator (the one ``launch`` passes a
+    rank body) and its model-axis communicator, built after it (module
+    notes)."""
+    return AxisComms(data, RankComm(data.mesh, "model"))
+
+
+def counting_comms(mesh, coords) -> AxisComms:
+    """``rank_comms``' counting twin for the position at ``coords``."""
+    return AxisComms(CountingComm(mesh, coords, "data"),
+                     CountingComm(mesh, coords, "model"))
 
 
 # ---------------------------------------------------------------------------

@@ -60,7 +60,7 @@ SIGNATURES = {
     "gf_delta_update": ((_P, _I, _P, _P, _P, _P, _L, _P), _I),
     "gf_cuckoo_probe": ((_P, _P, _P, _P, _P, _P, _P, _I, _P), _I),
     "flash_attention": ((_P, _P, _P, _P) + (_I,) * 6 + (_L,) * 9
-                        + (ctypes.c_float, _I, _I, _P), _I),
+                        + (ctypes.c_float,) + (_I,) * 5 + (_P,), _I),
 }
 
 _LOCK = threading.Lock()

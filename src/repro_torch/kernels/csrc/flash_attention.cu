@@ -6,7 +6,19 @@
 // online-softmax statistics and the P V sum in fp32, GQA (q head h reads
 // KV head h / (H / KV)), causal by absolute positions or full, output in
 // the input dtype.  Masked scores are -1e30, as in the reference, not
-// -inf; keys at positions >= Skv are masked in every call.  q/k/v are read
+// -inf; keys at positions >= Skv are masked in every call.
+//
+// Query stripes.  A rank of a (data, model) mesh computes one stripe of
+// the reference's striped Q tiles (src/repro/models/layers.py:189-295):
+// its rows are segments of `seg` rows, segment j holding the positions of
+// the reference's tile j * nstripes + stripe, so row r sits at position
+// ((r / seg) * nstripes + stripe) * seg + r % seg (qpos below).  Only
+// the causal test reads positions: a Q tile's causal KV-tile count is
+// taken at its last row's position, its diagonal test at its first
+// row's, and each row masks keys past its own position.  When seg is a
+// multiple of the 64-row tile every tile's positions are contiguous;
+// otherwise a tile may span two segments and the per-row test still
+// holds.  nstripes = 1 is the unstriped kernel (qpos(r) = r).  q/k/v are read
 // in place, in their (B, S, heads, hd) layout, through their strides.  hd
 // is 16, 32, 64, 112, 128 or 256.
 //
@@ -94,6 +106,12 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+
+// the position of local query row r in a stripe (the notes above)
+__device__ __forceinline__ int qpos(int r, int seg, int nstripes,
+                                    int stripe) {
+  return nstripes == 1 ? r : ((r / seg) * nstripes + stripe) * seg + r % seg;
+}
 
 enum Dtype { kF32 = 0, kBF16 = 1 };
 
@@ -196,6 +214,7 @@ struct Args {
   long long v_sb, v_ss, v_sh;
   float scale;
   int causal;
+  int seg, nstripes, stripe;  // query rows' positions (qpos)
 };
 
 template <int HD>
@@ -241,9 +260,14 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm<HD>())
   const int nkv = (a.Skv + kBK - 1) / kBK;
   int ntiles = nkv;
   if (a.causal) {
-    const int q_last = min(q0 + kBQ, a.Sq) - 1;
+    const int q_last =
+        qpos(min(q0 + kBQ, a.Sq) - 1, a.seg, a.nstripes, a.stripe);
     ntiles = min(nkv, q_last / kBK + 1);
   }
+  int qps[4];  // positions of this thread's rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    qps[i] = qpos(q0 + ty + 16 * i, a.seg, a.nstripes, a.stripe);
 
   uint4 reg[Tile<HD>::kPerThread];
   load_tile<HD>(reg, qb, a.q_ss, q0, a.Sq);
@@ -295,7 +319,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm<HD>())
     // scale, mask, online softmax; p goes to shared memory
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
+      const int qp = qps[i];
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -645,6 +669,7 @@ struct TmaArgs {
   int Sq, Skv, H, KV;
   float scale_log2;  // log2(e) / sqrt(hd): the scores in base 2
   int causal;
+  int seg, nstripes, stripe;  // query rows' positions (qpos)
 };
 
 template <int HD>
@@ -701,9 +726,12 @@ __global__ void __launch_bounds__(Split<HD>::kThreads, 1)
   // the heaviest Q tiles (the most KV tiles under a causal mask) first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   const int nkv = (a.Skv + kRows - 1) / kRows;
-  // KV tiles up to the diagonal if causal
+  // KV tiles up to the diagonal of the tile's last row if causal
   const int ntiles =
-      a.causal ? min(nkv, (min(q0 + kRows, a.Sq) - 1) / kRows + 1) : nkv;
+      a.causal ? min(nkv, qpos(min(q0 + kRows, a.Sq) - 1, a.seg, a.nstripes,
+                               a.stripe) / kRows + 1)
+               : nkv;
+  const int p0 = qpos(q0, a.seg, a.nstripes, a.stripe);  // the first row's
 
   const int nloads = 2 * ntiles;
   auto load = [&](int n) {  // thread 0 only
@@ -728,6 +756,8 @@ __global__ void __launch_bounds__(Split<HD>::kThreads, 1)
   // column 8j + c + e with c = 2 (lane % 4)
   const int r = warp * 16 + lane / 4;
   const int c = 2 * (lane % 4);
+  const int qps[2] = {qpos(q0 + r, a.seg, a.nstripes, a.stripe),
+                      qpos(q0 + r + 8, a.seg, a.nstripes, a.stripe)};
   float o[ON / 2];
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // this thread's part of each row's sum
@@ -758,10 +788,10 @@ __global__ void __launch_bounds__(Split<HD>::kThreads, 1)
 
     // online softmax in base 2; masks only on the diagonal and the
     // Skv edge
-    const bool edge = (a.causal && k0 + kRows - 1 > q0) || k0 + kRows > a.Skv;
+    const bool edge = (a.causal && k0 + kRows - 1 > p0) || k0 + kRows > a.Skv;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int qp = q0 + r + 8 * i;
+      const int qp = qps[i];
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -965,20 +995,26 @@ extern "C" {
 // q (B, Sq, H, hd), k/v (B, Skv, KV, hd) with element strides (batch,
 // seq, head) and a unit stride on hd; o is a contiguous (B, Sq, H, hd)
 // tensor of the same dtype.  dtype: 0 float32 (the CUDA-core body),
-// 1 bfloat16 (the wgmma body).
+// 1 bfloat16 (the wgmma body).  seg, nstripes, stripe: the query rows'
+// positions (qpos; nstripes = 1 for rows at positions 0..Sq-1).
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int B, int Sq, int Skv, int H, int KV, int hd,
                     long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh,
-                    float scale, int causal, int dtype, void* stream) {
+                    float scale, int causal, int seg, int nstripes,
+                    int stripe, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      (long long)(Sq + kBQ - 1) / kBQ > 65535)
+      (long long)(Sq + kBQ - 1) / kBQ > 65535 || nstripes < 1 ||
+      stripe < 0 || stripe >= nstripes || (nstripes > 1 && seg < 1) ||
+      (nstripes > 1 &&
+       ((long long)(Sq - 1) / seg * nstripes + nstripes) * seg > 2147483647LL))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
     const Args a{q, k, v, o, Sq, Skv, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss,
-                 k_sh, v_sb, v_ss, v_sh, scale, causal};
+                 k_sh, v_sb, v_ss, v_sh, scale, causal, seg, nstripes,
+                 stripe};
     return dispatch_f32(a, B, hd, s);
   }
   if (dtype != kBF16) return (int)cudaErrorInvalidValue;
@@ -988,7 +1024,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   if (e == 0) e = make_map(&maps[2], v, hd, KV, Skv, B, v_sh, v_ss, v_sb);
   if (e != 0) return e;
   const TmaArgs a{static_cast<__nv_bfloat16*>(o), Sq, Skv, H, KV,
-                  scale * 1.4426950408889634f, causal};
+                  scale * 1.4426950408889634f, causal, seg, nstripes,
+                  stripe};
   return dispatch_bf16(maps, a, B, hd, s);
 }
 

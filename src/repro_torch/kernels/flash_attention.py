@@ -42,6 +42,18 @@ taken for its signature and checked, and do not change the result.  There
 is no ``interpret=``: the device of the tensors decides, as for every
 kernel of the port.
 
+Query stripes (``stripe=(seg, count, index)``): a rank of a (data, model)
+mesh holds one stripe of the reference's Q tiles, which its
+``blockwise_attention`` stripes over the "model" axis (tile t = l·M + m
+goes to stripe m).  q then holds the stripe's rows only, and row r sits
+at the absolute position ``((r // seg)·count + index)·seg + r % seg``
+(``stripe_positions``), against keys at 0..Skv-1.  Only the causal test
+reads positions: each query sees keys up to its own position.  The
+kernel takes the three numbers and changes only a Q tile's first-row
+and last-row positions (its diagonal test and its causal KV-tile count)
+and each row's mask; ``count`` 1 (or ``stripe=None``) is the unstriped
+call, bit for bit.  One launch covers the whole stripe.
+
 Bound: operations.  At starcoder2-3b's prefill shape a causal call needs
 4·B·H·hd·Sq(Sq+1)/2 = 1.03e11 of them (0.104 ms at 989 TFLOP/s bf16) on
 109 MB of bytes; the split P costs the bf16 body 1.5 times that on the
@@ -127,11 +139,34 @@ def tolerance_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((diff / tolerance(want)).max())
 
 
+def _stripe(stripe) -> tuple:
+    """``stripe`` as (seg, count, index), checked; None is (0, 1, 0)."""
+    if stripe is None:
+        return 0, 1, 0
+    seg, count, index = (int(x) for x in stripe)
+    if count < 1 or not 0 <= index < count or (count > 1 and seg < 1):
+        raise ValueError(f"stripe {tuple(stripe)}: expected (seg >= 1, "
+                         f"count >= 1, 0 <= index < count)")
+    return seg, count, index
+
+
+def stripe_positions(rows: int, stripe=None, device=None) -> torch.Tensor:
+    """The absolute positions of ``rows`` query rows of a stripe (module
+    notes): 0..rows-1 without one."""
+    seg, count, index = _stripe(stripe)
+    r = torch.arange(rows, device=device)
+    if count == 1:
+        return r
+    return ((r // seg) * count + index) * seg + r % seg
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True,
+                          stripe=None) -> torch.Tensor:
     """Dense-softmax attention in fp32, GQA by KV-head index: the twin of
     the reference's ``_attention_xla`` and the plain version of the
-    ``flash_attention`` kernel."""
+    ``flash_attention`` kernel; ``stripe`` places the query rows (module
+    notes)."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     kv_idx = torch.arange(H, device=q.device) // (H // KV)
@@ -139,14 +174,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v[:, :, kv_idx].float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(hd)
     if causal:
-        mask = (torch.arange(Sq, device=q.device)[:, None]
+        mask = (stripe_positions(Sq, stripe, q.device)[:, None]
                 >= torch.arange(Skv, device=q.device)[None, :])
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
-def _check(q, k, v, block_q, block_kv) -> None:
+def _check(q, k, v, block_q, block_kv, stripe=None) -> None:
+    _stripe(stripe)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name} must be a 4-d torch.Tensor")
@@ -219,8 +255,8 @@ class _FlashAttention(torch.autograd.Function):
     """Kernel 11 forward, ``flash_attention_backward`` backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, block_q, block_kv):
-        out = _flash_forward(q, k, v, causal, block_q, block_kv)
+    def forward(ctx, q, k, v, causal):
+        out = _flash_forward(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out)
         ctx.causal = causal
         return out
@@ -230,50 +266,71 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, dout,
                                               causal=ctx.causal)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
-                    block_kv: int = 128) -> torch.Tensor:
+                    block_kv: int = 128, stripe=None) -> torch.Tensor:
     """softmax(q kᵀ / sqrt(hd)) v per head, causal by absolute positions
     when ``causal``; q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq, H,
-    hd) in q's dtype, on q's device.  Differentiable when autograd
-    records (the module notes)."""
-    _check(q, k, v, block_q, block_kv)
+    hd) in q's dtype, on q's device.  ``stripe`` (seg, count, index)
+    places q's rows at a stripe's positions (module notes).
+    Differentiable when autograd records (the module notes), unstriped."""
+    _check(q, k, v, block_q, block_kv, stripe)
+    stripe = None if _stripe(stripe)[1] == 1 else _stripe(stripe)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, block_q, block_kv)
-    return _flash_forward(q, k, v, causal, block_q, block_kv)
+        if stripe is not None:
+            raise NotImplementedError(
+                "a stripe's backward is not ported yet (training across "
+                "ranks: ROADMAP.md Queue 1 item 6)")
+        return _FlashAttention.apply(q, k, v, causal)
+    return _flash_forward(q, k, v, causal, stripe)
 
 
-def _flash_forward(q, k, v, causal, block_q, block_kv) -> torch.Tensor:
+def _flash_forward(q, k, v, causal, stripe=None) -> torch.Tensor:
     """The kernel call (CUDA tensors, or its shape on meta) or the plain
     version (CPU)."""
     path = dispatch.decide(q).path
     if path == dispatch.TORCH_CPU:
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, stripe=stripe)
+    seg, count, index = _stripe(stripe)
     if path == dispatch.CUDA:
         _check_kernel_inputs(q, k, v)
         if _get_current_dispatch_mode() is None:
-            return _launch(q, k, v, bool(causal))
-    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal))
+            return _launch(q, k, v, bool(causal), seg, count, index)
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal), seg,
+                                                 count, index)
 
 
-def causal_pairs(Sq: int, Skv: int, causal: bool) -> int:
-    """(query, key) pairs the kernel computes: query i sees keys 0..i
-    (capped at Skv) when causal, every key otherwise."""
+def _pairs_run(p0: int, n: int, Skv: int) -> int:
+    """Causal (query, key) pairs of n queries at positions p0..p0+n-1:
+    each sees min(position + 1, Skv) keys."""
+    a, b = p0, min(p0 + n, Skv)
+    tri = b * (b + 1) // 2 - a * (a + 1) // 2 if b > a else 0
+    return tri + (n - max(0, b - a)) * Skv
+
+
+def causal_pairs(Sq: int, Skv: int, causal: bool, stripe=None) -> int:
+    """(query, key) pairs the kernel computes: the query at position p
+    sees keys 0..p (capped at Skv) when causal, every key otherwise;
+    positions 0..Sq-1, or a stripe's (module notes)."""
     if not causal:
         return Sq * Skv
-    n = min(Sq, Skv)
-    return n * (n + 1) // 2 + (Sq - n) * Skv
+    seg, count, index = _stripe(stripe)
+    if count == 1:
+        return _pairs_run(0, Sq, Skv)
+    return sum(_pairs_run(((s0 // seg) * count + index) * seg,
+                          min(seg, Sq - s0), Skv)
+               for s0 in range(0, Sq, seg))
 
 
-def flash_flops(q_shape, k_shape, causal: bool) -> int:
+def flash_flops(q_shape, k_shape, causal: bool, stripe=None) -> int:
     """Operations of one kernel call: 2 per multiply-add of Q Kᵀ and of P V
     over the pairs ``causal_pairs`` keeps."""
     B, Sq, H, hd = q_shape
-    return 4 * B * H * hd * causal_pairs(Sq, k_shape[1], causal)
+    return 4 * B * H * hd * causal_pairs(Sq, k_shape[1], causal, stripe)
 
 
 def _check_kernel_inputs(q, k, v) -> None:
@@ -299,8 +356,10 @@ def _check_kernel_inputs(q, k, v) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> torch.Tensor:
-    """One launch of kernel 11 (inputs checked by the caller)."""
+            causal: bool, seg: int, stripes: int,
+            stripe: int) -> torch.Tensor:
+    """One launch of kernel 11 (inputs checked by the caller); query row
+    r at ``stripe_positions`` of (seg, stripes, stripe)."""
     dev = q.device
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -313,7 +372,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Skv, H, KV, hd, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
-            _DTYPE_CODES[q.dtype], _build.stream_ptr(dev))
+            int(seg), int(stripes), int(stripe), _DTYPE_CODES[q.dtype],
+            _build.stream_ptr(dev))
     _build.check(err, "flash_attention")
     _build.count_launch(LAUNCHES, "flash_attention")
     return out
@@ -324,11 +384,11 @@ _flash_op = torch.library.custom_op("repro_torch::flash_attention", _launch,
 
 
 @_flash_op.register_fake
-def _flash_shape(q, k, v, causal):
+def _flash_shape(q, k, v, causal, seg, stripes, stripe):
     return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
-def _flash_flop_formula(q_shape, k_shape, v_shape, causal, *, out_shape=None,
-                        **kwargs) -> int:
-    return flash_flops(q_shape, k_shape, causal)
+def _flash_flop_formula(q_shape, k_shape, v_shape, causal, seg, stripes,
+                        stripe, *, out_shape=None, **kwargs) -> int:
+    return flash_flops(q_shape, k_shape, causal, (seg, stripes, stripe))

@@ -19,13 +19,14 @@ program does:
   arguments included (on the card, ``torch.cuda.memory_stats()``'s
   ``requested_bytes.all.peak``: the bytes asked of the caching allocator,
   before it rounds them into its blocks).
-* collectives: bytes the mesh positions send each other, where the port
-  moves a position's block to another explicitly
+* collectives: bytes the mesh positions send each other, by kind, where
+  the port moves a position's block to another explicitly
   (``distributed.collectives.note_permute``/``note_send``: ``ring_shift``,
-  the stacked EC store's rotations, rolled XORs and rebuild gathers, and
-  every send of a rank's communicator, ``distributed/ranks.py``).  All of
-  them are ``collective-permute``s.  On one card nothing crosses a link;
-  the count is what a mesh of cards would send.
+  the stacked EC store's rotations, rolled XORs and rebuild gathers, the
+  ``collective-permute``s; and every send of a rank's communicator,
+  ``distributed/ranks.py``: its shifts, ``all-gather``s and
+  ``all-reduce``s).  On one card nothing crosses a link; the count is
+  what a mesh of cards would send.
 
 Argument bytes per device come from ``distributed/sharding.py``'s specs:
 each leaf's local block on the mesh (``argument_bytes``).
@@ -106,17 +107,18 @@ class _ByteCounter(TorchDispatchMode):
 class Count:
     """``with Count(live) as c: step()`` counts the step: ``c.flops``,
     ``c.flops_by_op``, ``c.bytes``, ``c.peak_bytes``
-    (``live`` tensors included), ``c.permute_bytes``
-    (bytes moved between mesh positions, summed over the moves) and
-    ``c.permutes`` (their number).  ``live``: the tensors that exist
-    before the step (its arguments)."""
+    (``live`` tensors included), ``c.collective_bytes`` and
+    ``c.collective_counts`` (bytes sent to other mesh positions and
+    moves, by collective kind), ``c.permute_bytes`` and ``c.permutes``
+    (those of the ``collective-permute``s).  ``live``: the tensors that
+    exist before the step (its arguments)."""
 
     def __init__(self, live=()):
         self._live = list(live)
 
     def __enter__(self) -> "Count":
-        self.permute_bytes = 0
-        self.permutes = 0
+        self.collective_bytes: dict = {}
+        self.collective_counts: dict = {}
         self._flops = FlopCounterMode(display=False)
         self._bytes = _ByteCounter(self._live)
         self._rec = collectives.recording(self._note)
@@ -125,9 +127,19 @@ class Count:
         self._bytes.__enter__()
         return self
 
-    def _note(self, nbytes: int) -> None:
-        self.permute_bytes += nbytes
-        self.permutes += 1
+    def _note(self, nbytes: int, kind: str) -> None:
+        self.collective_bytes[kind] = self.collective_bytes.get(kind, 0) \
+            + nbytes
+        self.collective_counts[kind] = self.collective_counts.get(kind, 0) \
+            + 1
+
+    @property
+    def permute_bytes(self) -> int:
+        return self.collective_bytes.get(collectives.PERMUTE, 0)
+
+    @property
+    def permutes(self) -> int:
+        return self.collective_counts.get(collectives.PERMUTE, 0)
 
     def __exit__(self, *exc):
         self._bytes.__exit__(*exc)

@@ -17,11 +17,25 @@ argument bytes each device of the mesh holds under
   counted at full depth.  The peak's place in a training step moves with
   depth, so its extrapolation is an estimate (``peak_extrapolated``);
   ``count_cell`` counts one depth whole.
-* A model cell's positions run as one program on one card: FLOPs and
-  bytes per device are the program's divided by the devices (an even
-  split); the peak is given for one card running the whole program.
-  Model cells have no SPMD collectives here (their fields are null, with
-  the reason).
+* The prefill and decode cells of the dense archs (every layer "A", a
+  dense MLP: starcoder2-3b, phi4-mini-3.8b, mistral-large-123b) on a mesh
+  of more than one position count one rank's forward
+  (``models/ranked.py``'s ``RankModel`` on the position's blocks, its
+  moves counted by ``ranks.counting_comms``), at every model position
+  (their attention stripes differ) and every data position whose batch
+  rows differ: per device, the busiest position's FLOPs, bytes, peak and
+  collective bytes by kind (``count: "rank"``); the totals sum the
+  positions; ``repeated_products`` names the matrix products every model
+  position computes alike and their FLOPs on one position.  The
+  multi-pod mesh (its "pod" axis) and a batch above the data axis that
+  it does not divide are not taken across ranks yet, and keep the even
+  split.
+* Every other model cell (training, the other archs, the 1 x 1 mesh)
+  runs its positions as one program on one card: FLOPs and bytes per
+  device are the program's divided by the devices (an even split,
+  ``count: "even split"``), the peak is given for one card running the
+  whole program, and there are no collectives (their fields are null,
+  with the reason).
 * An EC cell runs one device's program: the rank body of one position
   (``distributed/ranks.py``, ``ecstore.rank_*``) on its own block, so its
   counts and peak are a device's, and its sends, counted by a
@@ -58,11 +72,12 @@ from ..distributed import sharding as shd
 from ..distributed.ecstore import (ECConfig, rank_parity_delta_update,
                                    rank_parity_delta_update_chain,
                                    rank_reconstruct_failed)
-from ..distributed.ranks import CountingComm
+from ..distributed.ranks import CountingComm, counting_comms
 from ..kernels import dispatch
 from ..models import Model, layers, moe
 from ..models.convert import param_tree
-from ..tree import Stacked, leaves
+from ..models.ranked import RankModel, batch_rows, check_config
+from ..tree import Stacked, leaves, tree_map
 from ..train.optimizer import make_optimizer
 from ..train.train_step import make_train_step
 from . import cost_analysis as ca
@@ -76,8 +91,12 @@ NVLINK_BW = 450e9          # bytes/s each way per card, within one NVLink domain
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 NO_SPMD = ("no SPMD collectives: the mesh's positions run as one program "
-           "on one card (a model is not yet trained or served across "
-           "ranks)")
+           "on one card, its counts split evenly (training across ranks "
+           "and the other archs' layers on ranks are not ported yet: "
+           "ROADMAP.md Queue 1)")
+RANK_NOTE = ("one rank's forward, the busiest position's: the bytes it "
+             "sends by kind (an all-gather (A - 1) blocks, an all-reduce "
+             "2(A - 1)/A of its bytes, the ring's share)")
 
 
 def _mesh(mesh) -> Mesh:
@@ -277,26 +296,116 @@ def _depth(cfg, repeats: int):
     return cfg.scaled(num_layers=repeats * unit + tail)
 
 
+def _extrapolate(one, two, R: int):
+    """one + (R - 1)(two - one) over numbers and dicts of them."""
+    if isinstance(one, dict) or isinstance(two, dict):
+        return {k: _extrapolate(one.get(k, 0), two.get(k, 0), R)
+                for k in set(one) | set(two)}
+    return one + (R - 1) * (two - one)
+
+
 def count_model_cell(cfg, shape: ShapeSpec, mesh: Mesh,
-                     optimizer="adamw8bit") -> dict:
+                     optimizer="adamw8bit", count=None) -> dict:
     """Counts of the cell at the config's full depth: run at 1 and 2
     repeats of the layer unit and extrapolated (a config of at most 2
-    repeats runs as it is)."""
+    repeats runs as it is).  ``count(cfg)``: one count at a depth
+    (default ``count_cell``)."""
+    if count is None:
+        def count(c):
+            return count_cell(c, shape, mesh, optimizer)
     R = cfg.num_layers // len(cfg.layer_pattern)
     if R <= 2:
-        out = count_cell(cfg, shape, mesh, optimizer)
+        out = count(cfg)
         out["extrapolated_from"] = None
         return out
-    one = count_cell(_depth(cfg, 1), shape, mesh, optimizer)
-    two = count_cell(_depth(cfg, 2), shape, mesh, optimizer)
-    out = {k: one[k] + (R - 1) * (two[k] - one[k])
-           for k in ("flops", "bytes", "peak")}
-    out["flops_by_op"] = {
-        op: one["flops_by_op"].get(op, 0) + (R - 1) * (
-            two["flops_by_op"].get(op, 0) - one["flops_by_op"].get(op, 0))
-        for op in set(one["flops_by_op"]) | set(two["flops_by_op"])}
+    one, two = count(_depth(cfg, 1)), count(_depth(cfg, 2))
+    out = {k: _extrapolate(one[k], two[k], R) for k in one}
     out["extrapolated_from"] = [1, 2]
     return out
+
+
+def rank_counted(cfg, shape: ShapeSpec, mesh: Mesh) -> bool:
+    """Whether the cell counts one rank's forward (module notes)."""
+    if mesh.size == 1 or shape.kind not in ("prefill", "decode") or \
+            tuple(mesh.axis_names) != ("data", "model"):
+        return False
+    A = mesh.shape["data"]
+    if shape.global_batch > A and shape.global_batch % A:
+        return False
+    try:
+        check_config(cfg, mesh)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def count_rank_forward(cfg, shape: ShapeSpec, mesh: Mesh, coords) -> dict:
+    """The forward of the rank at ``coords`` on ``meta``: ``RankModel``
+    on fresh tensors of its blocks' shapes, its moves counted by
+    ``ranks.counting_comms``; a prefill cell's ``apply``, a decode cell's
+    ``decode_step`` at the last slot of a seq_len cache.  FLOPs, bytes,
+    peak (the rank's blocks, the batch and its cache block live),
+    collective bytes and moves by kind, and the products every model
+    position repeats (``RankModel.repeated``).  Call inside
+    ``dispatch.dry_run``."""
+    def fresh(x):
+        if isinstance(x, Stacked):
+            return Stacked(fresh(p) for p in x.parts)
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    params = param_tree(Model(cfg, device="meta"))
+    specs = shd.param_specs(cfg, params, mesh)
+    local = tree_map(lambda leaf, spec: fresh(shd.local_block(
+        leaf, spec, mesh, coords)), params, specs)
+    batch = make_inputs(cfg, shape, "meta")
+    model = RankModel(cfg, local, counting_comms(mesh, coords))
+    live = [t for leaf in leaves(local) for t in (
+        leaf.parts if isinstance(leaf, Stacked) else [leaf])]
+    live += [t for t in batch.values() if t.device.type == "meta"]
+    if shape.kind == "prefill":
+        def step():
+            return model.apply(batch)
+    else:
+        cache = model.init_cache(shape.global_batch, shape.seq_len,
+                                 dtype=torch.bfloat16)
+        live += [t for c in cache for t in c.values()]
+
+        def step():
+            return model.decode_step(cache, batch["tokens"],
+                                     shape.seq_len - 1)
+    with ca.Count(live) as c:
+        step()
+    return {"flops": c.flops, "bytes": c.bytes, "peak": c.peak_bytes,
+            "flops_by_op": c.flops_by_op,
+            "collectives": dict(c.collective_bytes),
+            "collective_counts": dict(c.collective_counts),
+            "repeated": dict(model.repeated)}
+
+
+def count_rank_cell(cfg, shape: ShapeSpec, mesh: Mesh) -> dict:
+    """``count_rank_forward`` at the config's depth (extrapolated as
+    ``count_model_cell``) for every model position and every data
+    position with its own batch rows: ``positions`` (coords, the devices
+    it stands for, its counts), ``busiest`` (the one with the most
+    FLOPs) and ``flops_total``/``bytes_total`` over the mesh."""
+    sizes = mesh.shape
+    A, M = sizes["data"], sizes["model"]
+    rows: dict = {}
+    for a in range(A):
+        r0, r1 = batch_rows(shape.global_batch, A, a)
+        rows.setdefault(r1 - r0, []).append(a)
+    positions = []
+    for same in rows.values():
+        for m in range(M):
+            coords = (same[0], m)
+            counts = count_model_cell(
+                cfg, shape, mesh, count=lambda c: count_rank_forward(
+                    c, shape, mesh, coords))
+            positions.append(dict(coords=coords, devices=len(same),
+                                  **counts))
+    busiest = max(positions, key=lambda p: p["flops"])
+    return {"positions": positions, "busiest": busiest,
+            "flops_total": sum(p["devices"] * p["flops"] for p in positions),
+            "bytes_total": sum(p["devices"] * p["bytes"] for p in positions)}
 
 
 def _config(arch, remat, attn, kv):
@@ -338,18 +447,27 @@ def run_cell(arch: str, shape_name: str, mesh="single", *,
             coll = {k: 0 for k in COLLECTIVES}
             coll["collective-permute"] = c.permute_bytes
             counts_c = {"collective-permute": c.permutes}
+            kind = "rank"
         else:
             cfg = _config(arch, remat, attn, kv)
             shape = cell_shape(shape_name, batch, seq)
             ok, why = shape_applicable(cfg, shape)
             if not ok:
                 return dict(base, status="skipped", reason=why)
-            counts = count_model_cell(cfg, shape, mesh, optimizer)
+            kind = "rank" if rank_counted(cfg, shape, mesh) else "even split"
+            if kind == "rank":
+                cell = count_rank_cell(cfg, shape, mesh)
+                counts = dict(cell["busiest"])
+                coll = {k: counts["collectives"].get(k, 0)
+                        for k in COLLECTIVES}
+                counts_c = counts["collective_counts"]
+            else:
+                counts = count_model_cell(cfg, shape, mesh, optimizer)
+                coll = counts_c = None
             full = build_cell(cfg, shape, mesh, optimizer=optimizer)
             arg_bytes = ca.argument_bytes(full.args, mesh)
             arg_dev = full.device_bytes()
             meta = full.meta
-            coll = counts_c = None
     flops, nbytes = counts["flops"], counts["bytes"]
     res = dict(base, status="ok", build_s=round(time.perf_counter() - t0, 2),
                flops_total=flops, bytes_total=nbytes,
@@ -360,7 +478,18 @@ def run_cell(arch: str, shape_name: str, mesh="single", *,
                argument_bytes_one_card=arg_dev,
                peak_bytes_one_card=counts["peak"],
                peak_extrapolated=counts["extrapolated_from"] is not None,
-               extrapolated_from=counts["extrapolated_from"], meta=meta)
+               extrapolated_from=counts["extrapolated_from"], meta=meta,
+               count=kind)
+    if arch != "ecstore" and kind == "rank":
+        res.update(count="rank", flops_total=cell["flops_total"],
+                   bytes_total=cell["bytes_total"], flops_per_device=flops,
+                   bytes_per_device=nbytes, peak_bytes_one_card=None,
+                   peak_bytes_per_device=counts["peak"],
+                   busiest_position=list(counts["coords"]),
+                   repeated_products=counts["repeated"],
+                   positions=[{k: p[k] for k in (
+                       "coords", "devices", "flops", "bytes", "peak",
+                       "collectives")} for p in cell["positions"]])
     res["t_compute"] = res["flops_per_device"] / PEAK_FLOPS
     res["t_memory"] = res["bytes_per_device"] / HBM_BW
     if coll is None:
@@ -374,7 +503,8 @@ def run_cell(arch: str, shape_name: str, mesh="single", *,
                    collective_wire_bytes_per_device=total,
                    collectives=coll, collective_wire=dict(coll),
                    collective_counts=counts_c,
-                   collective_note="NVLink: every permute is one hop",
+                   collective_note=(RANK_NOTE if res["count"] == "rank" else
+                                    "NVLink: every permute is one hop"),
                    t_collective=total / NVLINK_BW)
     terms = {k: res[f"t_{k}"] for k in ("compute", "memory", "collective")
              if res[f"t_{k}"] is not None}
@@ -382,7 +512,8 @@ def run_cell(arch: str, shape_name: str, mesh="single", *,
     if arch != "ecstore":
         mf = model_flops(cfg, shape)
         res["model_flops_per_device"] = mf / n_dev
-        res["useful_flops_ratio"] = (mf / flops) if flops else 0.0
+        res["useful_flops_ratio"] = (mf / res["flops_total"]
+                                     if res["flops_total"] else 0.0)
     return res
 
 

@@ -10,9 +10,15 @@ The port of the JAX package's ``models/layers.py``.  Conventions:
 * activations are (batch, seq, ...) in ``cfg.dtype``; norms, RoPE and
   softmax run in fp32 and cast back; the embedding tables are fp32, as
   the reference makes them;
-* one device, no mesh: the reference's ``shard_act`` and
-  ``set_activation_mesh`` (GSPMD activation constraints) and its
-  sequence- or head-parallel striping have no counterpart here.
+* a mesh is a set of ranks: ``set_activation_mesh`` installs a rank's
+  communicators (``distributed.ranks.rank_comms``) where the reference's
+  installs a mesh for GSPMD's activation constraints, and
+  ``models/ranked.py``'s ``RankModel`` runs a dense model's forward on
+  the rank with the reference's activation layout (its ``shard_act``
+  calls), the sequence- or head-parallel attention of its
+  ``blockwise_attention`` (kernel 11 on a stripe of Q tiles) and the
+  sequence-sharded decode cache.  ``Model`` itself runs on one device
+  and reads no mesh.
 
 Parameters are made with ``requires_grad=False``, as serving takes no
 gradients; the training step (``train/train_step.py``) turns it on.
@@ -48,8 +54,27 @@ NEG_INF = -1e30
 #: calls of each attention route since the last ``reset_op_paths``:
 #: "flash_attention:<dispatch path>" (kernel 11 or its plain version),
 #: "masked_blockwise:torch", "decode:torch", "decode_q8:torch",
-#: "mla_blockwise:torch", "mla_decode:torch"
+#: "mla_blockwise:torch", "mla_decode:torch", and on a rank
+#: "decode_ranked:torch" (a sequence-sharded cache's combined decode)
 OP_PATHS: collections.Counter = collections.Counter()
+
+#: the rank communicators ``set_activation_mesh`` installed, or None
+_ACT_MESH = None
+
+
+def set_activation_mesh(comms) -> None:
+    """Install (or clear, with None) this rank's communicators of a
+    (data, model) mesh (``distributed.ranks.rank_comms``), what
+    ``ranked.RankModel`` moves blocks through; the reference's
+    ``set_activation_mesh`` installs the mesh GSPMD constrains activations
+    on."""
+    global _ACT_MESH
+    _ACT_MESH = comms
+
+
+def activation_mesh():
+    """The communicators ``set_activation_mesh`` installed, or None."""
+    return _ACT_MESH
 
 #: True while a checkpointed unit runs again in the backward
 #: (``recomputing``): its calls were counted in the forward
@@ -189,14 +214,18 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     return out.to(x.dtype)
 
 
-def position_embed(cfg: ModelConfig, q, k, positions):
+def embed_positions(cfg: ModelConfig, x, positions):
+    """``cfg.rope_kind``'s position embedding of q or k (B, S, heads, hd)."""
     if cfg.rope_kind == "rope":
-        return (apply_rope(q, positions, cfg.rope_theta),
-                apply_rope(k, positions, cfg.rope_theta))
+        return apply_rope(x, positions, cfg.rope_theta)
     if cfg.rope_kind == "mrope":
-        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
-                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
-    return q, k
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return x
+
+
+def position_embed(cfg: ModelConfig, q, k, positions):
+    return (embed_positions(cfg, q, positions),
+            embed_positions(cfg, k, positions))
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +233,8 @@ def position_embed(cfg: ModelConfig, q, k, positions):
 # ---------------------------------------------------------------------------
 
 def blockwise_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
-                        q_offset: int = 0, window: int = 0, kv_mask=None):
+                        q_offset: int = 0, window: int = 0, kv_mask=None,
+                        stripe=None):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd).
 
     The reference's online-softmax attention over KV tiles.  Query
@@ -213,18 +243,25 @@ def blockwise_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
     marks each row's valid keys, and ``cfg.attn_logit_softcap`` caps the
     scaled scores with tanh.  Without any of those four the call goes to
     ``kernels.flash_attention`` (kernel 11 on a CUDA tensor); with any it
-    runs ``_masked_blockwise`` in torch (module notes).  One device: the
-    reference's striping of Q tiles over a mesh's "model" axis has no
-    counterpart.
+    runs ``_masked_blockwise`` in torch (module notes).
+
+    On a rank of a mesh (``ranked.RankModel``) the reference stripes the
+    Q tiles over the "model" axis: ``stripe=(bq, M, m)`` says that q holds
+    stripe m's rows, tile t = l·M + m of bq rows at row l·bq, and the
+    call is one kernel-11 launch over them
+    (``flash_attention(stripe=...)``); a stripe takes no masked option.
     """
     if window or kv_mask is not None or q_offset or cfg.attn_logit_softcap:
+        if stripe is not None:
+            raise ValueError("a stripe of Q tiles takes the flash route "
+                             "only: no window, kv_mask, q_offset or softcap")
         _count("masked_blockwise:torch")
         return _masked_blockwise(q, k, v, cfg, causal=causal,
                                  q_offset=q_offset, window=window,
                                  kv_mask=kv_mask)
     _count(f"flash_attention:{dispatch.decide(q).path}")
     return flash_attention(q, k, v, causal=causal, block_q=cfg.attn_block_q,
-                           block_kv=cfg.attn_block_kv)
+                           block_kv=cfg.attn_block_kv, stripe=stripe)
 
 
 def _masked_blockwise(q, k, v, cfg: ModelConfig, *, causal: bool,

@@ -314,6 +314,13 @@ class Model(nn.Module):
         x = self.final_norm(x, cfg.norm_eps)
         return unembed(self.embeddings, x, cfg)[:, 0], cache
 
+    @staticmethod
+    def argmax(logits: torch.Tensor) -> torch.Tensor:
+        """Greedy tokens (B,) of a decode step's logits (B, V): the first
+        maximum, as the reference's ``jnp.argmax`` (a ``RankModel`` gathers
+        its vocab-sharded one)."""
+        return torch.argmax(logits, dim=-1)
+
 
 def _count_once():
     """Checkpoint contexts (forward, recompute): the recompute does not

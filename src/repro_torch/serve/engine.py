@@ -7,6 +7,14 @@ forward); ``decode`` then generates greedily, or samples at
 ``temperature > 0`` from the engine's ``torch.Generator``.  The cache is
 written in place.
 
+On a rank of a (data, model) mesh the model is a
+``models.ranked.RankModel``: the engine takes the whole batch on every
+rank, the cache is the rank's block, and greedy decoding returns the
+whole batch's tokens on every rank (``RankModel.argmax`` gathers the
+vocab-sharded argmax), the tokens of one device.  Sampling at
+``temperature > 0`` and ``protect_cache`` are not ported across ranks
+(ROADMAP.md Queue 1) and raise there.
+
 The serving state of every layer kind - attention KV (a local layer's
 ring, an int8 cache with its scales), MLA latents, Mamba-2 and RG-LRU
 states - can be erasure-coded across a mesh's data axis exactly like
@@ -94,15 +102,22 @@ class ServeEngine:
         for _ in range(steps):
             logits = self._step(tok)
             if temperature > 0:
+                self._one_device("sampling at temperature > 0")
                 probs = torch.softmax(logits.float() / temperature, dim=-1)
                 tok = torch.multinomial(probs, 1,
                                         generator=self.generator)[:, 0]
             else:
-                tok = torch.argmax(logits, dim=-1)
+                tok = self.model.argmax(logits)
             out.append(tok)
         tokens = (torch.stack(out, dim=1).cpu().numpy() if out
                   else np.zeros((self.batch_size, 0), np.int64))
         return GenerationResult(tokens, steps)
+
+    def _one_device(self, what: str) -> None:
+        if not isinstance(self.model, Model):
+            raise NotImplementedError(
+                f"{what} across ranks is not ported yet (ROADMAP.md Queue 1 "
+                f"item 12 ports serve --protect; sampling follows it)")
 
 
     # -- EC protection of serving state -----------------------------------
@@ -117,6 +132,7 @@ class ServeEngine:
                 for layer in self.cache]
 
     def protect_cache(self, mesh, cache_specs, ec_cfg: ECConfig | None = None):
+        self._one_device("protect_cache")
         self.ec_store = ECStateStore(mesh, cache_specs, ec_cfg)
         self.ec_parity = self.ec_store.encode(self.cache_tree())
         return self.ec_parity
@@ -137,12 +153,13 @@ class ServeEngine:
 def greedy_generate(model: Model, prompt_tokens, steps: int,
                     max_len: int | None = None) -> np.ndarray:
     """One-shot greedy generation on the model's device: (B, S) prompt
-    -> (B, steps) host array of generated tokens."""
+    -> (B, steps) host array of generated tokens (a ``RankModel``: the
+    whole batch's, on every rank)."""
     B, S = prompt_tokens.shape
     eng = ServeEngine(model, max_len=max_len or (S + steps), batch_size=B,
                       device=model.device)
     logits = eng.prefill({"tokens": prompt_tokens})
-    first = torch.argmax(logits, dim=-1)
+    first = model.argmax(logits)
     if steps <= 1:
         return first[:, None].cpu().numpy()[:, :steps]
     res = eng.decode(steps - 1, first_tokens=first)

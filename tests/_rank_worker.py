@@ -34,7 +34,7 @@ class Reversed:
 def _counted(sent: dict, op: str, fn, *args):
     """``fn(*args)`` with the bytes this rank sends added to ``sent[op]``."""
     got = []
-    with recording(got.append):
+    with recording(lambda n, kind: got.append(n)):
         out = fn(*args)
     sent[op] = sent.get(op, 0) + sum(got)
     return out

@@ -28,7 +28,16 @@ process only, while this process counts the port's cells on ``meta``:
    Every other product agrees exactly: tolerance 0 on integers.
 2. Argument bytes per device, on the host mesh and on (4, 2), against
    ``compiled.memory_analysis().argument_size_in_bytes``: exact.
-3. The EC pseudo-cells on (4, 2) at the reference's 256 MiB a device:
+3. A rank's count on (4, 2) (``count: "rank"``), for reduced
+   starcoder2-3b's prefill_32k and decode_32k: the matrix-product FLOPs of
+   a position times 8 equal the one-device count plus what the plan
+   repeats on every "model" position (``repeated_products``: K and V,
+   and wq and wo in a decode step), and the stripes' attention FLOPs sum
+   to the one-device kernel's.  The reference's per-device HLO dot FLOPs
+   and collective bytes of the same cells are printed beside the port's
+   (``-s``); the two plans differ (PERF.md §6).  Training cells and the
+   other archs keep the even split.
+4. The EC pseudo-cells on (4, 2) at the reference's 256 MiB a device:
    each counts one position's rank body (``ecstore.rank_*``), which
    sends the reference's blocks, so argument bytes, collective-permute
    operand bytes and permute counts equal ``analyze``'s for ``update``,
@@ -60,6 +69,9 @@ ARCHS = ("starcoder2-3b", "recurrentgemma-2b", "llama4-maverick-400b-a17b")
 CELLS = [(a, s) for a in ARCHS for s in ("train_4k", "prefill_32k",
                                          "decode_32k")]
 EC_OPS = ("update", "update_chain", "reconstruct")
+#: cells whose (4, 2) program a rank counts
+MESH_CELLS = [("starcoder2-3b", "prefill_32k"), ("starcoder2-3b",
+                                                  "decode_32k")]
 
 REFERENCE = """
 import json, re
@@ -127,6 +139,11 @@ for arch, shape in CELLS:
         row[name + "_args"] = comp.memory_analysis().argument_size_in_bytes
         if name == "host":
             row["dot_flops"] = dot_flops(comp.as_text())
+        elif (arch, shape) in MESH_CELLS:
+            a = ha.analyze(comp.as_text())
+            row["4x2_dot_flops"] = dot_flops(comp.as_text())
+            row["4x2_collective_bytes"] = a["collective_op_bytes"]
+            row["4x2_collective_wire"] = a["collective_wire_bytes"]
     out["cells"][arch + "/" + shape] = row
 mesh = make_test_mesh(4, 2)
 for op in EC_OPS:
@@ -150,6 +167,7 @@ def _port_cells() -> dict:
         with dispatch.dry_run():
             cell = dryrun.build_cell(cfg, SHAPES[shape], make_test_mesh(4, 2))
         row["4x2_args"] = ca.argument_bytes(cell.args, make_test_mesh(4, 2))
+        row["4x2"] = dryrun.run_cell(arch, shape, make_test_mesh(4, 2))
         out[f"{arch}/{shape}"] = row
     out["ec"] = {op: dryrun.run_cell("ecstore", op, make_test_mesh(4, 2))
                  for op in EC_OPS}
@@ -164,7 +182,7 @@ def both():
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["JAX_PLATFORMS"] = "cpu"
     code = (f"CELLS = {CELLS!r}\nEC_OPS = {EC_OPS!r}\n"
-            + textwrap.dedent(REFERENCE))
+            f"MESH_CELLS = {MESH_CELLS!r}\n" + textwrap.dedent(REFERENCE))
     proc = subprocess.Popen([sys.executable, "-c", code], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -233,6 +251,66 @@ def test_argument_bytes_equal_reference(both, arch, shape, mesh):
     assert got == ref["cells"][f"{arch}/{shape}"][f"{mesh}_args"]
 
 
+def _mm(flops_by_op) -> int:
+    return sum(v for k, v in flops_by_op.items()
+               if k != "repro_torch.flash_attention")
+
+
+@pytest.mark.parametrize("arch,shape", MESH_CELLS)
+def test_mesh_cell_counts_a_rank(both, arch, shape):
+    """A (4, 2) prefill or decode cell of a dense arch reports a rank's
+    count: a position's matrix-product FLOPs times 8 equal the one-device
+    count plus the products the plan repeats on the other M - 1 "model"
+    positions of each of the A data positions; the stripes' kernel-11
+    FLOPs times A sum to the one-device kernel's.  The reference's
+    per-device HLO numbers are printed beside (module notes)."""
+    port, ref = both
+    row = port[f"{arch}/{shape}"]
+    cell, host = row["4x2"], row["host"]
+    A, M = 4, 2
+    assert cell["count"] == "rank" and host["count"] == "even split"
+    assert len(cell["positions"]) == M
+    assert set(cell["repeated_products"]) == (
+        {"wk", "wv"} if shape == "prefill_32k" else {"wk", "wv", "wq", "wo"})
+    rank_mm = _mm(cell["flops_by_op"])
+    assert rank_mm * A * M == _mm(host["flops_by_op"]) + (M - 1) * A * sum(
+        cell["repeated_products"].values())
+    attn = [p["flops"] - rank_mm for p in cell["positions"]]
+    assert A * sum(attn) == host["flops_by_op"].get(
+        "repro_torch.flash_attention", 0)
+    assert cell["flops_total"] == A * sum(p["flops"]
+                                          for p in cell["positions"])
+    assert cell["collectives"]["all-gather"] > 0
+    assert cell["collectives"]["all-reduce"] > 0
+    assert cell["collective_bytes_per_device"] == sum(
+        cell["collectives"].values())
+    want = ref["cells"][f"{arch}/{shape}"]
+    print(json.dumps({"cell": f"{arch}/{shape} reduced, (4, 2)",
+                      "port_flops_per_device": cell["flops_per_device"],
+                      "port_matmul_flops_per_device": rank_mm,
+                      "port_collective_bytes": cell["collectives"],
+                      "reference_dot_flops_per_device":
+                          want["4x2_dot_flops"],
+                      "reference_collective_operand_bytes":
+                          want["4x2_collective_bytes"],
+                      "reference_collective_wire_bytes":
+                          want["4x2_collective_wire"]}))
+
+
+def test_training_and_other_archs_keep_the_even_split(both):
+    """On (4, 2) a training cell and a non-dense arch's cells still split
+    the one-card program evenly, and say why."""
+    port, _ = both
+    for arch, shape in CELLS:
+        cell = port[f"{arch}/{shape}"]["4x2"]
+        ranked = arch == "starcoder2-3b" and shape != "train_4k"
+        assert cell["count"] == ("rank" if ranked else "even split")
+        if not ranked:
+            assert cell["collective_bytes_per_device"] is None
+            assert "not ported" in cell["collective_note"]
+            assert cell["flops_per_device"] * 8 == cell["flops_total"]
+
+
 @pytest.mark.parametrize("op", EC_OPS)
 def test_ec_collectives(both, op):
     """Every EC cell counts one device's rank body, which sends the
@@ -268,9 +346,12 @@ def test_cli_full_config_and_skips(tmp_path):
     ok = json.loads((tmp_path / "starcoder2-3b__decode_32k__single.json")
                     .read_text())
     assert ok["status"] == "ok" and ok["devices"] == 256
-    assert ok["collective_bytes_per_device"] is None
-    assert "one card" in ok["collective_note"]
-    assert ok["bottleneck"] in ("compute", "memory")
+    # a dense arch's decode cell on 16 x 16 counts a rank's forward
+    assert ok["count"] == "rank" and len(ok["positions"]) == 16
+    assert ok["collective_bytes_per_device"] == sum(
+        ok["collectives"].values()) > 0
+    assert "one rank" in ok["collective_note"]
+    assert ok["bottleneck"] in ("compute", "memory", "collective")
     assert ok["extrapolated_from"] == [1, 2]
     skip = json.loads((tmp_path / "starcoder2-3b__long_500k__single.json")
                       .read_text())
@@ -342,7 +423,7 @@ def test_recording_counts_only_its_own_thread():
     from repro_torch.distributed import collectives
     x = torch.zeros((4, 1024), dtype=torch.uint8)
     seen = []
-    with collectives.recording(seen.append):
+    with collectives.recording(lambda n, kind: seen.append(n)):
         worker = threading.Thread(target=collectives.ring_shift, args=(x, 1))
         worker.start()
         worker.join()

@@ -854,6 +854,64 @@ def test_flash_kernel_refuses_rather_than_runs_plain(cuda, bad):
     assert launch_counts()["flash_attention"] == before
 
 
+# query stripes (seg, M, m) over Skv keys, (B, rows, Skv, H, KV, hd):
+# whole 64-row tiles a segment, segments that split a tile, a stripe that
+# is all padding past Skv, and starcoder2-3b's rank shape on (2, 2)
+STRIPE_GRID = [((64, 2, 1), (1, 128, 256, 4, 2, 64)),
+               ((32, 2, 0), (2, 64, 128, 4, 2, 128)),
+               ((500, 2, 1), (1, 500, 1000, 8, 2, 128)),
+               ((100, 3, 2), (1, 300, 900, 4, 1, 256)),
+               ((512, 2, 1), (1, 1024, 1500, 8, 2, 112)),
+               ((48, 4, 3), (1, 96, 100, 4, 2, 32)),
+               ((512, 2, 1), (1, 1024, 2048, 24, 2, 128))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stripe,shape", STRIPE_GRID)
+def test_flash_stripe_matches_plain(cuda, stripe, shape, dtype):
+    """A stripe's launch against the plain version with the same stripe;
+    the same rows with another stripe index must miss the bound."""
+    B, R, Skv, H, KV, hd = shape
+    rng = _rng("flash-stripe", *stripe, *shape)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda, dtype) for s in
+        ((B, R, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
+    before = launch_counts()["flash_attention"]
+    got = flash.flash_attention(q, k, v, stripe=stripe)
+    want = flash.flash_attention_plain(q, k, v, stripe=stripe)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert flash.tolerance_ratio(got, want) <= 1.0
+    seg, M, m = stripe
+    wrong = flash.flash_attention(q, k, v, stripe=(seg, M, (m + 1) % M))
+    assert flash.tolerance_ratio(wrong, want) > 1.0
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_one_stripe_is_bit_equal(cuda, dtype, hd):
+    """A stripe count of 1 given to the kernel itself (``_launch``: the
+    wrapper turns (seg, 1, 0) into no stripe before it launches) computes
+    the unstriped rows bit for bit whatever the segment length, causal
+    and not, and those rows hold against the plain unstriped version.
+    (That the unstriped kernel is the one before query stripes, bit for
+    bit, is ``scripts/kernel_ab.py``'s ``bit_equal`` against that
+    checkout.)"""
+    rng = _rng("flash-one-stripe", hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda, dtype) for s in
+        ((2, 300, 8, hd), (2, 300, 2, hd), (2, 300, 2, hd)))
+    for causal in (True, False):
+        want = flash._launch(q, k, v, causal, 0, 1, 0)
+        assert flash.tolerance_ratio(want, flash.flash_attention_plain(
+            q, k, v, causal=causal)) <= 1.0
+        assert torch.equal(flash.flash_attention(q, k, v, causal=causal),
+                           want)
+        for seg in (1, 7, 64, 128, 1000):
+            assert torch.equal(flash._launch(q, k, v, causal, seg, 1, 0),
+                               want), (causal, seg)
+
+
 # the bf16 body (wgmma on TMA-fed shared memory), (B, Sq, Skv, H, KV, hd,
 # causal): every head dim on a short and a long ragged grid, ragged
 # lengths, Sq != Skv both ways, non-causal ragged, and the starcoder2-3b

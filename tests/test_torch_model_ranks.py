@@ -1,0 +1,460 @@
+"""A dense model's forward across ranks (``models/ranked.py``) against the
+JAX package's model under ``set_activation_mesh`` on a (4, 2) mesh.
+
+Reference side: one subprocess with 8 forced host devices runs the
+reference's ``Model.apply`` and a token-by-token greedy ``decode_step``
+loop under ``set_activation_mesh(make_test_mesh(4, 2))``, the parameters
+placed by ``param_specs``, the batch by ``batch_specs`` and an fp32 cache
+by ``cache_specs``, for reduced starcoder2-3b and phi4-mini-3.8b in fp32
+with ``attn_parallel`` "seq" and "head"; and its striped
+``blockwise_attention`` at S 64 and at a ragged S 80 (padded to 128 rows,
+the second stripe's last 48 rows padding).  The weights are the
+reference's ``Model.init(PRNGKey(SEED))``, drawn again in this process
+and converted by ``models.convert.params_from_jax``.
+
+Port side, while the reference compiles: 8 gloo ranks on the CPU
+(``ranks.launch``), each with its ``sharding.local_block`` of every leaf,
+run ``RankModel.apply`` and ``ServeEngine`` greedy decoding
+(``tests/_model_rank_worker.py``).  B 4 and S 64 put one batch row on
+each data position, and the "seq" stripes are two 32-row tiles
+(bq = min(32, max(64 // 2, 16))).
+
+Held: each rank's logits block against the same block of the
+reference's (fp32: ``ATOL`` 2e-5, ``RTOL`` 1e-4, where the two sum in
+different orders), its logits block after the prompt, the 4 greedy
+tokens exactly; ``flash_attention_plain`` on each stripe against the
+reference's rows at those positions; a stripe count of 1 against the
+unstriped call, bit for bit; a 1 x 1 mesh against the one-device model,
+bit for bit; each rank's bytes sent by kind against the dry run's count
+of the same forward (``dryrun.count_rank_forward``); the other layer
+kinds and options refusing on a (2, 2) mesh, naming their ROADMAP item.
+"""
+import json
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import _model_rank_worker
+from conftest import subprocess_env
+from repro.configs import get_reduced as ref_get_reduced
+from repro.models import Model as RefModel
+from repro_torch.configs import get_reduced
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.distributed import ranks, sharding
+from repro_torch.distributed.ranks import counting_comms
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain,
+                                                 stripe_positions)
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh, make_mesh
+from repro_torch.models import Model, ranked
+from repro_torch.models.convert import param_tree, params_from_jax
+from repro_torch.serve.engine import ServeEngine, greedy_generate
+from repro_torch.tree import tree_map
+
+torch.set_num_threads(1)
+
+ARCHS = ("starcoder2-3b", "phi4-mini-3.8b")
+MODES = ("seq", "head")
+JOBS = [f"{a}/{m}" for a in ARCHS for m in MODES]
+MESH = (4, 2)
+B, S = 4, 64
+PROMPT, STEPS = 16, 4
+ATTN_S = (64, 80)
+SEED = 24
+#: fp32 logits: the reference's GSPMD program and the ranks sum in
+#: different orders
+ATOL, RTOL = 2e-5, 1e-4
+DEADLINE = 300.0
+
+REFERENCE = """
+import sys
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_reduced
+from repro.distributed import sharding as shd
+from repro.launch.mesh import make_test_mesh
+from repro.models import Model, set_activation_mesh
+from repro.models.layers import blockwise_attention
+
+inp = dict(np.load(sys.argv[1]))
+mesh = make_test_mesh(*MESH)
+set_activation_mesh(mesh)
+
+def named(t):
+    return jax.tree.map(lambda s: NamedSharding(mesh, s), t,
+                        is_leaf=lambda x: isinstance(x, P))
+
+out = {}
+for arch in ARCHS:
+    for mode in MODES:
+        cfg = get_reduced(arch).scaled(dtype="float32", attn_parallel=mode)
+        model = Model(cfg)
+        params = model.init(jax.random.PRNGKey(SEED))
+        params = jax.device_put(params, named(shd.param_specs(cfg, params,
+                                                              mesh)))
+        batch = {"tokens": jnp.asarray(inp["tokens"])}
+        batch = jax.device_put(batch, named(shd.batch_specs(cfg, batch,
+                                                            mesh)))
+        with mesh:
+            logits = jax.jit(model.apply)(params, batch)
+            cache = model.init_cache(B, PROMPT + STEPS, dtype=jnp.float32)
+            cache = jax.device_put(cache, named(shd.cache_specs(cfg, cache,
+                                                                mesh)))
+            dec = jax.jit(model.decode_step)
+            prompt = jnp.asarray(inp["tokens"][:, :PROMPT])
+            for t in range(PROMPT):
+                lg, cache = dec(params, cache, prompt[:, t], jnp.int32(t))
+            out[f"{arch}/{mode}/dec_logits"] = np.asarray(lg)
+            tok = jnp.argmax(lg, axis=-1).astype(jnp.int32)
+            toks = [np.asarray(tok)]
+            for s in range(STEPS - 1):
+                lg, cache = dec(params, cache, tok, jnp.int32(PROMPT + s))
+                tok = jnp.argmax(lg, axis=-1).astype(jnp.int32)
+                toks.append(np.asarray(tok))
+        out[f"{arch}/{mode}/logits"] = np.asarray(logits)
+        out[f"{arch}/{mode}/tokens"] = np.stack(toks, axis=1)
+cfg = get_reduced(ARCHS[0]).scaled(dtype="float32", attn_parallel="seq")
+attend = jax.jit(lambda q, k, v: blockwise_attention(q, k, v, cfg))
+for Sa in ATTN_S:
+    with mesh:
+        out[f"attn{Sa}"] = np.asarray(attend(inp[f"q{Sa}"], inp[f"k{Sa}"],
+                                             inp[f"v{Sa}"]))
+np.savez(sys.argv[2], **out)
+"""
+
+
+def _cfg(arch, mode="seq"):
+    return get_reduced(arch).scaled(dtype="float32", attn_parallel=mode)
+
+
+def _inputs() -> dict:
+    rng = np.random.default_rng(SEED)
+    cfg = _cfg(ARCHS[0])
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S))
+           .astype(np.int32)}
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    for Sa in ATTN_S:
+        out[f"q{Sa}"] = rng.standard_normal((2, Sa, H, hd), np.float32)
+        out[f"k{Sa}"] = rng.standard_normal((2, Sa, KV, hd), np.float32)
+        out[f"v{Sa}"] = rng.standard_normal((2, Sa, KV, hd), np.float32)
+    return out
+
+
+def _port_model(arch, mode="seq") -> Model:
+    """The reference's ``Model.init(PRNGKey(SEED))`` in the port's model."""
+    ref_cfg = ref_get_reduced(arch).scaled(dtype="float32")
+    tree = jax.tree.map(np.asarray,
+                        RefModel(ref_cfg).init(jax.random.PRNGKey(SEED)))
+    return params_from_jax(Model(_cfg(arch, mode), device="cpu"), tree)
+
+
+def _blocks(model: Model, mesh, coords) -> dict:
+    params = param_tree(model)
+    specs = sharding.param_specs(model.cfg, params, mesh)
+    return tree_map(lambda leaf, spec: sharding.local_block(
+        leaf, spec, mesh, coords), params, specs)
+
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    """(inputs, the ranks' results by rank, the reference's outputs): the
+    reference runs in its subprocess while the ranks run here."""
+    tmp = tmp_path_factory.mktemp("model_ranks")
+    inp = _inputs()
+    np.savez(tmp / "in.npz", **inp)
+    env = subprocess_env()
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["JAX_PLATFORMS"] = "cpu"
+    code = (f"ARCHS = {ARCHS!r}\nMODES = {MODES!r}\nMESH = {MESH!r}\n"
+            f"B, S, PROMPT, STEPS = {B}, {S}, {PROMPT}, {STEPS}\n"
+            f"ATTN_S = {ATTN_S!r}\nSEED = {SEED}\n"
+            + textwrap.dedent(REFERENCE))
+    proc = subprocess.Popen([sys.executable, "-c", code,
+                             str(tmp / "in.npz"), str(tmp / "ref.npz")],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        mesh = make_mesh(MESH, ("data", "model"))
+        models = {job: _port_model(*job.split("/")) for job in JOBS}
+        tokens = torch.from_numpy(inp["tokens"]).long()
+        args = [([(job, m.cfg, _blocks(m, mesh, mesh.coords(r)))
+                  for job, m in models.items()], tokens, PROMPT, STEPS)
+                for r in range(mesh.size)]
+        res = ranks.launch(_model_rank_worker.model_body, mesh, args,
+                           init_file=str(tmp / "init"), timeout=DEADLINE)
+        _, err = proc.communicate(timeout=DEADLINE)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-4000:]
+    with np.load(tmp / "ref.npz") as f:
+        ref = dict(f)
+    return inp, res, ref
+
+
+def _block(arr, rows, m, M):
+    """The (rows, vocab block m of M) block of a logits array."""
+    Vl = arr.shape[-1] // M
+    return arr[rows[0]:rows[1], ..., m * Vl:(m + 1) * Vl]
+
+
+@pytest.mark.parametrize("job", JOBS)
+def test_prefill_logits_match_reference(both, job):
+    _, res, ref = both
+    want = ref[f"{job}/logits"]
+    for r in res:
+        got = r[job]
+        np.testing.assert_allclose(
+            got["logits"], _block(want, got["rows"], got["coords"][1],
+                                  MESH[1]), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("job", JOBS)
+def test_greedy_tokens_match_reference(both, job):
+    """Every rank returns the whole batch's 4 greedy tokens, the
+    reference's; its logits block after the prompt matches too."""
+    _, res, ref = both
+    for r in res:
+        got = r[job]
+        np.testing.assert_array_equal(got["tokens"], ref[f"{job}/tokens"])
+        np.testing.assert_allclose(
+            got["dec_logits"], _block(ref[f"{job}/dec_logits"], got["rows"],
+                                      got["coords"][1], MESH[1]),
+            atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("job", JOBS)
+def test_routes_are_the_flash_route(both, job):
+    """Prefill is one kernel-11 call a layer on each rank (its plain
+    version on the CPU), never the masked route; decode combines the
+    sequence-sharded cache."""
+    _, res, _ = both
+    cfg = _cfg(*job.split("/"))
+    for r in res:
+        got = r[job]
+        assert got["op_paths"] == {"flash_attention": dispatch.TORCH_CPU}
+        assert got["routes"]["flash_attention:torch-cpu"] == cfg.num_layers
+        assert got["routes"]["decode_ranked:torch"] == \
+            (PROMPT + STEPS - 1 + 1) * cfg.num_layers
+        assert not any(k.startswith("masked") for k in got["routes"])
+
+
+@pytest.mark.parametrize("kind", ("prefill", "decode"))
+@pytest.mark.parametrize("job", JOBS)
+def test_sent_bytes_equal_dry_run_count(both, job, kind):
+    """Each rank sends, by kind, what ``dryrun.count_rank_forward``
+    counts for the same forward at its coordinates."""
+    _, res, _ = both
+    cfg = _cfg(*job.split("/"))
+    mesh = make_mesh(MESH, ("data", "model"))
+    shape = ShapeSpec("x", kind, S, B)
+    for r in res:
+        got = r[job]
+        with dispatch.dry_run():
+            want = dryrun.count_rank_forward(cfg, shape, mesh,
+                                             tuple(got["coords"]))
+        assert got[f"sent_{kind}"] == want["collectives"], got["coords"]
+        assert set(want["collectives"]) == {"all-gather", "all-reduce"}
+
+
+@pytest.mark.parametrize("Sa", ATTN_S)
+def test_stripes_match_reference_rows(both, Sa):
+    """``flash_attention_plain`` on stripe m's rows (zero rows for the
+    padding) equals the reference's striped ``blockwise_attention`` at
+    those rows' positions; a stripe count of 1 is every row in order."""
+    inp, _, ref = both
+    cfg = _cfg(ARCHS[0])
+    q, k, v = (torch.from_numpy(inp[f"{x}{Sa}"]) for x in "qkv")
+    M = MESH[1]
+    covered = []
+    for m in range(M):
+        st = ranked.seq_stripe(cfg, Sa, M, m)
+        stripe = (st["bq"], M, m)
+        pos = stripe_positions(st["rows"], stripe)[:st["valid"]]
+        qs = torch.zeros((q.shape[0], st["rows"]) + q.shape[2:])
+        qs[:, :st["valid"]] = q[:, pos]
+        got = flash_attention_plain(qs, k, v, stripe=stripe)
+        np.testing.assert_allclose(got[:, :st["valid"]].numpy(),
+                                   ref[f"attn{Sa}"][:, pos.numpy()],
+                                   atol=ATOL, rtol=RTOL)
+        covered += pos.tolist()
+    assert sorted(covered) == list(range(Sa))
+    for seg in (ranked.seq_stripe(cfg, Sa, M, 0)["bq"], 7):
+        np.testing.assert_allclose(
+            flash_attention_plain(q, k, v, stripe=(seg, 1, 0)).numpy(),
+            ref[f"attn{Sa}"], atol=ATOL, rtol=RTOL)
+
+
+def test_one_stripe_is_the_unstriped_call():
+    """A stripe count of 1 is today's call bit for bit, a stripe holds
+    the causal rows of the positions it names, and a stripe's backward
+    refuses (training across ranks is not ported)."""
+    g = torch.Generator().manual_seed(SEED)
+    q = torch.randn((2, 96, 4, 16), generator=g)
+    k, v = (torch.randn((2, 96, 2, 16), generator=g) for _ in range(2))
+    want = flash_attention_plain(q, k, v)
+    for stripe in ((32, 1, 0), (7, 1, 0), None):
+        assert torch.equal(flash_attention_plain(q, k, v, stripe=stripe),
+                           want)
+        assert torch.equal(flash_attention(q, k, v, stripe=stripe), want)
+    pos = stripe_positions(48, (16, 2, 1))
+    assert pos.tolist() == list(range(16, 32)) + list(range(48, 64)) \
+        + list(range(80, 96))
+    got = flash_attention_plain(q[:, pos], k, v, stripe=(16, 2, 1))
+    assert torch.equal(got, want[:, pos])
+    with pytest.raises(ValueError):
+        flash_attention_plain(q, k, v, stripe=(16, 2, 2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        flash_attention(q.clone().requires_grad_(), k, v, stripe=(16, 2, 1))
+
+
+def test_one_by_one_mesh_is_the_one_device_model():
+    """On a 1 x 1 mesh ``RankModel`` is ``Model`` on the rank's blocks
+    (the whole leaves, not copies): prefill logits and greedy tokens bit
+    for bit."""
+    model = _port_model(ARCHS[0])
+    mesh = make_host_mesh()
+    blocks = _blocks(model, mesh, (0, 0))
+    rm = ranked.RankModel(model.cfg, blocks, counting_comms(mesh, (0, 0)))
+    tokens = torch.from_numpy(_inputs()["tokens"]).long()
+    assert torch.equal(rm.apply({"tokens": tokens}),
+                       model.apply({"tokens": tokens}))
+    np.testing.assert_array_equal(
+        greedy_generate(rm, tokens[:, :PROMPT], STEPS),
+        greedy_generate(model, tokens[:, :PROMPT], STEPS))
+    ours = dict(rm._one.named_parameters())
+    for name, p in model.named_parameters():
+        assert ours[name].data_ptr() == p.data_ptr(), name
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("minicpm3-4b", 8), ("llama4-maverick-400b-a17b", 7),
+    ("mamba2-370m", 9), ("recurrentgemma-2b", 10), ("qwen2-vl-7b", 11),
+    ("musicgen-medium", 11)])
+def test_other_kinds_refuse_across_ranks(arch, item):
+    """A layer kind or option not yet ported across ranks raises on a
+    (2, 2) mesh, naming its ROADMAP item; the 1 x 1 mesh takes them."""
+    cfg = get_reduced(arch)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md Queue 1 item {item} "):
+        ranked.RankModel(cfg, {}, counting_comms(mesh, (0, 1)))
+    ranked.check_config(cfg, make_host_mesh())
+
+
+def test_batch_smaller_than_data_is_replicated(tmp_path):
+    """B 1 on (2, 2): both data columns run the one row (``shard_act``'s
+    demotion), at a ragged S of 70 whose second stripe is half padding;
+    every rank's logits block and greedy tokens match the one-device
+    model's."""
+    mesh = make_mesh((2, 2), ("data", "model"))
+    model = _port_model(ARCHS[0])
+    tokens = torch.from_numpy(_inputs()["tokens"][:1, :70]).long()
+    assert ranked.seq_stripe(model.cfg, 70, 2, 1)["valid"] == 32
+    args = [([("one", model.cfg, _blocks(model, mesh, mesh.coords(r)))],
+             tokens, PROMPT, STEPS) for r in range(mesh.size)]
+    res = ranks.launch(_model_rank_worker.model_body, mesh, args,
+                       init_file=str(tmp_path / "init"), timeout=DEADLINE)
+    want = model.apply({"tokens": tokens}).numpy()
+    eng = ServeEngine(model, max_len=PROMPT + STEPS, batch_size=1,
+                      cache_dtype=torch.float32, device="cpu")
+    first = model.argmax(eng.prefill({"tokens": tokens[:, :PROMPT]}))
+    want_tokens = np.concatenate([first[:, None].numpy(), eng.decode(
+        STEPS - 1, first_tokens=first).tokens], axis=1)
+    for r in res:
+        got = r["one"]
+        assert tuple(got["rows"]) == (0, 1)
+        np.testing.assert_allclose(got["logits"], _block(
+            want, got["rows"], got["coords"][1], 2), atol=ATOL, rtol=RTOL)
+        np.testing.assert_array_equal(got["tokens"], want_tokens)
+
+
+def test_batch_rows_follow_shard_act():
+    """Batch rows: B / A a data position, every row when B < A (the
+    reference's demotion to replicated); a batch above A that A does not
+    divide raises (it would leave a data position no rows), in
+    ``batch_rows`` and so in ``apply``, ``decode_step`` and
+    ``init_cache`` alike."""
+    assert [ranked.batch_rows(4, 4, a) for a in range(4)] == \
+        [(0, 1), (1, 2), (2, 3), (3, 4)]
+    assert [ranked.batch_rows(8, 4, a) for a in range(4)] == \
+        [(0, 2), (2, 4), (4, 6), (6, 8)]
+    assert ranked.batch_rows(1, 2, 1) == (0, 1)
+    with pytest.raises(ValueError, match="batch of 6 on 4"):
+        ranked.batch_rows(6, 4, 3)
+    cfg = get_reduced(ARCHS[0])
+    mesh = make_mesh((4, 2), ("data", "model"))
+    rm = ranked.RankModel(cfg, {}, counting_comms(mesh, (3, 0)))
+    tokens = torch.zeros((6, 16), dtype=torch.long)
+    for call in (lambda: rm.apply({"tokens": tokens}),
+                 lambda: rm.decode_step([], tokens[:, 0], 0),
+                 lambda: rm.init_cache(6, 16)):
+        with pytest.raises(ValueError, match="batch of 6 on 4"):
+            call()
+
+
+def test_every_config_field_is_read_or_refused():
+    """Every ``ModelConfig`` field is one the rank path reads as
+    ``Model`` does, refuses, or leaves to a refused layer kind: a new
+    option of the dense path fails here until ``ranked`` says which."""
+    assert ranked.unclassified_fields() == set()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("rope_kind", "mrope"), ("mrope_sections", (2, 3, 3)),
+    ("input_mode", "embeddings"), ("kv_cache_dtype", "int8"),
+    ("attn_logit_softcap", 50.0), ("logit_softcap", 30.0)])
+def test_refused_fields_refuse_across_ranks(field, value):
+    """Each refused field, set on a dense config, raises on a (2, 2) mesh
+    naming ROADMAP Queue 1 item 11; the 1 x 1 mesh takes it."""
+    assert field in ranked.REFUSED_FIELDS
+    cfg = get_reduced(ARCHS[0]).scaled(**{field: value})
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 11 "):
+        ranked.check_config(cfg, make_mesh((2, 2), ("data", "model")))
+    ranked.check_config(cfg, make_host_mesh())
+
+
+def test_pod_mesh_and_uneven_batch_keep_the_even_split():
+    """The dry run counts a rank only on a (data, model) mesh whose data
+    axis splits the batch; the multi-pod mesh and a batch of 6 on 4 data
+    positions keep the even split."""
+    saved = dryrun.get_config
+    dryrun.get_config = get_reduced
+    try:
+        cfg = get_reduced(ARCHS[0])
+        shape = dryrun.cell_shape("prefill_32k", 6, 64)
+        assert not dryrun.rank_counted(
+            cfg, shape, make_mesh((4, 2), ("data", "model")))
+        assert dryrun.rank_counted(
+            cfg, dryrun.cell_shape("prefill_32k", 8, 64),
+            make_mesh((4, 2), ("data", "model")))
+        res = dryrun.run_cell(ARCHS[0], "decode_32k", "multi")
+    finally:
+        dryrun.get_config = saved
+    assert res["status"] == "ok" and res["count"] == "even split"
+
+
+def test_rank_counts_on_every_position():
+    """The dry run's JSON for a rank cell names its count and the
+    positions it counted."""
+    saved = dryrun.get_config
+    dryrun.get_config = get_reduced
+    try:
+        res = dryrun.run_cell("phi4-mini-3.8b", "decode_32k",
+                              make_mesh((2, 2), ("data", "model")))
+    finally:
+        dryrun.get_config = saved
+    json.dumps(res)
+    assert res["count"] == "rank"
+    assert sorted(tuple(p["coords"]) for p in res["positions"]) == \
+        [(0, 0), (0, 1)]
+    assert res["collectives"]["all-gather"] > 0

@@ -298,7 +298,7 @@ def _dry_count(name, op, P):
     calls["ckpt_create"] = calls["ckpt_commit"] = calls["update"]
     calls["ckpt_reconstruct"] = calls["reconstruct"]
     got = []
-    with dispatch.dry_run(), recording(got.append):
+    with dispatch.dry_run(), recording(lambda n, kind: got.append(n)):
         calls[op]()
     return sum(got)
 
