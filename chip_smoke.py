@@ -210,7 +210,29 @@ in place of the card):
              CUDA graph of 20 launches, ``graph_device_ms``).
              Prints per rank its bytes sent by kind, the seconds of a
              prefill and of a decode step, and its peak GB;
-19. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
+19. train-ranks - starcoder2-3b at full width, depth cut to 24 of 30
+             layers (the card's memory), bf16, remat
+             "full", "seq", trained over (data 2, model 2): four gloo
+             ranks on this card, each drawing its blocks of the seed's
+             weights (``ranked.init_blocks``) and running
+             ``launch.train.train_on_rank`` (``RankModel`` under autograd,
+             kernel 11 on its stripes in the forward and the recompute,
+             AdamW on its blocks, an RS(3,2) ``ECCheckpoint(comm=...)``:
+             ``launch.train --ec``'s defaults) for two steps of B 2 x S
+             2,048.  The parent first runs the one-card bf16 step 1 on the
+             same weights and batch and frees it.  Each rank's step-1
+             loss, norm and attention weight gradient blocks must hold to
+             phase 12's bounds measured on the cut model (twice bf16
+             plain's distance from its fp32 twin), and a faulted control (every gradient reduce-scatter
+             keeping the next index's block) must miss them; after each
+             step the parity must equal a fresh encode of the new blocks,
+             and after the run data position 0 must rebuild byte for byte;
+             kernels 11 and 1 must launch on every rank, ``op_paths``
+             ``cuda-kernel`` only; a step's bytes sent by kind must equal
+             ``dryrun.count_rank_train`` at the rank's coordinates.
+             Prints per rank its seconds a step, kernel-11 launches, peak
+             GB, and the card's peak;
+20. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
              step at phase 12's cut (B 2 x S 2,048, remat "full",
              AdamW, the 1 x 1 mesh), made on ``meta``, against the same
              step on the card: the argument bytes asked of the allocator
@@ -231,7 +253,7 @@ counted (a call reached through a binding it does not wrap fails the
 run); then every shape is timed and each kernel's loss per run, calls x
 (kernel ms - bound ms), is printed beside its launches.
 Kernel 10 is also held against its plain version on the real object
-index of a server of the loaded RS testbed.  Every phase of 4-19 starts
+index of a server of the loaded RS testbed.  Every phase of 4-20 starts
 with the launch counts at 0 and reads them when it ends; launches made
 to compare a kernel with its plain version are not counted.  The line
 before the last is ``{"kernels": [...]}``;
@@ -2275,10 +2297,11 @@ def first_tile_dk(fa):
     query tile alone, as if later tiles' contributions were dropped."""
     real = fa.flash_attention_backward
 
-    def backward(q, k, v, out, dout, *, causal=True):
-        dq, _, dv = real(q, k, v, out, dout, causal=causal)
+    def backward(q, k, v, out, dout, *, causal=True, stripe=None):
+        dq, _, dv = real(q, k, v, out, dout, causal=causal, stripe=stripe)
         t = slice(0, fa.BWD_BLOCK_Q)
-        _, dk, _ = real(q[:, t], k, v, out[:, t], dout[:, t], causal=causal)
+        _, dk, _ = real(q[:, t], k, v, out[:, t], dout[:, t], causal=causal,
+                        stripe=stripe)
         return dq, dk, dv
     return backward
 
@@ -3621,6 +3644,306 @@ def run_model_ranks(np, torch, dev, card):
     return launches, nums
 
 
+# the train-ranks phase: starcoder2-3b trained over (data 2, model 2), as
+# launch.train --ec trains with its defaults (--ec-k 2 --ec-m 1), held
+# against the one-card bf16 step 1 on the same weights and batch.  Depth
+# is cut to 24 of 30 layers: at 30 the four ranks' blocks, gradients,
+# fp32 moments, EC pages, parity and the fold's scaled classes (~17 GiB
+# a rank) and five CUDA contexts outgrew the card's 79.18 GiB while the
+# EC copy was created (out of memory on an H100 80GB HBM3, 700 W); a
+# layer costs ~2.1 GiB over the four ranks
+TRAIN_RANKS_LAYERS = 24
+TRAIN_RANKS_MESH = (2, 2)
+TRAIN_RANKS_STEPS = 2
+TRAIN_RANKS_EC = dict(k=2, m=1)
+TRAIN_RANKS_REBUILT = 0          # the data position rebuilt after the run
+TRAIN_RANKS_DEADLINE = 900.0
+
+
+def attn_block_errors(grads, want) -> dict:
+    """Per attention weight, the largest over the layers of |g - g_1| /
+    |g_1| of a rank's gradient block against the one-card step's block."""
+    return {w: max(float((g[w].float() - p[w].float()).norm()
+                         / p[w].float().norm()) for g, p in zip(grads, want))
+            for w in ATTN_WEIGHTS}
+
+
+def rank_attn_grads(params) -> list:
+    """The attention weight gradients of a rank's blocks, per layer."""
+    attn = params["blocks"][0]["attn"]
+    return [{w: attn[w].parts[r].grad for w in ATTN_WEIGHTS}
+            for r in range(len(attn["wq"].parts))]
+
+
+def train_rank_body(comm, cfg, want_attn, steps):
+    """Train-ranks phase, one rank: its blocks of the seed's weights drawn
+    on the card (``ranked.init_blocks``, the parent's one-card model's
+    numbers, as ``launch.train --mesh`` draws them); first the faulted
+    control, one forward and backward with every gradient reduce-scatter
+    keeping the next index's block (its attention gradients' distance
+    from the one-card step's, ``want_attn``); then
+    ``launch.train.train_on_rank`` (AdamW, the EC copy) for ``steps``
+    steps with the launch counts from 0: per step the loss, the norm,
+    the seconds, the bytes sent by kind and whether the parity equals a
+    fresh encode of the new blocks; step 1's attention gradients'
+    distance; the launches, ``op_paths``, a rebuild of data position
+    ``TRAIN_RANKS_REBUILT`` (byte for byte on its ranks), the dry run's
+    count of the same step at the rank's coordinates and the peak."""
+    import torch
+    from repro_torch.distributed import ranks as rk
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.distributed.ecstore import ECConfig
+    from repro_torch.kernels import (dispatch, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import train_on_rank
+    from repro_torch.models import layers
+    from repro_torch.models.ranked import RankModel, init_blocks
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import make_rank_loss_fn, value_and_grad
+    from repro_torch.tree import leaves, tensors
+    torch.cuda.set_device(0)
+    comms = rk.rank_comms(comm)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    own = init_blocks(cfg, comm.mesh, comm.coords, gen)
+    torch.cuda.synchronize()
+    out = {"coords": comm.coords, "init_s": time.perf_counter() - t0}
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    batch0 = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0), device=dev).batch(0)
+
+    # the faulted control: a reduce-scatter that keeps the wrong block
+    real = rk.RankComm.reduce_scatter
+    rk.RankComm.reduce_scatter = lambda self, x: real(
+        self, x.roll(-1, dims=0))
+    try:
+        model = RankModel(cfg, own, comms)
+        with torch.autograd.set_multithreading_enabled(False):
+            value_and_grad(make_rank_loss_fn(model), own, batch0)
+        out["control_attn_err"] = attn_block_errors(rank_attn_grads(own),
+                                                    want_attn)
+    finally:
+        rk.RankComm.reduce_scatter = real
+    for leaf in leaves(own):
+        for t in tensors(leaf):
+            t.grad = None
+    del model
+    torch.cuda.empty_cache()
+
+    opt = make_optimizer("adamw", lr=1e-3,
+                         warmup_steps=min(20, steps // 5 + 1),
+                         total_steps=steps)
+    seen = {"steps": []}
+
+    def apply(grads, state, params, scale):
+        if "attn_err" not in seen:
+            seen["attn_err"] = attn_block_errors(rank_attn_grads(params),
+                                                 want_attn)
+        return opt.apply(grads, state, params, scale)
+
+    sent: dict = {}
+    extra = dict(launches={})
+
+    def observe(step, st):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        before = launch_counts()
+        with recording(lambda n, kind: None):     # a check, not the step
+            fresh = st["ec"].store.encode(st["params"])
+            stale = _differ(torch, fresh, st["ec"].parity)
+            del fresh
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            extra["launches"][k] = extra["launches"].get(k, 0) \
+                + v - before[k]
+        seen["steps"].append(dict(
+            loss=float(st["metrics"]["loss"]),
+            grad_norm=float(st["metrics"]["grad_norm"]),
+            s=now - seen["t"], sent=dict(sent), stale=stale))
+        seen.update(ec=st["ec"], params=st["params"], model=st["model"])
+        seen["t"] = time.perf_counter()
+
+    layers.reset_op_paths()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen["t"] = t0 = time.perf_counter()
+    with recording(lambda n, kind: sent.__setitem__(
+            kind, sent.get(kind, 0) + n)):
+        train_on_rank(comms, cfg, own, steps=steps, batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, optimizer=opt._replace(apply=apply),
+                      ec=True, ec_k=TRAIN_RANKS_EC["k"],
+                      ec_m=TRAIN_RANKS_EC["m"], observe=observe,
+                      log=lambda *a: None)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    launches = launch_counts()
+    out["launches"] = {k: v - extra["launches"].get(k, 0)
+                       for k, v in launches.items()}
+    model, ec, params = seen["model"], seen["ec"], seen["params"]
+    out["op_paths"] = dict(model.op_paths, **comms.data.op_paths)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    steps_out = seen["steps"]            # step 1's bytes: the EC encode's too
+    out["steps"] = [dict(s, sent={k: v - (steps_out[i - 1]["sent"].get(k, 0)
+                                          if i else 0)
+                                  for k, v in s["sent"].items()})
+                    for i, s in enumerate(steps_out)]
+    out["attn_err"] = seen["attn_err"]
+    # a lost data position rebuilt from the others and the parity
+    rec = ec.reconstruct(params, TRAIN_RANKS_REBUILT)
+    torch.cuda.synchronize()
+    out["rebuilt"] = (None if comm.index != TRAIN_RANKS_REBUILT else
+                      _differ(torch, rec, ec.store.local_pages(params)))
+    del rec
+    t0 = time.perf_counter()
+    with dispatch.dry_run():
+        counted = dryrun.count_rank_train(
+            cfg, dryrun.ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+            comm.mesh, comm.coords,
+            ec=ECConfig(page_size=256, **TRAIN_RANKS_EC))
+    out["counted"] = counted["collectives"]
+    out["count_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_train_ranks(np, torch, dev, card):
+    """starcoder2-3b cut to ``TRAIN_RANKS_LAYERS`` layers, trained over
+    (data 2, model 2), one rank a position (``launch.train.train_on_rank``:
+    ``RankModel`` under autograd, AdamW on the rank's blocks, an
+    ``ECCheckpoint(comm=...)`` of them), on the train phase's seed and
+    batch.  The parent measures the train phase's bounds on the cut model
+    (``step1_checks``: twice bf16 plain's distance from its fp32 twin),
+    runs the one-card bf16 step 1 (loss, norm, the attention weight
+    gradients) and frees it before the spawn; every rank's step-1 loss,
+    norm and attention gradient blocks must hold to those bounds, the
+    faulted control
+    (a reduce-scatter keeping the wrong block) must miss them, the parity
+    must equal a fresh encode after each step, the rebuilt position must
+    equal its pages, kernels 11 and 1 must launch on every rank through
+    the card, and each step's bytes sent by kind must equal
+    ``dryrun.count_rank_train``.  Returns the ranks' launches, summed,
+    and the phase's numbers."""
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import ranks as rk
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.convert import param_tree
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL_ARCH).scaled(num_layers=TRAIN_RANKS_LAYERS)
+    assert cfg.remat == "full" and cfg.attn_parallel == "seq", cfg
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = Model(cfg, device=dev).init(gen)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH, seed=0),
+                        device=dev).batch(0)
+    bounds = step1_checks(torch, model, batch, card, "train-ranks")["bounds"]
+    loss, norm, attn = step1_grads(torch, model, batch, fa,
+                                   "flash_attention_backward", None)
+    one = dict(loss=loss, grad_norm=norm)
+    mesh = make_mesh(TRAIN_RANKS_MESH, ("data", "model"))
+    specs = shd.param_specs(cfg, param_tree(model), mesh)
+    del model, batch                           # the ranks draw their own
+    _free(torch)
+    log(f"train-ranks [{card}] one-card bf16 step 1 ({cfg.num_layers} "
+        f"layers): {json.dumps(one)}; bounds: {json.dumps(bounds)}")
+    attn_specs = {w: shd.P(*specs["blocks"][0]["attn"][w][1:])
+                  for w in ATTN_WEIGHTS}
+    rank_args = []
+    for r in range(mesh.size):
+        coords = mesh.coords(r)
+        want = [{w: shd.local_block(g[w], attn_specs[w], mesh, coords)
+                 for w in ATTN_WEIGHTS} for g in attn]
+        rank_args.append((cfg, want, TRAIN_RANKS_STEPS))
+    # the card's memory in use while the ranks run (every process's)
+    used, stop = [0], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            free, total = torch.cuda.mem_get_info(dev)
+            used[0] = max(used[0], total - free)
+            stop.wait(0.2)
+    watcher = threading.Thread(target=poll, daemon=True)
+    watcher.start()
+    # four ranks' fp32 moments share the card: the ranks' allocators map
+    # their segments as they grow rather than round them into blocks
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="train_ranks_") as tmp:
+            res = rk.launch(train_rank_body, mesh, rank_args,
+                            init_file=os.path.join(tmp, "init"),
+                            timeout=TRAIN_RANKS_DEADLINE)
+    finally:
+        stop.set()
+        watcher.join()
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    nums = dict(one_card=one, bounds=bounds,
+                spawn_s=time.perf_counter() - t0, card_peak_gb=used[0] / 1e9)
+    launches = None
+    for x in res:
+        log(f"train-ranks [{card}] rank at {tuple(x['coords'])}: "
+            f"{json.dumps({k: x[k] for k in x if k != 'coords'})}")
+        s1 = x["steps"][0]
+        loss_err = abs(s1["loss"] - one["loss"])
+        norm_err = abs(s1["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+        x.update(step1_loss_err=loss_err, step1_grad_norm_rel_err=norm_err)
+        assert loss_err <= bounds["loss"], (x["coords"], loss_err)
+        assert norm_err <= bounds["norm"], (x["coords"], norm_err)
+        for w in ATTN_WEIGHTS:
+            assert x["attn_err"][w] <= bounds["attn"][w], (x["coords"], w)
+        assert any(x["control_attn_err"][w] > bounds["attn"][w]
+                   for w in ATTN_WEIGHTS), \
+            f"the faulted reduce-scatter passes: {x['control_attn_err']}"
+        assert all(s["stale"] == 0 for s in x["steps"]), x["steps"]
+        assert x["rebuilt"] in (None, 0), x["rebuilt"]
+        assert x["steps"][1]["sent"] == x["counted"], (x["coords"],
+                                                        x["steps"][1]["sent"],
+                                                        x["counted"])
+        n = x["launches"]
+        assert n["flash_attention"] == 2 * cfg.num_layers * \
+            TRAIN_RANKS_STEPS, n
+        assert n["gf_matmul_batched"] > 0, n
+        assert x["op_paths"]["flash_attention"] == "cuda-kernel", x
+        assert set(x["op_paths"].values()) == {"cuda-kernel"}, x["op_paths"]
+        launches = n if launches is None else {k: launches[k] + n[k]
+                                               for k in launches}
+    assert any(x["rebuilt"] == 0 for x in res)
+    nums["ranks"] = [{k: x[k] for k in (
+        "coords", "peak_gb", "init_s", "train_s", "count_s", "attn_err",
+        "control_attn_err", "step1_loss_err", "step1_grad_norm_rel_err")}
+        | {"steps": [{k: s[k] for k in ("loss", "grad_norm", "s", "sent")}
+                     for s in x["steps"]],
+           "flash_launches": x["launches"]["flash_attention"],
+           "ec_launches": x["launches"]["gf_matmul_batched"]}
+        for x in res]
+    del rank_args, attn
+    _free(torch)
+    torch.cuda.ipc_collect()
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"train-ranks [{card}]: seconds a step a rank (step 2) "
+        f"{[round(x['steps'][1]['s'], 4) for x in res]}, kernel-11 "
+        f"launches a rank {[x['launches']['flash_attention'] for x in res]}"
+        f", peak GB a rank {[round(x['peak_gb'], 3) for x in res]}, the "
+        f"card's {nums['card_peak_gb']:.3f} GB")
+    log(f"phase train-ranks: {nums['phase_s']:.1f} s")
+    return launches, nums
+
+
 def run_dryrun(np, torch, dev, card):
     """The dry run against the card.  ``launch.dryrun.run_cell`` counts
     starcoder2-3b ``train_4k`` cut to the train phase's B 2 x S 2,048
@@ -3828,6 +4151,9 @@ def main() -> int:
     by_phase["model_ranks"], model_ranks = run_model_ranks(np, torch, dev,
                                                            card)
     log(f"model-ranks phase [{card}]:", json.dumps(model_ranks))
+    by_phase["train_ranks"], train_ranks = run_train_ranks(np, torch, dev,
+                                                           card)
+    log(f"train-ranks phase [{card}]:", json.dumps(train_ranks))
     stripe = model_ranks["stripes"]["timed"]
     for row in rows:
         if row["name"] == "flash_attention":

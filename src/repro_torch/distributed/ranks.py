@@ -18,11 +18,28 @@ its blocks.
   blocks in axis order (under gloo as A - 1 such exchanges, under NCCL
   one ``dist.all_gather``); ``all_reduce(x)`` sums them
   (``dist.all_reduce``), the same sum on every rank of the column.
-* ``rank_comms(comm)`` pairs a rank's data-axis communicator (``launch``
-  builds it) with its model-axis one, ``RankComm(mesh, "model")``, built
-  after it on every rank (gloo deadlocks when ranks create groups in
-  different orders): what a model's forward on a rank moves
-  (``models/ranked.py``).
+* ``reduce_scatter(x)`` takes every index's contribution ``(A, *block)``
+  and returns the column's sum of the rank's own block (under gloo A - 1
+  exchanges and a sum in axis order, in fp32 for a floating dtype; under
+  NCCL ``dist.reduce_scatter_tensor``): the transpose of ``all_gather``.
+* ``rank_comms(comm)`` gives a rank's data-axis communicator (``launch``
+  builds it) its model-axis one and, on a (pod, data, model) mesh, its
+  pod-axis one: what a model on a rank moves (``models/ranked.py``).
+  The first ``RankComm`` of a mesh creates the groups of every axis, in
+  the mesh's axis order (pod, data, model), and later ones reuse them:
+  gloo deadlocks when ranks create groups in different orders.
+* Under autograd (``all_gather``, ``all_gather_rows``, ``all_reduce`` and
+  ``sum_grad`` of this module, each taking a communicator): a gather of
+  parameter blocks, which every index uses for its own part of the work,
+  has a reduce-scatter for its backward (the column's gradient
+  contributions summed, the rank keeping its block's); a gather of
+  activation rows whose result every index holds alike (and so holds the
+  whole gradient of) takes its own rows of the gradient; an all-reduce
+  of partial sums into a value every index holds alike passes the
+  gradient through; and ``sum_grad``, the identity forward, all-reduces
+  the gradient of a value replicated over the column that each index
+  uses for its own part of the work.  With no gradient to record they
+  are the communicator's own calls.
 * The transport follows ``dist.get_backend()``: under NCCL the tensors
   stay on the device; gloo's point-to-point ops take CPU tensors only, so
   under gloo a CUDA tensor is staged through two pinned host buffers of
@@ -31,18 +48,21 @@ its blocks.
   ``collectives.recording`` counts the traffic the rank really sends, by
   the reference's collective kinds: a shift is a ``collective-permute``
   of x's bytes (none for a multiple of A: the block stays on the rank);
-  an all-gather sends x to the A - 1 others; an all-reduce counts
-  2·(A - 1)/A of x's bytes, the ring algorithm's share a rank sends (the
-  reference's ``analyze`` counts an all-reduce's wire bytes so), rounded
-  down.  A column of one rank sends nothing.
+  an all-gather sends x to the A - 1 others, and a reduce-scatter the
+  A - 1 blocks of the others (the kept block's bytes A - 1 times, the
+  gather's formula); an all-reduce counts 2·(A - 1)/A of x's bytes, the
+  ring algorithm's share a rank sends (the reference's ``analyze``
+  counts an all-reduce's wire bytes so), rounded down.  A column of one
+  rank sends nothing.
 * ``CountingComm(mesh, coords, axis)`` runs a rank body on ``meta``
   tensors without a group (``launch/dryrun.py``): ``shift``,
-  ``all_gather`` and ``all_reduce`` note what ``RankComm`` notes and
-  return an empty tensor of the result's shape.  It notes every shift, one
+  ``all_gather``, ``reduce_scatter`` and ``all_reduce`` note what
+  ``RankComm`` notes and return an empty tensor of the result's shape.  It notes every shift, one
   of a multiple of A included, as the reference's HLO holds a
-  ``collective-permute`` for every ``ppermute``; with no such shift (every
-  mesh the ranks run on in the tests and ``chip_smoke.py``) the two
-  count the same bytes.  ``counting_comms(mesh, coords)`` is
+  ``collective-permute`` for every ``ppermute``; with no such shift the
+  two count the same bytes, and ``CountingComm(..., count_stays=False)``
+  leaves such shifts out, as a rank sends nothing for them (the dry
+  run's count of a rank's train step, ``dryrun.count_rank_train``).  ``counting_comms(mesh, coords)`` is
   ``rank_comms``' twin.
 
 ``launch(fn, mesh, rank_args, init_file=...)`` spawns one process per
@@ -72,6 +92,7 @@ from .collectives import PERMUTE, note_bytes, note_send
 
 GATHER = "all-gather"
 REDUCE = "all-reduce"
+SCATTER = "reduce-scatter"
 
 #: bytes a gloo rank stages through host memory per exchange
 STAGE_BYTES = 64 << 20
@@ -108,6 +129,12 @@ class _Column:
         for _ in range(self.axis_size - 1):
             note_send(x, GATHER)
 
+    def _note_scatter(self, block: torch.Tensor) -> None:
+        """The A - 1 other indices' blocks sent to them (a reduce-scatter
+        keeping ``block``'s shape): the gather's formula."""
+        for _ in range(self.axis_size - 1):
+            note_send(block, SCATTER)
+
     def _note_reduce(self, x: torch.Tensor) -> None:
         """A ring all-reduce's bytes a rank sends, 2 (A - 1) / A of x: a
         model, not a measurement, as gloo and NCCL pick their own
@@ -128,18 +155,7 @@ class RankComm(_Column):
                              f"{mesh.size} positions")
         super().__init__(mesh, mesh.coords(dist.get_rank()), axis)
         self.backend = dist.get_backend()
-        self.group = None
-        others = [range(n) for i, n in enumerate(mesh.axis_sizes)
-                  if i != self.data_dim]
-        for col in itertools.product(*others):
-            ranks = []
-            for i in range(self.axis_size):
-                c = list(col)
-                c.insert(self.data_dim, i)
-                ranks.append(mesh.rank_of(c))
-            group = dist.new_group(ranks)
-            if self.rank in ranks:
-                self.group = group
+        self.group = _axis_groups(mesh, self.rank)[axis]
         self._stage: dict = {}
 
     def _staged(self, x: torch.Tensor) -> bool:
@@ -226,21 +242,60 @@ class RankComm(_Column):
                 out[src].copy_(recv)
         return out
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of the column's blocks, in x's dtype: a new tensor
-        like ``x`` (contiguous), the same on every rank of the column."""
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The column's sum of block ``self.index`` of ``x`` (``(A,
+        *block)``, every index's contribution): a new tensor of the
+        block's shape in x's dtype, summed in axis order (in fp32 for a
+        floating dtype) under gloo."""
+        A = self.axis_size
+        if x.shape[0] != A:
+            raise ValueError(f"{tuple(x.shape)}: expected {A} blocks")
+        x = x.contiguous()
+        if A == 1:
+            return x[0].clone()
+        self._note_scatter(x[0])
+        if self.backend != "gloo":
+            out = torch.empty_like(x[0])
+            dist.reduce_scatter_tensor(out, x, group=self.group)
+            return out
+        parts = torch.empty_like(x)
+        parts[self.index].copy_(x[self.index])
+        staged = self._staged(x)
+        if staged:
+            nb = x[0].numel() * x.element_size()
+            send_buf, recv_buf = self._buffers(x.device, nb)
+            send = send_buf[:nb].view(x.dtype).view(x.shape[1:])
+            recv = recv_buf[:nb].view(x.dtype).view(x.shape[1:])
+        for s in range(1, A):
+            dst, src = (self.index + s) % A, (self.index - s) % A
+            if staged:
+                send.copy_(x[dst])
+            self._exchange(send if staged else x[dst],
+                           recv if staged else parts[src],
+                           self.members[dst], self.members[src])
+            if staged:
+                parts[src].copy_(recv)
+        if x.dtype.is_floating_point:
+            return parts.sum(dim=0, dtype=torch.float32).to(x.dtype)
+        return parts.sum(dim=0).to(x.dtype)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (``op="max"``: the largest) of the column's blocks, in
+        x's dtype: a new tensor like ``x`` (contiguous), the same on every
+        rank of the column."""
         out = x.clone(memory_format=torch.contiguous_format)
         if self.axis_size == 1:
             return out
         self._note_reduce(x)
+        red = _REDUCE_OPS[op]
         if not self._staged(x):
-            dist.all_reduce(out, group=self.group)
+            dist.all_reduce(out, op=red, group=self.group)
             return out
         nb = x.numel() * x.element_size()
         buf = self._buffers(x.device, nb)[0][:nb].view(x.dtype) \
             .view(x.shape)
         buf.copy_(out)
-        dist.all_reduce(buf, group=self.group)
+        dist.all_reduce(buf, op=red, group=self.group)
         out.copy_(buf)
         return out
 
@@ -249,24 +304,73 @@ class CountingComm(_Column):
     """A rank body's moves counted on ``meta`` tensors, with no group
     (module notes)."""
 
+    def __init__(self, mesh, coords, axis: str = "data",
+                 count_stays: bool = True):
+        super().__init__(mesh, coords, axis)
+        self.count_stays = count_stays
+
     def shift(self, x: torch.Tensor, s: int) -> torch.Tensor:
-        note_send(x, PERMUTE)
+        if self.count_stays or int(s) % self.axis_size:
+            note_send(x, PERMUTE)
         return torch.empty_like(x)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         self._note_gather(x)
         return x.new_empty((self.axis_size,) + tuple(x.shape))
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        if self.axis_size > 1:
+            self._note_scatter(x[0])
+        return x.new_empty(tuple(x.shape[1:]))
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        _REDUCE_OPS[op]
         if self.axis_size > 1:
             self._note_reduce(x)
         return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+#: groups by (default group, mesh): {axis: this rank's column's group}
+_GROUPS: dict = {}
+
+
+def _axis_groups(mesh, rank: int) -> dict:
+    """This rank's group on every axis of ``mesh``, created on first use
+    for every column of every axis, in the mesh's axis order (module
+    notes)."""
+    key = (id(dist.group.WORLD), tuple(mesh.axis_names),
+           tuple(mesh.axis_sizes))
+    if key in _GROUPS:
+        return _GROUPS[key]
+    mine = {}
+    for d, axis in enumerate(mesh.axis_names):
+        others = [range(n) for i, n in enumerate(mesh.axis_sizes) if i != d]
+        for col in itertools.product(*others):
+            ranks = []
+            for i in range(mesh.axis_sizes[d]):
+                c = list(col)
+                c.insert(d, i)
+                ranks.append(mesh.rank_of(c))
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine[axis] = group
+    _GROUPS[key] = mine
+    return mine
+
+
 class AxisComms(NamedTuple):
-    """A rank's communicators of a (data, model) mesh."""
+    """A rank's communicators of a (data, model) or (pod, data, model)
+    mesh (``pod`` None on a mesh without that axis)."""
     data: _Column
     model: _Column
+    pod: _Column | None = None
+
+    def columns(self) -> list:
+        """The rank's communicators, in the mesh's axis order."""
+        return [c for c in (self.pod, self.data, self.model)
+                if c is not None]
 
     @property
     def mesh(self):
@@ -279,15 +383,104 @@ class AxisComms(NamedTuple):
 
 def rank_comms(data: RankComm) -> AxisComms:
     """This rank's data-axis communicator (the one ``launch`` passes a
-    rank body) and its model-axis communicator, built after it (module
-    notes)."""
-    return AxisComms(data, RankComm(data.mesh, "model"))
+    rank body), its model-axis one and, on a mesh with a "pod" axis, its
+    pod-axis one (module notes)."""
+    pod = RankComm(data.mesh, "pod") if "pod" in data.mesh.axis_names \
+        else None
+    return AxisComms(data, RankComm(data.mesh, "model"), pod)
 
 
 def counting_comms(mesh, coords) -> AxisComms:
     """``rank_comms``' counting twin for the position at ``coords``."""
+    pod = CountingComm(mesh, coords, "pod") if "pod" in mesh.axis_names \
+        else None
     return AxisComms(CountingComm(mesh, coords, "data"),
-                     CountingComm(mesh, coords, "model"))
+                     CountingComm(mesh, coords, "model"), pod)
+
+
+# ---------------------------------------------------------------------------
+# collectives under autograd
+# ---------------------------------------------------------------------------
+
+def _records(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.reduce_scatter(g), None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.index = comm.index
+        return comm.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.index], None
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g), None
+
+
+def all_gather(comm, x: torch.Tensor) -> torch.Tensor:
+    """``comm.all_gather(x)`` of parameter blocks; its backward is
+    ``comm.reduce_scatter`` (module notes)."""
+    if comm.axis_size == 1 or not _records(x):
+        return comm.all_gather(x)
+    return _GatherBlocks.apply(x, comm)
+
+
+def all_gather_rows(comm, x: torch.Tensor) -> torch.Tensor:
+    """``comm.all_gather(x)`` of activation rows that every index then
+    holds alike; its backward takes the rank's own block (module notes)."""
+    if comm.axis_size == 1 or not _records(x):
+        return comm.all_gather(x)
+    return _GatherRows.apply(x, comm)
+
+
+def all_reduce(comm, x: torch.Tensor) -> torch.Tensor:
+    """``comm.all_reduce(x)`` of partial sums into a value every index
+    holds alike; its backward passes the gradient through (module
+    notes)."""
+    if comm.axis_size == 1 or not _records(x):
+        return comm.all_reduce(x)
+    return _SumPartials.apply(x, comm)
+
+
+def sum_grad(comm, x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, whose gradient the column sums: a value replicated
+    over the column that each index uses for its own part of the work
+    (module notes)."""
+    if comm.axis_size == 1 or not _records(x):
+        return x
+    return _SumGrad.apply(x, comm)
 
 
 # ---------------------------------------------------------------------------

@@ -229,7 +229,8 @@ def cache_specs(cfg: ModelConfig, cache_shape, mesh) -> dict:
 # local views (what shard_map hands each position)
 # ---------------------------------------------------------------------------
 
-def _entry_axes(entry) -> tuple:
+def entry_axes(entry) -> tuple:
+    """The mesh axes one entry of a ``P`` names, as a tuple."""
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
@@ -246,7 +247,7 @@ def local_view(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     sizes = _mesh_sizes(mesh)
     split, axis_dim, local_dims = [], {}, []
     for i, n in enumerate(t.shape):
-        axes = _entry_axes(spec[i] if i < len(spec) else None)
+        axes = entry_axes(spec[i] if i < len(spec) else None)
         for a in axes:
             if a not in sizes or a in axis_dim:
                 raise ValueError(f"spec {spec}: axis {a!r} on mesh {names}")
@@ -291,6 +292,6 @@ def writes_block(spec: P, mesh, coords) -> bool:
     of a leaf laid out by ``spec`` in place: a block is shared by the
     positions along every mesh axis the spec does not name, and the
     first of them (coordinate 0 on each such axis) writes it."""
-    named = {a for entry in spec for a in _entry_axes(entry)}
+    named = {a for entry in spec for a in entry_axes(entry)}
     return all(c == 0 for a, c in zip(mesh.axis_names, coords)
                if a not in named)

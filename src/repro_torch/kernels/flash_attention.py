@@ -82,7 +82,10 @@ plain torch in fp32: the reference has no backward kernel either (its
 model differentiates its jnp scan), so that backward ports no TPU
 kernel.  It recomputes the softmax per query tile from q and k, so no
 (Sq, Skv) tensor per head outlives a tile; a Hopper backward kernel is
-left for later.
+left for later.  A stripe's backward (a rank's, ``models/ranked.py``)
+masks by the stripe's positions and bounds each tile's keys by its last
+row's position; with a stripe count of 1 it is the unstriped backward,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -205,17 +208,28 @@ def _check(q, k, v, block_q, block_kv, stripe=None) -> None:
 BWD_BLOCK_Q = 256
 
 
-def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True):
+def _position(r: int, seg: int, count: int, index: int) -> int:
+    """``stripe_positions`` of row r, on the host."""
+    if count == 1:
+        return r
+    return ((r // seg) * count + index) * seg + r % seg
+
+
+def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
+                             stripe=None):
     """(dq, dk, dv) of ``flash_attention`` at output ``out`` for the output
     gradient ``dout``, in fp32, cast to the inputs' dtypes.  Per tile of
     ``BWD_BLOCK_Q`` query rows: P = softmax(q kᵀ / sqrt(hd)) recomputed over
-    the keys the tile can see, dV += Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP −
-    rowsum(dO ∘ O)), dQ = dS K / sqrt(hd), dK += dSᵀ Q / sqrt(hd); the G
-    query heads of a KV head sum into its dK and dV."""
+    the keys the tile can see (causal: up to its last row's position,
+    the rows at ``stripe``'s positions), dV += Pᵀ dO, dP = dO Vᵀ, dS = P ∘
+    (dP − rowsum(dO ∘ O)), dQ = dS K / sqrt(hd), dK += dSᵀ Q / sqrt(hd);
+    the G query heads of a KV head sum into its dK and dV."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
+    seg, count, index = _stripe(stripe)
+    pos = stripe_positions(Sq, stripe, q.device)
     kf = k.float().permute(0, 2, 1, 3)                    # (B, KV, Skv, hd)
     vf = v.float().permute(0, 2, 1, 3)
     dq = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=q.device)
@@ -228,13 +242,14 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True):
 
     for s0 in range(0, Sq, BWD_BLOCK_Q):
         s1 = min(Sq, s0 + BWD_BLOCK_Q)
-        L = min(Skv, s1) if causal else Skv               # keys in view
+        L = (min(Skv, _position(s1 - 1, seg, count, index) + 1) if causal
+             else Skv)                                    # keys in view
         qt, ot, dot = heads(q, s0, s1), heads(out, s0, s1), \
             heads(dout, s0, s1)
         kt, vt = kf[:, :, :L], vf[:, :, :L]
         s = torch.einsum("bkgtd,bkld->bkgtl", qt, kt) * scale
         if causal:
-            mask = (torch.arange(s0, s1, device=q.device)[:, None]
+            mask = (pos[s0:s1, None]
                     >= torch.arange(L, device=q.device)[None, :])
             s = s.masked_fill(~mask, NEG_INF)
         p = torch.softmax(s, dim=-1)
@@ -255,18 +270,19 @@ class _FlashAttention(torch.autograd.Function):
     """Kernel 11 forward, ``flash_attention_backward`` backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out = _flash_forward(q, k, v, causal)
+    def forward(ctx, q, k, v, causal, stripe):
+        out = _flash_forward(q, k, v, causal, stripe)
         ctx.save_for_backward(q, k, v, out)
-        ctx.causal = causal
+        ctx.causal, ctx.stripe = causal, stripe
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, dout,
-                                              causal=ctx.causal)
-        return dq, dk, dv, None
+                                              causal=ctx.causal,
+                                              stripe=ctx.stripe)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -276,16 +292,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     when ``causal``; q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq, H,
     hd) in q's dtype, on q's device.  ``stripe`` (seg, count, index)
     places q's rows at a stripe's positions (module notes).
-    Differentiable when autograd records (the module notes), unstriped."""
+    Differentiable when autograd records (the module notes)."""
     _check(q, k, v, block_q, block_kv, stripe)
     stripe = None if _stripe(stripe)[1] == 1 else _stripe(stripe)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if stripe is not None:
-            raise NotImplementedError(
-                "a stripe's backward is not ported yet (training across "
-                "ranks: ROADMAP.md Queue 1 item 6)")
-        return _FlashAttention.apply(q, k, v, causal)
+        return _FlashAttention.apply(q, k, v, causal, stripe)
     return _flash_forward(q, k, v, causal, stripe)
 
 

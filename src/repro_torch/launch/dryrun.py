@@ -18,24 +18,25 @@ argument bytes each device of the mesh holds under
   depth, so its extrapolation is an estimate (``peak_extrapolated``);
   ``count_cell`` counts one depth whole.
 * The prefill and decode cells of the dense archs (every layer "A", a
-  dense MLP: starcoder2-3b, phi4-mini-3.8b, mistral-large-123b) on a mesh
-  of more than one position count one rank's forward
-  (``models/ranked.py``'s ``RankModel`` on the position's blocks, its
-  moves counted by ``ranks.counting_comms``), at every model position
-  (their attention stripes differ) and every data position whose batch
-  rows differ: per device, the busiest position's FLOPs, bytes, peak and
-  collective bytes by kind (``count: "rank"``); the totals sum the
-  positions; ``repeated_products`` names the matrix products every model
-  position computes alike and their FLOPs on one position.  The
-  multi-pod mesh (its "pod" axis) and a batch above the data axis that
-  it does not divide are not taken across ranks yet, and keep the even
-  split.
-* Every other model cell (training, the other archs, the 1 x 1 mesh)
-  runs its positions as one program on one card: FLOPs and bytes per
-  device are the program's divided by the devices (an even split,
-  ``count: "even split"``), the peak is given for one card running the
-  whole program, and there are no collectives (their fields are null,
-  with the reason).
+  dense MLP: starcoder2-3b, phi4-mini-3.8b, mistral-large-123b) on a
+  (data, model) or (pod, data, model) mesh of more than one position
+  count one rank's forward (``models/ranked.py``'s ``RankModel`` on the
+  position's blocks, its moves counted by ``ranks.counting_comms``), at
+  every model position (their attention stripes differ) and every (pod,
+  data) position whose batch rows differ: per device, the busiest
+  position's FLOPs, bytes, peak and collective bytes by kind (``count:
+  "rank"``); the totals sum the positions; ``repeated_products`` names
+  the matrix products every model position computes alike and their
+  FLOPs on one position.  Their train cells do too, with ``optimizer=
+  "adamw"``: one rank's train step (``count_rank_train``).  A batch at
+  or above its axes' size that they do not divide keeps the even split.
+* Every other model cell (training with adamw8bit, the CLI's default as
+  the reference's, or adafactor; the other archs; the 1 x 1 mesh) runs
+  its positions as one program on one card: FLOPs and bytes per device
+  are the program's divided by the devices (an even split, ``count:
+  "even split"``), the peak is given for one card running the whole
+  program, and there are no collectives (their fields are null, with the
+  reason).
 * An EC cell runs one device's program: the rank body of one position
   (``distributed/ranks.py``, ``ecstore.rank_*``) on its own block, so its
   counts and peak are a device's, and its sends, counted by a
@@ -72,14 +73,16 @@ from ..distributed import sharding as shd
 from ..distributed.ecstore import (ECConfig, rank_parity_delta_update,
                                    rank_parity_delta_update_chain,
                                    rank_reconstruct_failed)
+from ..train.checkpoint import ECCheckpoint
 from ..distributed.ranks import CountingComm, counting_comms
 from ..kernels import dispatch
 from ..models import Model, layers, moe
 from ..models.convert import param_tree
-from ..models.ranked import RankModel, batch_rows, check_config
+from ..models.ranked import (MESH_AXES, RankModel, batch_rows,
+                             check_config)
 from ..tree import Stacked, leaves, tree_map
 from ..train.optimizer import make_optimizer
-from ..train.train_step import make_train_step
+from ..train.train_step import make_rank_train_step, make_train_step
 from . import cost_analysis as ca
 from .mesh import Mesh, make_host_mesh, make_production_mesh
 
@@ -91,12 +94,13 @@ NVLINK_BW = 450e9          # bytes/s each way per card, within one NVLink domain
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 NO_SPMD = ("no SPMD collectives: the mesh's positions run as one program "
-           "on one card, its counts split evenly (training across ranks "
-           "and the other archs' layers on ranks are not ported yet: "
-           "ROADMAP.md Queue 1)")
-RANK_NOTE = ("one rank's forward, the busiest position's: the bytes it "
-             "sends by kind (an all-gather (A - 1) blocks, an all-reduce "
-             "2(A - 1)/A of its bytes, the ring's share)")
+           "on one card, its counts split evenly (adamw8bit and adafactor "
+           "across ranks, ROADMAP.md Queue 1 item 13, and the other archs' "
+           "layers on ranks, items 7-11, are not ported yet)")
+RANK_NOTE = ("one rank's forward or train step, the busiest position's: "
+             "the bytes it sends by kind (an all-gather or a reduce-scatter "
+             "(A - 1) blocks, an all-reduce 2(A - 1)/A of its bytes, the "
+             "ring's share)")
 
 
 def _mesh(mesh) -> Mesh:
@@ -324,19 +328,80 @@ def count_model_cell(cfg, shape: ShapeSpec, mesh: Mesh,
     return out
 
 
-def rank_counted(cfg, shape: ShapeSpec, mesh: Mesh) -> bool:
-    """Whether the cell counts one rank's forward (module notes)."""
-    if mesh.size == 1 or shape.kind not in ("prefill", "decode") or \
-            tuple(mesh.axis_names) != ("data", "model"):
+def rank_counted(cfg, shape: ShapeSpec, mesh: Mesh,
+                 optimizer: str = "adamw8bit") -> bool:
+    """Whether the cell counts one rank's forward or train step (module
+    notes)."""
+    if mesh.size == 1 or tuple(mesh.axis_names) not in MESH_AXES:
         return False
-    A = mesh.shape["data"]
-    if shape.global_batch > A and shape.global_batch % A:
+    if shape.kind == "train" and optimizer != "adamw":
         return False
     try:
+        batch_rows(shape.global_batch, mesh.shape["data"], 0,
+                   mesh.shape.get("pod", 1))
         check_config(cfg, mesh)
-    except NotImplementedError:
+    except (NotImplementedError, ValueError):
         return False
     return True
+
+
+def _rank_blocks(cfg, mesh: Mesh, coords):
+    """Fresh ``meta`` tensors of the blocks the rank at ``coords`` holds,
+    and the list of them."""
+    def fresh(x):
+        if isinstance(x, Stacked):
+            return Stacked(fresh(p) for p in x.parts)
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    params = param_tree(Model(cfg, device="meta"))
+    specs = shd.param_specs(cfg, params, mesh)
+    local = tree_map(lambda leaf, spec: fresh(shd.local_block(
+        leaf, spec, mesh, coords)), params, specs)
+    return local, _tensors(local)
+
+
+def _tensors(tree) -> list:
+    return [t for leaf in leaves(tree) for t in (
+        leaf.parts if isinstance(leaf, Stacked) else [leaf])
+        if isinstance(t, torch.Tensor)]
+
+
+def _rank_count(c, model) -> dict:
+    return {"flops": c.flops, "bytes": c.bytes, "peak": c.peak_bytes,
+            "flops_by_op": c.flops_by_op,
+            "collectives": dict(c.collective_bytes),
+            "collective_counts": dict(c.collective_counts),
+            "repeated": dict(model.repeated)}
+
+
+def count_rank_train(cfg, shape: ShapeSpec, mesh: Mesh, coords,
+                     optimizer: str = "adamw", ec: ECConfig | None = None
+                     ) -> dict:
+    """One train step of the rank at ``coords`` on ``meta``
+    (``train_step.make_rank_train_step``: forward, the remat recompute,
+    backward, the gradient sums, the norm, ``optimizer`` on the blocks;
+    with ``ec``, the ``ECCheckpoint(comm=...)`` stage and commit of the
+    rank's blocks), its moves counted by ``ranks.counting_comms``: what
+    ``count_rank_forward`` reports.  Call inside ``dispatch.dry_run``."""
+    local, live = _rank_blocks(cfg, mesh, coords)
+    comms = counting_comms(mesh, coords)
+    model = RankModel(cfg, local, comms)
+    params = model.params
+    opt = make_optimizer(optimizer, total_steps=10000)
+    opt_state = opt.init(params)
+    batch = make_inputs(cfg, shape, "meta")
+    live += _tensors(opt_state) + list(batch.values())
+    ec_ckpt = None
+    if ec is not None:
+        # the shifts a rank sends, not those whose block stays
+        ec_ckpt = ECCheckpoint(mesh, model.specs, ec, CountingComm(
+            mesh, coords, ec.axis, count_stays=False))
+        ec_ckpt.create(params)
+        live += [ec_ckpt.parity, ec_ckpt._pages]
+    step = make_rank_train_step(model, opt, ec=ec_ckpt)
+    live = [t for t in live if t.device.type == "meta"]
+    with ca.Count(live) as c:
+        step(params, opt_state, batch)
+    return _rank_count(c, model)
 
 
 def count_rank_forward(cfg, shape: ShapeSpec, mesh: Mesh, coords) -> dict:
@@ -348,18 +413,9 @@ def count_rank_forward(cfg, shape: ShapeSpec, mesh: Mesh, coords) -> dict:
     collective bytes and moves by kind, and the products every model
     position repeats (``RankModel.repeated``).  Call inside
     ``dispatch.dry_run``."""
-    def fresh(x):
-        if isinstance(x, Stacked):
-            return Stacked(fresh(p) for p in x.parts)
-        return torch.empty(x.shape, dtype=x.dtype, device="meta")
-    params = param_tree(Model(cfg, device="meta"))
-    specs = shd.param_specs(cfg, params, mesh)
-    local = tree_map(lambda leaf, spec: fresh(shd.local_block(
-        leaf, spec, mesh, coords)), params, specs)
+    local, live = _rank_blocks(cfg, mesh, coords)
     batch = make_inputs(cfg, shape, "meta")
     model = RankModel(cfg, local, counting_comms(mesh, coords))
-    live = [t for leaf in leaves(local) for t in (
-        leaf.parts if isinstance(leaf, Stacked) else [leaf])]
     live += [t for t in batch.values() if t.device.type == "meta"]
     if shape.kind == "prefill":
         def step():
@@ -374,32 +430,36 @@ def count_rank_forward(cfg, shape: ShapeSpec, mesh: Mesh, coords) -> dict:
                                      shape.seq_len - 1)
     with ca.Count(live) as c:
         step()
-    return {"flops": c.flops, "bytes": c.bytes, "peak": c.peak_bytes,
-            "flops_by_op": c.flops_by_op,
-            "collectives": dict(c.collective_bytes),
-            "collective_counts": dict(c.collective_counts),
-            "repeated": dict(model.repeated)}
+    return _rank_count(c, model)
 
 
-def count_rank_cell(cfg, shape: ShapeSpec, mesh: Mesh) -> dict:
-    """``count_rank_forward`` at the config's depth (extrapolated as
-    ``count_model_cell``) for every model position and every data
-    position with its own batch rows: ``positions`` (coords, the devices
-    it stands for, its counts), ``busiest`` (the one with the most
-    FLOPs) and ``flops_total``/``bytes_total`` over the mesh."""
+def count_rank_cell(cfg, shape: ShapeSpec, mesh: Mesh,
+                    optimizer: str = "adamw") -> dict:
+    """``count_rank_forward`` (a train cell: ``count_rank_train``) at the
+    config's depth (extrapolated as ``count_model_cell``) for every model
+    position and every (pod, data) position with its own batch rows:
+    ``positions`` (coords, the devices it stands for, its counts),
+    ``busiest`` (the one with the most FLOPs) and
+    ``flops_total``/``bytes_total`` over the mesh."""
     sizes = mesh.shape
-    A, M = sizes["data"], sizes["model"]
+    A, M, P = sizes["data"], sizes["model"], sizes.get("pod", 1)
     rows: dict = {}
-    for a in range(A):
-        r0, r1 = batch_rows(shape.global_batch, A, a)
-        rows.setdefault(r1 - r0, []).append(a)
+    for p in range(P):
+        for a in range(A):
+            r0, r1 = batch_rows(shape.global_batch, A, a, P, p)
+            rows.setdefault(r1 - r0, []).append((p, a) if P > 1 else (a,))
     positions = []
     for same in rows.values():
         for m in range(M):
-            coords = (same[0], m)
-            counts = count_model_cell(
-                cfg, shape, mesh, count=lambda c: count_rank_forward(
-                    c, shape, mesh, coords))
+            coords = same[0] + (m,)
+            if shape.kind == "train":
+                def count(c, coords=coords):
+                    return count_rank_train(c, shape, mesh, coords,
+                                            optimizer)
+            else:
+                def count(c, coords=coords):
+                    return count_rank_forward(c, shape, mesh, coords)
+            counts = count_model_cell(cfg, shape, mesh, count=count)
             positions.append(dict(coords=coords, devices=len(same),
                                   **counts))
     busiest = max(positions, key=lambda p: p["flops"])
@@ -454,9 +514,10 @@ def run_cell(arch: str, shape_name: str, mesh="single", *,
             ok, why = shape_applicable(cfg, shape)
             if not ok:
                 return dict(base, status="skipped", reason=why)
-            kind = "rank" if rank_counted(cfg, shape, mesh) else "even split"
+            kind = ("rank" if rank_counted(cfg, shape, mesh, optimizer)
+                    else "even split")
             if kind == "rank":
-                cell = count_rank_cell(cfg, shape, mesh)
+                cell = count_rank_cell(cfg, shape, mesh, optimizer)
                 counts = dict(cell["busiest"])
                 coll = {k: counts["collectives"].get(k, 0)
                         for k in COLLECTIVES}

@@ -1,4 +1,5 @@
-"""A dense model's forward on one rank of a (data, model) mesh.
+"""A dense model on one rank of a (data, model) or (pod, data, model)
+mesh: its forward, and its backward for training.
 
 The reference runs its model over a mesh inside one compiled program:
 ``set_activation_mesh(mesh)`` (``src/repro/models/layers.py:36-79``)
@@ -18,10 +19,15 @@ positions, rank (a, m):
   model)``, w_down ``(f -> model, d -> data)``, ...).  A layer's blocks
   are all-gathered over the data column just before the layer and freed
   after it: no rank holds the whole model;
-* **batch rows** follow ``shard_act``'s "batch": rows a·B/A on, and
-  every row on every data column when B < A (its demotion to
-  replicated); a larger batch that A does not divide raises
-  (``batch_rows``).  The residual stream is replicated over "model";
+* **batch rows** follow ``shard_act``'s "batch", the axes ("pod",
+  "data"): with P pods, rows (p·A + a)·B/(P·A) on; while B < P·A the
+  axes shrink to ("data",) (rows a·B/A on, the same on every pod), and
+  while B < A every row is on every position (the demotion to
+  replicated); a larger batch that its axes do not divide raises
+  (``batch_rows``).  The residual stream is replicated over "model".
+  The forward sends nothing over "pod": the parameters are replicated
+  over pods (the reference's ``sharding.py``: "pods replicate params for
+  fast recovery");
 * **attention, ``attn_parallel="seq"``** (the default): the reference's
   ``blockwise_attention`` stripes Q tiles of ``bq = min(attn_block_q,
   max(S // M, 16))`` rows over "model", tile t = l·M + m to stripe m,
@@ -50,7 +56,26 @@ positions, rank (a, m):
   log-sum-exp (an all-gather of the partials, summed in model order);
 * **greedy sampling** (``argmax``): each rank's local (max, index), an
   all-gather over the model column (the first maximum wins, as
-  ``torch.argmax``), then over the data column for the whole batch.
+  ``torch.argmax``), then over the data (and pod) columns for the whole
+  batch.
+
+**Training** (``forward`` while autograd records): gradients land on the
+rank's own blocks, through the collectives' backwards
+(``distributed/ranks.py``).  A parameter gather's backward is a
+reduce-scatter, so a block's gradient sums every position's use of the
+whole leaf; the input of each column-parallel product (the normed
+residual before attention, before the MLP and before the unembedding)
+passes through ``ranks.sum_grad``, which sums its gradient over the
+model column, as do the wk and wv blocks (replicated over "model", and
+every model position's K and V serve only its own query rows or heads);
+the row-parallel all-reduces pass their gradient through, and the
+"seq" stripes' gather hands each position its rows' gradient.  A
+replicated norm scale then has its whole gradient on every model
+position of a data column; the train step sums the leaves that "data"
+does not split over the data column, and every leaf over the pods
+(``train/train_step.py``).  ``cfg.remat`` is honoured as ``Model``
+honours it: under "full" each repeat of the layer unit is recomputed in
+the backward, its blocks gathered again.
 
 Every result is the one-device model's up to the order of sums.  The
 arithmetic a rank shares with ``Model`` is ``layers.py``'s own (RoPE,
@@ -65,7 +90,8 @@ every ``ModelConfig`` field, whether the rank path reads it, refuses it
 or leaves it to a refused layer kind; a field in none of them fails the
 rank tests, so a new option of the dense path cannot go unread here.
 On a 1 x 1 mesh ``RankModel`` is today's ``Model`` on the rank's (whole)
-blocks.
+blocks, and ``params`` are that model's parameters (sharing the blocks'
+storage).
 
 ``repeated`` counts, by product, the matrix-product FLOPs that every
 model position computes alike (the plan's repeats: K and V everywhere,
@@ -81,7 +107,9 @@ from types import SimpleNamespace
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
+from ..distributed import ranks
 from ..distributed import sharding as shd
 from ..kernels import dispatch
 from ..kernels.flash_attention import stripe_positions
@@ -89,6 +117,7 @@ from ..tree import Stacked, tree_map
 from . import layers as L
 from .config import ModelConfig
 from .layers import NEG_INF, rmsnorm
+from .transformer import REMAT_CONTEXTS
 
 #: ROADMAP.md Queue 1 items that will port the rest across ranks
 ROADMAP_ITEMS = {
@@ -101,7 +130,8 @@ ROADMAP_ITEMS = {
 _OPTIONS_ITEM = ROADMAP_ITEMS["W"]
 
 #: ``ModelConfig`` fields the rank path reads as ``Model``'s dense path
-#: does (``remat``: a forward without gradients ignores it alike)
+#: does (``remat``: honoured while autograd records, as ``Model.forward``
+#: honours it; a forward without gradients ignores it alike)
 READ_FIELDS = frozenset({
     "name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads",
     "d_ff", "vocab_size", "head_dim", "layer_pattern", "rope_theta",
@@ -147,14 +177,17 @@ def _refuse(cfg: ModelConfig, what: str, item) -> None:
         f"Queue 1 item {n} ({name}) ports it")
 
 
+MESH_AXES = (("data", "model"), ("pod", "data", "model"))
+
+
 def check_config(cfg: ModelConfig, mesh) -> None:
     """Raise unless ``cfg`` runs across ranks on ``mesh`` (module notes);
     every config runs on a 1 x 1 mesh."""
     if mesh.size == 1:
         return
-    if tuple(mesh.axis_names) != ("data", "model"):
-        raise ValueError(f"a model across ranks takes a (data, model) mesh, "
-                         f"not {mesh.axis_names}")
+    if tuple(mesh.axis_names) not in MESH_AXES:
+        raise ValueError(f"a model across ranks takes a (data, model) or "
+                         f"(pod, data, model) mesh, not {mesh.axis_names}")
     for kind in sorted(set(cfg.layers) - {"A"}):
         _refuse(cfg, f"layer kind {kind!r}", ROADMAP_ITEMS[kind])
     for field, (what, refuses) in REFUSED_FIELDS.items():
@@ -177,20 +210,40 @@ def head_parallel(cfg: ModelConfig, M: int) -> bool:
     return want and M > 1 and H % M == 0
 
 
-def batch_rows(B: int, A: int, index: int) -> tuple[int, int]:
+def _batch_split(B: int, A: int, pods: int) -> int:
+    """How many row blocks ``shard_act``'s "batch" cuts a batch of B into
+    on P pods of A data positions: P·A, A (the axes shrunk to ("data",))
+    or 1 (replicated).  A batch at or above its axes' size that they do
+    not divide raises: the activations would split it unevenly, leaving a
+    position no rows, while ``cache_specs`` replicates it."""
+    axes = [(pods * A, "(pod, data)")] if pods > 1 else []
+    for n, where in axes + [(A, "data")]:
+        if B < n:
+            continue
+        if B % n:
+            raise ValueError(f"a batch of {B} on {n} {where} positions: "
+                             f"take a batch that the axes divide, or one "
+                             f"smaller than them")
+        return n
+    return 1
+
+
+def batch_rows(B: int, A: int, index: int, pods: int = 1,
+               pod: int = 0) -> tuple[int, int]:
     """The rows [r0, r1) of a batch of B that data index ``index`` of A
-    holds: ``shard_act``'s "batch" (every row when B < A).  A batch above
-    A that A does not divide raises: the activations would split it
-    unevenly, leaving a data position no rows, while ``cache_specs``
-    replicates it."""
-    if B < A:
+    on pod ``pod`` of ``pods`` holds: ``shard_act``'s "batch" (module
+    notes; every row when B < A)."""
+    n = _batch_split(B, A, pods)
+    if n == 1:
         return 0, B
-    if B % A:
-        raise ValueError(f"a batch of {B} on {A} data positions: take a "
-                         f"batch that the data axis divides, or one smaller "
-                         f"than it")
-    per = B // A
-    return index * per, (index + 1) * per
+    i = pod * A + index if n > A else index
+    per = B // n
+    return i * per, (i + 1) * per
+
+
+def batch_copies(B: int, A: int, pods: int = 1) -> int:
+    """How many (pod, data) positions hold each row of a batch of B."""
+    return pods * A // _batch_split(B, A, pods)
 
 
 def seq_stripe(cfg: ModelConfig, S: int, M: int, m: int) -> dict:
@@ -207,36 +260,32 @@ def seq_stripe(cfg: ModelConfig, S: int, M: int, m: int) -> dict:
             "valid": valid}
 
 
-def _axes(entry) -> tuple:
-    if entry is None:
-        return ()
-    return (entry,) if isinstance(entry, str) else tuple(entry)
-
-
 def _split_dim(spec, axis: str):
     """The dimension ``spec`` splits over ``axis``, or None."""
-    dims = [i for i, e in enumerate(spec) if axis in _axes(e)]
+    dims = [i for i, e in enumerate(spec) if axis in shd.entry_axes(e)]
     if not dims:
         return None
     (i,) = dims
-    if _axes(spec[i]) != (axis,):
+    if shd.entry_axes(spec[i]) != (axis,):
         raise ValueError(f"spec {spec}: dimension {i} splits over several "
                          f"axes")
     return i
 
 
 class RankModel:
-    """A dense config's forward on this rank (module notes).
+    """A dense config's forward and backward on this rank (module notes).
 
     ``params``: the rank's blocks of the parameter tree in the
     reference's layout (``convert.param_tree`` cut by
-    ``sharding.local_block`` at the rank's coordinates); ``comms``: the
+    ``sharding.local_block`` at the rank's coordinates; a training rank's
+    own copies, which the optimizer updates in place); ``comms``: the
     rank's ``ranks.AxisComms`` (default: the ones
-    ``layers.set_activation_mesh`` installed).  ``apply`` and
+    ``layers.set_activation_mesh`` installed).  ``apply``, ``forward``
+    (the same, recording gradients when autograd does) and
     ``decode_step`` take the whole batch and return the rank's logits
     block; ``argmax`` turns a decode step's logits block into the whole
     batch's greedy tokens.  ``ServeEngine`` drives it as it drives a
-    ``Model``."""
+    ``Model``; ``train.train_step.make_rank_train_step`` trains it."""
 
     def __init__(self, cfg: ModelConfig, params: dict, comms=None):
         comms = L.activation_mesh() if comms is None else comms
@@ -249,13 +298,18 @@ class RankModel:
         self.params = params
         self.A, self.M = comms.data.axis_size, comms.model.axis_size
         self.a, self.m = comms.data.index, comms.model.index
+        self.P, self.p = ((1, 0) if comms.pod is None else
+                          (comms.pod.axis_size, comms.pod.index))
         self.repeated: collections.Counter = collections.Counter()
         self.op_paths: dict[str, str] = {}
         self._batch = None
         check_config(cfg, self.mesh)
+        self.specs = shd.param_specs(cfg, _global_shapes(cfg), self.mesh)
         self._one = _one_device(cfg, params) if self.mesh.size == 1 else None
-        if self._one is None:
-            self.specs = shd.param_specs(cfg, _global_shapes(cfg), self.mesh)
+        if self._one is not None:
+            from .convert import param_tree
+            self.params = param_tree(self._one)
+        else:
             self.head_parallel = head_parallel(cfg, self.M)
 
     # -- layout ---------------------------------------------------------------
@@ -292,17 +346,21 @@ class RankModel:
         i = _split_dim(spec, axis)
         if i is None:
             return t
-        g = self._comm(axis).all_gather(t).movedim(0, i)
+        g = ranks.all_gather(self._comm(axis), t).movedim(0, i)
         return g.reshape(*t.shape[:i], -1, *t.shape[i + 1:])
 
     def _gathered(self, tree: dict, specs: dict, model_too=()) -> dict:
         """Every leaf of ``tree`` gathered over the data column; the leaves
-        named in ``model_too`` over the model column too."""
+        named in ``model_too`` over the model column too.  A leaf that
+        "model" does not split has its gradient summed over the model
+        column (module notes)."""
         out = {}
         for k, t in tree.items():
             if isinstance(t, dict):
                 out[k] = self._gathered(t, specs[k], model_too)
                 continue
+            if _split_dim(specs[k], "model") is None:
+                t = ranks.sum_grad(self.comms.model, t)
             t = self._gather(t, specs[k], "data")
             out[k] = self._gather(t, specs[k], "model") if k in model_too \
                 else t
@@ -315,9 +373,18 @@ class RankModel:
             self.repeated[name] += 2 * x.numel() * w.shape[-1]
         return x @ w
 
+    def rows(self, B: int) -> tuple[int, int]:
+        """The rows of a batch of B that this rank holds (``batch_rows``)."""
+        return batch_rows(B, self.A, self.a, self.P, self.p)
+
+    def copies(self, B: int) -> int:
+        """How many ranks of the model's column hold each of those rows
+        (``batch_copies``)."""
+        return batch_copies(B, self.A, self.P)
+
     def _rows(self, B: int) -> tuple[int, int]:
         self._batch = B
-        return batch_rows(B, self.A, self.a)
+        return self.rows(B)
 
     # -- embeddings -------------------------------------------------------------
     def _table(self, name: str):
@@ -333,8 +400,8 @@ class RankModel:
         mine = (ids >= 0) & (ids < Vl)
         x = L.embed(SimpleNamespace(embed=table), ids.clamp(0, Vl - 1),
                     self.cfg)
-        return self.comms.model.all_reduce(
-            torch.where(mine[..., None], x, 0.0))
+        return ranks.all_reduce(self.comms.model,
+                                torch.where(mine[..., None], x, 0.0))
 
     def _unembed(self, x):
         """``layers.unembed`` on the rank's vocab block of the table: the
@@ -375,20 +442,20 @@ class RankModel:
             kh, vh = self._kv_heads(k, v)
             out = self._flash(q, kh, vh)
             y = self._mm("wo", out.reshape(B, S, Hl * hd), p["wo"])
-            return self.comms.model.all_reduce(y)
+            return ranks.all_reduce(self.comms.model, y)
         st = seq_stripe(cfg, S, self.M, self.m)
         bq, rows, nv = st["bq"], st["rows"], st["valid"]
         idx = stripe_positions(rows, (bq, self.M, self.m), h.device)[:nv]
         q = self._mm("wq", h.index_select(1, idx), p["wq"])
         q = L.embed_positions(cfg, q.reshape(B, nv, H, hd),
                               positions.index_select(1, idx))
-        if nv < rows:                 # the reference's zero padding rows
-            q = nn.functional.pad(q, (0, 0, 0, 0, 0, rows - nv))
+        # the reference's zero padding rows (none on most ranks: every
+        # rank pads alike, so that their backward graphs match)
+        q = nn.functional.pad(q, (0, 0, 0, 0, 0, rows - nv))
         out = self._flash(q, k, v, (bq, self.M, self.m))
         y = self._mm("wo", out[:, :nv].reshape(B, nv, H * hd), p["wo"])
-        if nv < rows:
-            y = nn.functional.pad(y, (0, 0, 0, rows - nv))
-        g = self.comms.model.all_gather(y)           # (M, B, rows, d)
+        y = nn.functional.pad(y, (0, 0, 0, rows - nv))
+        g = ranks.all_gather_rows(self.comms.model, y)  # (M, B, rows, d)
         g = g.reshape(self.M, B, st["n_local"], bq, -1).permute(1, 2, 0, 3, 4)
         return g.reshape(B, st["n_local"] * self.M * bq, -1)[:, :S]
 
@@ -454,26 +521,35 @@ class RankModel:
         attn = self._gathered(blocks["attn"], specs["attn"],
                               () if self.head_parallel else ("wq", "wo"))
         eps = self.cfg.norm_eps
-        x = x + self._attention(attn, rmsnorm(blocks["ln1"]["scale"], x, eps),
-                                positions, cache, cache_len)
-        del attn
+        h = ranks.sum_grad(self.comms.model,
+                           rmsnorm(blocks["ln1"]["scale"], x, eps))
+        x = x + self._attention(attn, h, positions, cache, cache_len)
+        del attn, h
         mlp = self._gathered(blocks["mlp"], specs["mlp"])
-        h = rmsnorm(blocks["ln2"]["scale"], x, eps)
-        return x + self.comms.model.all_reduce(
-            L.mlp_apply(SimpleNamespace(**mlp), h))
+        h = ranks.sum_grad(self.comms.model,
+                           rmsnorm(blocks["ln2"]["scale"], x, eps))
+        return x + ranks.all_reduce(self.comms.model,
+                                    L.mlp_apply(SimpleNamespace(**mlp), h))
+
+    def _unit(self, x, positions, r: int):
+        n = len(self.unit)
+        for i in range(r * n, (r + 1) * n):
+            x = self._apply_layer(i, x, positions)
+        return x
 
     def _final(self, x):
         x = rmsnorm(self.params["final_norm"]["scale"], x, self.cfg.norm_eps)
-        return self._unembed(x)
+        return self._unembed(ranks.sum_grad(self.comms.model, x))
 
     # -- entry points -------------------------------------------------------------
-    @torch.no_grad()
-    def apply(self, batch: dict) -> torch.Tensor:
+    def forward(self, batch: dict) -> torch.Tensor:
         """The prefill forward of the whole batch (``Model.apply``'s
         arguments): this rank's logits block, (its batch rows, S,
-        padded_vocab / M) in the activation dtype."""
+        padded_vocab / M) in the activation dtype.  While autograd
+        records, each repeat of the layer unit is recomputed in the
+        backward as ``cfg.remat`` says (module notes)."""
         if self._one is not None:
-            return self._one.apply(batch)
+            return self._one.forward(batch)
         tokens = batch["tokens"]
         B, S = tokens.shape
         r0, r1 = self._rows(B)
@@ -482,9 +558,23 @@ class RankModel:
                      .expand(r1 - r0, S) if positions is None
                      else positions[r0:r1])
         x = self._embed(tokens[r0:r1])
-        for i in range(self.cfg.num_layers):
+        remat = self.cfg.remat if torch.is_grad_enabled() else "none"
+        n, R = len(self.unit), self.repeats
+        for r in range(R):
+            if remat == "none":
+                x = self._unit(x, positions, r)
+            else:
+                x = ckpt.checkpoint(self._unit, x, positions, r,
+                                    use_reentrant=False,
+                                    context_fn=REMAT_CONTEXTS[remat])
+        for i in range(n * R, self.cfg.num_layers):
             x = self._apply_layer(i, x, positions)
         return self._final(x)
+
+    @torch.no_grad()
+    def apply(self, batch: dict) -> torch.Tensor:
+        """``forward`` without gradients (the serving prefill)."""
+        return self.forward(batch)
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> list[dict]:
@@ -494,7 +584,7 @@ class RankModel:
         if self._one is not None:
             return self._one.init_cache(batch, max_len, dtype=dtype)
         cfg = self.cfg
-        r0, r1 = batch_rows(batch, self.A, self.a)
+        r0, r1 = self.rows(batch)
         self._seq_sharded = self.M > 1 and max_len % self.M == 0
         S = max_len // self.M if self._seq_sharded else max_len
         shape = (r1 - r0, S, cfg.num_kv_heads, cfg.head_dim)
@@ -531,9 +621,13 @@ class RankModel:
         vals = self.comms.model.all_gather(val)          # (M, rows)
         ids = self.comms.model.all_gather(idx + self.m * Vl)
         tok = ids.gather(0, torch.argmax(vals, dim=0)[None])[0]
-        if self._batch < self.A or self.A == 1:
+        split = _batch_split(self._batch, self.A, self.P)
+        if split == 1:
             return tok
-        return self.comms.data.all_gather(tok).reshape(-1)
+        tok = self.comms.data.all_gather(tok).reshape(-1)
+        if split > self.A:                       # rows over (pod, data)
+            tok = self.comms.pod.all_gather(tok).reshape(-1)
+        return tok
 
 
 def _global_shapes(cfg: ModelConfig) -> dict:
@@ -558,3 +652,41 @@ def _one_device(cfg: ModelConfig, params: dict):
             dst.data = src
     tree_map(bind, param_tree(model), params)
     return model
+
+
+def init_blocks(cfg: ModelConfig, mesh, coords,
+                generator: torch.Generator) -> dict:
+    """The blocks at ``coords`` of ``Model(cfg).init(generator)``'s
+    parameter tree, the same numbers, drawn one module at a time on the
+    generator's device: no rank holds more than one layer whole.  Each
+    block is the rank's own (contiguous) tensor."""
+    from .convert import _nest, param_tree
+    from .transformer import Model
+    dev = torch.device(generator.device)
+    with dispatch.dry_run():
+        model = Model(cfg, device="meta")
+    specs = shd.param_specs(cfg, param_tree(model), mesh)
+    n, R = len(model.unit), model.repeats
+
+    def drawn(module, spec_tree, *reset_args):
+        module.to_empty(device=dev)
+        module.reset(*reset_args)
+        out = tree_map(lambda t, sp: shd.local_block(
+            t.detach(), sp, mesh, coords).clone(
+                memory_format=torch.contiguous_format),
+            _nest(dict(module.named_parameters())), spec_tree)
+        module.to_empty(device="meta")
+        return out
+
+    emb = drawn(model.embeddings, specs["embeddings"], generator)
+    per_layer = []
+    for i, layer in enumerate(model.layers):
+        spec = (tree_map(lambda sp: shd.P(*sp[1:]), specs["blocks"][i % n])
+                if i < n * R else specs["tail"][i - n * R])
+        per_layer.append(drawn(layer, spec, generator))
+    final = drawn(model.final_norm, specs["final_norm"])
+    return {"embeddings": emb, "final_norm": final,
+            "blocks": [tree_map(lambda *ts: Stacked(ts),
+                                *(per_layer[r * n + u] for r in range(R)))
+                       if R else None for u in range(n)],
+            "tail": per_layer[n * R:]}

@@ -347,3 +347,8 @@ def _dots_policy(ctx, op, *args, **kwargs):
     if op is torch.ops.aten.mm.default:
         return ckpt.CheckpointPolicy.MUST_SAVE
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: ``cfg.remat`` -> the checkpoint contexts of a unit's recompute (the
+#: rank path's, ``models/ranked.py``; ``Model.forward`` names them alike)
+REMAT_CONTEXTS = {"full": _count_once, "dots": _save_dots}

@@ -11,6 +11,13 @@ last dimension doubled) under the dtype name "bfloat16", so a checkpoint
 written by either package restores in the other.  A ``Stacked`` leaf is
 written stacked, as the reference holds it.
 
+From ranks (``specs`` and ``comms``, a rank's ``ranks.AxisComms``): the
+tree holds the rank's blocks, laid out by ``specs``.  ``save_checkpoint``
+gathers each leaf whole over the axes its spec splits (every rank takes
+part) and the rank at coordinate 0 writes it, in the same format;
+``restore_checkpoint`` reads each whole leaf on every rank and copies its
+``sharding.local_block`` into the rank's block.
+
 EC path (hot): ``ECCheckpoint`` wraps ``distributed.ecstore.ECStateStore``;
 parity lives on the state's device and is refreshed every step.  Recovery
 reconstructs a lost data-axis position from k survivors without touching
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from ..distributed.ecstore import ECConfig, ECStateStore
+from ..distributed.sharding import entry_axes, local_block
 from ..tree import Stacked, leaves, leaves_with_path
 
 
@@ -59,7 +67,56 @@ def _dtype_name(leaf) -> str:
     return str(leaf.dtype).removeprefix("torch.")
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree, keep_last: int = 3):
+def _whole(t: torch.Tensor, spec, comms) -> torch.Tensor:
+    """The whole leaf of which ``t`` is a rank's block by ``spec``: along
+    each dimension, the blocks of its axes gathered, the minor axis
+    first."""
+    cols = {c.axis: c for c in comms.columns()}
+    for i, entry in enumerate(spec):
+        for axis in reversed(entry_axes(entry)):
+            g = cols[axis].all_gather(t.contiguous()).movedim(0, i)
+            t = g.reshape(*t.shape[:i], -1, *t.shape[i + 1:])
+    return t
+
+
+def _gathered_leaves(tree, specs, comms):
+    """(name, whole leaf) of the rank blocks of ``tree``, one at a time."""
+    for (name, leaf), spec in zip(_leaf_paths(tree), leaves(specs)):
+        if isinstance(leaf, Stacked):
+            inner = type(spec)(*spec[1:])
+            yield name, Stacked(_whole(p, inner, comms) for p in leaf.parts)
+        else:
+            yield name, _whole(leaf, spec, comms)
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree, keep_last: int = 3, *,
+                    specs=None, comms=None):
+    """Write ``tree`` as step ``step`` (module notes); with ``specs`` and
+    ``comms``, ``tree`` is a rank's blocks and the rank at coordinate 0
+    writes the whole leaves (every rank must call it)."""
+    if comms is not None:
+        return _save_from_ranks(ckpt_dir, step, tree, keep_last, specs,
+                                comms)
+    return _save(ckpt_dir, step, _leaf_paths(tree), keep_last)
+
+
+def _save_from_ranks(ckpt_dir, step, tree, keep_last, specs, comms):
+    """Rank 0 writes; every rank takes part in every leaf's gathers, and
+    none returns before the checkpoint is on disk."""
+    import torch.distributed as dist
+    named = _gathered_leaves(tree, specs, comms)
+    final = None
+    if not any(comms.coords):
+        final = _save(ckpt_dir, step, named, keep_last)
+    else:
+        for _ in named:
+            pass
+    if dist.is_initialized():
+        dist.barrier()
+    return final
+
+
+def _save(ckpt_dir: str, step: int, named_leaves, keep_last: int):
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -67,7 +124,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, keep_last: int = 3):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = []
-    for i, (name, leaf) in enumerate(_leaf_paths(tree)):
+    for i, (name, leaf) in enumerate(named_leaves):
         arr = _to_numpy(leaf)
         fn = f"{i:05d}.npy"
         logical = _dtype_name(leaf)
@@ -113,17 +170,25 @@ def _from_numpy(a: np.ndarray, meta: dict) -> torch.Tensor:
     return torch.from_numpy(np.array(a).reshape(meta["shape"]))
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, tree_like):
+def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *, specs=None,
+                       mesh=None, coords=None):
     """Restore into the tensors of ``tree_like`` (shapes must match), in
-    place, each cast to its leaf's dtype; returns ``tree_like``."""
+    place, each cast to its leaf's dtype; returns ``tree_like``.  With
+    ``specs``, ``mesh`` and ``coords``, ``tree_like`` is the blocks of the
+    rank at ``coords`` and each takes its ``local_block`` of the whole
+    leaf."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     targets = leaves(tree_like)
     assert len(manifest["leaves"]) == len(targets), \
         "checkpoint/tree structure mismatch"
-    for meta, leaf in zip(manifest["leaves"], targets):
+    spec_leaves = leaves(specs) if specs is not None else [None] * len(
+        targets)
+    for meta, leaf, spec in zip(manifest["leaves"], targets, spec_leaves):
         t = _from_numpy(np.load(os.path.join(d, meta["file"])), meta)
+        if spec is not None:
+            t = local_block(t, spec, mesh, coords)
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"{meta['name']}: shape {tuple(t.shape)}, "
                              f"expected {tuple(leaf.shape)}")

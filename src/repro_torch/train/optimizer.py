@@ -16,6 +16,12 @@ held.  AdamW is elementwise and runs part by part on ``Stacked`` leaves;
 AdamW-8bit (quantization blocks span the stacked leaf) and Adafactor
 (row/column statistics and an RMS over the stacked leaf) take a stacked
 copy of each such leaf.
+
+On a rank of a mesh (``train_step.make_rank_train_step``) the trees are
+the rank's blocks: AdamW's moments are then the rank's blocks of its
+parameters' moments and its count is replicated, as the reference's
+``_opt_specs`` places them.  ``adamw8bit`` and ``adafactor`` refuse a
+mesh larger than 1 x 1 (``check_ranks``).
 """
 from __future__ import annotations
 
@@ -32,6 +38,26 @@ class Optimizer(NamedTuple):
     init: Callable
     update: Callable
     apply: Callable
+    name: str = ""
+
+
+#: ROADMAP.md Queue 1 item that ports the other optimizers across ranks
+RANKS_ITEM = (13, "adamw8bit and adafactor across ranks")
+
+
+def check_ranks(opt: Optimizer, mesh) -> None:
+    """Raise unless ``opt``'s state splits into a rank's blocks on
+    ``mesh``: on a mesh larger than 1 x 1 only AdamW's does.  adamw8bit
+    quantizes blocks of 256 over each whole flattened leaf and keeps its
+    ``q``/``s`` replicated, which a rank's 2-D block does not align with;
+    adafactor's row and column statistics and its update RMS span whole
+    leaves."""
+    if mesh.size == 1 or opt.name == "adamw":
+        return
+    n, what = RANKS_ITEM
+    raise NotImplementedError(
+        f"the {opt.name or 'given'} optimizer across ranks is not ported "
+        f"yet; ROADMAP.md Queue 1 item {n} ({what}) ports it")
 
 
 def _apply_one(p: torch.Tensor, u: torch.Tensor) -> None:
@@ -145,7 +171,7 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01,
         state["count"] = _new_count(state, c)
         return state
 
-    return Optimizer(init, update, apply)
+    return Optimizer(init, update, apply, "adamw")
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +256,7 @@ def adamw8bit(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01,
             _set_leaf(p, u)
         return state
 
-    return Optimizer(init, update, apply)
+    return Optimizer(init, update, apply, "adamw8bit")
 
 
 def _unflatten_like(tree, flat: list):
@@ -312,7 +338,7 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, weight_decay=0.0,
             _set_leaf(p, u)
         return state
 
-    return Optimizer(init, update, apply)
+    return Optimizer(init, update, apply, "adafactor")
 
 
 def make_schedule(peak_lr, warmup_steps, kind, total_steps):

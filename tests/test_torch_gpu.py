@@ -1068,6 +1068,41 @@ def test_flash_autograd_matches_plain_at_wide_heads(cuda, B, S, H, KV, hd,
         assert err <= BWD_TOL[dtype], (name, err)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stripe,shape", STRIPE_GRID)
+def test_flash_stripe_autograd_matches_plain(cuda, stripe, shape, dtype):
+    """dq, dk, dv of a stripe under autograd (kernel 11's forward on the
+    stripe, ``flash_attention_backward`` masking by its positions)
+    against autograd through ``flash_attention_plain`` with the same
+    stripe.  fp32: within kernel 11's per-element bound
+    (``tolerance``).  bf16: within ``BWD_TOL``, as the unstriped
+    backward: dS reads O through rowsum(dO ∘ O), a sum over hd of terms
+    each within O's bound of 2 bf16 ulps, so a per-element bound on O
+    does not carry to the gradients."""
+    B, R, Skv, H, KV, hd = shape
+    rng = _rng("flash-stripe-grad", *stripe, *shape, str(dtype))
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda, dtype) for s in
+        ((B, R, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd), (B, R, H, hd)))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, stripe=stripe).backward(dout)
+        return [t.grad for t in leaves]
+    before = launch_counts()["flash_attention"]
+    got = grads(flash.flash_attention)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    want = grads(flash.flash_attention_plain)
+    for name, g, w in zip("qkv", got, want):
+        if dtype == torch.float32:
+            assert flash.tolerance_ratio(g, w) <= 1.0, name
+        else:
+            err = float((g.float() - w.float()).abs().max()
+                        / w.float().abs().max())
+            assert err <= BWD_TOL[dtype], (name, err)
+
+
 TRAIN_CASES = [(arch, 64) for arch in
                ("llama4-maverick-400b-a17b", "kimi-k2-1t-a32b", "mamba2-370m",
                 "minicpm3-4b", "starcoder2-3b", "mistral-large-123b",

@@ -296,7 +296,9 @@ def test_stripes_match_reference_rows(both, Sa):
 def test_one_stripe_is_the_unstriped_call():
     """A stripe count of 1 is today's call bit for bit, a stripe holds
     the causal rows of the positions it names, and a stripe's backward
-    refuses (training across ranks is not ported)."""
+    gives autograd's gradients through the plain version with the same
+    stripe (training across ranks; ``tests/test_torch_train_ranks.py``
+    holds it further)."""
     g = torch.Generator().manual_seed(SEED)
     q = torch.randn((2, 96, 4, 16), generator=g)
     k, v = (torch.randn((2, 96, 2, 16), generator=g) for _ in range(2))
@@ -312,8 +314,12 @@ def test_one_stripe_is_the_unstriped_call():
     assert torch.equal(got, want[:, pos])
     with pytest.raises(ValueError):
         flash_attention_plain(q, k, v, stripe=(16, 2, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        flash_attention(q.clone().requires_grad_(), k, v, stripe=(16, 2, 1))
+    qs = q[:, pos].clone().requires_grad_()
+    flash_attention(qs, k, v, stripe=(16, 2, 1)).square().sum().backward()
+    qp = q[:, pos].clone().requires_grad_()
+    flash_attention_plain(qp, k, v, stripe=(16, 2, 1)).square().sum() \
+        .backward()
+    torch.testing.assert_close(qs.grad, qp.grad, atol=ATOL, rtol=RTOL)
 
 
 def test_one_by_one_mesh_is_the_one_device_model():
@@ -424,9 +430,10 @@ def test_refused_fields_refuse_across_ranks(field, value):
 
 
 def test_pod_mesh_and_uneven_batch_keep_the_even_split():
-    """The dry run counts a rank only on a (data, model) mesh whose data
-    axis splits the batch; the multi-pod mesh and a batch of 6 on 4 data
-    positions keep the even split."""
+    """The dry run counts a rank on a (data, model) or (pod, data, model)
+    mesh whose axes split the batch: a batch of 6 on 4 data positions
+    keeps the even split, and the multi-pod mesh's decode cell (128 rows
+    over its 2 x 16 (pod, data) positions) now counts a rank."""
     saved = dryrun.get_config
     dryrun.get_config = get_reduced
     try:
@@ -440,7 +447,9 @@ def test_pod_mesh_and_uneven_batch_keep_the_even_split():
         res = dryrun.run_cell(ARCHS[0], "decode_32k", "multi")
     finally:
         dryrun.get_config = saved
-    assert res["status"] == "ok" and res["count"] == "even split"
+    assert res["status"] == "ok" and res["count"] == "rank"
+    assert sorted(tuple(p["coords"]) for p in res["positions"]) == \
+        [(0, 0, m) for m in range(16)]
 
 
 def test_rank_counts_on_every_position():
