@@ -53,7 +53,8 @@ in place of the card):
              4 proxies, RS(10,8), c = 16, 4 KB chunks) on
              ``engine="cuda"``, YCSB batch 64: load, workload A, a
              data-server fail/restore, a parity-server fail/restore with
-             A and D, against a twin on the numpy engine.  Contents,
+             A and D, against a twin on the numpy engine (run at the
+             same time in a spawned process of its own).  Contents,
              ``stats`` and the transitions must be equal, the parity sweep
              must find no stale parity, and the RS kernels must have
              launched.  The decodes of each ``fail_server`` are then
@@ -73,7 +74,8 @@ in place of the card):
              probe) must have launched;
 8. sharded - ``configs/memec.py`` with ``shards=4, placement="ring"``:
              four paper testbeds as the shards of one cluster, sharing
-             the card, on ``engine="cuda"`` against a numpy twin - load,
+             the card, on ``engine="cuda"`` against a numpy twin (in a
+             process of its own, at the same time) - load,
              A, a data-server fail/restore in one shard with A running,
              ``add_shard`` (live migration) and ``rebalance``.  Contents,
              ``stats`` and reports must be equal, every shard's parity
@@ -190,10 +192,11 @@ in place of the card):
              (data 2, model 2): four gloo ranks on this card, each holding
              its blocks of the parent's one-card model (shared, not
              copied) and running ``models/ranked.py``'s ``RankModel``:
-             a prefill of 2 x 2,048 and 8 decode steps (teacher-forced
-             with the one-card model's tokens, a cache of 8 positions
-             split 4 + 4 over "model") with ``attn_parallel="seq"``, a
-             prefill and 2 decode steps with "head".  Each rank's logits
+             a prefill of 2 x 2,048 and 4 decode steps (teacher-forced
+             with the one-card model's tokens, a cache of 4 positions
+             split 2 + 2 over "model") with ``attn_parallel="seq"``, a
+             prefill and 1 decode step with "head" (8 and 2 steps until
+             the serve-ranks phase took their time).  Each rank's logits
              block must stay within ``MODEL_RANKS_TWIN_MULTIPLE`` (2)
              times the one-card bf16 logits' distance from an fp32 twin,
              measured in the run, of the one-card model's; kernel 11
@@ -210,7 +213,37 @@ in place of the card):
              CUDA graph of 20 launches, ``graph_device_ms``).
              Prints per rank its bytes sent by kind, the seconds of a
              prefill and of a decode step, and its peak GB;
-19. train-ranks - starcoder2-3b at full width, depth cut to 24 of 30
+19. serve-ranks - ``ServeEngine`` on ``RankModel``s over (data 2,
+             model 2), four gloo ranks on this card, each holding its
+             blocks of the parent's one-card model: (a) qwen2-vl-7b at
+             full width (M-RoPE, an embeddings input, bf16), depth cut to
+             4 of 28 layers (every decode step gathers every layer again
+             over gloo): ``apply`` on 2 x 2,048 embeddings with three
+             M-RoPE position streams, each rank's logits block within
+             ``MODEL_RANKS_TWIN_MULTIPLE`` times the one-card bf16
+             logits' distance from an fp32 twin and its bytes by kind
+             equal to ``dryrun.count_rank_forward``'s; a 16-token prefill
+             token by token, ``protect_cache`` (RS(1,1) over "data",
+             256-byte pages: ``launch.serve``'s defaults), 16 decode
+             steps at temperature 1.0, ``refresh_cache_parity`` and
+             ``recover_cache_pages(0)`` on every rank: the pages equal
+             the stacked one-card store's over the cache gathered from
+             the ranks, the parity a fresh encode, the rebuild the live
+             pages, byte for byte, and a flipped parity byte must change
+             the rebuild; the rank sampler on the one-card model's last
+             logits, split into each rank's block, draws the one-card
+             sampler's tokens on every rank, and the share of sampled
+             tokens equal to the one-card engine's is printed; (b) the
+             attention options at starcoder2-3b's widths (layers "AW",
+             a 1,024-slot window, the int8 KV cache, softcaps 50 and 30,
+             2 layers): a prefill of 2 x 2,048 (the masked stripes) and 8
+             greedy decode steps over the int8 ring, within the same
+             twin-based bounds.  Kernels 11 and 1 must launch on every
+             rank, ``op_paths`` ``cuda-kernel`` only.  Prints per rank
+             prefill s, decode s a step, bytes sent by kind (the
+             sampler's gathers apart), the EC ms and bytes, kernel-11
+             and kernel-1 launches and peak GB;
+20. train-ranks - starcoder2-3b at full width, depth cut to 24 of 30
              layers (the card's memory), bf16, remat
              "full", "seq", trained over (data 2, model 2): four gloo
              ranks on this card, each drawing its blocks of the seed's
@@ -232,7 +265,7 @@ in place of the card):
              ``dryrun.count_rank_train`` at the rank's coordinates.
              Prints per rank its seconds a step, kernel-11 launches, peak
              GB, and the card's peak;
-20. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
+21. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
              step at phase 12's cut (B 2 x S 2,048, remat "full",
              AdamW, the 1 x 1 mesh), made on ``meta``, against the same
              step on the card: the argument bytes asked of the allocator
@@ -253,7 +286,7 @@ counted (a call reached through a binding it does not wrap fails the
 run); then every shape is timed and each kernel's loss per run, calls x
 (kernel ms - bound ms), is printed beside its launches.
 Kernel 10 is also held against its plain version on the real object
-index of a server of the loaded RS testbed.  Every phase of 4-20 starts
+index of a server of the loaded RS testbed.  Every phase of 4-21 starts
 with the launch counts at 0 and reads them when it ends; launches made
 to compare a kernel with its plain version are not counted.  The line
 before the last is ``{"kernels": [...]}``;
@@ -1410,6 +1443,43 @@ def launched_in(torch, fn):
     return out, launch_counts()
 
 
+def twin_process():
+    """One spawned worker process for a numpy-engine twin, which then runs
+    beside the CUDA cluster on its own cores: both are host-bound Python,
+    and one after the other they took ~600 of a 1,312 s run on an H100
+    80GB HBM3 at 700 W's host (PERF.md §6, PR 26)."""
+    import concurrent.futures
+    import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+
+
+def twin_run(testbed, kind: str) -> dict:
+    """In the twin's process: ``testbed``'s scenario ("cluster":
+    ``scenario`` at ``OBJECTS``, "sharded": ``sharded_scenario`` at
+    ``SHARDED_OBJECTS``) on the numpy engine, and what the CUDA cluster
+    is held to: its transitions (the sharded reports), counts, stats and
+    contents, with its seconds per phase and wall seconds."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.memec import make_configured_cluster
+    from repro_torch.data.ycsb import YCSBConfig, run_workload
+    n = OBJECTS if kind == "cluster" else SHARDED_OBJECTS
+    cfg = YCSBConfig(num_objects=n, key_size=testbed.key_size,
+                     value_sizes=testbed.value_sizes)
+    twin = make_configured_cluster(testbed, engine="numpy")
+    t0 = time.perf_counter()
+    if kind == "cluster":
+        trans, secs, counts, _ = scenario(twin, cfg, run_workload)
+        inserted = OPS["parity_down"]
+    else:
+        trans, secs, counts = sharded_scenario(twin, cfg, run_workload,
+                                               testbed.batch_size)
+        inserted = 0
+    wall = time.perf_counter() - t0
+    return dict(trans=trans, secs=secs, counts=counts, stats=twin.stats,
+                contents=contents(twin, cfg, inserted), wall=wall)
+
+
 def run_cluster(np, torch, testbed, must_launch):
     """The testbed scenario on the CUDA engine against a numpy-engine
     twin; ``must_launch`` names the kernels the scenario has to launch.
@@ -1420,26 +1490,26 @@ def run_cluster(np, torch, testbed, must_launch):
     cfg = YCSBConfig(num_objects=OBJECTS, key_size=testbed.key_size,
                      value_sizes=testbed.value_sizes)
     cl = make_configured_cluster(testbed, engine="cuda")
-    twin = make_configured_cluster(testbed, engine="numpy")
     tag = f"{testbed.scheme.upper()}({testbed.n},{testbed.k})"
     log(f"cluster {tag}: {testbed.num_servers} servers, "
         f"{testbed.num_proxies} proxies, c={testbed.c}, chunk "
         f"{testbed.chunk_size} B (r = {cl.engine.rep.r}), {OBJECTS} objects, "
         f"YCSB batch {BATCH}")
-    t0 = time.perf_counter()
-    (trans, secs, counts, decodes), launches = launched_in(
-        torch, lambda: scenario(cl, cfg, run_workload))
-    wall = time.perf_counter() - t0
+    with twin_process() as pool:
+        pending = pool.submit(twin_run, testbed, "cluster")
+        t0 = time.perf_counter()
+        (trans, secs, counts, decodes), launches = launched_in(
+            torch, lambda: scenario(cl, cfg, run_workload))
+        wall = time.perf_counter() - t0
+        twin = pending.result()
     log(f"cluster {tag} cuda seconds per phase:", json.dumps(secs))
     log(f"cluster {tag} cuda launches per kernel:", json.dumps(launches))
     log(f"cluster {tag} cuda engine:", json.dumps(cl.engine.stats()))
     log(f"cluster {tag} chunks:", json.dumps(counts))
-    t0 = time.perf_counter()
-    twin_trans, twin_secs, twin_counts, _ = scenario(twin, cfg, run_workload)
-    twin_wall = time.perf_counter() - t0
-    log(f"cluster {tag} numpy twin seconds per phase:", json.dumps(twin_secs))
+    log(f"cluster {tag} numpy twin seconds per phase:",
+        json.dumps(twin["secs"]))
     log(f"cluster {tag} scenario wall seconds: cuda {wall:.3f}, numpy twin "
-        f"{twin_wall:.3f}")
+        f"{twin['wall']:.3f} (in a process of its own, beside)")
     log(f"cluster {tag} fail_server decodes replayed (host s per engine):",
         json.dumps(replay_decodes(np, torch, cl.code, decodes)))
 
@@ -1451,12 +1521,11 @@ def run_cluster(np, torch, testbed, must_launch):
         assert "delta" not in cl.engine.op_paths, cl.engine.op_paths
     assert counts["sealed_after_load_A"] > 0, "no chunk sealed"
     assert counts["recovered_chunks"]["fail_data"] > 0, "nothing recovered"
-    assert trans == twin_trans, "fail/restore transitions differ"
-    assert counts == twin_counts, (counts, twin_counts)
-    assert cl.stats == twin.stats, "cluster stats differ from the twin"
+    assert trans == twin["trans"], "fail/restore transitions differ"
+    assert counts == twin["counts"], (counts, twin["counts"])
+    assert cl.stats == twin["stats"], "cluster stats differ from the twin"
     got = contents(cl, cfg, OPS["parity_down"])
-    want = contents(twin, cfg, OPS["parity_down"])
-    assert got == want, "contents differ from the numpy twin"
+    assert got == twin["contents"], "contents differ from the numpy twin"
     assert all(v is not None for v in got[:OBJECTS]), "a loaded key is lost"
     checked, bad = parity_invariant(np, cl)
     log(f"cluster {tag} parity sweep: {checked} sealed data chunks checked, "
@@ -1651,26 +1720,24 @@ def run_sharded(np, torch, testbed):
     cfg = YCSBConfig(num_objects=SHARDED_OBJECTS, key_size=testbed.key_size,
                      value_sizes=testbed.value_sizes)
     cl = make_configured_cluster(testbed, engine="cuda")
-    twin = make_configured_cluster(testbed, engine="numpy")
     log(f"sharded: {testbed.shards} shards x ({testbed.num_servers} servers, "
         f"RS({testbed.n},{testbed.k}), c={testbed.c}, {testbed.chunk_size} B "
         f"chunks), placement {testbed.placement}, {SHARDED_OBJECTS} objects, "
         f"YCSB batch {testbed.batch_size}")
-    t0 = time.perf_counter()
-    (reports, secs, counts), launches = launched_in(
-        torch, lambda: sharded_scenario(cl, cfg, run_workload,
-                                        testbed.batch_size))
-    wall = time.perf_counter() - t0
+    with twin_process() as pool:
+        pending = pool.submit(twin_run, testbed, "sharded")
+        t0 = time.perf_counter()
+        (reports, secs, counts), launches = launched_in(
+            torch, lambda: sharded_scenario(cl, cfg, run_workload,
+                                            testbed.batch_size))
+        wall = time.perf_counter() - t0
+        twin = pending.result()
     log("sharded cuda seconds per phase:", json.dumps(secs))
     log("sharded cuda launches per kernel:", json.dumps(launches))
     log("sharded chunks:", json.dumps(counts))
-    t0 = time.perf_counter()
-    twin_reports, twin_secs, twin_counts = sharded_scenario(
-        twin, cfg, run_workload, testbed.batch_size)
-    twin_wall = time.perf_counter() - t0
-    log("sharded numpy twin seconds per phase:", json.dumps(twin_secs))
+    log("sharded numpy twin seconds per phase:", json.dumps(twin["secs"]))
     log(f"sharded scenario wall seconds: cuda {wall:.3f}, numpy twin "
-        f"{twin_wall:.3f}")
+        f"{twin['wall']:.3f} (in a process of its own, beside)")
     log("sharded reports:", json.dumps(reports, default=str))
 
     missing = [k for k in SHARDED_KERNELS if launches[k] == 0]
@@ -1684,11 +1751,11 @@ def run_sharded(np, torch, testbed):
         paths = set(eng.op_paths.values())
         assert paths <= {"cuda-kernel"}, f"shard {i} op_paths {eng.op_paths}"
         assert paths or i >= testbed.shards, f"shard {i} ran no coding op"
-    assert reports == twin_reports, "fail/restore/migration reports differ"
-    assert counts == twin_counts, (counts, twin_counts)
-    assert cl.stats == twin.stats, "sharded stats differ from the twin"
+    assert reports == twin["trans"], "fail/restore/migration reports differ"
+    assert counts == twin["counts"], (counts, twin["counts"])
+    assert cl.stats == twin["stats"], "sharded stats differ from the twin"
     got = contents(cl, cfg, 0)
-    assert got == contents(twin, cfg, 0), "contents differ from the twin"
+    assert got == twin["contents"], "contents differ from the twin"
     assert all(v is not None for v in got), "a loaded key is lost"
     for i, sh in enumerate(cl.shards):
         checked, bad = parity_invariant(np, sh)
@@ -3400,10 +3467,13 @@ def run_ranks(np, torch, dev, card):
 
 
 # the model-ranks phase: starcoder2-3b at full width and depth over
-# (data 2, model 2), one rank a position, gloo on this card
+# (data 2, model 2), one rank a position, gloo on this card; its decode
+# steps cut from 8 and 2 to 4 and 1 to make room for the serve-ranks
+# phase (a step sends ~2.3-2.9 GB a rank: ~3.2-4.3 s over gloo on an H100
+# 80GB HBM3 at 700 W, PERF.md §5)
 MODEL_RANKS_MESH = (2, 2)
 MODEL_RANKS_PREFILL = (2, 2048)
-MODEL_RANKS_DECODE = {"seq": 8, "head": 2}
+MODEL_RANKS_DECODE = {"seq": 4, "head": 1}
 MODEL_RANKS_RAGGED = 1500
 MODEL_RANKS_TWIN_MULTIPLE = 2
 MODEL_RANKS_DEADLINE = 600.0
@@ -3641,6 +3711,439 @@ def run_model_ranks(np, torch, dev, card):
         f", decode "
         f"{max(x[m]['decode_err'] for x in res for m in MODEL_RANKS_DECODE)}")
     log(f"phase model-ranks: {nums['phase_s']:.1f} s")
+    return launches, nums
+
+
+# the serve-ranks phase: ServeEngine on a RankModel over (data 2, model 2),
+# one gloo rank a position on this card.  (a) qwen2-vl-7b at full width
+# (M-RoPE, an embeddings input), depth cut to 4 of 28 layers: a rank
+# gathers every layer again at each decode step over gloo (1.1-1.9 s per
+# GB on an H100 80GB HBM3 at 700 W, PERF.md §5), ~13 GB a step at 28
+# layers, ~1.7 GB at 4; its cache
+# protected as launch.serve --protect protects it (RS(k=1, m=1) over
+# "data", 256-byte pages) and decoded at temperature 1.0.  (b) the
+# attention options at starcoder2-3b's widths: layers "AW" with a
+# 1,024-slot window, the int8 KV cache, both softcaps, 2 layers
+SERVE_RANKS_ARCH = "qwen2-vl-7b"
+SERVE_RANKS_LAYERS = 4
+SERVE_RANKS_MESH = (2, 2)
+SERVE_RANKS_PREFILL = (2, 2048)
+SERVE_RANKS_PROMPT = 16
+SERVE_RANKS_STEPS = 16
+SERVE_RANKS_MAX_LEN = 2048
+SERVE_RANKS_EC = dict(k=1, m=1, page_size=256)
+SERVE_RANKS_SEED = 26
+SERVE_RANKS_OPTIONS = dict(num_layers=2, layer_pattern="AW",
+                           local_window=1024, kv_cache_dtype="int8",
+                           attn_logit_softcap=50.0, logit_softcap=30.0)
+SERVE_RANKS_OPTIONS_STEPS = 8
+SERVE_RANKS_DEADLINE = 900.0
+
+
+def _bytes_of(torch, tree) -> dict:
+    """A tree's leaves' bytes by path, host arrays (``Stacked`` leaves
+    stacked; a rank answers with arrays, not tensors: it exits right
+    after answering), for the parent to reassemble."""
+    from repro_torch.tree import leaves_with_path, materialize, path_str
+    return {path_str(k): materialize(t).contiguous().view(torch.uint8).cpu()
+            .numpy() for k, t in leaves_with_path(tree)}
+
+
+def _serve_protected(torch, model, emb, mesh, ops, sent):
+    """Part (a)'s session on one rank: the prompt's token-by-token
+    prefill, ``protect_cache``, ``SERVE_RANKS_STEPS`` decode steps at
+    temperature 1.0, ``refresh_cache_parity``, ``recover_cache_pages(0)``
+    (each EC call timed and its bytes noted apart by ``_rank_timed``),
+    and the faulted control; the sampler's gathers are noted apart."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.distributed.ecstore import ECConfig
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve.engine import ServeEngine
+
+    def note(part):
+        def add(n, kind):
+            sent[part][kind] = sent[part].get(kind, 0) + n
+        return add
+    sample = model.sample
+
+    def sample_noted(*args):
+        with recording(note("sampler")):
+            return sample(*args)
+    model.sample = sample_noted
+    B = emb.shape[0]
+    eng = ServeEngine(model, max_len=SERVE_RANKS_MAX_LEN, batch_size=B,
+                      device=emb.device)
+    eng.generator.manual_seed(SERVE_RANKS_SEED)
+    out = {}
+    with recording(note("serve")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = model.argmax(eng.prefill(
+            {"embeddings": emb[:, :SERVE_RANKS_PROMPT]}))
+        torch.cuda.synchronize()
+        out["prompt_s_per_step"] = (time.perf_counter() - t0) / \
+            SERVE_RANKS_PROMPT
+        specs = shd.cache_specs(model.cfg, eng.cache_shapes(), mesh)
+        _rank_timed(torch, ops, "create", eng.protect_cache, mesh, specs,
+                    ECConfig(**SERVE_RANKS_EC))
+        old = eng.cache_snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.decode(SERVE_RANKS_STEPS, temperature=1.0,
+                         first_tokens=first)
+        torch.cuda.synchronize()
+        out["decode_s_per_step"] = (time.perf_counter() - t0) / \
+            SERVE_RANKS_STEPS
+        _rank_timed(torch, ops, "refresh", eng.refresh_cache_parity, old)
+        rebuilt = _rank_timed(torch, ops, "rebuild0",
+                              eng.recover_cache_pages, 0)
+    model.sample = sample
+    out["main_launches"] = launch_counts()
+    live = eng.ec_store.local_pages(eng.cache_tree())
+    out["stale"] = _differ(torch, eng.ec_parity,
+                           eng.ec_store.encode(eng.cache_tree()))
+    faulted = eng.ec_parity.clone()
+    faulted.view(-1)[0] ^= 1
+    out["faulted_differs"] = _differ(torch, eng.ec_store.reconstruct(
+        eng.cache_tree(), faulted, 0), rebuilt)
+    out.update(tokens=np_tokens(res.tokens), first=first.cpu().tolist(),
+               pages=live.cpu().numpy(), rebuilt=rebuilt.cpu().numpy(),
+               cache=_bytes_of(torch, eng.cache_tree()),
+               cache_len=eng.cur_len,
+               ec_paths=dict(model.comms.data.op_paths))
+    return out
+
+
+def np_tokens(tokens):
+    """A (B, steps) token array as nested lists."""
+    return [[int(t) for t in row] for row in tokens]
+
+
+def serve_rank_body(comm, cfg, local, batch, want, cfg_b, local_b, toks_b,
+                    fed_b, want_b):
+    """Serve-ranks phase, one rank: (a) ``RankModel`` of ``cfg`` on the
+    rank's blocks (shared with the parent), after a 64-token warm-up:
+    ``apply`` on the whole batch (its logits block against the one-card
+    model's, ``want["prefill"]``; its bytes by kind), the protected
+    session (``_serve_protected``) and the rank sampler on its block of
+    the one-card logits ``want["sample"]``; (b) ``RankModel`` of
+    ``cfg_b``: ``apply`` on ``toks_b`` and the decode steps fed
+    ``fed_b``, against the one-card model's (``want_b``)."""
+    import torch
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.distributed.ranks import rank_comms
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import layers
+    from repro_torch.models.ranked import RankModel
+    torch.cuda.set_device(0)
+    layers.set_activation_mesh(rank_comms(comm))
+    out = {"coords": comm.coords}
+    sent = {"prefill": {}, "serve": {}, "sampler": {}, "b_prefill": {},
+            "b_decode": {}}
+
+    def note(part):
+        def add(n, kind):
+            sent[part][kind] = sent[part].get(kind, 0) + n
+        return add
+    model = RankModel(cfg, local)
+    model.apply({k: v[..., :64, :] if k == "embeddings" else v[..., :64]
+                 for k, v in batch.items()})           # warm-up
+    layers.reset_op_paths()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording(note("prefill")):
+        logits = model.apply(batch)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_err"] = float((logits.float() - want["prefill"].float())
+                               .abs().max())
+    out["prefill_launches"] = launch_counts()
+    out["prefill_routes"] = dict(layers.OP_PATHS)
+    del logits
+    ops = {}
+    out.update(_serve_protected(torch, model, batch["embeddings"],
+                                comm.mesh, ops, sent))
+    out["ops"] = ops
+    gen = torch.Generator(device=want["sample"].device)
+    gen.manual_seed(SERVE_RANKS_SEED)
+    out["sampler_tokens"] = model.sample(want["sample"].contiguous(), 1.0,
+                                         gen).cpu().tolist()
+    out["op_paths"] = dict(model.op_paths)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # (b) the attention options
+    model_b = RankModel(cfg_b, local_b)
+    layers.reset_op_paths()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording(note("b_prefill")):
+        logits = model_b.apply({"tokens": toks_b})
+    torch.cuda.synchronize()
+    out["b_prefill_s"] = time.perf_counter() - t0
+    out["b_prefill_err"] = float((logits.float() - want_b["prefill"].float())
+                                 .abs().max())
+    del logits
+    cache = model_b.init_cache(toks_b.shape[0], len(fed_b),
+                               dtype=torch.bfloat16)
+    err = 0.0
+    t0 = time.perf_counter()
+    with recording(note("b_decode")):
+        for t, tok in enumerate(fed_b):
+            lg, cache = model_b.decode_step(cache, tok, t)
+            err = max(err, float((lg.float() - want_b["decode"][:, t]
+                                  .float()).abs().max()))
+    torch.cuda.synchronize()
+    out["b_decode_s_per_step"] = (time.perf_counter() - t0) / len(fed_b)
+    out.update(b_decode_err=err, b_routes=dict(layers.OP_PATHS),
+               b_op_paths=dict(model_b.op_paths), sent=sent,
+               b_launches=launch_counts())
+    layers.set_activation_mesh(None)
+    return out
+
+
+def _serve_ranks_reference(torch, dev, cfg, batch, card):
+    """Part (a)'s one-card model on the seed's weights: its bf16 prefill
+    logits, the bound (``MODEL_RANKS_TWIN_MULTIPLE`` times their distance
+    from an fp32 twin's), the one-card engine's tokens sampled as the
+    ranks sample them, and the one-card sampler's tokens on the last
+    position's logits."""
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_RANKS_SEED)
+    model = Model(cfg, device=dev).init(gen)
+    logits = model.apply(batch)
+    twin = Model(cfg.scaled(dtype="float32"), device=dev)
+    twin.load_state_dict(model.state_dict())
+    bound = MODEL_RANKS_TWIN_MULTIPLE * logit_err(
+        torch, logits, twin.apply(batch))
+    del twin
+    _free(torch)
+    eng = ServeEngine(model, max_len=SERVE_RANKS_MAX_LEN,
+                      batch_size=batch["embeddings"].shape[0], device=dev)
+    eng.generator.manual_seed(SERVE_RANKS_SEED)
+    first = model.argmax(eng.prefill(
+        {"embeddings": batch["embeddings"][:, :SERVE_RANKS_PROMPT]}))
+    tokens = eng.decode(SERVE_RANKS_STEPS, temperature=1.0,
+                        first_tokens=first).tokens
+    del eng
+    sample = logits[:, -1].contiguous()
+    gen.manual_seed(SERVE_RANKS_SEED)
+    sampled = Model.sample(sample, 1.0, gen).cpu().tolist()
+    return model, logits, bound, np_tokens(tokens), sample, sampled
+
+
+def _options_reference(torch, dev, cfg, toks):
+    """Part (b)'s one-card model: bf16 prefill logits, the greedy decode
+    from the first token (the tokens fed, the logits), and the bounds
+    from an fp32 twin fed the same tokens."""
+    from repro_torch.models import Model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_RANKS_SEED + 1)
+    model = Model(cfg, device=dev).init(gen)
+    B = toks.shape[0]
+
+    def decode(m, fed=None):
+        cache = m.init_cache(B, SERVE_RANKS_OPTIONS_STEPS,
+                             dtype=torch.bfloat16)
+        tok, feed, outs = toks[:, 0], [], []
+        for t in range(SERVE_RANKS_OPTIONS_STEPS):
+            tok = tok if fed is None else fed[t]
+            feed.append(tok)
+            lg, cache = m.decode_step(cache, tok, t)
+            outs.append(lg)
+            tok = m.argmax(lg)
+        return feed, torch.stack(outs, dim=1)
+    logits = model.apply({"tokens": toks})
+    fed, dec = decode(model)
+    twin = Model(cfg.scaled(dtype="float32"), device=dev)
+    twin.load_state_dict(model.state_dict())
+    bounds = {"prefill": MODEL_RANKS_TWIN_MULTIPLE * logit_err(
+                  torch, logits, twin.apply({"tokens": toks})),
+              "decode": MODEL_RANKS_TWIN_MULTIPLE * logit_err(
+                  torch, dec, decode(twin, fed)[1])}
+    del twin
+    _free(torch)
+    return model, logits, fed, dec, bounds
+
+
+def run_serve_ranks(np, torch, dev, card):
+    """``ServeEngine`` across ranks: four gloo ranks over (data 2, model
+    2), each a ``RankModel`` on its blocks of the parent's one-card model
+    (shared, not copied).  (a) qwen2-vl-7b cut to ``SERVE_RANKS_LAYERS``
+    layers: ``apply`` on 2 x 2,048 embeddings with three M-RoPE position
+    streams, each rank's logits block within the twin-based bound of the
+    one-card bf16 model's and its bytes by kind equal to
+    ``dryrun.count_rank_forward``'s; a protected session (RS(1,1) over
+    "data"): its pages equal the stacked one-card store's over the cache
+    gathered from the ranks, the parity a fresh encode after the refresh,
+    the rebuilt position 0 its live pages, and a flipped parity byte must
+    change the rebuild; the rank sampler on the one-card logits gives the
+    one-card sampler's tokens, the same on every rank; the share of
+    sampled tokens equal to the one-card engine's is printed.  (b) the
+    options config: its prefill (the masked stripes) and decode (the int8
+    ring) logits within their twin-based bounds.  Kernels 11 and 1 must
+    launch on every rank, the card's paths only.  Returns the ranks'
+    main-path launches, summed, and the phase's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ranks as rk
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.ecstore import ECConfig, ECStateStore
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.convert import param_tree
+    from repro_torch.models.ranked import batch_rows
+    from repro_torch.tree import Stacked, leaves_with_path, path_str, tree_map
+    t_phase = time.perf_counter()
+    full = get_config(SERVE_RANKS_ARCH)
+    cfg = full.scaled(num_layers=SERVE_RANKS_LAYERS)
+    log(f"serve-ranks: {SERVE_RANKS_ARCH} at full width (d_model "
+        f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth cut "
+        f"to {cfg.num_layers} of {full.num_layers} layers")
+    B, S = SERVE_RANKS_PREFILL
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_RANKS_SEED + 2)
+    emb = torch.randn((B, S, cfg.d_model), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    # three distinct (t, h, w) position streams
+    positions = torch.stack([torch.sort(torch.randint(
+        0, S, (B, S), generator=gen, device=dev), dim=1).values
+        for _ in range(3)])
+    batch = {"embeddings": emb, "positions": positions}
+    model, logits, bound, one_tokens, sample, one_sampled = \
+        _serve_ranks_reference(torch, dev, cfg, batch, card)
+    cfg_b = get_config(MODEL_ARCH).scaled(**SERVE_RANKS_OPTIONS)
+    toks_b = torch.randint(0, cfg_b.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    model_b, logits_b, fed_b, dec_b, bounds_b = _options_reference(
+        torch, dev, cfg_b, toks_b)
+    nums = {"bound_prefill": bound, "options_bounds": bounds_b,
+            "one_card_tokens": one_tokens, "one_card_sampler": one_sampled}
+    log(f"serve-ranks [{card}] one-card: bound {bound}, options bounds "
+        f"{json.dumps(bounds_b)}")
+    mesh = make_mesh(SERVE_RANKS_MESH, ("data", "model"))
+    A, M = SERVE_RANKS_MESH
+
+    def blocks(m, coords):
+        params = tree_map(lambda x: Stacked(p.detach() for p in x.parts)
+                          if isinstance(x, Stacked) else x.detach(),
+                          param_tree(m))
+        specs = shd.param_specs(m.cfg, params, mesh)
+        return tree_map(lambda leaf, spec: shd.local_block(
+            leaf, spec, mesh, coords), params, specs)
+    rank_args = []
+    for r in range(mesh.size):
+        a, m = mesh.coords(r)
+        r0, r1 = batch_rows(B, A, a)
+        Vl, Vb = cfg.padded_vocab // M, cfg_b.padded_vocab // M
+        rank_args.append((
+            cfg, blocks(model, (a, m)), batch,
+            {"prefill": logits[r0:r1, :, m * Vl:(m + 1) * Vl],
+             "sample": sample[r0:r1, m * Vl:(m + 1) * Vl]},
+            cfg_b, blocks(model_b, (a, m)), toks_b, fed_b,
+            {"prefill": logits_b[r0:r1, :, m * Vb:(m + 1) * Vb],
+             "decode": dec_b[r0:r1, :, m * Vb:(m + 1) * Vb]}))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="serve_ranks_") as tmp:
+        res = rk.launch(serve_rank_body, mesh, rank_args,
+                        init_file=os.path.join(tmp, "init"),
+                        timeout=SERVE_RANKS_DEADLINE)
+    nums["spawn_s"] = time.perf_counter() - t0
+    del rank_args, logits, logits_b, dec_b, model, model_b
+    _free(torch)
+    torch.cuda.ipc_collect()
+    # the stacked one-card store over the cache gathered from the ranks
+    with dispatch.dry_run():
+        meta = Model(cfg, device="meta")
+    shapes = meta.cache_tree(meta.init_cache(B, SERVE_RANKS_MAX_LEN,
+                                             torch.bfloat16))
+    cspecs = shd.cache_specs(cfg, shapes, mesh)
+    gathered = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                              device=dev), shapes)
+    flat_specs = {path_str(k): s for k, s in leaves_with_path(cspecs)}
+    for x in res:
+        for path, leaf in leaves_with_path(gathered):
+            name = path_str(path)
+            view = shd.local_view(leaf, flat_specs[name], mesh)
+            block = view[tuple(x["coords"])]
+            block.view(torch.uint8).copy_(torch.from_numpy(
+                x["cache"][name]))
+    store = ECStateStore(mesh, cspecs, ECConfig(**SERVE_RANKS_EC))
+    stacked_pages = store.local_pages(gathered)
+    stacked_rebuilt = store.reconstruct(gathered, store.encode(gathered), 0)
+    launches, counted = None, {}
+    for x in res:
+        at = tuple(x["coords"])
+        with dispatch.dry_run():
+            counted[at] = {
+                "a": dryrun.count_rank_forward(
+                    cfg, dryrun.ShapeSpec("x", "prefill", S, B), mesh,
+                    at)["collectives"],
+                "b": dryrun.count_rank_forward(
+                    cfg_b, dryrun.ShapeSpec("x", "prefill", S, B), mesh,
+                    at)["collectives"]}
+        pages = torch.from_numpy(x["pages"]).to(dev)
+        rebuilt = torch.from_numpy(x["rebuilt"]).to(dev)
+        pages_diff = _differ(torch, pages, stacked_pages[at])
+        rebuilt_diff = _differ(torch, rebuilt, stacked_rebuilt[at])
+        live0 = _differ(torch, rebuilt, stacked_pages[0, at[1]])
+        same = sum(int(a == b) for ra, rb in zip(x["tokens"], one_tokens)
+                   for a, b in zip(ra, rb))
+        x.update(pages_diff=pages_diff, rebuilt_diff=rebuilt_diff,
+                 rebuilt_vs_live=live0,
+                 sampled_share=same / (B * SERVE_RANKS_STEPS))
+        log(f"serve-ranks [{card}] rank at {at}: " + json.dumps(
+            {k: x[k] for k in x if k not in ("coords", "pages", "rebuilt",
+                                             "cache")}))
+        assert x["prefill_err"] <= bound, (at, x["prefill_err"], bound)
+        assert x["sent"]["prefill"] == counted[at]["a"], (
+            at, x["sent"]["prefill"], counted[at]["a"])
+        assert x["sent"]["b_prefill"] == counted[at]["b"], (
+            at, x["sent"]["b_prefill"], counted[at]["b"])
+        assert x["prefill_launches"]["flash_attention"] == cfg.num_layers, x
+        assert x["op_paths"] == {"flash_attention": "cuda-kernel"}, x
+        assert set(x["ec_paths"].values()) == {"cuda-kernel"}, x["ec_paths"]
+        assert not any(k.startswith("masked")
+                       for k in x["prefill_routes"]), x["prefill_routes"]
+        assert pages_diff == 0 and rebuilt_diff == 0 and live0 == 0, x
+        assert x["stale"] == 0, x["stale"]
+        assert x["faulted_differs"] > 0, "a flipped parity byte rebuilds"
+        assert x["cache_len"] == SERVE_RANKS_PROMPT + SERVE_RANKS_STEPS
+        assert x["sampler_tokens"] == one_sampled, (x["sampler_tokens"],
+                                                    one_sampled)
+        assert x["tokens"] == res[0]["tokens"], "ranks sampled apart"
+        assert x["b_prefill_err"] <= bounds_b["prefill"], x["b_prefill_err"]
+        assert x["b_decode_err"] <= bounds_b["decode"], x["b_decode_err"]
+        assert x["b_routes"].get("masked_blockwise:torch") == \
+            cfg_b.num_layers, x["b_routes"]
+        assert not any(k.startswith("flash") for k in x["b_routes"])
+        assert x["b_op_paths"] == {}, x["b_op_paths"]
+        assert not any(x["b_launches"].values()), x["b_launches"]
+        n = x["main_launches"]
+        assert n["flash_attention"] == cfg.num_layers, n
+        assert n["gf_matmul_batched"] > 0, n
+        launches = n if launches is None else {k: launches[k] + n[k]
+                                               for k in launches}
+    nums["ranks"] = [{k: x[k] for k in x if k not in (
+        "pages", "rebuilt", "cache", "tokens")} for x in res]
+    nums["ranks_tokens"] = res[0]["tokens"]
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve-ranks [{card}]: prefill s a rank "
+        f"{[round(x['prefill_s'], 3) for x in res]}, decode s a step a rank "
+        f"{[round(x['decode_s_per_step'], 3) for x in res]}, EC ms "
+        f"(create / refresh / rebuild) "
+        f"{[[round(1e3 * x['ops'][o]['s'], 1) for o in ('create', 'refresh', 'rebuild0')] for x in res]}"
+        f", kernel-11 / kernel-1 launches a rank "
+        f"{[(x['main_launches']['flash_attention'], x['main_launches']['gf_matmul_batched']) for x in res]}"
+        f", peak GB a rank {[round(x['peak_gb'], 3) for x in res]}, "
+        f"sampled tokens equal to the one-card engine's "
+        f"{[x['sampled_share'] for x in res]}")
+    log(f"phase serve-ranks: {nums['phase_s']:.1f} s")
     return launches, nums
 
 
@@ -3958,9 +4461,10 @@ def run_dryrun(np, torch, dev, card):
     TFLOP/s) are printed, with the EC cells' collective bytes on the
     16 x 16 mesh beside the reference chain docstring's per-link 80·S and
     18·S pages; last, ``python -m repro_torch.launch.dryrun --mesh single
-    --shape S`` for each of ``CLI_SHAPES`` (the ten archs' cells), run
-    after every timed phase so that its CPU load falls on none, must
-    record each ``ok`` or ``skipped`` with its reason.
+    --shape S`` for each of ``CLI_SHAPES`` (the ten archs' cells; one
+    process a shape, side by side), run after every timed phase so that
+    its CPU load falls on none, must record each ``ok`` or ``skipped``
+    with its reason.
     Returns the phase's launches (the card step) and its numbers."""
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -4038,14 +4542,22 @@ def run_dryrun(np, torch, dev, card):
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="dryrun_") as out:
-        for shape_name in CLI_SHAPES:
-            proc = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
-                 "single", "--shape", shape_name, "--out", out],
-                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-                capture_output=True, text=True, timeout=300)
-            assert proc.returncode == 0, (proc.stdout[-3000:]
-                                          + proc.stderr[-3000:])
+        # one process a shape, side by side: nothing else runs now
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+             "single", "--shape", shape_name, "--out", out],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for shape_name in CLI_SHAPES]
+        try:
+            for proc in procs:
+                stdout, stderr = proc.communicate(timeout=300)
+                assert proc.returncode == 0, stdout[-3000:] + stderr[-3000:]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
         records = [json.loads(Path(out, f).read_text())
                    for f in sorted(os.listdir(out))]
     assert len(records) == 10 * len(CLI_SHAPES), len(records)
@@ -4151,6 +4663,9 @@ def main() -> int:
     by_phase["model_ranks"], model_ranks = run_model_ranks(np, torch, dev,
                                                            card)
     log(f"model-ranks phase [{card}]:", json.dumps(model_ranks))
+    by_phase["serve_ranks"], serve_ranks = run_serve_ranks(np, torch, dev,
+                                                           card)
+    log(f"serve-ranks phase [{card}]:", json.dumps(serve_ranks))
     by_phase["train_ranks"], train_ranks = run_train_ranks(np, torch, dev,
                                                            card)
     log(f"train-ranks phase [{card}]:", json.dumps(train_ranks))

@@ -17,8 +17,10 @@ argument bytes each device of the mesh holds under
   counted at full depth.  The peak's place in a training step moves with
   depth, so its extrapolation is an estimate (``peak_extrapolated``);
   ``count_cell`` counts one depth whole.
-* The prefill and decode cells of the dense archs (every layer "A", a
-  dense MLP: starcoder2-3b, phi4-mini-3.8b, mistral-large-123b) on a
+* The prefill and decode cells of the archs whose layers are all
+  attention with a dense MLP (kinds "A" and "W": starcoder2-3b,
+  phi4-mini-3.8b, mistral-large-123b, qwen2-vl-7b with its M-RoPE and
+  embeddings input, musicgen-medium with its embeddings input) on a
   (data, model) or (pod, data, model) mesh of more than one position
   count one rank's forward (``models/ranked.py``'s ``RankModel`` on the
   position's blocks, its moves counted by ``ranks.counting_comms``), at
@@ -96,7 +98,7 @@ COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
 NO_SPMD = ("no SPMD collectives: the mesh's positions run as one program "
            "on one card, its counts split evenly (adamw8bit and adafactor "
            "across ranks, ROADMAP.md Queue 1 item 13, and the other archs' "
-           "layers on ranks, items 7-11, are not ported yet)")
+           "layers on ranks, items 7-10, are not ported yet)")
 RANK_NOTE = ("one rank's forward or train step, the busiest position's: "
              "the bytes it sends by kind (an all-gather or a reduce-scatter "
              "(A - 1) blocks, an all-reduce 2(A - 1)/A of its bytes, the "
@@ -427,7 +429,8 @@ def count_rank_forward(cfg, shape: ShapeSpec, mesh: Mesh, coords) -> dict:
 
         def step():
             return model.decode_step(cache, batch["tokens"],
-                                     shape.seq_len - 1)
+                                     shape.seq_len - 1,
+                                     batch.get("positions"))
     with ca.Count(live) as c:
         step()
     return _rank_count(c, model)

@@ -13,12 +13,13 @@ The port of the JAX package's ``models/layers.py``.  Conventions:
 * a mesh is a set of ranks: ``set_activation_mesh`` installs a rank's
   communicators (``distributed.ranks.rank_comms``) where the reference's
   installs a mesh for GSPMD's activation constraints, and
-  ``models/ranked.py``'s ``RankModel`` runs a dense model's forward on
-  the rank with the reference's activation layout (its ``shard_act``
-  calls), the sequence- or head-parallel attention of its
-  ``blockwise_attention`` (kernel 11 on a stripe of Q tiles) and the
-  sequence-sharded decode cache.  ``Model`` itself runs on one device
-  and reads no mesh.
+  ``models/ranked.py``'s ``RankModel`` runs a model of "A" and "W"
+  layers on the rank with the reference's activation layout (its
+  ``shard_act`` calls), the sequence- or head-parallel attention of its
+  ``blockwise_attention`` (kernel 11 on a stripe of Q tiles, or the
+  masked route on the stripe's positions) and the sequence-sharded
+  decode cache.  ``Model`` itself runs on one device and reads no
+  mesh.
 
 Parameters are made with ``requires_grad=False``, as serving takes no
 gradients; the training step (``train/train_step.py``) turns it on.
@@ -46,7 +47,7 @@ import torch
 from torch import nn
 
 from ..kernels import dispatch
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, stripe_positions
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -247,34 +248,33 @@ def blockwise_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
 
     On a rank of a mesh (``ranked.RankModel``) the reference stripes the
     Q tiles over the "model" axis: ``stripe=(bq, M, m)`` says that q holds
-    stripe m's rows, tile t = l·M + m of bq rows at row l·bq, and the
-    call is one kernel-11 launch over them
-    (``flash_attention(stripe=...)``); a stripe takes no masked option.
+    stripe m's rows, tile t = l·M + m of bq rows at row l·bq (query
+    position ``q_offset`` + ``stripe_positions``), and the call is one
+    kernel-11 launch over them (``flash_attention(stripe=...)``), or with a
+    masked option ``_masked_blockwise`` on those positions.
     """
     if window or kv_mask is not None or q_offset or cfg.attn_logit_softcap:
-        if stripe is not None:
-            raise ValueError("a stripe of Q tiles takes the flash route "
-                             "only: no window, kv_mask, q_offset or softcap")
         _count("masked_blockwise:torch")
         return _masked_blockwise(q, k, v, cfg, causal=causal,
                                  q_offset=q_offset, window=window,
-                                 kv_mask=kv_mask)
+                                 kv_mask=kv_mask, stripe=stripe)
     _count(f"flash_attention:{dispatch.decide(q).path}")
     return flash_attention(q, k, v, causal=causal, block_q=cfg.attn_block_q,
                            block_kv=cfg.attn_block_kv, stripe=stripe)
 
 
 def _masked_blockwise(q, k, v, cfg: ModelConfig, *, causal: bool,
-                      q_offset: int, window: int, kv_mask):
+                      q_offset: int, window: int, kv_mask, stripe=None):
     """Online softmax in fp32 over Q tiles of ``attn_block_q`` and KV tiles
     of ``attn_block_kv`` rows, GQA by head groups (no KV expansion): per
     tile s = q kᵀ / sqrt(hd), tanh-capped if the config says, masked to
-    -1e30, then merged as the reference's ``kv_step`` merges it.  A KV tile
-    that the causal and window masks empty for a whole Q tile adds exactly
-    0 to a row that keeps any key, so it is skipped.  (A row that keeps no
-    key has no defined output; the reference returns the mean of the
-    values it visited.  No caller makes one: every query keeps its own
-    key.)"""
+    -1e30, then merged as the reference's ``kv_step`` merges it.  Query
+    row r sits at position ``q_offset`` + r, or with ``stripe`` at
+    ``q_offset`` + ``stripe_positions(Sq, stripe)[r]``.  A KV tile that the
+    causal and window masks empty for a whole Q tile adds exactly 0 to a
+    row that keeps any key, so it is skipped.  (A row that keeps no key
+    has no defined output; the reference returns the mean of the values
+    it visited.  No caller makes one: every query keeps its own key.)"""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -283,6 +283,8 @@ def _masked_blockwise(q, k, v, cfg: ModelConfig, *, causal: bool,
     softcap = cfg.attn_logit_softcap
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
+    pos = q_offset + stripe_positions(Sq, stripe, dev)
+    host = (q_offset + stripe_positions(Sq, stripe)).tolist()  # no sync
     kf = k.permute(0, 2, 1, 3)                          # (B, KV, Skv, hd)
     vf = v.permute(0, 2, 1, 3)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
@@ -290,9 +292,9 @@ def _masked_blockwise(q, k, v, cfg: ModelConfig, *, causal: bool,
         q1 = min(Sq, q0 + bq)
         qt = q[:, q0:q1].float().reshape(B, q1 - q0, KV, G, hd) \
             .permute(0, 2, 3, 1, 4)                      # (B, KV, G, bq, hd)
-        qp = torch.arange(q_offset + q0, q_offset + q1, device=dev)[:, None]
-        lo_pos = q_offset + q0 - window + 1 if window else 0
-        hi_pos = q_offset + q1 - 1 if causal else Skv - 1
+        qp = pos[q0:q1, None]
+        lo_pos = host[q0] - window + 1 if window else 0
+        hi_pos = host[q1 - 1] if causal else Skv - 1
         acc = torch.zeros((B, KV, G, q1 - q0, hd), dtype=torch.float32,
                           device=dev)
         m_run = torch.full((B, KV, G, q1 - q0), NEG_INF, dtype=torch.float32,
@@ -344,27 +346,52 @@ def local_attention(q, k, v, cfg: ModelConfig):
     B, S, H, hd = q.shape
     W = cfg.local_window
     nW = -(-S // W)
-    Sp = nW * W
-    if Sp != S:
-        pad = (0, 0, 0, 0, 0, Sp - S)
-        q, k, v = (nn.functional.pad(t, pad) for t in (q, k, v))
-    KV = k.shape[2]
-    qw = q.reshape(B, nW, W, H, hd)
+    if nW * W != S:
+        q = nn.functional.pad(q, (0, 0, 0, 0, 0, nW * W - S))
+    kf, vf, kv_mask = _local_context(k, v, W)
+    out = blockwise_attention(q.reshape(B * nW, W, H, hd), kf, vf, cfg,
+                              causal=True, q_offset=W, window=W,
+                              kv_mask=kv_mask)
+    return out.reshape(B, nW * W, H, hd)[:, :S]
+
+
+def local_attention_stripe(q, k, v, cfg: ModelConfig, stripe):
+    """``local_attention`` on a rank of a mesh: the reference stripes each
+    folded window's Q tiles over "model" (``blockwise_attention`` on the
+    (B·nW, W) fold), so q (B, nW, rows, H, hd) holds stripe ``stripe``'s
+    rows of every window (zero rows where the stripe passes the window or
+    the sequence), against k, v (B, S, KV, hd) whole.  Returns q's
+    shape."""
+    B, nW, rows, H, hd = q.shape
+    kf, vf, kv_mask = _local_context(k, v, cfg.local_window)
+    out = blockwise_attention(q.reshape(B * nW, rows, H, hd), kf, vf, cfg,
+                              causal=True, q_offset=cfg.local_window,
+                              window=cfg.local_window, kv_mask=kv_mask,
+                              stripe=stripe)
+    return out.reshape(q.shape)
+
+
+def _local_context(k, v, W: int):
+    """Each window's keys and values, its previous window's then its own
+    ((B·nW, 2W, KV, hd), the sequence zero-padded to whole windows), and
+    the (B·nW, 2W) mask of the valid ones: window 0 has no previous."""
+    B, S, KV, hd = k.shape
+    nW = -(-S // W)
+    if nW * W != S:
+        pad = (0, 0, 0, 0, 0, nW * W - S)
+        k, v = nn.functional.pad(k, pad), nn.functional.pad(v, pad)
     kw = k.reshape(B, nW, W, KV, hd)
     vw = v.reshape(B, nW, W, KV, hd)
     prev_k = torch.cat([torch.zeros_like(kw[:, :1]), kw[:, :-1]], dim=1)
     prev_v = torch.cat([torch.zeros_like(vw[:, :1]), vw[:, :-1]], dim=1)
     kf = torch.cat([prev_k, kw], dim=2).reshape(B * nW, 2 * W, KV, hd)
     vf = torch.cat([prev_v, vw], dim=2).reshape(B * nW, 2 * W, KV, hd)
-    qf = qw.reshape(B * nW, W, H, hd)
-    prev_valid = (torch.arange(nW, device=q.device) > 0)[None, :] \
+    prev_valid = (torch.arange(nW, device=k.device) > 0)[None, :] \
         .expand(B, nW).reshape(B * nW)
     kv_mask = torch.cat([prev_valid[:, None].expand(B * nW, W),
                          torch.ones((B * nW, W), dtype=torch.bool,
-                                    device=q.device)], dim=1)
-    out = blockwise_attention(qf, kf, vf, cfg, causal=True, q_offset=W,
-                              window=W, kv_mask=kv_mask)
-    return out.reshape(B, Sp, H, hd)[:, :S]
+                                    device=k.device)], dim=1)
+    return kf, vf, kv_mask
 
 
 def quantize_kv(x):

@@ -1,5 +1,6 @@
-"""A dense model on one rank of a (data, model) or (pod, data, model)
-mesh: its forward, and its backward for training.
+"""A model of attention layers on one rank of a (data, model) or (pod,
+data, model) mesh: its forward, its decode, and its backward for
+training.
 
 The reference runs its model over a mesh inside one compiled program:
 ``set_activation_mesh(mesh)`` (``src/repro/models/layers.py:36-79``)
@@ -24,10 +25,13 @@ positions, rank (a, m):
   axes shrink to ("data",) (rows a·B/A on, the same on every pod), and
   while B < A every row is on every position (the demotion to
   replicated); a larger batch that its axes do not divide raises
-  (``batch_rows``).  The residual stream is replicated over "model".
-  The forward sends nothing over "pod": the parameters are replicated
-  over pods (the reference's ``sharding.py``: "pods replicate params for
-  fast recovery");
+  (``batch_rows``).  An input is token ids, or an embeddings config's
+  (B, S, d) embeddings (no table lookup); positions are (B, S), or (3,
+  B, S) for M-RoPE, the rows on their second axis (``batch_specs``).
+  The residual stream is replicated over "model".  The forward sends
+  nothing over "pod": the parameters are replicated over pods (the
+  reference's ``sharding.py``: "pods replicate params for fast
+  recovery");
 * **attention, ``attn_parallel="seq"``** (the default): the reference's
   ``blockwise_attention`` stripes Q tiles of ``bq = min(attn_block_q,
   max(S // M, 16))`` rows over "model", tile t = l·M + m to stripe m,
@@ -37,27 +41,46 @@ positions, rank (a, m):
   m))``, zero rows for the padding, as the reference pads q) against all
   keys, multiplies its rows by the whole wo and all-gathers the stripes
   back into the residual stream.  K and V are computed on every model
-  position (replicated over "model", as in the reference);
+  position (replicated over "model", as in the reference).  With an
+  attention softcap the stripe takes the masked route
+  (``layers._masked_blockwise`` on the stripe's positions).  A "W"
+  layer longer than its window: the reference folds the windows into
+  the batch and stripes each window's W rows the same way, so the rank
+  projects its stripe's rows of every window and runs the masked route
+  on them (``layers.local_attention_stripe``); within one window a "W"
+  layer is an "A" layer, as on one device;
 * **attention, "head"** (or "auto" with H % M == 0): the rank computes
-  its H/M query heads (its wq columns) against the KV heads they read,
-  and its wo rows; an all-reduce over the model column sums the partial
-  outputs, in the activation dtype;
+  its H/M query heads (its wq columns) against the KV heads they read
+  (a "W" layer through ``layers.local_attention``), and its wo rows; an
+  all-reduce over the model column sums the partial outputs, in the
+  activation dtype;
 * **MLP**: w_gate and w_up column-parallel, w_down row-parallel, an
   all-reduce after it (activation dtype);
 * **embed / logits**: vocab over "model": a masked lookup in the rank's
   rows of the table, then an all-reduce; the logits stay the rank's
   vocab block ``(B_rows, S, V/M)``, the reference's ``shard_act(logits,
-  "batch", None, "model")``;
-* **decode**: the cache is the rank's block by ``cache_specs``: its
-  batch rows, and the sequence over "model" in contiguous slices of
-  max_len / M.  The new K/V are written by the rank whose slice holds
-  slot ``cache_len``; each rank computes its slice's partial softmax sums
-  (max, sum, weighted V) in fp32 and the model column combines them by
-  log-sum-exp (an all-gather of the partials, summed in model order);
+  "batch", None, "model")``, a logit softcap applied to the block;
+* **decode**: the cache is the rank's block by ``cache_specs``
+  (``init_cache``; ``cache_shapes`` gives the whole cache's shapes): its
+  batch rows and, where a layer's slots split over "model" (max_len, or
+  a "W" layer's ring of min(max_len, W) slots), its contiguous slice of
+  them.  The new K/V (for the int8 cache quantized, with their scales)
+  are written by the rank whose slice holds the slot (``cache_len``, a
+  ring's ``cache_len`` mod W); each rank computes its slice's partial
+  softmax sums (max, sum, weighted V) in fp32 - the scores tanh-capped
+  before the max, an int8 cache's scales factored out of the dots - and
+  the model column combines them by log-sum-exp (an all-gather of the
+  partials, summed in model order) over the valid slots (a ring's
+  min(cache_len + 1, W));
 * **greedy sampling** (``argmax``): each rank's local (max, index), an
   all-gather over the model column (the first maximum wins, as
   ``torch.argmax``), then over the data (and pod) columns for the whole
-  batch.
+  batch; **sampling** (``sample``): the whole batch's logits gathered
+  over the model, then the data (and pod) columns, and the one-device
+  ``Model.sample`` on them on every rank, from a generator seeded alike
+  on every rank: every rank draws every row, so the tokens are the
+  one-device engine's for the same logits (drawing a rank's rows alone
+  would consume another stream of the generator).
 
 **Training** (``forward`` while autograd records): gradients land on the
 rank's own blocks, through the collectives' backwards
@@ -78,20 +101,18 @@ honours it: under "full" each repeat of the layer unit is recomputed in
 the backward, its blocks gathered again.
 
 Every result is the one-device model's up to the order of sums.  The
-arithmetic a rank shares with ``Model`` is ``layers.py``'s own (RoPE,
-the embedding lookup, the SwiGLU MLP, the unembedding, kernel 11's
-route, the unsharded decode attention); what is this module's is the
-split: which rows, heads and slices a rank computes and how blocks move.
-Layer kinds other than "A" with a dense MLP, and the options the three
-dense archs do not use (M-RoPE, embeddings inputs, int8 KV, softcaps),
-raise on a mesh larger than 1 x 1, naming the ROADMAP item that will port
-them.  ``READ_FIELDS``, ``REFUSED_FIELDS`` and ``KIND_FIELDS`` say, for
-every ``ModelConfig`` field, whether the rank path reads it, refuses it
-or leaves it to a refused layer kind; a field in none of them fails the
-rank tests, so a new option of the dense path cannot go unread here.
-On a 1 x 1 mesh ``RankModel`` is today's ``Model`` on the rank's (whole)
-blocks, and ``params`` are that model's parameters (sharing the blocks'
-storage).
+arithmetic a rank shares with ``Model`` is ``layers.py``'s own (RoPE and
+M-RoPE, the embedding lookup, the SwiGLU MLP, the unembedding, kernel
+11's route, the masked and local attention, int8 quantization, the
+unsharded decode attention); what is this module's is the split: which
+rows, heads and slices a rank computes and how blocks move.  Layer kinds
+other than "A" and "W" raise on a mesh larger than 1 x 1, naming the
+ROADMAP item that will port them.  ``READ_FIELDS`` and ``KIND_FIELDS``
+say, for every ``ModelConfig`` field, whether the rank path reads it or
+leaves it to a refused layer kind; a field in neither fails the rank
+tests, so a new option cannot go unread here.  On a 1 x 1 mesh
+``RankModel`` is today's ``Model`` on the rank's (whole) blocks, and
+``params`` are that model's parameters (sharing the blocks' storage).
 
 ``repeated`` counts, by product, the matrix-product FLOPs that every
 model position computes alike (the plan's repeats: K and V everywhere,
@@ -117,42 +138,36 @@ from ..tree import Stacked, tree_map
 from . import layers as L
 from .config import ModelConfig
 from .layers import NEG_INF, rmsnorm
-from .transformer import REMAT_CONTEXTS
+from .transformer import (REMAT_CONTEXTS, Model, stack_cache,
+                          unstack_cache)
 
-#: ROADMAP.md Queue 1 items that will port the rest across ranks
+#: ROADMAP.md Queue 1 items that will port the other layer kinds across
+#: ranks
 ROADMAP_ITEMS = {
     "M": (7, "MoE experts over 'model'"),
     "L": (8, "MLA"),
     "S": (9, "Mamba-2"),
     "R": (10, "RG-LRU"),
-    "W": (11, "local attention and the other attention options"),
 }
-_OPTIONS_ITEM = ROADMAP_ITEMS["W"]
 
-#: ``ModelConfig`` fields the rank path reads as ``Model``'s dense path
-#: does (``remat``: honoured while autograd records, as ``Model.forward``
-#: honours it; a forward without gradients ignores it alike)
+#: the layer kinds the rank path runs: global and local attention, each
+#: with a dense MLP
+KINDS = frozenset("AW")
+
+#: ``ModelConfig`` fields the rank path reads as ``Model``'s attention
+#: layers do (``remat``: honoured while autograd records, as
+#: ``Model.forward`` honours it; a forward without gradients ignores it
+#: alike)
 READ_FIELDS = frozenset({
     "name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads",
-    "d_ff", "vocab_size", "head_dim", "layer_pattern", "rope_theta",
-    "attn_block_q", "attn_block_kv", "attn_parallel", "tie_embeddings",
-    "norm_eps", "dtype", "remat"})
-
-#: fields whose value, where ``refuses`` holds, the rank path lacks: on a
-#: mesh larger than 1 x 1 such a config raises (ROADMAP Queue 1 item 11);
-#: otherwise the field is read as ``Model`` reads it
-REFUSED_FIELDS = {
-    "rope_kind": ("M-RoPE", lambda v: v == "mrope"),
-    "mrope_sections": ("M-RoPE sections", bool),
-    "input_mode": ("an embeddings input", lambda v: v != "tokens"),
-    "kv_cache_dtype": ("the int8 KV cache", lambda v: v == "int8"),
-    "attn_logit_softcap": ("an attention logit softcap", bool),
-    "logit_softcap": ("a logit softcap", bool),
-}
+    "d_ff", "vocab_size", "head_dim", "layer_pattern", "rope_kind",
+    "rope_theta", "mrope_sections", "local_window", "attn_logit_softcap",
+    "attn_block_q", "attn_block_kv", "attn_parallel", "kv_cache_dtype",
+    "input_mode", "tie_embeddings", "norm_eps", "logit_softcap", "dtype",
+    "remat"})
 
 #: fields only the layer kinds the rank path refuses read
 KIND_FIELDS = {
-    "W": ("local_window",),
     "L": ("q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim",
           "v_head_dim"),
     "M": ("num_experts", "experts_per_token", "moe_capacity_factor"),
@@ -163,10 +178,10 @@ KIND_FIELDS = {
 
 
 def unclassified_fields() -> set:
-    """``ModelConfig`` fields in none of the three tables above (none, or
-    a new option was added without saying what the rank path does)."""
-    known = READ_FIELDS | set(REFUSED_FIELDS) | {
-        f for fields in KIND_FIELDS.values() for f in fields}
+    """``ModelConfig`` fields in neither table above (none, or a new
+    option was added without saying what the rank path does)."""
+    known = READ_FIELDS | {f for fields in KIND_FIELDS.values()
+                           for f in fields}
     return {f.name for f in dataclasses.fields(ModelConfig)} - known
 
 
@@ -188,11 +203,8 @@ def check_config(cfg: ModelConfig, mesh) -> None:
     if tuple(mesh.axis_names) not in MESH_AXES:
         raise ValueError(f"a model across ranks takes a (data, model) or "
                          f"(pod, data, model) mesh, not {mesh.axis_names}")
-    for kind in sorted(set(cfg.layers) - {"A"}):
+    for kind in sorted(set(cfg.layers) - KINDS):
         _refuse(cfg, f"layer kind {kind!r}", ROADMAP_ITEMS[kind])
-    for field, (what, refuses) in REFUSED_FIELDS.items():
-        if refuses(getattr(cfg, field)):
-            _refuse(cfg, what, _OPTIONS_ITEM)
     M = mesh.shape["model"]
     for what, n in (("d_ff", cfg.d_ff), ("the padded vocab",
                                           cfg.padded_vocab)):
@@ -273,7 +285,7 @@ def _split_dim(spec, axis: str):
 
 
 class RankModel:
-    """A dense config's forward and backward on this rank (module notes).
+    """A config of "A" and "W" layers on this rank (module notes).
 
     ``params``: the rank's blocks of the parameter tree in the
     reference's layout (``convert.param_tree`` cut by
@@ -283,9 +295,11 @@ class RankModel:
     ``layers.set_activation_mesh`` installed).  ``apply``, ``forward``
     (the same, recording gradients when autograd does) and
     ``decode_step`` take the whole batch and return the rank's logits
-    block; ``argmax`` turns a decode step's logits block into the whole
-    batch's greedy tokens.  ``ServeEngine`` drives it as it drives a
-    ``Model``; ``train.train_step.make_rank_train_step`` trains it."""
+    block; ``argmax`` and ``sample`` turn a decode step's logits block
+    into the whole batch's tokens.  ``ServeEngine`` drives it as it
+    drives a ``Model``, its cache protected by an ``ECStateStore`` over
+    the rank's data column; ``train.train_step.make_rank_train_step``
+    trains it."""
 
     def __init__(self, cfg: ModelConfig, params: dict, comms=None):
         comms = L.activation_mesh() if comms is None else comms
@@ -425,48 +439,89 @@ class RankModel:
         ids = (self.m * Hl + torch.arange(Hl, device=k.device)) // G
         return k.index_select(2, ids), v.index_select(2, ids)
 
-    def _attention(self, p: dict, h, positions, cache=None, cache_len=None):
+    def _attention(self, p: dict, h, positions, local: bool, at=None):
+        """A layer's attention; ``local`` for kind "W".  ``at`` (decode):
+        (cache, write slot, valid slots, the rank's first slot or None for
+        an unsharded cache)."""
         cfg = self.cfg
         B, S, _ = h.shape
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         k = L.embed_positions(cfg, self._mm("wk", h, p["wk"], True)
                               .reshape(B, S, KV, hd), positions)
         v = self._mm("wv", h, p["wv"], True).reshape(B, S, KV, hd)
-        if cache is not None:
-            return self._decode_attention(p, h, positions, k, v, cache,
-                                          cache_len)
+        if at is not None:
+            return self._decode_attention(p, h, positions, k, v, *at)
+        windowed = local and cfg.local_window and cfg.local_window < S
         if self.head_parallel:
             Hl = H // self.M
             q = L.embed_positions(cfg, self._mm("wq", h, p["wq"])
                                   .reshape(B, S, Hl, hd), positions)
             kh, vh = self._kv_heads(k, v)
-            out = self._flash(q, kh, vh)
+            out = (L.local_attention(q, kh, vh, cfg) if windowed
+                   else self._attend(q, kh, vh))
             y = self._mm("wo", out.reshape(B, S, Hl * hd), p["wo"])
             return ranks.all_reduce(self.comms.model, y)
+        if windowed:
+            return self._local_stripes(p, h, positions, k, v)
         st = seq_stripe(cfg, S, self.M, self.m)
         bq, rows, nv = st["bq"], st["rows"], st["valid"]
         idx = stripe_positions(rows, (bq, self.M, self.m), h.device)[:nv]
         q = self._mm("wq", h.index_select(1, idx), p["wq"])
         q = L.embed_positions(cfg, q.reshape(B, nv, H, hd),
-                              positions.index_select(1, idx))
+                              positions.index_select(-1, idx))
         # the reference's zero padding rows (none on most ranks: every
         # rank pads alike, so that their backward graphs match)
         q = nn.functional.pad(q, (0, 0, 0, 0, 0, rows - nv))
-        out = self._flash(q, k, v, (bq, self.M, self.m))
+        out = self._attend(q, k, v, (bq, self.M, self.m))
         y = self._mm("wo", out[:, :nv].reshape(B, nv, H * hd), p["wo"])
         y = nn.functional.pad(y, (0, 0, 0, rows - nv))
         g = ranks.all_gather_rows(self.comms.model, y)  # (M, B, rows, d)
         g = g.reshape(self.M, B, st["n_local"], bq, -1).permute(1, 2, 0, 3, 4)
         return g.reshape(B, st["n_local"] * self.M * bq, -1)[:, :S]
 
-    def _flash(self, q, k, v, stripe=None):
-        """Kernel 11 (its plain version on the CPU) through the layers'
-        route, recording its dispatch path."""
-        self.op_paths["flash_attention"] = dispatch.decide(q).path
+    def _local_stripes(self, p, h, positions, k, v):
+        """Kind "W" past one window under "seq": the reference folds the
+        windows into the batch and stripes each window's Q tiles over
+        "model" (``blockwise_attention`` on the (B·nW, W) fold), so the
+        rank projects its stripe's rows of every window (zero rows for the
+        sequence's padding), runs the masked route on them
+        (``layers.local_attention_stripe``) and gathers the stripes back
+        as an "A" layer does."""
+        cfg = self.cfg
+        B, S, _ = h.shape
+        H, hd, W = cfg.num_heads, cfg.head_dim, cfg.local_window
+        nW = -(-S // W)
+        st = seq_stripe(cfg, W, self.M, self.m)
+        bq, rows, nv = st["bq"], st["rows"], st["valid"]
+        idx = stripe_positions(rows, (bq, self.M, self.m), h.device)[:nv]
+        pad = nW * W - S
+        hw = nn.functional.pad(h, (0, 0, 0, pad)).unflatten(1, (nW, W))
+        pw = nn.functional.pad(positions, (0, pad)).unflatten(-1, (nW, W))
+        q = self._mm("wq", hw.index_select(2, idx), p["wq"])
+        q = L.embed_positions(cfg, q.reshape(B, nW * nv, H, hd),
+                              pw.index_select(-1, idx).flatten(-2))
+        q = nn.functional.pad(q.reshape(B, nW, nv, H, hd),
+                              (0, 0, 0, 0, 0, rows - nv))
+        out = L.local_attention_stripe(q, k, v, cfg, (bq, self.M, self.m))
+        y = self._mm("wo", out[:, :, :nv].reshape(B, nW, nv, H * hd),
+                     p["wo"])
+        y = nn.functional.pad(y, (0, 0, 0, rows - nv))
+        g = ranks.all_gather_rows(self.comms.model, y)  # (M, B, nW, rows, d)
+        g = g.reshape(self.M, B, nW, st["n_local"], bq, -1) \
+            .permute(1, 2, 3, 0, 4, 5).reshape(B, nW, -1, g.shape[-1])
+        return g[:, :, :W].reshape(B, nW * W, -1)[:, :S]
+
+    def _attend(self, q, k, v, stripe=None):
+        """Causal attention through the layers' route: kernel 11 (its
+        plain version on the CPU), recording its dispatch path, or with a
+        softcap the masked route."""
+        if not self.cfg.attn_logit_softcap:
+            self.op_paths["flash_attention"] = dispatch.decide(q).path
         return L.blockwise_attention(q, k, v, self.cfg, causal=True,
                                      stripe=stripe)
 
-    def _decode_attention(self, p, h, positions, k, v, cache, cache_len):
+    def _decode_attention(self, p, h, positions, k, v, cache, slot: int,
+                          n_valid: int, s0):
         cfg = self.cfg
         B = h.shape[0]
         H, hd = cfg.num_heads, cfg.head_dim
@@ -477,37 +532,60 @@ class RankModel:
             q = self.comms.model.all_gather(q).permute(1, 2, 0, 3, 4) \
                 .reshape(B, 1, H, hd)
         S_loc = cache["k"].shape[1]
-        sharded = self._seq_sharded
-        s0 = self.m * S_loc if sharded else 0
-        if s0 <= cache_len < s0 + S_loc:
-            cache["k"][:, cache_len - s0] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][:, cache_len - s0] = v[:, 0].to(cache["v"].dtype)
-        if sharded:
-            out = self._decode_combined(q, cache["k"], cache["v"], s0,
-                                        cache_len + 1)
+        start = 0 if s0 is None else s0
+        if start <= slot < start + S_loc:            # this rank's slot
+            i = slot - start
+            if "k_scale" in cache:                   # int8 KV cache
+                for name, t in (("k", k), ("v", v)):
+                    t8, ts = L.quantize_kv(t)
+                    cache[name][:, i] = t8[:, 0]
+                    cache[f"{name}_scale"][:, i] = ts[:, 0].to(
+                        cache[f"{name}_scale"].dtype)
+            else:
+                cache["k"][:, i] = k[:, 0].to(cache["k"].dtype)
+                cache["v"][:, i] = v[:, 0].to(cache["v"].dtype)
+        if s0 is not None:
+            out = self._decode_combined(q, cache, s0, n_valid)
+        elif "k_scale" in cache:
+            out = L.decode_attention_q8(q, cache["k"], cache["k_scale"],
+                                        cache["v"], cache["v_scale"],
+                                        n_valid, cfg.attn_logit_softcap)
         else:
-            out = L.decode_attention(q, cache["k"], cache["v"], cache_len + 1)
+            out = L.decode_attention(q, cache["k"], cache["v"], n_valid,
+                                     cfg.attn_logit_softcap)
         if not self.head_parallel:
             return self._mm("wo", out.reshape(B, 1, H * hd), p["wo"], True)
         mine = out[:, :, self.m * Hl:(self.m + 1) * Hl].reshape(B, 1, Hl * hd)
         return self.comms.model.all_reduce(self._mm("wo", mine, p["wo"]))
 
-    def _decode_combined(self, q, k_cache, v_cache, s0: int, n_valid: int):
-        """Single-token attention over the model column's cache slices:
-        this slice's partial max, sum and weighted V in fp32, all-gathered
-        and combined by log-sum-exp in model order."""
+    def _decode_combined(self, q, cache: dict, s0: int, n_valid: int):
+        """Single-token attention over the model column's cache slices
+        (slots s0... on this rank): this slice's partial max, sum and
+        weighted V in fp32 - the scores tanh-capped before the max, an
+        int8 cache's scales factored out of the dots as
+        ``layers.decode_attention_q8`` factors them - all-gathered and
+        combined by log-sum-exp in model order."""
         L._count("decode_ranked:torch")
+        k_cache, v_cache = cache["k"], cache["v"]
         B, S, KV, hd = k_cache.shape
         H = q.shape[2]
         G = H // KV
+        softcap = self.cfg.attn_logit_softcap
         qg = q.reshape(B, KV, G, hd)
         s = torch.einsum("bkgh,bskh->bkgs", qg.float(),
                          k_cache.float()) / math.sqrt(hd)
+        q8 = "k_scale" in cache
+        if q8:
+            s = s * cache["k_scale"].permute(0, 2, 1)[:, :, None, :]
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
         valid = (s0 + torch.arange(S, device=q.device)) < n_valid
         s = torch.where(valid[None, None, None, :], s, NEG_INF)
         mx = s.amax(dim=-1)
         pr = torch.exp(s - mx[..., None])
-        part = torch.cat([torch.einsum("bkgs,bskh->bkgh", pr, v_cache.float()),
+        pv = pr * cache["v_scale"].permute(0, 2, 1)[:, :, None, :] if q8 \
+            else pr
+        part = torch.cat([torch.einsum("bkgs,bskh->bkgh", pv, v_cache.float()),
                           mx[..., None], pr.sum(dim=-1)[..., None]], dim=-1)
         g = self.comms.model.all_gather(part)        # (M, B, KV, G, hd + 2)
         o, m_r, l_r = g[..., :hd], g[..., hd], g[..., hd + 1]
@@ -516,14 +594,15 @@ class RankModel:
         return out.reshape(B, 1, H, hd).to(q.dtype)
 
     # -- layers -------------------------------------------------------------------
-    def _apply_layer(self, i: int, x, positions, cache=None, cache_len=None):
+    def _apply_layer(self, i: int, x, positions, at=None):
         blocks, specs = self._layer(i)
         attn = self._gathered(blocks["attn"], specs["attn"],
                               () if self.head_parallel else ("wq", "wo"))
         eps = self.cfg.norm_eps
         h = ranks.sum_grad(self.comms.model,
                            rmsnorm(blocks["ln1"]["scale"], x, eps))
-        x = x + self._attention(attn, h, positions, cache, cache_len)
+        x = x + self._attention(attn, h, positions,
+                                self.cfg.layers[i] == "W", at)
         del attn, h
         mlp = self._gathered(blocks["mlp"], specs["mlp"])
         h = ranks.sum_grad(self.comms.model,
@@ -541,23 +620,45 @@ class RankModel:
         x = rmsnorm(self.params["final_norm"]["scale"], x, self.cfg.norm_eps)
         return self._unembed(ranks.sum_grad(self.comms.model, x))
 
+    def _input(self, x, r0: int, r1: int):
+        """The rows [r0, r1) of an input: token ids (B, S) embedded
+        through the rank's rows of the table, or an embeddings config's
+        (B, S, d) embeddings, which need no table."""
+        if self.cfg.input_mode == "embeddings" and x.dim() == 3:
+            return x[r0:r1].to(L.torch_dtype(self.cfg.dtype))
+        return self._embed(x[r0:r1])
+
+    def _positions(self, positions, r0: int, r1: int, S: int, start: int,
+                   device):
+        """The rows' positions: the batch's ((B, S), or (3, B, S) for
+        M-RoPE, rows on the second axis as ``batch_specs`` places them),
+        or start, start + 1, ... (broadcast to (3, rows, S) for
+        M-RoPE)."""
+        if positions is not None:
+            return positions[..., r0:r1, :]
+        pos = torch.arange(start, start + S, device=device)[None, :] \
+            .expand(r1 - r0, S)
+        return pos[None].expand(3, r1 - r0, S) \
+            if self.cfg.rope_kind == "mrope" else pos
+
     # -- entry points -------------------------------------------------------------
     def forward(self, batch: dict) -> torch.Tensor:
         """The prefill forward of the whole batch (``Model.apply``'s
-        arguments): this rank's logits block, (its batch rows, S,
-        padded_vocab / M) in the activation dtype.  While autograd
-        records, each repeat of the layer unit is recomputed in the
-        backward as ``cfg.remat`` says (module notes)."""
+        arguments: "tokens" (B, S), or "embeddings" (B, S, d) for an
+        embeddings config; "positions" optional): this rank's logits
+        block, (its batch rows, S, padded_vocab / M) in the activation
+        dtype.  While autograd records, each repeat of the layer unit is
+        recomputed in the backward as ``cfg.remat`` says (module
+        notes)."""
         if self._one is not None:
             return self._one.forward(batch)
-        tokens = batch["tokens"]
-        B, S = tokens.shape
+        emb = self.cfg.input_mode == "embeddings" and "embeddings" in batch
+        inp = batch["embeddings"] if emb else batch["tokens"]
+        B, S = inp.shape[:2]
         r0, r1 = self._rows(B)
-        positions = batch.get("positions")
-        positions = (torch.arange(S, device=tokens.device)[None, :]
-                     .expand(r1 - r0, S) if positions is None
-                     else positions[r0:r1])
-        x = self._embed(tokens[r0:r1])
+        positions = self._positions(batch.get("positions"), r0, r1, S, 0,
+                                    inp.device)
+        x = self._input(inp, r0, r1)
         remat = self.cfg.remat if torch.is_grad_enabled() else "none"
         n, R = len(self.unit), self.repeats
         for r in range(R):
@@ -576,64 +677,111 @@ class RankModel:
         """``forward`` without gradients (the serving prefill)."""
         return self.forward(batch)
 
+    def cache_shapes(self, batch: int, max_len: int,
+                     dtype: torch.dtype = torch.bfloat16) -> dict:
+        """``Model.init_cache``'s whole cache as ``meta`` tensors in the
+        reference's stacked layout (``Model.cache_tree``): the global
+        shapes ``sharding.cache_specs`` places."""
+        with dispatch.dry_run():
+            model = Model(self.cfg, device="meta")
+        return model.cache_tree(model.init_cache(batch, max_len, dtype))
+
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> list[dict]:
-        """This rank's block of ``Model.init_cache`` by ``cache_specs``:
-        its batch rows and, when max_len splits over the model column,
-        its slice of max_len / M positions (else all of them)."""
+        """This rank's block of ``Model.init_cache`` by ``cache_specs``,
+        one dict a layer: its batch rows and, where a layer's slots
+        (max_len, or a "W" layer's min(max_len, local_window)-slot ring)
+        split over the model column, its contiguous slice of them."""
         if self._one is not None:
             return self._one.init_cache(batch, max_len, dtype=dtype)
-        cfg = self.cfg
-        r0, r1 = self.rows(batch)
-        self._seq_sharded = self.M > 1 and max_len % self.M == 0
-        S = max_len // self.M if self._seq_sharded else max_len
-        shape = (r1 - r0, S, cfg.num_kv_heads, cfg.head_dim)
-        return [{"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
-                for _ in range(cfg.num_layers)]
+        self.rows(batch)                     # a batch the axes cannot split
+        shapes = self.cache_shapes(batch, max_len, dtype)
+        specs = shd.cache_specs(self.cfg, shapes, self.mesh)
+        local = unstack_cache(tree_map(lambda t, spec: shd.local_block(
+            t, spec, self.mesh, self.comms.coords), shapes, specs))
+        self._slots = [c["k"].shape[1] for c in unstack_cache(shapes)]
+        return [{k: torch.zeros(t.shape, dtype=t.dtype, device=self.device)
+                 for k, t in c.items()} for c in local]
+
+    def cache_tree(self, cache: list[dict]) -> dict:
+        """``cache`` (this rank's block) in the reference's stacked layout
+        (``Model.cache_tree``): what an ``ECStateStore`` with the rank's
+        communicator packs, by the specs of ``cache_shapes``."""
+        return stack_cache(cache, len(self.unit), self.repeats)
 
     @torch.no_grad()
     def decode_step(self, cache: list[dict], tokens: torch.Tensor,
                     cur_len: int, positions=None):
-        """``Model.decode_step`` of the whole batch's tokens (B,): writes
-        this rank's cache block in place and returns (this rank's logits
-        block (its rows, padded_vocab / M), cache)."""
+        """``Model.decode_step`` of the whole batch's tokens (B,), or an
+        embeddings config's (B, 1, d): writes this rank's cache block in
+        place (a "W" layer at ring slot cur_len % local_window, attending
+        over min(cur_len + 1, local_window) slots) and returns (this
+        rank's logits block (its rows, padded_vocab / M), cache)."""
         if self._one is not None:
             return self._one.decode_step(cache, tokens, cur_len, positions)
         cur_len = int(cur_len)
         r0, r1 = self._rows(tokens.shape[0])
-        x = self._embed(tokens[r0:r1, None])
-        pos = (torch.full((r1 - r0, 1), cur_len, dtype=torch.int64,
-                          device=x.device) if positions is None
-               else positions[r0:r1])
+        x = self._input(tokens if tokens.dim() == 3 else tokens[:, None],
+                        r0, r1)
+        pos = self._positions(positions, r0, r1, 1, cur_len, x.device)
+        W = self.cfg.local_window or 0
         for i, layer_cache in enumerate(cache):
-            x = self._apply_layer(i, x, pos, layer_cache, cur_len)
+            slot, n_valid = cur_len, cur_len + 1
+            if self.cfg.layers[i] == "W" and W:
+                slot, n_valid = cur_len % W, min(cur_len + 1, W)
+            S_loc = layer_cache["k"].shape[1]
+            s0 = self.m * S_loc if S_loc != self._slots[i] else None
+            x = self._apply_layer(i, x, pos, (layer_cache, slot, n_valid, s0))
         return self._final(x)[:, 0], cache
+
+    def _batch_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch's rows of ``t`` (this rank's rows first): an
+        all-gather over the data (and pod) columns where the batch is
+        split over them."""
+        split = _batch_split(self._batch, self.A, self.P)
+        if split == 1:
+            return t
+        t = self.comms.data.all_gather(t).flatten(0, 1)
+        if split > self.A:                       # rows over (pod, data)
+            t = self.comms.pod.all_gather(t).flatten(0, 1)
+        return t
 
     def argmax(self, logits: torch.Tensor) -> torch.Tensor:
         """The whole batch's greedy tokens (B,) from this rank's logits
         block of the last ``decode_step`` (module notes)."""
         if self._one is not None:
-            return torch.argmax(logits, dim=-1)
+            return Model.argmax(logits)
         Vl = logits.shape[-1]
         idx = torch.argmax(logits, dim=-1)
         val = logits.gather(-1, idx[:, None])[:, 0]
         vals = self.comms.model.all_gather(val)          # (M, rows)
         ids = self.comms.model.all_gather(idx + self.m * Vl)
         tok = ids.gather(0, torch.argmax(vals, dim=0)[None])[0]
-        split = _batch_split(self._batch, self.A, self.P)
-        if split == 1:
-            return tok
-        tok = self.comms.data.all_gather(tok).reshape(-1)
-        if split > self.A:                       # rows over (pod, data)
-            tok = self.comms.pod.all_gather(tok).reshape(-1)
-        return tok
+        return self._batch_gather(tok)
+
+    def gathered_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole batch's logits (B, padded_vocab) of the last
+        ``decode_step``, the same on every rank: this rank's block
+        gathered over the model column, then over the data (and pod)
+        columns."""
+        if self._one is not None:
+            return logits
+        g = self.comms.model.all_gather(logits)          # (M, rows, V/M)
+        return self._batch_gather(g.permute(1, 0, 2).flatten(1))
+
+    def sample(self, logits: torch.Tensor, temperature: float,
+               generator: torch.Generator) -> torch.Tensor:
+        """``Model.sample`` of the whole batch's logits (``logits``):
+        every rank draws every row from its generator, seeded alike on
+        every rank, so every rank holds the one-device engine's tokens
+        (module notes)."""
+        return Model.sample(self.gathered_logits(logits), temperature,
+                            generator)
 
 
 def _global_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's leaves' shapes (meta tensors)."""
     from .convert import param_tree
-    from .transformer import Model
     with dispatch.dry_run():
         return param_tree(Model(cfg, device="meta"))
 
@@ -642,7 +790,6 @@ def _one_device(cfg: ModelConfig, params: dict):
     """A ``Model`` whose parameters are ``params``' tensors (a 1 x 1 mesh's
     blocks are whole leaves), not copies."""
     from .convert import param_tree
-    from .transformer import Model
     dev = params["final_norm"]["scale"].device
     model = Model(cfg, device=dev)
 
@@ -661,7 +808,6 @@ def init_blocks(cfg: ModelConfig, mesh, coords,
     generator's device: no rank holds more than one layer whole.  Each
     block is the rank's own (contiguous) tensor."""
     from .convert import _nest, param_tree
-    from .transformer import Model
     dev = torch.device(generator.device)
     with dispatch.dry_run():
         model = Model(cfg, device="meta")

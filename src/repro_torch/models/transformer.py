@@ -270,14 +270,8 @@ class Model(nn.Module):
                 for layer in self.layers]
 
     def cache_tree(self, cache: list[dict]) -> dict:
-        """``cache`` in the reference's layout: {"blocks": one layer cache
-        per unit position, each leaf stacked over the repeats, "tail": the
-        remainder layers'} - the port's tensors, not copies."""
-        n = len(self.unit)
-        blocks = [tree_map(lambda *ts: Stacked(ts),
-                           *(cache[r * n + u] for r in range(self.repeats)))
-                  if self.repeats else None for u in range(n)]
-        return {"blocks": blocks, "tail": list(cache[self.repeats * n:])}
+        """``cache`` in the reference's layout (``stack_cache``)."""
+        return stack_cache(cache, len(self.unit), self.repeats)
 
     # -- decode step ----------------------------------------------------------
     @torch.no_grad()
@@ -320,6 +314,34 @@ class Model(nn.Module):
         maximum, as the reference's ``jnp.argmax`` (a ``RankModel`` gathers
         its vocab-sharded one)."""
         return torch.argmax(logits, dim=-1)
+
+    @staticmethod
+    def sample(logits: torch.Tensor, temperature: float,
+               generator: torch.Generator) -> torch.Tensor:
+        """Tokens (B,) drawn from softmax(logits / temperature) in fp32,
+        one ``torch.multinomial`` call on ``generator`` (a ``RankModel``
+        draws from its gathered logits)."""
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def stack_cache(cache: list[dict], unit: int, repeats: int) -> dict:
+    """A cache of one dict a layer in the reference's layout: {"blocks":
+    one layer cache per position of a unit of ``unit`` layers, each leaf
+    stacked over the ``repeats``, "tail": the remainder layers'} - the
+    same tensors, not copies."""
+    blocks = [tree_map(lambda *ts: Stacked(ts),
+                       *(cache[r * unit + u] for r in range(repeats)))
+              if repeats else None for u in range(unit)]
+    return {"blocks": blocks, "tail": list(cache[repeats * unit:])}
+
+
+def unstack_cache(tree: dict) -> list[dict]:
+    """``stack_cache``'s inverse: one dict a layer, in layer order."""
+    blocks = [b for b in tree["blocks"] if b is not None]
+    repeats = len(next(iter(blocks[0].values())).parts) if blocks else 0
+    return [tree_map(lambda x: x.parts[r], b) for r in range(repeats)
+            for b in blocks] + list(tree["tail"])
 
 
 def _count_once():

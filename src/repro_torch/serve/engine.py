@@ -9,21 +9,27 @@ written in place.
 
 On a rank of a (data, model) mesh the model is a
 ``models.ranked.RankModel``: the engine takes the whole batch on every
-rank, the cache is the rank's block, and greedy decoding returns the
-whole batch's tokens on every rank (``RankModel.argmax`` gathers the
-vocab-sharded argmax), the tokens of one device.  Sampling at
-``temperature > 0`` and ``protect_cache`` are not ported across ranks
-(ROADMAP.md Queue 1) and raise there.
+rank, the cache is the rank's block, and decoding returns the whole
+batch's tokens on every rank, the tokens of one device: greedy through
+``RankModel.argmax`` (the vocab-sharded argmax gathered), sampled
+through ``RankModel.sample`` (the whole batch's logits gathered, then
+the one-device draw from the engine's generator, seeded alike on every
+rank).
 
 The serving state of every layer kind - attention KV (a local layer's
 ring, an int8 cache with its scales), MLA latents, Mamba-2 and RG-LRU
 states - can be erasure-coded across a mesh's data axis exactly like
-checkpoint pages (``protect_cache``), in the reference's tree order: losing a position then costs a
-decode-from-k reconstruction (``recover_cache_pages``) instead of
-recomputing every live session's prefill - the paper's degraded GET
-applied to serving state.  The cache is written in place, so
-``refresh_cache_parity`` takes a copy of the cache as it was when the
-parity last covered it (``cache_snapshot``).
+checkpoint pages (``protect_cache``), in the reference's tree order:
+losing a position then costs a decode-from-k reconstruction
+(``recover_cache_pages``) instead of recomputing every live session's
+prefill - the paper's degraded GET applied to serving state.  On one
+device the store holds every position stacked; on a rank it is the
+rank's (``ECStateStore(comm=...)`` over its data column), packing the
+rank's cache block by the specs of the whole cache
+(``cache_shapes``), and a lost position's pages are rebuilt over the
+ring.  The cache is written in place, so ``refresh_cache_parity`` takes
+a copy of the cache as it was when the parity last covered it
+(``cache_snapshot``).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 from ..distributed.ecstore import ECConfig, ECStateStore
 from ..kernels import dispatch
 from ..models import Model
+from ..models.ranked import RankModel
 
 
 @dataclasses.dataclass
@@ -59,6 +66,7 @@ class ServeEngine:
         self.device = dev
         self.max_len = max_len
         self.batch_size = batch_size
+        self.cache_dtype = cache_dtype
         self.cache = model.init_cache(batch_size, max_len, dtype=cache_dtype)
         self.cur_len = 0
         if generator is None:
@@ -102,10 +110,7 @@ class ServeEngine:
         for _ in range(steps):
             logits = self._step(tok)
             if temperature > 0:
-                self._one_device("sampling at temperature > 0")
-                probs = torch.softmax(logits.float() / temperature, dim=-1)
-                tok = torch.multinomial(probs, 1,
-                                        generator=self.generator)[:, 0]
+                tok = self.model.sample(logits, temperature, self.generator)
             else:
                 tok = self.model.argmax(logits)
             out.append(tok)
@@ -113,18 +118,20 @@ class ServeEngine:
                   else np.zeros((self.batch_size, 0), np.int64))
         return GenerationResult(tokens, steps)
 
-    def _one_device(self, what: str) -> None:
-        if not isinstance(self.model, Model):
-            raise NotImplementedError(
-                f"{what} across ranks is not ported yet (ROADMAP.md Queue 1 "
-                f"item 12 ports serve --protect; sampling follows it)")
-
-
     # -- EC protection of serving state -----------------------------------
     def cache_tree(self, cache: list[dict] | None = None) -> dict:
-        """The cache (default: the live one) in the reference's stacked
-        layout, what ``sharding.cache_specs`` and the EC store take."""
+        """The cache (default: the live one; on a rank, its block) in the
+        reference's stacked layout, what the EC store packs."""
         return self.model.cache_tree(self.cache if cache is None else cache)
+
+    def cache_shapes(self) -> dict:
+        """The whole cache's leaves in the reference's layout, what
+        ``sharding.cache_specs`` places: the live cache on one device,
+        ``meta`` tensors of the global shapes on a rank."""
+        if isinstance(self.model, RankModel):
+            return self.model.cache_shapes(self.batch_size, self.max_len,
+                                           self.cache_dtype)
+        return self.cache_tree()
 
     def cache_snapshot(self) -> list[dict]:
         """A copy of the live cache."""
@@ -132,8 +139,12 @@ class ServeEngine:
                 for layer in self.cache]
 
     def protect_cache(self, mesh, cache_specs, ec_cfg: ECConfig | None = None):
-        self._one_device("protect_cache")
-        self.ec_store = ECStateStore(mesh, cache_specs, ec_cfg)
+        """Erasure-code the cache over ``mesh``'s data axis by
+        ``cache_specs`` (``sharding.cache_specs`` of ``cache_shapes``); on
+        a rank, over the model's mesh with the rank's data column."""
+        comm = self.model.comms.data if isinstance(self.model, RankModel) \
+            else None
+        self.ec_store = ECStateStore(mesh, cache_specs, ec_cfg, comm=comm)
         self.ec_parity = self.ec_store.encode(self.cache_tree())
         return self.ec_parity
 
@@ -145,6 +156,9 @@ class ServeEngine:
             self.cache_tree(old_cache), self.cache_tree(), self.ec_parity)
 
     def recover_cache_pages(self, failed_data_index: int):
+        """The pages of data position ``failed_data_index`` rebuilt from
+        the survivors (every position's, stacked; a rank's column's on a
+        rank)."""
         assert self.ec_store is not None
         return self.ec_store.reconstruct(self.cache_tree(), self.ec_parity,
                                          failed_data_index)

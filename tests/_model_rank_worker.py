@@ -14,6 +14,9 @@ from repro_torch.models import layers
 from repro_torch.models.ranked import RankModel, batch_rows
 from repro_torch.serve.engine import ServeEngine
 
+#: the seed of the engine's generator when it samples
+SAMPLE_SEED = 7
+
 
 def _sent(fn, *args):
     """``fn(*args)`` and the bytes this rank sent in it, by kind."""
@@ -24,40 +27,73 @@ def _sent(fn, *args):
     return out, sent
 
 
-def model_body(comm, jobs, tokens, prompt_len, steps):
-    """For each (name, cfg, blocks) of ``jobs``: ``RankModel.apply`` on
-    ``tokens`` (its logits block and the bytes it sent), greedy decoding
-    through ``ServeEngine`` (an fp32 cache; the whole batch's tokens and
-    the logits block after the prompt's token-by-token prefill), and one
-    ``decode_step`` at the last slot of a cache as long as ``tokens``,
-    the step the dry run counts (its bytes sent)."""
+def model_body(comm, jobs, prompt_len, sample_logits=None):
+    """For each (name, cfg, blocks, batch, steps) of ``jobs``:
+    ``RankModel.apply`` on ``batch`` (its logits block and the bytes it
+    sent), greedy decoding through ``ServeEngine`` (an fp32 cache; the
+    whole batch's tokens and the logits block after the prompt's
+    token-by-token prefill, the prompt being the batch's first
+    ``prompt_len`` tokens or embeddings), the same decoding sampled at
+    temperature 1.0 from a generator seeded with ``SAMPLE_SEED``, and one
+    ``decode_step`` at the last slot of a cache as long as the batch, the
+    step the dry run counts (its bytes sent); both decodings start from
+    the cache the prompt left.  ``sample_logits`` (B, V):
+    the tokens ``RankModel.sample`` draws from this rank's block of
+    them."""
     torch.set_num_threads(1)
     layers.set_activation_mesh(rank_comms(comm))
-    B, S = tokens.shape
     out = {}
     try:
-        for name, cfg, blocks in jobs:
+        for name, cfg, blocks, batch, steps in jobs:
             model = RankModel(cfg, blocks)
             layers.reset_op_paths()
-            logits, sent_prefill = _sent(model.apply, {"tokens": tokens})
+            logits, sent_prefill = _sent(model.apply, batch)
+            inp = batch.get("embeddings", batch.get("tokens"))
+            B, S = inp.shape[:2]
+            prompt = ({"embeddings": inp[:, :prompt_len]} if inp.dim() == 3
+                      else {"tokens": inp[:, :prompt_len]})
             eng = ServeEngine(model, max_len=prompt_len + steps,
                               batch_size=B, cache_dtype=torch.float32,
                               device="cpu")
-            dec_logits = eng.prefill({"tokens": tokens[:, :prompt_len]})
+            eng.generator.manual_seed(SAMPLE_SEED)
+            dec_logits = eng.prefill(prompt)
             first = model.argmax(dec_logits)
-            rest = eng.decode(steps - 1, first_tokens=first)
+            after_prompt = eng.cache_snapshot()
+            tokens = []
+            for temperature in (0.0, 1.0):     # both from the prompt's cache
+                eng.cache = [{k: t.clone() for k, t in c.items()}
+                             for c in after_prompt]
+                eng.cur_len = prompt_len
+                rest = eng.decode(steps - 1, temperature=temperature,
+                                  first_tokens=first)
+                tokens.append(np.concatenate([first[:, None].numpy(),
+                                              rest.tokens], axis=1))
             cache = model.init_cache(B, S, dtype=torch.bfloat16)
-            _, sent_decode = _sent(model.decode_step, cache, tokens[:, 0],
-                                   S - 1)
+            step_in = inp[:, :1] if inp.dim() == 3 else inp[:, 0]
+            _, sent_decode = _sent(model.decode_step, cache, step_in, S - 1)
             out[name] = dict(
                 coords=comm.coords,
                 rows=batch_rows(B, comm.axis_size, comm.index),
                 logits=logits.numpy(), dec_logits=dec_logits.numpy(),
-                tokens=np.concatenate([first[:, None].numpy(), rest.tokens],
-                                      axis=1),
+                tokens=tokens[0], sampled=tokens[1],
                 sent_prefill=sent_prefill, sent_decode=sent_decode,
                 op_paths=dict(model.op_paths),
                 routes=dict(layers.OP_PATHS))
+        if sample_logits is not None:
+            out["sampler"] = _sampler(model, sample_logits)
     finally:
         layers.set_activation_mesh(None)
     return out
+
+
+def _sampler(model, logits):
+    """``RankModel.sample`` at temperature 1.0 on this rank's block
+    (rows, vocab block) of the whole batch's ``logits`` (a batch of the
+    last decode step's size), from a generator seeded with
+    ``SAMPLE_SEED``."""
+    B, V = logits.shape
+    r0, r1 = model.rows(B)
+    Vl = V // model.M
+    gen = torch.Generator().manual_seed(SAMPLE_SEED)
+    block = logits[r0:r1, model.m * Vl:(model.m + 1) * Vl]
+    return model.sample(block, 1.0, gen).numpy()

@@ -13,9 +13,12 @@ import torch
 
 from repro_torch.distributed import collectives, ecstore, sharding
 from repro_torch.distributed.collectives import recording
+from repro_torch.distributed.ranks import rank_comms
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.models.ranked import RankModel, init_blocks
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.train.checkpoint import ECCheckpoint
-from repro_torch.tree import Stacked, tree_map
+from repro_torch.tree import Stacked, leaves, tree_map
 
 
 class Reversed:
@@ -76,13 +79,40 @@ def _checkpoint(comm, out: dict, sent: dict, cfg, specs, old, new,
             sent, "ckpt_reconstruct", ec.reconstruct, live, f).numpy()
 
 
+def _protected_cache(comm, ref, out: dict, cfg, k, m, page) -> None:
+    """``ServeEngine.protect_cache`` on a ``RankModel`` of ``cfg`` (its
+    blocks drawn from seed 0; the cache's values are the reference's):
+    the engine's cache block set to this rank's block of the reference's
+    prefill cache (``cache/leaf{i}``, placed by ``cache_specs`` of the
+    engine's ``cache_shapes``), then its pages, parity and the rebuilds
+    of data positions 0 and 2."""
+    mesh, coords = comm.mesh, comm.coords
+    model = RankModel(cfg, init_blocks(cfg, mesh, coords,
+                                       torch.Generator().manual_seed(0)),
+                      rank_comms(comm))
+    eng = ServeEngine(model, max_len=16, batch_size=4, device="cpu")
+    specs = sharding.cache_specs(cfg, eng.cache_shapes(), mesh)
+    for i, (leaf, spec) in enumerate(zip(leaves(eng.cache_tree()),
+                                         leaves(specs))):
+        bits = torch.from_numpy(ref[f"cache/leaf{i}"].view(np.int16))
+        leaf.copy_(sharding.local_block(bits.view(torch.bfloat16), spec,
+                                        mesh, coords))
+    eng.protect_cache(mesh, specs, ecstore.ECConfig(k=k, m=m, page_size=page))
+    out["cache/pages"] = eng.ec_store.local_pages(eng.cache_tree()).numpy()
+    out["cache/parity"] = eng.ec_parity.numpy()
+    for fail in (0, 2):
+        out[f"cache/recover{fail}"] = eng.recover_cache_pages(fail).numpy()
+
+
 def mesh_body(comm, ref_path, out_path, name, k, m, page, pairs,
-              rebuild_at, params, specs):
+              rebuild_at, params, specs, cache_cfg=None):
     """Every EC operation and collective of one position: on the
     reference's random pages (``name``'s arrays in ``ref_path``; none for
     a mesh the reference's tests do not have), then ``ECCheckpoint`` on
-    the parameter trees ``params`` (old, new) under ``specs``.  Returns
-    the bytes sent per operation, the kernel launches and ``op_paths``."""
+    the parameter trees ``params`` (old, new) under ``specs``; with
+    ``cache_cfg``, the reference's serving cache protected on a
+    ``RankModel`` of that config (``_protected_cache``).  Returns the
+    bytes sent per operation, the kernel launches and ``op_paths``."""
     cfg = ecstore.ECConfig(k=k, m=m, page_size=page)
     at = comm.coords
     out, sent = {}, {}
@@ -90,7 +120,7 @@ def mesh_body(comm, ref_path, out_path, name, k, m, page, pairs,
     t0 = time.perf_counter()
     with np.load(ref_path) as f:
         ref = {key: f[key] for key in f.files
-               if key.startswith((f"{name}/", "coll/"))}
+               if key.startswith((f"{name}/", "coll/", "cache/"))}
 
     def mine(key):
         return torch.from_numpy(np.ascontiguousarray(ref[key][at]))
@@ -131,6 +161,8 @@ def mesh_body(comm, ref_path, out_path, name, k, m, page, pairs,
             fl, comm, block=64).numpy()
     old, new = params
     _checkpoint(comm, out, sent, cfg, specs, old, new, rebuild_at)
+    if cache_cfg is not None:
+        _protected_cache(comm, ref, out, cache_cfg, k, m, page)
     np.savez(out_path, **out)
     return {"sent": sent, "launches": launch_counts(),
             "op_paths": dict(comm.op_paths),

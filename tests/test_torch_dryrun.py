@@ -432,3 +432,45 @@ def test_recording_counts_only_its_own_thread():
         collectives.ring_shift(x, 4)              # a full turn moves nothing
     collectives.ring_shift(x, 1)                  # outside the context
     assert seen == [x.numel()]
+
+
+@pytest.mark.parametrize("kind", ("prefill", "decode"))
+@pytest.mark.parametrize("arch", ("qwen2-vl-7b", "musicgen-medium"))
+def test_embeddings_archs_count_a_rank(arch, kind):
+    """The embeddings-input archs' prefill and decode cells on (4, 2)
+    count a rank: ``count_rank_forward``'s bytes by kind equal the sends
+    ``collectives.recording`` notes while ``RankModel`` runs the same
+    inputs on counting communicators; an embeddings input looks up no
+    table, so its all-reduces are the token input's less the lookup's,
+    2(M - 1)/M of the rows' activations."""
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.distributed.ranks import counting_comms
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.ranked import RankModel
+    cfg = get_reduced(arch)
+    mesh = make_mesh((4, 2), ("data", "model"))
+    A, M, B, S = 4, 2, 8, 64
+    shape = dryrun.ShapeSpec("x", kind, S, B)
+    assert dryrun.rank_counted(cfg, shape, mesh)
+    coords = (1, 1)
+    with dispatch.dry_run():
+        got = dryrun.count_rank_forward(cfg, shape, mesh, coords)
+        tokens = dryrun.count_rank_forward(
+            cfg.scaled(input_mode="tokens"), shape, mesh, coords)
+        local, _ = dryrun._rank_blocks(cfg, mesh, coords)
+        model = RankModel(cfg, local, counting_comms(mesh, coords))
+        batch = dryrun.make_inputs(cfg, shape, "meta")
+        sent = {}
+        with recording(lambda n, k: sent.__setitem__(k, sent.get(k, 0) + n)):
+            if kind == "prefill":
+                model.apply(batch)
+            else:
+                model.decode_step(model.init_cache(B, S), batch["tokens"],
+                                  S - 1, batch.get("positions"))
+    assert got["collectives"] == sent
+    rows, steps = B // A, S if kind == "prefill" else 1
+    lookup = 2 * (M - 1) * rows * steps * cfg.d_model * 2 // M   # bf16
+    assert tokens["collectives"]["all-reduce"] - \
+        got["collectives"]["all-reduce"] == lookup
+    assert tokens["collectives"]["all-gather"] > \
+        got["collectives"]["all-gather"]      # the table's gather too

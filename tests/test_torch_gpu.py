@@ -1380,3 +1380,48 @@ def test_ranks_on_the_card_match_the_stacked_store(cuda, tmp_path, k, m,
         assert out["sent"] == sends, out["sent"]
         assert out["launches"]["gf_matmul_batched"] > 0, out["launches"]
         assert set(out["op_paths"].values()) == {"cuda-kernel"}
+
+
+# the masked route on a rank's stripes (``layers.local_attention_stripe``
+# and softcapped "A" stripes): plain torch on both devices, so the card
+# holds to the CPU's result within fp32's sum-order error.  (S, window,
+# softcap, stripe): qwen-size heads on starcoder2-3b's (2, 2) rank stripe,
+# a ragged sequence, a stripe past the window
+MASKED_STRIPES = [(2048, 1024, 50.0, (512, 2, 1)),
+                  (1500, 512, 0.0, (256, 2, 0)),
+                  (200, 64, 30.0, (32, 2, 1))]
+MASKED_TOL = 1e-4
+
+
+@pytest.mark.parametrize("S,W,cap,stripe", MASKED_STRIPES)
+def test_masked_stripes_on_card_match_cpu(cuda, S, W, cap, stripe):
+    """A window's stripe (every window's rows of one stripe) and a
+    softcapped causal stripe on the card against the same calls on the
+    CPU, fp32, within ``MASKED_TOL``; no kernel launches."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import layers
+    from repro_torch.models.ranked import seq_stripe
+    cfg = get_reduced("starcoder2-3b").scaled(
+        dtype="float32", local_window=W, attn_logit_softcap=cap,
+        attn_block_q=512, attn_block_kv=1024)
+    H, KV, hd = 8, 2, 64
+    gen = torch.Generator().manual_seed(S + W)
+    k, v = (torch.randn((1, S, KV, hd), generator=gen) for _ in range(2))
+    seg, M, m = stripe
+    st = seq_stripe(cfg, W, M, m)
+    nW = -(-S // W)
+    q = torch.randn((1, nW, st["rows"], H, hd), generator=gen)
+    before = dict(launch_counts())
+    want = layers.local_attention_stripe(q, k, v, cfg, (st["bq"], M, m))
+    got = layers.local_attention_stripe(q.to(cuda), k.to(cuda), v.to(cuda),
+                                        cfg, (st["bq"], M, m))
+    torch.testing.assert_close(got.cpu(), want, atol=MASKED_TOL,
+                               rtol=MASKED_TOL)
+    if cap:                          # a softcapped stripe: the masked route
+        qs = torch.randn((1, seg * 2, H, hd), generator=gen)
+        want = layers.blockwise_attention(qs, k, v, cfg, stripe=stripe)
+        got = layers.blockwise_attention(qs.to(cuda), k.to(cuda),
+                                         v.to(cuda), cfg, stripe=stripe)
+        torch.testing.assert_close(got.cpu(), want, atol=MASKED_TOL,
+                                   rtol=MASKED_TOL)
+    assert dict(launch_counts()) == before

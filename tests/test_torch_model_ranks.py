@@ -1,34 +1,47 @@
-"""A dense model's forward across ranks (``models/ranked.py``) against the
-JAX package's model under ``set_activation_mesh`` on a (4, 2) mesh.
+"""A model of attention layers across ranks (``models/ranked.py``)
+against the JAX package's model under ``set_activation_mesh`` on a (4, 2)
+mesh.
 
 Reference side: one subprocess with 8 forced host devices runs the
 reference's ``Model.apply`` and a token-by-token greedy ``decode_step``
 loop under ``set_activation_mesh(make_test_mesh(4, 2))``, the parameters
 placed by ``param_specs``, the batch by ``batch_specs`` and an fp32 cache
-by ``cache_specs``, for reduced starcoder2-3b and phi4-mini-3.8b in fp32
-with ``attn_parallel`` "seq" and "head"; and its striped
-``blockwise_attention`` at S 64 and at a ragged S 80 (padded to 128 rows,
-the second stripe's last 48 rows padding).  The weights are the
+by ``cache_specs``, in fp32 with ``attn_parallel`` "seq" and "head", for
+reduced starcoder2-3b and phi4-mini-3.8b; qwen2-vl-7b (M-RoPE on three
+distinct position streams, an embeddings input) and musicgen-medium (an
+embeddings input), their prompts fed as embeddings and their greedy
+tokens fed back through the table; and starcoder2-3b with the attention
+options (``OPTIONS``: layers "AW" with a 16-slot window, the int8 KV
+cache, both softcaps), decoded to 24 positions so that the "W" layer's
+ring wraps.  Also its striped ``blockwise_attention`` at S 64 and at a
+ragged S 80 (padded to 128 rows, the second stripe's last 48 rows
+padding), and its ``_local_attention`` at S 80 with a 32-row window and
+a softcap (three windows, the last half padding).  The weights are the
 reference's ``Model.init(PRNGKey(SEED))``, drawn again in this process
 and converted by ``models.convert.params_from_jax``.
 
 Port side, while the reference compiles: 8 gloo ranks on the CPU
 (``ranks.launch``), each with its ``sharding.local_block`` of every leaf,
-run ``RankModel.apply`` and ``ServeEngine`` greedy decoding
+run ``RankModel.apply`` and ``ServeEngine`` decoding, greedy and sampled
 (``tests/_model_rank_worker.py``).  B 4 and S 64 put one batch row on
 each data position, and the "seq" stripes are two 32-row tiles
 (bq = min(32, max(64 // 2, 16))).
 
 Held: each rank's logits block against the same block of the
 reference's (fp32: ``ATOL`` 2e-5, ``RTOL`` 1e-4, where the two sum in
-different orders), its logits block after the prompt, the 4 greedy
-tokens exactly; ``flash_attention_plain`` on each stripe against the
+different orders), its logits block after the prompt, the greedy tokens
+exactly; the tokens sampled at temperature 1.0 against the one-device
+port engine's from the same seed, and ``RankModel.sample`` on each
+rank's block of given logits against ``Model.sample`` on them, exactly;
+``flash_attention_plain`` on each stripe and
+``layers.local_attention_stripe`` on each window's stripe against the
 reference's rows at those positions; a stripe count of 1 against the
 unstriped call, bit for bit; a 1 x 1 mesh against the one-device model,
 bit for bit; each rank's bytes sent by kind against the dry run's count
 of the same forward (``dryrun.count_rank_forward``); the other layer
-kinds and options refusing on a (2, 2) mesh, naming their ROADMAP item.
+kinds refusing on a (2, 2) mesh, naming their ROADMAP item.
 """
+import functools
 import json
 import subprocess
 import sys
@@ -53,20 +66,28 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  stripe_positions)
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh, make_mesh
-from repro_torch.models import Model, ranked
+from repro_torch.models import Model, layers, ranked
 from repro_torch.models.convert import param_tree, params_from_jax
 from repro_torch.serve.engine import ServeEngine, greedy_generate
 from repro_torch.tree import tree_map
 
 torch.set_num_threads(1)
 
-ARCHS = ("starcoder2-3b", "phi4-mini-3.8b")
+ARCHS = ("starcoder2-3b", "phi4-mini-3.8b", "qwen2-vl-7b",
+         "musicgen-medium", "options")
 MODES = ("seq", "head")
 JOBS = [f"{a}/{m}" for a in ARCHS for m in MODES]
+#: the attention options on reduced starcoder2-3b ("options" jobs)
+OPTIONS = dict(layer_pattern="AW", local_window=16, kv_cache_dtype="int8",
+               attn_logit_softcap=50.0, logit_softcap=30.0)
 MESH = (4, 2)
 B, S = 4, 64
-PROMPT, STEPS = 16, 4
+#: prompt tokens, then greedy tokens a job (the "options" jobs decode to
+#: 24 positions: their ring of 16 slots wraps)
+PROMPT, STEPS = 16, {"options": 8}
 ATTN_S = (64, 80)
+#: the reference's ``_local_attention`` case: S, window, softcap
+LOCAL = (80, 32, 50.0)
 SEED = 24
 #: fp32 logits: the reference's GSPMD program and the ranks sum in
 #: different orders
@@ -81,7 +102,7 @@ from repro.configs import get_reduced
 from repro.distributed import sharding as shd
 from repro.launch.mesh import make_test_mesh
 from repro.models import Model, set_activation_mesh
-from repro.models.layers import blockwise_attention
+from repro.models.layers import _local_attention, blockwise_attention
 
 inp = dict(np.load(sys.argv[1]))
 mesh = make_test_mesh(*MESH)
@@ -91,30 +112,42 @@ def named(t):
     return jax.tree.map(lambda s: NamedSharding(mesh, s), t,
                         is_leaf=lambda x: isinstance(x, P))
 
+def config(arch, mode):
+    if arch == "options":
+        return get_reduced("starcoder2-3b").scaled(
+            dtype="float32", attn_parallel=mode, **OPTIONS)
+    return get_reduced(arch).scaled(dtype="float32", attn_parallel=mode)
+
 out = {}
 for arch in ARCHS:
     for mode in MODES:
-        cfg = get_reduced(arch).scaled(dtype="float32", attn_parallel=mode)
+        cfg = config(arch, mode)
+        steps = STEPS.get(arch, 4)
         model = Model(cfg)
         params = model.init(jax.random.PRNGKey(SEED))
         params = jax.device_put(params, named(shd.param_specs(cfg, params,
                                                               mesh)))
-        batch = {"tokens": jnp.asarray(inp["tokens"])}
+        emb = cfg.input_mode == "embeddings"
+        batch = ({"embeddings": jnp.asarray(inp[f"emb/{arch}"])} if emb
+                 else {"tokens": jnp.asarray(inp["tokens"])})
+        if cfg.rope_kind == "mrope":
+            batch["positions"] = jnp.asarray(inp["positions"])
         batch = jax.device_put(batch, named(shd.batch_specs(cfg, batch,
                                                             mesh)))
         with mesh:
             logits = jax.jit(model.apply)(params, batch)
-            cache = model.init_cache(B, PROMPT + STEPS, dtype=jnp.float32)
+            cache = model.init_cache(B, PROMPT + steps, dtype=jnp.float32)
             cache = jax.device_put(cache, named(shd.cache_specs(cfg, cache,
                                                                 mesh)))
             dec = jax.jit(model.decode_step)
-            prompt = jnp.asarray(inp["tokens"][:, :PROMPT])
             for t in range(PROMPT):
-                lg, cache = dec(params, cache, prompt[:, t], jnp.int32(t))
+                x = (jnp.asarray(inp[f"emb/{arch}"][:, t:t + 1]) if emb
+                     else jnp.asarray(inp["tokens"][:, t]))
+                lg, cache = dec(params, cache, x, jnp.int32(t))
             out[f"{arch}/{mode}/dec_logits"] = np.asarray(lg)
             tok = jnp.argmax(lg, axis=-1).astype(jnp.int32)
             toks = [np.asarray(tok)]
-            for s in range(STEPS - 1):
+            for s in range(steps - 1):
                 lg, cache = dec(params, cache, tok, jnp.int32(PROMPT + s))
                 tok = jnp.argmax(lg, axis=-1).astype(jnp.int32)
                 toks.append(np.asarray(tok))
@@ -126,12 +159,24 @@ for Sa in ATTN_S:
     with mesh:
         out[f"attn{Sa}"] = np.asarray(attend(inp[f"q{Sa}"], inp[f"k{Sa}"],
                                              inp[f"v{Sa}"]))
+Sl, W, cap = LOCAL
+cfg_l = cfg.scaled(local_window=W, attn_logit_softcap=cap)
+with mesh:
+    out["local"] = np.asarray(jax.jit(lambda q, k, v: _local_attention(
+        q, k, v, cfg_l))(inp[f"q{Sl}"], inp[f"k{Sl}"], inp[f"v{Sl}"]))
 np.savez(sys.argv[2], **out)
 """
 
 
 def _cfg(arch, mode="seq"):
+    if arch == "options":
+        return get_reduced(ARCHS[0]).scaled(dtype="float32",
+                                            attn_parallel=mode, **OPTIONS)
     return get_reduced(arch).scaled(dtype="float32", attn_parallel=mode)
+
+
+def _steps(job) -> int:
+    return STEPS.get(job.split("/")[0], 4)
 
 
 def _inputs() -> dict:
@@ -144,15 +189,44 @@ def _inputs() -> dict:
         out[f"q{Sa}"] = rng.standard_normal((2, Sa, H, hd), np.float32)
         out[f"k{Sa}"] = rng.standard_normal((2, Sa, KV, hd), np.float32)
         out[f"v{Sa}"] = rng.standard_normal((2, Sa, KV, hd), np.float32)
+    for arch in ARCHS:
+        c = _cfg(arch)
+        if c.input_mode == "embeddings":
+            out[f"emb/{arch}"] = rng.standard_normal((B, S, c.d_model),
+                                                     np.float32)
+    # three distinct (t, h, w) position streams
+    out["positions"] = np.stack([np.sort(rng.integers(0, S, (B, S)), axis=1)
+                                 for _ in range(3)]).astype(np.int32)
     return out
+
+
+def _batch(job, inp) -> dict:
+    """The job's prefill batch as the port takes it."""
+    cfg = _cfg(*job.split("/"))
+    arch = job.split("/")[0]
+    if cfg.input_mode == "embeddings":
+        batch = {"embeddings": torch.from_numpy(inp[f"emb/{arch}"])}
+    else:
+        batch = {"tokens": torch.from_numpy(inp["tokens"]).long()}
+    if cfg.rope_kind == "mrope":
+        batch["positions"] = torch.from_numpy(inp["positions"]).long()
+    return batch
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_params(arch) -> dict:
+    """The reference's ``Model.init(PRNGKey(SEED))`` (numpy leaves)."""
+    extra = OPTIONS if arch == "options" else {}
+    ref_cfg = ref_get_reduced(ARCHS[0] if arch == "options" else arch) \
+        .scaled(dtype="float32", **extra)
+    return jax.tree.map(np.asarray,
+                        RefModel(ref_cfg).init(jax.random.PRNGKey(SEED)))
 
 
 def _port_model(arch, mode="seq") -> Model:
     """The reference's ``Model.init(PRNGKey(SEED))`` in the port's model."""
-    ref_cfg = ref_get_reduced(arch).scaled(dtype="float32")
-    tree = jax.tree.map(np.asarray,
-                        RefModel(ref_cfg).init(jax.random.PRNGKey(SEED)))
-    return params_from_jax(Model(_cfg(arch, mode), device="cpu"), tree)
+    return params_from_jax(Model(_cfg(arch, mode), device="cpu"),
+                           _ref_params(arch))
 
 
 def _blocks(model: Model, mesh, coords) -> dict:
@@ -162,10 +236,19 @@ def _blocks(model: Model, mesh, coords) -> dict:
         leaf, spec, mesh, coords), params, specs)
 
 
+def _sample_logits() -> torch.Tensor:
+    """Logits the rank sampler's unit check draws from: (B, padded
+    vocab)."""
+    V = _cfg(ARCHS[0]).padded_vocab
+    return torch.from_numpy(np.random.default_rng(SEED + 1)
+                            .standard_normal((B, V), np.float32) * 3)
+
+
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
-    """(inputs, the ranks' results by rank, the reference's outputs): the
-    reference runs in its subprocess while the ranks run here."""
+    """(inputs, the ranks' results by rank, the reference's outputs, the
+    port models by job): the reference runs in its subprocess while the
+    ranks run here."""
     tmp = tmp_path_factory.mktemp("model_ranks")
     inp = _inputs()
     np.savez(tmp / "in.npz", **inp)
@@ -173,8 +256,9 @@ def both(tmp_path_factory):
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["JAX_PLATFORMS"] = "cpu"
     code = (f"ARCHS = {ARCHS!r}\nMODES = {MODES!r}\nMESH = {MESH!r}\n"
-            f"B, S, PROMPT, STEPS = {B}, {S}, {PROMPT}, {STEPS}\n"
-            f"ATTN_S = {ATTN_S!r}\nSEED = {SEED}\n"
+            f"B, S, PROMPT, STEPS = {B}, {S}, {PROMPT}, {STEPS!r}\n"
+            f"ATTN_S = {ATTN_S!r}\nLOCAL = {LOCAL!r}\n"
+            f"OPTIONS = {OPTIONS!r}\nSEED = {SEED}\n"
             + textwrap.dedent(REFERENCE))
     proc = subprocess.Popen([sys.executable, "-c", code,
                              str(tmp / "in.npz"), str(tmp / "ref.npz")],
@@ -183,9 +267,9 @@ def both(tmp_path_factory):
     try:
         mesh = make_mesh(MESH, ("data", "model"))
         models = {job: _port_model(*job.split("/")) for job in JOBS}
-        tokens = torch.from_numpy(inp["tokens"]).long()
-        args = [([(job, m.cfg, _blocks(m, mesh, mesh.coords(r)))
-                  for job, m in models.items()], tokens, PROMPT, STEPS)
+        args = [([(job, m.cfg, _blocks(m, mesh, mesh.coords(r)),
+                   _batch(job, inp), _steps(job))
+                  for job, m in models.items()], PROMPT, _sample_logits())
                 for r in range(mesh.size)]
         res = ranks.launch(_model_rank_worker.model_body, mesh, args,
                            init_file=str(tmp / "init"), timeout=DEADLINE)
@@ -197,7 +281,7 @@ def both(tmp_path_factory):
     assert proc.returncode == 0, err[-4000:]
     with np.load(tmp / "ref.npz") as f:
         ref = dict(f)
-    return inp, res, ref
+    return inp, res, ref, models
 
 
 def _block(arr, rows, m, M):
@@ -208,7 +292,7 @@ def _block(arr, rows, m, M):
 
 @pytest.mark.parametrize("job", JOBS)
 def test_prefill_logits_match_reference(both, job):
-    _, res, ref = both
+    _, res, ref, _ = both
     want = ref[f"{job}/logits"]
     for r in res:
         got = r[job]
@@ -219,9 +303,9 @@ def test_prefill_logits_match_reference(both, job):
 
 @pytest.mark.parametrize("job", JOBS)
 def test_greedy_tokens_match_reference(both, job):
-    """Every rank returns the whole batch's 4 greedy tokens, the
+    """Every rank returns the whole batch's greedy tokens, the
     reference's; its logits block after the prompt matches too."""
-    _, res, ref = both
+    _, res, ref, _ = both
     for r in res:
         got = r[job]
         np.testing.assert_array_equal(got["tokens"], ref[f"{job}/tokens"])
@@ -232,19 +316,59 @@ def test_greedy_tokens_match_reference(both, job):
 
 
 @pytest.mark.parametrize("job", JOBS)
+def test_sampled_tokens_match_the_one_device_engine(both, job):
+    """Decoding at temperature 1.0 gives every rank the whole batch's
+    tokens of the one-device port engine seeded alike, on the same
+    weights and prompt."""
+    inp, res, _, models = both
+    model = models[job]
+    prompt = {k: v[:, :PROMPT] for k, v in _batch(job, inp).items()
+              if k != "positions"}
+    steps = _steps(job)
+    eng = ServeEngine(model, max_len=PROMPT + steps, batch_size=B,
+                      cache_dtype=torch.float32, device="cpu")
+    eng.generator.manual_seed(_model_rank_worker.SAMPLE_SEED)
+    first = model.argmax(eng.prefill(prompt))
+    want = np.concatenate([first[:, None].numpy(), eng.decode(
+        steps - 1, temperature=1.0, first_tokens=first).tokens], axis=1)
+    for r in res:
+        np.testing.assert_array_equal(r[job]["sampled"], want)
+
+
+def test_rank_sampler_is_the_one_device_sampler(both):
+    """``RankModel.sample`` on each rank's block (rows, vocab block) of
+    the same logits draws ``Model.sample``'s tokens from a generator
+    seeded alike, on every rank."""
+    _, res, _, _ = both
+    gen = torch.Generator().manual_seed(_model_rank_worker.SAMPLE_SEED)
+    want = Model.sample(_sample_logits(), 1.0, gen).numpy()
+    for r in res:
+        np.testing.assert_array_equal(r["sampler"], want)
+
+
+@pytest.mark.parametrize("job", JOBS)
 def test_routes_are_the_flash_route(both, job):
     """Prefill is one kernel-11 call a layer on each rank (its plain
-    version on the CPU), never the masked route; decode combines the
-    sequence-sharded cache."""
-    _, res, _ = both
+    version on the CPU), never the masked route, unless a softcap or a
+    window past the sequence's first takes the masked route in every
+    layer; decode combines the sequence-sharded cache (the "W" ring's
+    slots too)."""
+    _, res, _, _ = both
     cfg = _cfg(*job.split("/"))
+    steps = PROMPT + 2 * (_steps(job) - 1) + 1
     for r in res:
         got = r[job]
-        assert got["op_paths"] == {"flash_attention": dispatch.TORCH_CPU}
-        assert got["routes"]["flash_attention:torch-cpu"] == cfg.num_layers
-        assert got["routes"]["decode_ranked:torch"] == \
-            (PROMPT + STEPS - 1 + 1) * cfg.num_layers
-        assert not any(k.startswith("masked") for k in got["routes"])
+        if cfg.attn_logit_softcap:
+            assert got["op_paths"] == {}
+            assert got["routes"]["masked_blockwise:torch"] == \
+                cfg.num_layers
+            assert not any(k.startswith("flash") for k in got["routes"])
+        else:
+            assert got["op_paths"] == {"flash_attention": dispatch.TORCH_CPU}
+            assert got["routes"]["flash_attention:torch-cpu"] == \
+                cfg.num_layers
+            assert not any(k.startswith("masked") for k in got["routes"])
+        assert got["routes"]["decode_ranked:torch"] == steps * cfg.num_layers
 
 
 @pytest.mark.parametrize("kind", ("prefill", "decode"))
@@ -252,7 +376,7 @@ def test_routes_are_the_flash_route(both, job):
 def test_sent_bytes_equal_dry_run_count(both, job, kind):
     """Each rank sends, by kind, what ``dryrun.count_rank_forward``
     counts for the same forward at its coordinates."""
-    _, res, _ = both
+    _, res, _, _ = both
     cfg = _cfg(*job.split("/"))
     mesh = make_mesh(MESH, ("data", "model"))
     shape = ShapeSpec("x", kind, S, B)
@@ -270,7 +394,7 @@ def test_stripes_match_reference_rows(both, Sa):
     """``flash_attention_plain`` on stripe m's rows (zero rows for the
     padding) equals the reference's striped ``blockwise_attention`` at
     those rows' positions; a stripe count of 1 is every row in order."""
-    inp, _, ref = both
+    inp, _, ref, _ = both
     cfg = _cfg(ARCHS[0])
     q, k, v = (torch.from_numpy(inp[f"{x}{Sa}"]) for x in "qkv")
     M = MESH[1]
@@ -291,6 +415,38 @@ def test_stripes_match_reference_rows(both, Sa):
         np.testing.assert_allclose(
             flash_attention_plain(q, k, v, stripe=(seg, 1, 0)).numpy(),
             ref[f"attn{Sa}"], atol=ATOL, rtol=RTOL)
+
+
+def test_local_stripes_match_reference_rows(both):
+    """``layers.local_attention_stripe`` on stripe m's rows of every
+    window (zero rows for the padding) equals the reference's
+    ``_local_attention`` - windows folded into the batch, each window's
+    Q tiles striped over "model", softcapped - at those rows; the stripes
+    cover the sequence, and their rows equal the port's one-device
+    ``local_attention``."""
+    inp, _, ref, _ = both
+    Sl, W, cap = LOCAL
+    cfg = _cfg(ARCHS[0]).scaled(local_window=W, attn_logit_softcap=cap)
+    q, k, v = (torch.from_numpy(inp[f"{x}{Sl}"]) for x in "qkv")
+    one = layers.local_attention(q, k, v, cfg)
+    M, nW = MESH[1], -(-Sl // W)
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, nW * W - Sl))
+    covered = []
+    for m in range(M):
+        st = ranked.seq_stripe(cfg, W, M, m)
+        stripe = (st["bq"], M, m)
+        pos = stripe_positions(st["rows"], stripe)[:st["valid"]]
+        qs = torch.zeros((q.shape[0], nW, st["rows"]) + q.shape[2:])
+        qs[:, :, :st["valid"]] = qp.unflatten(1, (nW, W))[:, :, pos]
+        got = layers.local_attention_stripe(qs, k, v, cfg, stripe)
+        rows = (torch.arange(nW)[:, None] * W + pos[None, :]).flatten()
+        got = got[:, :, :st["valid"]].flatten(1, 2)[:, rows < Sl]
+        rows = rows[rows < Sl]
+        np.testing.assert_allclose(got.numpy(), ref["local"][:, rows.numpy()],
+                                   atol=ATOL, rtol=RTOL)
+        torch.testing.assert_close(got, one[:, rows], atol=ATOL, rtol=RTOL)
+        covered += rows.tolist()
+    assert sorted(covered) == list(range(Sl))
 
 
 def test_one_stripe_is_the_unstriped_call():
@@ -334,8 +490,8 @@ def test_one_by_one_mesh_is_the_one_device_model():
     assert torch.equal(rm.apply({"tokens": tokens}),
                        model.apply({"tokens": tokens}))
     np.testing.assert_array_equal(
-        greedy_generate(rm, tokens[:, :PROMPT], STEPS),
-        greedy_generate(model, tokens[:, :PROMPT], STEPS))
+        greedy_generate(rm, tokens[:, :PROMPT], _steps(ARCHS[0])),
+        greedy_generate(model, tokens[:, :PROMPT], _steps(ARCHS[0])))
     ours = dict(rm._one.named_parameters())
     for name, p in model.named_parameters():
         assert ours[name].data_ptr() == p.data_ptr(), name
@@ -343,11 +499,10 @@ def test_one_by_one_mesh_is_the_one_device_model():
 
 @pytest.mark.parametrize("arch,item", [
     ("minicpm3-4b", 8), ("llama4-maverick-400b-a17b", 7),
-    ("mamba2-370m", 9), ("recurrentgemma-2b", 10), ("qwen2-vl-7b", 11),
-    ("musicgen-medium", 11)])
+    ("mamba2-370m", 9), ("recurrentgemma-2b", 10)])
 def test_other_kinds_refuse_across_ranks(arch, item):
-    """A layer kind or option not yet ported across ranks raises on a
-    (2, 2) mesh, naming its ROADMAP item; the 1 x 1 mesh takes them."""
+    """A layer kind not yet ported across ranks raises on a (2, 2) mesh,
+    naming its ROADMAP item; the 1 x 1 mesh takes them."""
     cfg = get_reduced(arch)
     mesh = make_mesh((2, 2), ("data", "model"))
     with pytest.raises(NotImplementedError,
@@ -365,16 +520,18 @@ def test_batch_smaller_than_data_is_replicated(tmp_path):
     model = _port_model(ARCHS[0])
     tokens = torch.from_numpy(_inputs()["tokens"][:1, :70]).long()
     assert ranked.seq_stripe(model.cfg, 70, 2, 1)["valid"] == 32
-    args = [([("one", model.cfg, _blocks(model, mesh, mesh.coords(r)))],
-             tokens, PROMPT, STEPS) for r in range(mesh.size)]
+    steps = _steps(ARCHS[0])
+    args = [([("one", model.cfg, _blocks(model, mesh, mesh.coords(r)),
+               {"tokens": tokens}, steps)], PROMPT)
+            for r in range(mesh.size)]
     res = ranks.launch(_model_rank_worker.model_body, mesh, args,
                        init_file=str(tmp_path / "init"), timeout=DEADLINE)
     want = model.apply({"tokens": tokens}).numpy()
-    eng = ServeEngine(model, max_len=PROMPT + STEPS, batch_size=1,
+    eng = ServeEngine(model, max_len=PROMPT + steps, batch_size=1,
                       cache_dtype=torch.float32, device="cpu")
     first = model.argmax(eng.prefill({"tokens": tokens[:, :PROMPT]}))
     want_tokens = np.concatenate([first[:, None].numpy(), eng.decode(
-        STEPS - 1, first_tokens=first).tokens], axis=1)
+        steps - 1, first_tokens=first).tokens], axis=1)
     for r in res:
         got = r["one"]
         assert tuple(got["rows"]) == (0, 1)
@@ -412,21 +569,6 @@ def test_every_config_field_is_read_or_refused():
     ``Model`` does, refuses, or leaves to a refused layer kind: a new
     option of the dense path fails here until ``ranked`` says which."""
     assert ranked.unclassified_fields() == set()
-
-
-@pytest.mark.parametrize("field,value", [
-    ("rope_kind", "mrope"), ("mrope_sections", (2, 3, 3)),
-    ("input_mode", "embeddings"), ("kv_cache_dtype", "int8"),
-    ("attn_logit_softcap", 50.0), ("logit_softcap", 30.0)])
-def test_refused_fields_refuse_across_ranks(field, value):
-    """Each refused field, set on a dense config, raises on a (2, 2) mesh
-    naming ROADMAP Queue 1 item 11; the 1 x 1 mesh takes it."""
-    assert field in ranked.REFUSED_FIELDS
-    cfg = get_reduced(ARCHS[0]).scaled(**{field: value})
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 11 "):
-        ranked.check_config(cfg, make_mesh((2, 2), ("data", "model")))
-    ranked.check_config(cfg, make_host_mesh())
 
 
 def test_pod_mesh_and_uneven_batch_keep_the_even_split():

@@ -19,7 +19,10 @@ is held at its coordinate to the reference's global arrays and to the
 stacked store's: exact bytes, except ``compressed_psum`` (1e-6 of the
 largest |sum|, as in ``test_torch_ecstore.py``).  The bytes a rank sends
 equal m*k*S pages an update and (A - 1)*k*S a rebuild, and the dry run's
-count of the same body (``ranks.CountingComm``).
+count of the same body (``ranks.CountingComm``).  The (4, 1) spawn also
+protects the reference's serving cache on a ``RankModel`` in each rank
+(``ServeEngine.protect_cache`` over the rank's data column), held to the
+reference's pages, parity and rebuilds byte for byte.
 """
 import numpy as np
 import pytest
@@ -42,6 +45,9 @@ torch.set_num_threads(1)
 RANK_MESHES = MESHES + [("rs3_2_4x1", (4, 1), 2, 1, 256)]
 REBUILD_AT = dict(RECONSTRUCT_AT, rs3_2_4x1=(0, 1, 3))
 NAMES = [x[0] for x in RANK_MESHES]
+#: the mesh whose spawn also protects the reference's serving cache: the
+#: reference's (4, 1) and RS(3,2) with 256-byte pages
+CACHE_MESH = "rs3_2_4x1"
 DEADLINE = 120.0
 
 
@@ -86,7 +92,8 @@ def spawned(ref_path, models, tmp_path_factory):
         mesh = make_mesh(shape, ("data", "model"))
         specs = sharding.param_specs(cfg_model, old, mesh)
         args = [(str(ref_path), str(d / f"rank{r}.npz"), name, k, m, page,
-                 PAIRS, REBUILD_AT[name], (old, new), specs)
+                 PAIRS, REBUILD_AT[name], (old, new), specs,
+                 cfg_model if name == CACHE_MESH else None)
                 for r in range(mesh.size)]
         res = ranks.launch(_rank_worker.mesh_body, mesh, args,
                            init_file=str(d / "init"), timeout=DEADLINE)
@@ -260,6 +267,19 @@ def test_rank_checkpoint_matches_reference_and_stacked(ref, models, spawned,
             if has_ref:
                 np.testing.assert_array_equal(
                     rec, ref[f"{name}/store_reconstruct{f}"][at])
+
+
+def test_rank_protected_cache_matches_reference(ref, spawned):
+    """``ServeEngine.protect_cache`` on each rank's ``RankModel`` over
+    (4, 1), its cache block the reference's prefill cache's: the rank's
+    pages, parity and the rebuilds of data positions 0 and 2 equal the
+    reference's ``protect_cache`` (the (4, 1) mesh's stacked arrays) at
+    the rank's coordinate, byte for byte."""
+    _each_rank(spawned, CACHE_MESH, "cache/pages", ref["cache/pages"])
+    _each_rank(spawned, CACHE_MESH, "cache/parity", ref["cache/parity"])
+    for fail in (0, 2):
+        _each_rank(spawned, CACHE_MESH, f"cache/recover{fail}",
+                   ref[f"cache/recover{fail}"])
 
 
 # ---------------------------------------------------------------------------

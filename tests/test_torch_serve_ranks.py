@@ -1,0 +1,231 @@
+"""Protected serving and training across ranks with the attention options,
+against the port's own one-device programs on the same weights.
+
+One spawn of 4 gloo ranks on the CPU over (data 2, model 2)
+(``tests/_serve_rank_worker.py``), as ``launch.serve --protect`` protects
+a cache (RS(k=1, m=1) over "data", 256-byte pages):
+
+* reduced starcoder2-3b with the attention options of
+  ``test_torch_model_ranks.OPTIONS`` (layers "AW" with a 16-slot window,
+  the int8 KV cache, both softcaps) in fp32, B 2 (one row a data
+  position): an 8-token prefill through ``ServeEngine``, the cache
+  protected by ``cache_specs`` of the engine's ``cache_shapes``, 14
+  greedy decode steps (the "W" ring wraps after 16 positions),
+  ``refresh_cache_parity``.  Held, byte for byte: each rank's pages and
+  parity after the prefill and after the refresh against the stacked
+  one-card ``ECStateStore`` over the cache gathered from every rank's
+  block; the refreshed parity against a fresh encode; every data
+  position's pages rebuilt over the ring on every rank of its column;
+* two AdamW steps (``launch.train.train_on_rank`` with its EC copy, as
+  ``tests/test_torch_train_ranks.py`` runs it) of reduced qwen2-vl-7b
+  (M-RoPE, an embeddings input) and of the options config, "seq" and
+  "head", in fp32 on ``SyntheticLM``'s batch (seed 0), against the
+  one-device ``make_train_step`` on the same weights and batch
+  (``train_step.recorded_step``): step 1's loss, gradient norm, each
+  rank's gradient blocks and parameter blocks after it at
+  ``tests/test_torch_train_archs.py``'s fp32 bounds; the parity fresh
+  after each step; step 2's bytes sent by kind equal to
+  ``dryrun.count_rank_train``'s count.
+"""
+import numpy as np
+import pytest
+import torch
+
+import _serve_rank_worker
+import _train_rank_worker
+from repro_torch.configs import get_reduced
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.distributed import ranks, sharding
+from repro_torch.distributed.ecstore import ECConfig, ECStateStore
+from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import Model
+from repro_torch.models.convert import param_tree
+from repro_torch.train.optimizer import make_optimizer
+from repro_torch.train.train_step import recorded_step
+from repro_torch.tree import leaves_with_path, path_str, tree_map
+from test_torch_model_ranks import OPTIONS
+from test_torch_train_archs import GRAD_TOL, LOSS_TOL, PARAM_TOL
+
+torch.set_num_threads(1)
+
+MESH = (2, 2)
+B = 2
+PROMPT, STEPS, MAX_LEN = 8, 14, 24
+EC = dict(k=1, m=1, page_size=256)
+TRAIN = ("qwen2-vl-7b/seq", "options/seq", "options/head")
+SEQ = 64
+SEED = 26
+DEADLINE = 300.0
+
+
+def _cfg(arch, mode="seq"):
+    if arch == "options":
+        return get_reduced("starcoder2-3b").scaled(
+            dtype="float32", attn_parallel=mode, remat="full", **OPTIONS)
+    return get_reduced(arch).scaled(dtype="float32", attn_parallel=mode,
+                                    remat="full")
+
+
+def _model(job) -> Model:
+    return Model(_cfg(*job.split("/")), device="cpu").init(
+        torch.Generator().manual_seed(SEED))
+
+
+def _blocks(model: Model, mesh, coords) -> dict:
+    params = param_tree(model)
+    specs = sharding.param_specs(model.cfg, params, mesh)
+    return tree_map(lambda leaf, spec: sharding.local_block(
+        leaf, spec, mesh, coords), params, specs)
+
+
+def _batch(cfg):
+    """``train_on_rank``'s first batch (``SyntheticLM``, seed 0)."""
+    return SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=SEQ, global_batch=B, seed=0,
+        embed_dim=cfg.d_model if cfg.input_mode == "embeddings" else 0,
+        mrope=cfg.rope_kind == "mrope"), device="cpu").batch(0)
+
+
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
+    """(the served model, its prompt, the ranks' results, the trained
+    models by job)."""
+    tmp = tmp_path_factory.mktemp("serve_ranks")
+    mesh = make_mesh(MESH, ("data", "model"))
+    served = _model("options/seq")
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, served.cfg.vocab_size, (B, PROMPT)))
+    trained = {job: _model(job) for job in TRAIN}
+    args = [((served.cfg, _blocks(served, mesh, mesh.coords(r)), prompt,
+              STEPS, MAX_LEN, EC),
+             [(job, m.cfg, _blocks(m, mesh, mesh.coords(r)), B, SEQ)
+              for job, m in trained.items()])
+            for r in range(mesh.size)]
+    res = ranks.launch(_serve_rank_worker.serve_body, mesh, args,
+                       init_file=str(tmp / "init"), timeout=DEADLINE)
+    return served, prompt, res, trained
+
+
+def _gathered(cfg, res, key) -> dict:
+    """The whole cache (the reference's stacked layout, plain tensors),
+    each leaf assembled from every rank's block (``key``: the point of
+    the session), and its ``cache_specs``."""
+    mesh = make_mesh(MESH, ("data", "model"))
+    with dispatch.dry_run():
+        meta = Model(cfg, device="meta")
+    shapes = meta.cache_tree(meta.init_cache(B, MAX_LEN, torch.float32))
+    specs = sharding.cache_specs(cfg, shapes, mesh)
+    tree = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype), shapes)
+    flat_specs = {path_str(k): s for k, s in leaves_with_path(specs)}
+    for r in res:
+        for path, leaf in leaves_with_path(tree):
+            name = path_str(path)
+            view = sharding.local_view(leaf, flat_specs[name], mesh)
+            view[tuple(r["coords"])].copy_(torch.from_numpy(
+                r["protect"][key][name]))
+    return tree, specs
+
+
+@pytest.mark.parametrize("when", ("prefill", "refresh"))
+def test_rank_cache_pages_equal_the_stacked_store(spawned, when):
+    """Each rank's pages and parity, after the prefill's ``protect_cache``
+    and after the decode steps' ``refresh_cache_parity``, equal the
+    stacked store's over the cache gathered from every rank's block, byte
+    for byte; every leaf of the cache (the int8 K/V and their scales, the
+    "A" layer's slots and the "W" layer's ring) is packed."""
+    served, _, res, _ = spawned
+    key = {"prefill": "prefill_cache", "refresh": "cache"}[when]
+    tree, specs = _gathered(served.cfg, res, key)
+    mesh = make_mesh(MESH, ("data", "model"))
+    store = ECStateStore(mesh, specs, ECConfig(**EC))
+    pages, parity = store.local_pages(tree), store.encode(tree)
+    for r in res:
+        got, at = r["protect"], tuple(r["coords"])
+        assert got["n_leaves"] == 8
+        prefix = "prefill_" if when == "prefill" else ""
+        np.testing.assert_array_equal(got[f"{prefix}pages"],
+                                      pages[at].numpy())
+        np.testing.assert_array_equal(got[f"{prefix}parity"],
+                                      parity[at].numpy())
+
+
+def test_refresh_is_a_fresh_encode_and_every_position_rebuilds(spawned):
+    """After the decode steps (the ring wrapped), the refreshed parity is
+    a fresh encode of the cache on every rank, and each data position's
+    pages, rebuilt over the ring, equal that position's live pages on
+    every rank of its model column; the products took the CPU path."""
+    _, _, res, _ = spawned
+    live = {tuple(r["coords"]): r["protect"]["pages"] for r in res}
+    for r in res:
+        got = r["protect"]
+        assert got["cur_len"] == PROMPT + STEPS > OPTIONS["local_window"]
+        np.testing.assert_array_equal(got["parity"], got["fresh"])
+        for f, rebuilt in enumerate(got["rebuilt"]):
+            np.testing.assert_array_equal(rebuilt,
+                                          live[(f, r["coords"][1])])
+        assert set(got["op_paths"].values()) == {dispatch.TORCH_CPU}
+
+
+@pytest.fixture(scope="module")
+def one_device(spawned):
+    """The one-device step of each trained job on the same weights and
+    batch."""
+    _, _, _, trained = spawned
+    opt = make_optimizer("adamw", **_train_rank_worker.OPT)
+    return {job: recorded_step(m, opt, _batch(m.cfg))
+            for job, m in trained.items()}
+
+
+@pytest.mark.parametrize("job", TRAIN)
+def test_rank_step_matches_the_one_device_step(spawned, one_device, job):
+    """Every rank's loss and gradient norm are the one-device step's; its
+    gradient blocks and parameter blocks after the step are the same
+    blocks of the one-device step's (fp32 bounds)."""
+    _, _, res, trained = spawned
+    want = one_device[job]
+    mesh = make_mesh(MESH, ("data", "model"))
+    cfg = trained[job].cfg
+    specs = {path_str(k): s for k, s in leaves_with_path(
+        sharding.param_specs(cfg, param_tree(trained[job]), mesh))}
+    for r in res:
+        got = r[job]
+        step = got["steps"][0]
+        assert abs(step["loss"] - want["loss"]) <= LOSS_TOL["float32"]
+        assert abs(step["grad_norm"] - want["grad_norm"]) / \
+            want["grad_norm"] <= GRAD_TOL["float32"]
+        for part, have, ref in (("grads", got["grads"], want["grads"]),
+                                ("params", step["params"], want["params"])):
+            assert list(have) == list(specs)
+            for name, x in have.items():
+                full = torch.from_numpy(np.asarray(ref[name]))
+                block = sharding.local_block(full, specs[name], mesh,
+                                             got["coords"]).numpy()
+                if part == "grads":
+                    norm = np.linalg.norm(block)
+                    err = np.linalg.norm(x - block) / max(norm, 1e-30)
+                    assert err <= GRAD_TOL["float32"] or norm == 0, (
+                        got["coords"], name, err)
+                else:
+                    err = float(np.abs(x - block).max())
+                    assert err <= PARAM_TOL, (got["coords"], name, err)
+
+
+@pytest.mark.parametrize("job", TRAIN)
+def test_rank_step_parity_routes_and_bytes(spawned, job):
+    """The EC copy is fresh after each step; a softcapped config's
+    attention takes the masked route (its "W" layer the masked stripes),
+    another's kernel 11's; step 2's bytes sent by kind equal
+    ``dryrun.count_rank_train``'s count at the rank's coordinates."""
+    _, _, res, trained = spawned
+    cfg = trained[job].cfg
+    for r in res:
+        got = r[job]
+        assert [st["stale"] for st in got["steps"]] == [0, 0]
+        if cfg.attn_logit_softcap:
+            assert got["op_paths"] == {}
+            assert got["routes"]["masked_blockwise:torch"] > 0
+            assert not any(k.startswith("flash") for k in got["routes"])
+        else:
+            assert got["op_paths"] == {"flash_attention": dispatch.TORCH_CPU}
+        assert got["sent"] == got["counted"], got["coords"]
