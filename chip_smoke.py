@@ -188,7 +188,7 @@ in place of the card):
              1 and takes no CPU or plain path; prints per rank the
              seconds and bytes of each operation, its launches and
              ``op_paths``;
-18. model-ranks - starcoder2-3b at full width and depth, bf16, over
+18. model-ranks - starcoder2-3b at full width, 8 of its 30 layers, bf16, over
              (data 2, model 2): four gloo ranks on this card, each holding
              its blocks of the parent's one-card model (shared, not
              copied) and running ``models/ranked.py``'s ``RankModel``:
@@ -243,8 +243,8 @@ in place of the card):
              prefill s, decode s a step, bytes sent by kind (the
              sampler's gathers apart), the EC ms and bytes, kernel-11
              and kernel-1 launches and peak GB;
-20. train-ranks - starcoder2-3b at full width, depth cut to 24 of 30
-             layers (the card's memory), bf16, remat
+20. train-ranks - starcoder2-3b at full width, depth cut to 12 of 30
+             layers (the card's memory, then the script's time), bf16, remat
              "full", "seq", trained over (data 2, model 2): four gloo
              ranks on this card, each drawing its blocks of the seed's
              weights (``ranked.init_blocks``) and running
@@ -265,7 +265,30 @@ in place of the card):
              ``dryrun.count_rank_train`` at the rank's coordinates.
              Prints per rank its seconds a step, kernel-11 launches, peak
              GB, and the card's peak;
-21. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
+21. recurrent-ranks - the recurrent layer kinds over (data 2, model 2),
+             four gloo ranks on this card, each holding its blocks of the
+             parent's one-card models: (a) recurrentgemma-2b at full width,
+             one "RRW" unit (3 of 26 layers), (b) mamba2-370m at full
+             width and depth.  Each: a bf16 prefill of 2 x 2,048, each
+             rank's logits block within ``MODEL_RANKS_TWIN_MULTIPLE``
+             times the one-card bf16 logits' distance from an fp32 twin;
+             on the fp32 twin, a 1-token prompt and 8 greedy decode steps
+             with the cache protected by RS(1,1) over "data", the tokens
+             equal to the one-card fp32 engine's, the pages equal to the
+             stacked one-card store's over the gathered cache, the parity
+             a fresh encode, data position 0 rebuilt byte for byte and a
+             flipped parity byte changing the rebuild; then two bf16
+             steps of ``launch.train.train_on_rank`` with adamw8bit (a)
+             or adafactor (b), step 1's loss and norm within
+             train-ranks' bounds of the one-card step, the replicated
+             state within twice the one-card bf16 state's distance from
+             its fp32 twin's, by kind of state leaf.  Every prefill's,
+             decode step's and step 2's bytes by kind must equal the dry
+             run's count; kernel 11 launches once an attention layer a
+             prefill and twice a step, kernel 1 in the EC calls, the
+             card's paths only.  Prints per rank the seconds, the bytes
+             by kind and the kernel-11 and kernel-1 launches;
+22. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
              step at phase 12's cut (B 2 x S 2,048, remat "full",
              AdamW, the 1 x 1 mesh), made on ``meta``, against the same
              step on the card: the argument bytes asked of the allocator
@@ -274,9 +297,9 @@ in place of the card):
              measured peaks and the step's share of 989 TFLOP/s are
              printed, with the EC cells' collective bytes on the 16 x 16
              mesh; then ``python -m repro_torch.launch.dryrun --mesh
-             single`` over the ten archs' decode and prefill cells,
-             after every timed phase, must record every cell ``ok`` or
-             ``skipped`` with its reason.
+             single`` over the ten archs' decode and prefill cells (a
+             process a group of archs), after every timed phase, must
+             record every cell ``ok`` or ``skipped`` with its reason.
 
 Every phase prints its seconds.
 
@@ -286,7 +309,7 @@ counted (a call reached through a binding it does not wrap fails the
 run); then every shape is timed and each kernel's loss per run, calls x
 (kernel ms - bound ms), is printed beside its launches.
 Kernel 10 is also held against its plain version on the real object
-index of a server of the loaded RS testbed.  Every phase of 4-21 starts
+index of a server of the loaded RS testbed.  Every phase of 4-22 starts
 with the launch counts at 0 and reads them when it ends; launches made
 to compare a kernel with its plain version are not counted.  The line
 before the last is ``{"kernels": [...]}``;
@@ -337,6 +360,14 @@ REBALANCE_MOVES = 20_000
 # prefill: ~40 s of the host's CPU (minicpm3-4b's tiled MLA prefill ~31 s
 # of it) where every cell takes ~70 s
 CLI_SHAPES = ("decode_32k", "prefill_32k")
+# the ten archs in groups of about equal counting time (CPU s of both
+# shapes on one x86 core: minicpm3-4b's MLA prefill ~35,
+# recurrentgemma-2b's rank counts ~27, the next three ~25, ~21, ~17), one
+# process a group
+CLI_GROUPS = ("minicpm3-4b", "recurrentgemma-2b",
+              "mamba2-370m,kimi-k2-1t-a32b,llama4-maverick-400b-a17b",
+              "starcoder2-3b,phi4-mini-3.8b,mistral-large-123b",
+              "qwen2-vl-7b,musicgen-medium")
 
 
 def log(*parts):
@@ -3466,11 +3497,14 @@ def run_ranks(np, torch, dev, card):
     return launches, nums
 
 
-# the model-ranks phase: starcoder2-3b at full width and depth over
-# (data 2, model 2), one rank a position, gloo on this card; its decode
-# steps cut from 8 and 2 to 4 and 1 to make room for the serve-ranks
-# phase (a step sends ~2.3-2.9 GB a rank: ~3.2-4.3 s over gloo on an H100
-# 80GB HBM3 at 700 W, PERF.md §5)
+# the model-ranks phase: starcoder2-3b at full width over (data 2, model
+# 2), one rank a position, gloo on this card; its decode steps cut from 8
+# and 2 to 4 and 1 to make room for the serve-ranks phase (a step sends
+# ~2.3-2.9 GB a rank: ~3.2-4.3 s over gloo on an H100 80GB HBM3 at 700 W,
+# PERF.md §5), and its depth from 30 to 8 layers for the recurrent-ranks
+# phase (59.8 s at 30 layers, chip_smoke 1,001.9 s with it on that card;
+# 45.1 s at 15, chip_smoke 1,192.3 s on a slower host)
+MODEL_RANKS_LAYERS = 8
 MODEL_RANKS_MESH = (2, 2)
 MODEL_RANKS_PREFILL = (2, 2048)
 MODEL_RANKS_DECODE = {"seq": 4, "head": 1}
@@ -3628,7 +3662,7 @@ def run_model_ranks(np, torch, dev, card):
     from repro_torch.models.ranked import batch_rows
     from repro_torch.tree import Stacked, tree_map
     t_phase = time.perf_counter()
-    cfg = get_config(MODEL_ARCH)
+    cfg = get_config(MODEL_ARCH).scaled(num_layers=MODEL_RANKS_LAYERS)
     nums = {"stripes": stripe_checks(torch, dev, cfg, card)}
     log(f"model-ranks kernel 11 stripes [{card}]: "
         f"{json.dumps(nums['stripes'])}")
@@ -3903,6 +3937,36 @@ def serve_rank_body(comm, cfg, local, batch, want, cfg_b, local_b, toks_b,
     return out
 
 
+def stacked_store(torch, dev, cfg, caches, coords, batch, max_len, dtype,
+                  mesh, ec):
+    """The stacked one-card store over the whole serving cache of ``cfg``
+    (``batch`` rows, ``max_len`` positions, ``dtype``), assembled from
+    the ranks' blocks (``caches``: each rank's ``_bytes_of`` of its cache
+    tree, at ``coords``), protected by ``ec`` over ``mesh``'s data axis:
+    every position's pages and every position's rebuild of data
+    position 0, stacked."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.ecstore import ECConfig, ECStateStore
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import Model
+    from repro_torch.tree import leaves_with_path, path_str, tree_map
+    with dispatch.dry_run():
+        meta = Model(cfg, device="meta")
+    shapes = meta.cache_tree(meta.init_cache(batch, max_len, dtype))
+    cspecs = shd.cache_specs(cfg, shapes, mesh)
+    gathered = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                              device=dev), shapes)
+    flat_specs = {path_str(k): s for k, s in leaves_with_path(cspecs)}
+    for cache, at in zip(caches, coords):
+        for path, leaf in leaves_with_path(gathered):
+            name = path_str(path)
+            view = shd.local_view(leaf, flat_specs[name], mesh)
+            view[at].view(torch.uint8).copy_(torch.from_numpy(cache[name]))
+    store = ECStateStore(mesh, cspecs, ECConfig(**ec))
+    return (store.local_pages(gathered),
+            store.reconstruct(gathered, store.encode(gathered), 0))
+
+
 def _serve_ranks_reference(torch, dev, cfg, batch, card):
     """Part (a)'s one-card model on the seed's weights: its bf16 prefill
     logits, the bound (``MODEL_RANKS_TWIN_MULTIPLE`` times their distance
@@ -3990,14 +4054,12 @@ def run_serve_ranks(np, torch, dev, card):
     from repro_torch.configs import get_config
     from repro_torch.distributed import ranks as rk
     from repro_torch.distributed import sharding as shd
-    from repro_torch.distributed.ecstore import ECConfig, ECStateStore
     from repro_torch.kernels import dispatch
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import Model
     from repro_torch.models.convert import param_tree
     from repro_torch.models.ranked import batch_rows
-    from repro_torch.tree import Stacked, leaves_with_path, path_str, tree_map
+    from repro_torch.tree import Stacked, tree_map
     t_phase = time.perf_counter()
     full = get_config(SERVE_RANKS_ARCH)
     cfg = full.scaled(num_layers=SERVE_RANKS_LAYERS)
@@ -4057,25 +4119,10 @@ def run_serve_ranks(np, torch, dev, card):
     del rank_args, logits, logits_b, dec_b, model, model_b
     _free(torch)
     torch.cuda.ipc_collect()
-    # the stacked one-card store over the cache gathered from the ranks
-    with dispatch.dry_run():
-        meta = Model(cfg, device="meta")
-    shapes = meta.cache_tree(meta.init_cache(B, SERVE_RANKS_MAX_LEN,
-                                             torch.bfloat16))
-    cspecs = shd.cache_specs(cfg, shapes, mesh)
-    gathered = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
-                                              device=dev), shapes)
-    flat_specs = {path_str(k): s for k, s in leaves_with_path(cspecs)}
-    for x in res:
-        for path, leaf in leaves_with_path(gathered):
-            name = path_str(path)
-            view = shd.local_view(leaf, flat_specs[name], mesh)
-            block = view[tuple(x["coords"])]
-            block.view(torch.uint8).copy_(torch.from_numpy(
-                x["cache"][name]))
-    store = ECStateStore(mesh, cspecs, ECConfig(**SERVE_RANKS_EC))
-    stacked_pages = store.local_pages(gathered)
-    stacked_rebuilt = store.reconstruct(gathered, store.encode(gathered), 0)
+    stacked_pages, stacked_rebuilt = stacked_store(
+        torch, dev, cfg, [x["cache"] for x in res],
+        [tuple(x["coords"]) for x in res], B, SERVE_RANKS_MAX_LEN,
+        torch.bfloat16, mesh, SERVE_RANKS_EC)
     launches, counted = None, {}
     for x in res:
         at = tuple(x["coords"])
@@ -4154,8 +4201,10 @@ def run_serve_ranks(np, torch, dev, card):
 # fp32 moments, EC pages, parity and the fold's scaled classes (~17 GiB
 # a rank) and five CUDA contexts outgrew the card's 79.18 GiB while the
 # EC copy was created (out of memory on an H100 80GB HBM3, 700 W); a
-# layer costs ~2.1 GiB over the four ranks
-TRAIN_RANKS_LAYERS = 24
+# layer costs ~2.1 GiB over the four ranks.  Since the recurrent-ranks
+# phase it is 12 (a step takes 15.0-17.4 s a rank at 24 over gloo, and
+# chip_smoke took 1,192.3 s on a slow host with 24)
+TRAIN_RANKS_LAYERS = 12
 TRAIN_RANKS_MESH = (2, 2)
 TRAIN_RANKS_STEPS = 2
 TRAIN_RANKS_EC = dict(k=2, m=1)
@@ -4242,11 +4291,11 @@ def train_rank_body(comm, cfg, want_attn, steps):
                          total_steps=steps)
     seen = {"steps": []}
 
-    def apply(grads, state, params, scale):
+    def apply(grads, state, params, scale, place=None):
         if "attn_err" not in seen:
             seen["attn_err"] = attn_block_errors(rank_attn_grads(params),
                                                  want_attn)
-        return opt.apply(grads, state, params, scale)
+        return opt.apply(grads, state, params, scale, place=place)
 
     sent: dict = {}
     extra = dict(launches={})
@@ -4447,6 +4496,458 @@ def run_train_ranks(np, torch, dev, card):
     return launches, nums
 
 
+# the recurrent-ranks phase: the recurrent layer kinds over (data 2, model
+# 2), four gloo ranks on this card, each holding its blocks of the
+# parent's one-card models (shared, not copied).  (a) recurrentgemma-2b at
+# full width, one "RRW" unit (3 of 26 layers: a rank gathers its whole
+# model, the 655 M-element table twice, at every decode step over gloo);
+# (b) mamba2-370m at full width and depth.  The prefill runs in bf16, the
+# main path; the protected greedy session runs on the fp32 twin of the
+# same weights, whose tokens the one-card fp32 engine's must equal: in
+# bf16 the ranks' and the one card's logits sit a few hundredths apart
+# (their sums round in another order) and near-tied greedy tokens flip
+# (vocabularies of 256,000 and 50,280 random-weight logits); training runs
+# in bf16 with the arch's optimizer, adamw8bit or adafactor
+RECURRENT_RANKS = (("recurrentgemma-2b", 3, "adamw8bit"),
+                   ("mamba2-370m", None, "adafactor"))
+RECURRENT_RANKS_MESH = (2, 2)
+RECURRENT_RANKS_PREFILL = (2, 2048)
+RECURRENT_RANKS_PROMPT = 1
+RECURRENT_RANKS_STEPS = 8
+RECURRENT_RANKS_EC = dict(k=1, m=1, page_size=256)
+RECURRENT_RANKS_TRAIN_STEPS = 2
+RECURRENT_RANKS_SEED = 27
+RECURRENT_RANKS_DEADLINE = 900.0
+
+
+def recurrent_optimizer(name: str):
+    """The optimizer ``launch.train.train_on_rank`` makes for the phase's
+    steps (its defaults: lr 1e-3, the warm-up a fifth of the steps)."""
+    from repro_torch.train.optimizer import make_optimizer
+    steps = RECURRENT_RANKS_TRAIN_STEPS
+    return make_optimizer(name, lr=1e-3, warmup_steps=min(20, steps // 5 + 1),
+                          total_steps=steps)
+
+
+def state_errors(torch, got, want) -> dict:
+    """Two optimizer states (the ranks' replicated one and the one
+    card's) leaf by leaf - the largest |code difference| of an int8 leaf,
+    max |x - y| / max |y| of a float one - and the worst over the leaves
+    of each kind of state leaf, by its first and last path keys ("m/q",
+    "v/s", "f/vr", ...): {"leaves": ..., "worst": ...}."""
+    from repro_torch.tree import leaves_with_path, path_str
+    out = {}
+    for (k, x), (_, y) in zip(leaves_with_path(got), leaves_with_path(want)):
+        if not isinstance(x, torch.Tensor) or x.dim() == 0:
+            continue
+        if x.dtype == torch.int8:        # a whole table's codes: in pieces
+            xf, yf, n = x.reshape(-1), y.reshape(-1), 1 << 26
+            out[path_str(k)] = max(
+                int((xf[i:i + n].short() - yf[i:i + n].short()).abs().max())
+                for i in range(0, xf.numel(), n))
+        else:
+            d = (x.float() - y.float()).abs().max()
+            out[path_str(k)] = float(d / y.float().abs().max().clamp(
+                min=1e-30))
+    worst = {}
+    for k, v in out.items():
+        kind = f"{k.split('/')[0]}/{k.split('/')[-1]}"
+        worst[kind] = max(worst.get(kind, 0), v)
+    return {"leaves": out, "worst": worst}
+
+
+def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent):
+    """Part of a recurrent-ranks rank body: the protected greedy session
+    of ``RankModel(cfg, local)`` (the fp32 twin): the prompt's
+    token-by-token prefill, ``protect_cache`` (RS(1,1) over "data"),
+    ``RECURRENT_RANKS_STEPS`` greedy decode steps, the refresh and the
+    rebuild of data position 0 (each EC call timed, ``_rank_timed``),
+    the faulted control, each ``decode_step``'s bytes by kind."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.distributed.ecstore import ECConfig
+    from repro_torch.models.ranked import RankModel
+    from repro_torch.serve.engine import ServeEngine
+    model = RankModel(cfg, local, comms)
+    step = model.decode_step
+
+    def noted(*args):
+        sent.append({})
+        with recording(lambda n, kind: sent[-1].__setitem__(
+                kind, sent[-1].get(kind, 0) + n)):
+            return step(*args)
+    model.decode_step = noted
+    B, P = toks.shape[0], RECURRENT_RANKS_PROMPT
+    eng = ServeEngine(model, max_len=P + RECURRENT_RANKS_STEPS,
+                      batch_size=B, cache_dtype=torch.float32,
+                      device=toks.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = model.argmax(eng.prefill({"tokens": toks[:, :P]}))
+    mesh = comms.mesh
+    specs = shd.cache_specs(cfg, eng.cache_shapes(), mesh)
+    _rank_timed(torch, ops, "create", eng.protect_cache, mesh, specs,
+                ECConfig(**RECURRENT_RANKS_EC))
+    old = eng.cache_snapshot()
+    t1 = time.perf_counter()
+    res = eng.decode(RECURRENT_RANKS_STEPS, first_tokens=first)
+    torch.cuda.synchronize()
+    out = {"decode_s_per_step": (time.perf_counter() - t1)
+           / RECURRENT_RANKS_STEPS}
+    _rank_timed(torch, ops, "refresh", eng.refresh_cache_parity, old)
+    rebuilt = _rank_timed(torch, ops, "rebuild0", eng.recover_cache_pages, 0)
+    out["serve_s"] = time.perf_counter() - t0
+    live = eng.ec_store.local_pages(eng.cache_tree())
+    out["stale"] = _differ(torch, eng.ec_parity,
+                           eng.ec_store.encode(eng.cache_tree()))
+    faulted = eng.ec_parity.clone()
+    faulted.view(-1)[0] ^= 1
+    out["faulted_differs"] = _differ(torch, eng.ec_store.reconstruct(
+        eng.cache_tree(), faulted, 0), rebuilt)
+    out.update(tokens=np_tokens(torch.cat([first[:, None].cpu(), torch.as_tensor(
+        res.tokens)], dim=1).tolist()), pages=live.cpu().numpy(),
+        rebuilt=rebuilt.cpu().numpy(), cache=_bytes_of(torch, eng.cache_tree()),
+        ec_paths=dict(comms.data.op_paths))
+    return out
+
+
+def recurrent_rank_body(comm, jobs):
+    """Recurrent-ranks phase, one rank: for each job (name, cfg, bf16
+    blocks, fp32 twin blocks, tokens, ``want``) of ``RECURRENT_RANKS``,
+    with the launch counts from 0: the bf16 ``apply`` on the whole batch
+    (its logits block against the one card's, ``want["prefill"]``, its
+    bytes by kind); the fp32 twin's protected greedy session
+    (``_recurrent_serve``); ``launch.train.train_on_rank`` with the
+    job's optimizer on the rank's own copies of its bf16 blocks for
+    ``RECURRENT_RANKS_TRAIN_STEPS`` steps, per step the loss, the norm,
+    the seconds and the bytes by kind, and after step 1 the replicated
+    optimizer state against the one-card state after its step 1
+    (``want["state"]``, ``state_errors``); the dry run's counts of the
+    same prefill, decode step and train step at the rank's coordinates;
+    the launches, ``op_paths`` and the training's peak."""
+    import torch
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.distributed.ranks import rank_comms
+    from repro_torch.kernels import (dispatch, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import train_on_rank
+    from repro_torch.models import layers
+    from repro_torch.models.ranked import RankModel
+    from repro_torch.tree import Stacked, tree_map
+    torch.cuda.set_device(0)
+    comms = rank_comms(comm)
+    layers.set_activation_mesh(comms)
+    out = {"coords": comm.coords}
+    for name, cfg, local, local32, toks, want in jobs:
+        sent = {"prefill": {}, "decode": [], "train": {}}
+        got = {}
+        layers.reset_op_paths()
+        reset_launch_counts()
+        model = RankModel(cfg, local, comms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording(lambda n, kind: sent["prefill"].__setitem__(
+                kind, sent["prefill"].get(kind, 0) + n)):
+            logits = model.apply({"tokens": toks})
+        torch.cuda.synchronize()
+        got["prefill_s"] = time.perf_counter() - t0
+        got["prefill_err"] = float((logits.float() - want["prefill"]
+                                    .float()).abs().max())
+        got["prefill_launches"] = launch_counts()
+        got["prefill_routes"] = dict(layers.OP_PATHS)
+        got["op_paths"] = dict(model.op_paths)
+        del logits, model
+        ops = {}
+        cfg32 = cfg.scaled(dtype="float32")
+        got.update(_recurrent_serve(torch, comms, cfg32, local32, toks, ops,
+                                    sent["decode"]))
+        got["ops"] = ops
+        # training on the rank's own copies of its bf16 blocks
+        own = tree_map(lambda x: Stacked(p.clone() for p in x.parts)
+                       if isinstance(x, Stacked) else x.clone(), local)
+        steps, total = [], {}
+
+        def observe(step, st):
+            torch.cuda.synchronize()
+            steps.append(dict(loss=float(st["metrics"]["loss"]),
+                              grad_norm=float(st["metrics"]["grad_norm"]),
+                              s=time.perf_counter() - steps_t[0],
+                              sent=dict(total)))
+            if step == 0:
+                got["state_err"] = state_errors(
+                    torch, st["opt_state"], want["state"])
+            steps_t[0] = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps_t = [time.perf_counter()]
+        with recording(lambda n, kind: total.__setitem__(
+                kind, total.get(kind, 0) + n)):
+            train_on_rank(comms, cfg, own, steps=RECURRENT_RANKS_TRAIN_STEPS,
+                          batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                          optimizer=recurrent_optimizer(want["optimizer"]),
+                          observe=observe, log=lambda *a: None)
+        torch.cuda.synchronize()
+        del own
+        got["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        got["steps"] = [dict(s, sent={k: v - (steps[i - 1]["sent"].get(k, 0)
+                                              if i else 0)
+                                      for k, v in s["sent"].items()})
+                        for i, s in enumerate(steps)]
+        got["launches"] = launch_counts()
+        got["train_op_paths"] = dict(layers.OP_PATHS)
+        B, S = toks.shape
+        P = RECURRENT_RANKS_PROMPT + RECURRENT_RANKS_STEPS
+        mesh, at = comm.mesh, comm.coords
+        counts = {   # at 1 and 2 repeats of the unit, extrapolated (exact)
+            "prefill": (cfg, lambda c: dryrun.count_rank_forward(
+                c, dryrun.ShapeSpec("x", "prefill", S, B), mesh, at)),
+            "decode": (cfg32, lambda c: dryrun.count_rank_forward(
+                c, dryrun.ShapeSpec("x", "decode", P, B), mesh, at)),
+            "train": (cfg, lambda c: dryrun.count_rank_train(
+                c, dryrun.ShapeSpec("x", "train", TRAIN_SEQ, TRAIN_BATCH),
+                mesh, at, optimizer=want["optimizer"]))}
+        with dispatch.dry_run():
+            got["counted"] = {
+                k: {kind: n for kind, n in dryrun.count_model_cell(
+                    c, None, mesh, count=fn)["collectives"].items() if n}
+                for k, (c, fn) in counts.items()}
+        got["sent"] = sent
+        out[name] = got
+        torch.cuda.empty_cache()
+    layers.set_activation_mesh(None)
+    return out
+
+
+def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card):
+    """One job's one-card side: the model at full width (its depth cut to
+    ``layers_cut``), its bf16 prefill logits and their bound
+    (``MODEL_RANKS_TWIN_MULTIPLE`` times their distance from the fp32
+    twin's); the fp32 twin's greedy session's tokens; one bf16 step of
+    ``opt_name`` on a copy of the weights (loss, norm, the state after
+    it) and the same step of an fp32 twin, from which the norm's bound
+    and each kind of state leaf's come (``TWIN_MULTIPLE`` times the gap,
+    the worst over the kind's leaves; for adamw8bit's int8 codes at
+    least 1: two bf16 steps that round their sums in another order move
+    codes by more than one, 5 at the reduced config on the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.models.convert import param_tree
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.train_step import make_train_step
+    full = get_config(arch)
+    cfg = full.scaled(num_layers=layers_cut or full.num_layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(RECURRENT_RANKS_SEED)
+    model = Model(cfg, device=dev).init(gen)
+    B, S = RECURRENT_RANKS_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=dev)
+    logits = model.apply({"tokens": toks})
+    twin = fp32_twin(torch, model)
+    bound = MODEL_RANKS_TWIN_MULTIPLE * logit_err(
+        torch, logits, twin.apply({"tokens": toks}))
+    _free(torch)
+    P = RECURRENT_RANKS_PROMPT
+    eng = ServeEngine(twin, max_len=P + RECURRENT_RANKS_STEPS, batch_size=B,
+                      cache_dtype=torch.float32, device=dev)
+    first = twin.argmax(eng.prefill({"tokens": toks[:, :P]}))
+    tokens = np_tokens(torch.cat([first[:, None].cpu(), torch.as_tensor(
+        eng.decode(RECURRENT_RANKS_STEPS, first_tokens=first).tokens)],
+        dim=1).tolist())
+    del eng
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH, seed=0),
+                        device=dev).batch(0)
+    steps = {}
+    for dtype in ("bfloat16", "float32"):
+        trainee = Model(cfg.scaled(dtype=dtype), device=dev)
+        trainee.load_state_dict(model.state_dict())
+        opt = recurrent_optimizer(opt_name)
+        params = param_tree(trainee)
+        state = opt.init(params)
+        _, state, m = make_train_step(trainee, opt)(params, state, batch)
+        steps[dtype] = dict(loss=float(m["loss"]),
+                            grad_norm=float(m["grad_norm"]), state=state)
+        del trainee, params
+        _free(torch)
+    one, tw = steps["bfloat16"], steps["float32"]
+    bounds = dict(loss=TRAIN_LOSS_TOL, norm=TWIN_MULTIPLE * abs(
+        one["grad_norm"] - tw["grad_norm"]) / tw["grad_norm"], state={
+            k: max(1, TWIN_MULTIPLE * v) if k.endswith("/q")
+            else TWIN_MULTIPLE * v for k, v in state_errors(
+                torch, one["state"], tw["state"])["worst"].items()})
+    del tw["state"]
+    log(f"recurrent-ranks [{card}] {arch} one-card ({cfg.num_layers} of "
+        f"{full.num_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}): prefill logit bound {bound}; {opt_name} step 1 "
+        f"bf16 loss {one['loss']} norm {one['grad_norm']}, fp32 twin loss "
+        f"{tw['loss']} norm {tw['grad_norm']}; bounds {json.dumps(bounds)}")
+    return dict(cfg=cfg, model=model, twin=twin, toks=toks, logits=logits,
+                bound=bound, tokens=tokens, one=one, bounds=bounds)
+
+
+def run_recurrent_ranks(np, torch, dev, card):
+    """The recurrent layer kinds across ranks (module notes, phase 21):
+    four gloo ranks over (data 2, model 2), each a ``RankModel`` of
+    recurrentgemma-2b ("RRW") and of mamba2-370m on its blocks of the
+    parent's one-card models.  Per job: each rank's bf16 prefill logits
+    block within the twin-based bound; the protected greedy session's
+    tokens equal to the one-card fp32 engine's, its pages equal to the
+    stacked one-card store's over the cache gathered from the ranks, the
+    parity a fresh encode, the rebuilt position 0 its live pages and a
+    flipped parity byte changing the rebuild; step 1's loss and norm of
+    the job's optimizer within train-ranks' bounds of the one-card step,
+    the replicated state against the one card's within twice the one
+    card's bf16 distance from its fp32 twin's, by kind of state leaf
+    (adamw8bit's codes, at least within 1, and scales; adafactor's
+    factors), the worst over the leaves; every
+    prefill's, decode step's and training step 2's bytes by kind equal
+    to the dry run's count; kernel 11 on every attention layer, kernel 1
+    in the EC calls, the card's paths only.  Returns the ranks'
+    launches, summed, and the phase's numbers."""
+    from repro_torch.distributed import ranks as rk
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import param_tree
+    from repro_torch.models.ranked import batch_rows
+    from repro_torch.tree import Stacked, tree_map
+    t_phase = time.perf_counter()
+    refs = {arch: _recurrent_reference(torch, dev, arch, cut, opt, card)
+            for arch, cut, opt in RECURRENT_RANKS}
+    mesh = make_mesh(RECURRENT_RANKS_MESH, ("data", "model"))
+    A, M = RECURRENT_RANKS_MESH
+    B = RECURRENT_RANKS_PREFILL[0]
+
+    def blocks(m, coords):
+        params = tree_map(lambda x: Stacked(p.detach() for p in x.parts)
+                          if isinstance(x, Stacked) else x.detach(),
+                          param_tree(m))
+        specs = shd.param_specs(m.cfg, params, mesh)
+        return tree_map(lambda leaf, spec: shd.local_block(
+            leaf, spec, mesh, coords), params, specs)
+    rank_args = []
+    for r in range(mesh.size):
+        a, m = mesh.coords(r)
+        r0, r1 = batch_rows(B, A, a)
+        jobs = []
+        for arch, _, opt in RECURRENT_RANKS:
+            ref = refs[arch]
+            Vl = ref["cfg"].padded_vocab // M
+            jobs.append((arch, ref["cfg"], blocks(ref["model"], (a, m)),
+                         blocks(ref["twin"], (a, m)), ref["toks"], {
+                             "prefill": ref["logits"][r0:r1, :,
+                                                      m * Vl:(m + 1) * Vl],
+                             "state": ref["one"]["state"],
+                             "optimizer": opt}))
+        rank_args.append((jobs,))
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="recurrent_ranks_") as tmp:
+            res = rk.launch(recurrent_rank_body, mesh, rank_args,
+                            init_file=os.path.join(tmp, "init"),
+                            timeout=RECURRENT_RANKS_DEADLINE)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    nums = {"spawn_s": time.perf_counter() - t0, "jobs": {}}
+    del rank_args
+    launches = None
+    for arch, _, opt in RECURRENT_RANKS:
+        ref = refs.pop(arch)
+        cfg, bounds = ref["cfg"], ref["bounds"]
+        attention = sum(cfg.layers.count(k) for k in "AW")
+        P = RECURRENT_RANKS_PROMPT + RECURRENT_RANKS_STEPS
+        stacked, _ = stacked_store(
+            torch, dev, cfg.scaled(dtype="float32"),
+            [x[arch]["cache"] for x in res],
+            [tuple(x["coords"]) for x in res], B, P, torch.float32, mesh,
+            RECURRENT_RANKS_EC)
+        job = {"one_card": {k: ref["one"][k] for k in ("loss", "grad_norm")},
+               "bounds": bounds, "bound_prefill": ref["bound"],
+               "one_card_tokens": ref["tokens"], "ranks": []}
+        for x in res:
+            got, at = x[arch], tuple(x["coords"])
+            s1 = got["steps"][0]
+            got.update(
+                step1_loss_err=abs(s1["loss"] - ref["one"]["loss"]),
+                step1_grad_norm_rel_err=abs(
+                    s1["grad_norm"] - ref["one"]["grad_norm"])
+                / ref["one"]["grad_norm"],
+                pages_diff=_differ(torch, torch.from_numpy(got["pages"])
+                                   .to(dev), stacked[at]),
+                rebuilt_vs_live=_differ(torch, torch.from_numpy(
+                    got["rebuilt"]).to(dev), stacked[0, at[1]]))
+            shown = {k: got[k] for k in got
+                     if k not in ("pages", "rebuilt", "cache", "state_err")}
+            shown["worst_state_err"] = got["state_err"]["worst"]
+            log(f"recurrent-ranks [{card}] {arch} rank at {at}: "
+                f"{json.dumps(shown)}")
+            assert got["prefill_err"] <= ref["bound"], (
+                at, got["prefill_err"], ref["bound"])
+            assert got["tokens"] == ref["tokens"], (at, got["tokens"],
+                                                    ref["tokens"])
+            assert got["pages_diff"] == 0 and got["rebuilt_vs_live"] == 0, at
+            assert got["stale"] == 0 and got["faulted_differs"] > 0, at
+            assert got["step1_loss_err"] <= bounds["loss"], (
+                at, got["step1_loss_err"])
+            assert got["step1_grad_norm_rel_err"] <= bounds["norm"], (
+                at, got["step1_grad_norm_rel_err"], bounds["norm"])
+            for k, v in got["state_err"]["worst"].items():
+                assert v <= bounds["state"][k], (at, k, v, bounds["state"][k])
+            assert got["sent"]["prefill"] == got["counted"]["prefill"], at
+            assert all(s == got["counted"]["decode"]
+                       for s in got["sent"]["decode"]), (
+                at, got["sent"]["decode"][-1], got["counted"]["decode"])
+            assert got["steps"][1]["sent"] == got["counted"]["train"], (
+                at, got["steps"][1]["sent"], got["counted"]["train"])
+            n = got["launches"]
+            assert got["prefill_launches"]["flash_attention"] == attention
+            assert n["flash_attention"] == attention * (
+                1 + 2 * RECURRENT_RANKS_TRAIN_STEPS), n
+            assert n["gf_matmul_batched"] > 0, n
+            assert not any(k.startswith("masked")
+                           for k in got["prefill_routes"])
+            if attention:
+                assert got["op_paths"] == {"flash_attention": "cuda-kernel"}
+            else:
+                assert got["op_paths"] == {}, got["op_paths"]
+            assert set(got["ec_paths"].values()) == {"cuda-kernel"}
+            launches = n if launches is None else {k: launches[k] + n[k]
+                                                   for k in launches}
+            job["ranks"].append({k: shown[k] for k in (
+                "prefill_s", "decode_s_per_step", "serve_s",
+                "train_peak_gb", "steps", "prefill_err", "step1_loss_err",
+                "step1_grad_norm_rel_err", "worst_state_err", "ops")}
+                | {"coords": at, "sent_prefill": got["sent"]["prefill"],
+                   "sent_decode_step": got["sent"]["decode"][-1],
+                   "kernel11": n["flash_attention"],
+                   "kernel1": n["gf_matmul_batched"]})
+        nums["jobs"][arch] = job
+        log(f"recurrent-ranks [{card}] {arch}: prefill s a rank "
+            f"{[round(r['prefill_s'], 3) for r in job['ranks']]}, decode s a "
+            f"step {[round(r['decode_s_per_step'], 3) for r in job['ranks']]}"
+            f", train s a step (step 2) "
+            f"{[round(r['steps'][1]['s'], 3) for r in job['ranks']]}, bytes "
+            f"sent by kind (rank at (0, 0): prefill, a decode step, train "
+            f"step 2) {json.dumps([job['ranks'][0]['sent_prefill'], job['ranks'][0]['sent_decode_step'], job['ranks'][0]['steps'][1]['sent']])}"
+            f", kernel-11 / kernel-1 launches a rank "
+            f"{[(r['kernel11'], r['kernel1']) for r in job['ranks']]}")
+        del ref, stacked
+    del refs, res
+    _free(torch)
+    torch.cuda.ipc_collect()
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase recurrent-ranks: {nums['phase_s']:.1f} s")
+    return launches, nums
+
+
 def run_dryrun(np, torch, dev, card):
     """The dry run against the card.  ``launch.dryrun.run_cell`` counts
     starcoder2-3b ``train_4k`` cut to the train phase's B 2 x S 2,048
@@ -4461,14 +4962,14 @@ def run_dryrun(np, torch, dev, card):
     TFLOP/s) are printed, with the EC cells' collective bytes on the
     16 x 16 mesh beside the reference chain docstring's per-link 80·S and
     18·S pages; last, ``python -m repro_torch.launch.dryrun --mesh single
-    --shape S`` for each of ``CLI_SHAPES`` (the ten archs' cells; one
-    process a shape, side by side), run after every timed phase so that
-    its CPU load falls on none, must record each ``ok`` or ``skipped``
-    with its reason.
+    --arch A,... --shape`` of ``CLI_SHAPES`` over the ten archs (one
+    process a group of ``CLI_GROUPS``, side by side), run after every
+    timed phase so that its CPU load falls on none, must record each
+    cell ``ok`` or ``skipped`` with its reason.
     Returns the phase's launches (the card step) and its numbers."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ARCH_NAMES, get_config
     from repro_torch.kernels import (dispatch, launch_counts,
                                      reset_launch_counts)
     from repro_torch.launch import dryrun
@@ -4542,13 +5043,15 @@ def run_dryrun(np, torch, dev, card):
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="dryrun_") as out:
-        # one process a shape, side by side: nothing else runs now
+        # one single-threaded process a group of archs, side by side:
+        # nothing else runs now
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
         procs = [subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
-             "single", "--shape", shape_name, "--out", out],
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for shape_name in CLI_SHAPES]
+             "single", "--arch", group, "--shape", ",".join(CLI_SHAPES),
+             "--out", out], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for group in CLI_GROUPS]
         try:
             for proc in procs:
                 stdout, stderr = proc.communicate(timeout=300)
@@ -4560,7 +5063,7 @@ def run_dryrun(np, torch, dev, card):
                     proc.communicate()
         records = [json.loads(Path(out, f).read_text())
                    for f in sorted(os.listdir(out))]
-    assert len(records) == 10 * len(CLI_SHAPES), len(records)
+    assert len(records) == len(ARCH_NAMES) * len(CLI_SHAPES), len(records)
     status = {}
     for r in records:
         assert r["status"] in ("ok", "skipped"), r
@@ -4669,6 +5172,9 @@ def main() -> int:
     by_phase["train_ranks"], train_ranks = run_train_ranks(np, torch, dev,
                                                            card)
     log(f"train-ranks phase [{card}]:", json.dumps(train_ranks))
+    by_phase["recurrent_ranks"], recurrent_ranks = run_recurrent_ranks(
+        np, torch, dev, card)
+    log(f"recurrent-ranks phase [{card}]:", json.dumps(recurrent_ranks))
     stripe = model_ranks["stripes"]["timed"]
     for row in rows:
         if row["name"] == "flash_attention":

@@ -287,6 +287,19 @@ def local_block(leaf, spec: P, mesh, coords):
     return view[at]
 
 
+def whole_leaf(t: torch.Tensor, spec: P, comms) -> torch.Tensor:
+    """The whole tensor of which ``t`` is a rank's block by ``spec``:
+    along each dimension, the blocks of its axes all-gathered over the
+    rank's communicators (``comms``, a ``ranks.AxisComms``), the minor
+    axis first.  Every rank of the mesh must call it."""
+    cols = {c.axis: c for c in comms.columns()}
+    for i, entry in enumerate(spec):
+        for axis in reversed(entry_axes(entry)):
+            g = cols[axis].all_gather(t.contiguous()).movedim(0, i)
+            t = g.reshape(*t.shape[:i], -1, *t.shape[i + 1:])
+    return t
+
+
 def writes_block(spec: P, mesh, coords) -> bool:
     """Whether the position at ``coords`` is the one that writes its block
     of a leaf laid out by ``spec`` in place: a block is shared by the

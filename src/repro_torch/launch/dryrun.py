@@ -17,23 +17,25 @@ argument bytes each device of the mesh holds under
   counted at full depth.  The peak's place in a training step moves with
   depth, so its extrapolation is an estimate (``peak_extrapolated``);
   ``count_cell`` counts one depth whole.
-* The prefill and decode cells of the archs whose layers are all
-  attention with a dense MLP (kinds "A" and "W": starcoder2-3b,
+* The prefill, decode and train cells of the archs whose layers the
+  rank path runs (kinds "A", "W", "R" and "S": starcoder2-3b,
   phi4-mini-3.8b, mistral-large-123b, qwen2-vl-7b with its M-RoPE and
-  embeddings input, musicgen-medium with its embeddings input) on a
-  (data, model) or (pod, data, model) mesh of more than one position
-  count one rank's forward (``models/ranked.py``'s ``RankModel`` on the
-  position's blocks, its moves counted by ``ranks.counting_comms``), at
-  every model position (their attention stripes differ) and every (pod,
+  embeddings input, musicgen-medium with its embeddings input,
+  recurrentgemma-2b and mamba2-370m) on a (data, model) or (pod, data,
+  model) mesh of more than one position count one rank's forward
+  (``models/ranked.py``'s ``RankModel`` on the position's blocks, its
+  moves counted by ``ranks.counting_comms``), or one rank's train step
+  with any of the three optimizers (``count_rank_train``; adamw8bit, the
+  CLI's default as the reference's, and adafactor add their statistics'
+  all-reduces and adamw8bit its codes' all-gathers), at every model
+  position (their attention stripes and heads differ) and every (pod,
   data) position whose batch rows differ: per device, the busiest
   position's FLOPs, bytes, peak and collective bytes by kind (``count:
   "rank"``); the totals sum the positions; ``repeated_products`` names
   the matrix products every model position computes alike and their
-  FLOPs on one position.  Their train cells do too, with ``optimizer=
-  "adamw"``: one rank's train step (``count_rank_train``).  A batch at
-  or above its axes' size that they do not divide keeps the even split.
-* Every other model cell (training with adamw8bit, the CLI's default as
-  the reference's, or adafactor; the other archs; the 1 x 1 mesh) runs
+  FLOPs on one position.  A batch at or above its axes' size that they
+  do not divide keeps the even split.
+* Every other model cell (the MoE and MLA archs, the 1 x 1 mesh) runs
   its positions as one program on one card: FLOPs and bytes per device
   are the program's divided by the devices (an even split, ``count:
   "even split"``), the peak is given for one card running the whole
@@ -53,9 +55,10 @@ Special pseudo-arch ``ecstore``: the MemEC parity delta update (``update``,
 ``update_chain``) and the decode-from-k reconstruction (``reconstruct``)
 over the mesh, the paper's own technique as a cell.
 
-Run: ``python -m repro_torch.launch.dryrun [--arch A] [--shape S] [--mesh
-single|multi|both] [--optimizer adamw8bit] [--remat full] [--attn ...]
-[--kv ...] [--tag T] [--out DIR]``: one JSON file a cell in ``--out``.
+Run: ``python -m repro_torch.launch.dryrun [--arch A[,A...]] [--shape
+S[,S...]] [--mesh single|multi|both] [--optimizer adamw8bit] [--remat
+full] [--attn ...] [--kv ...] [--tag T] [--out DIR]``: one JSON file a
+cell in ``--out``.
 """
 from __future__ import annotations
 
@@ -83,7 +86,7 @@ from ..models.convert import param_tree
 from ..models.ranked import (MESH_AXES, RankModel, batch_rows,
                              check_config)
 from ..tree import Stacked, leaves, tree_map
-from ..train.optimizer import make_optimizer
+from ..train.optimizer import Blocks, make_optimizer
 from ..train.train_step import make_rank_train_step, make_train_step
 from . import cost_analysis as ca
 from .mesh import Mesh, make_host_mesh, make_production_mesh
@@ -96,9 +99,9 @@ NVLINK_BW = 450e9          # bytes/s each way per card, within one NVLink domain
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 NO_SPMD = ("no SPMD collectives: the mesh's positions run as one program "
-           "on one card, its counts split evenly (adamw8bit and adafactor "
-           "across ranks, ROADMAP.md Queue 1 item 13, and the other archs' "
-           "layers on ranks, items 7-10, are not ported yet)")
+           "on one card, its counts split evenly (MoE experts across "
+           "ranks, ROADMAP.md Queue 1 item 7, and MLA, item 8, are not "
+           "ported yet)")
 RANK_NOTE = ("one rank's forward or train step, the busiest position's: "
              "the bytes it sends by kind (an all-gather or a reduce-scatter "
              "(A - 1) blocks, an all-reduce 2(A - 1)/A of its bytes, the "
@@ -336,8 +339,6 @@ def rank_counted(cfg, shape: ShapeSpec, mesh: Mesh,
     notes)."""
     if mesh.size == 1 or tuple(mesh.axis_names) not in MESH_AXES:
         return False
-    if shape.kind == "train" and optimizer != "adamw":
-        return False
     try:
         batch_rows(shape.global_batch, mesh.shape["data"], 0,
                    mesh.shape.get("pod", 1))
@@ -389,7 +390,7 @@ def count_rank_train(cfg, shape: ShapeSpec, mesh: Mesh, coords,
     model = RankModel(cfg, local, comms)
     params = model.params
     opt = make_optimizer(optimizer, total_steps=10000)
-    opt_state = opt.init(params)
+    opt_state = opt.init(params, place=Blocks(model.specs, comms))
     batch = make_inputs(cfg, shape, "meta")
     live += _tensors(opt_state) + list(batch.values())
     ec_ckpt = None
@@ -611,9 +612,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/dryrun")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
+    archs = args.arch.split(",") if args.arch else None
+    shapes = args.shape.split(",") if args.shape else None
     cells = [(a, s) for a, s in all_cells()
-             if (not args.arch or a == args.arch)
-             and (not args.shape or s == args.shape)]
+             if (not archs or a in archs) and (not shapes or s in shapes)]
     meshes = {"single": ["single"], "multi": ["multi"],
               "both": ["single", "multi"]}[args.mesh]
     failed, t0 = 0, time.perf_counter()

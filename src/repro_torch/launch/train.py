@@ -50,8 +50,9 @@ from ..models import Model, layers
 from ..models.convert import param_tree
 from ..models.ranked import RankModel, init_blocks
 from ..train import checkpoint as ckpt
-from ..train.optimizer import Optimizer, make_optimizer
+from ..train.optimizer import OPTIMIZERS, Blocks, Optimizer, make_optimizer
 from ..train.train_step import make_rank_train_step, make_train_step
+from .dryrun import _opt_specs
 from .mesh import make_host_mesh, make_production_mesh
 
 
@@ -62,7 +63,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--optimizer", default="adamw", choices=OPTIMIZERS)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ec", action="store_true",
                     help="maintain an EC in-memory checkpoint")
@@ -171,6 +172,16 @@ def _main_rank(args, mesh):
         dist.destroy_process_group()
 
 
+def state_specs_of(opt: Optimizer, model: RankModel) -> dict:
+    """The partition specs of ``opt``'s state of ``model``'s parameters:
+    the reference's ``_opt_specs`` of the whole state's shapes (AdamW's
+    moments as their parameters, adamw8bit's and adafactor's state
+    replicated)."""
+    with dispatch.dry_run():
+        whole = opt.init(param_tree(Model(model.cfg, device="meta")))
+    return _opt_specs(whole, model.specs, model.mesh)
+
+
 def train_on_rank(comm, cfg, params=None, *, steps: int = 100,
                   batch: int = 8, seq: int = 128, optimizer="adamw",
                   lr: float = 1e-3, ec: bool = False, ec_k: int = 2,
@@ -182,10 +193,12 @@ def train_on_rank(comm, cfg, params=None, *, steps: int = 100,
     ``ranks.RankComm`` (``ranks.launch`` passes it) or its
     ``ranks.AxisComms``; ``params``: the rank's own blocks (trained in
     place), or None to draw the seed's (``ranked.init_blocks``) on
-    ``device``; ``optimizer``: a name or an ``Optimizer`` (AdamW on a
-    mesh larger than 1 x 1).  The flags are ``main``'s; ``ckpt_dir``
+    ``device``; ``optimizer``: a name or an ``Optimizer`` (adamw,
+    adamw8bit or adafactor, its state placed as the reference's
+    ``_opt_specs`` places it).  The flags are ``main``'s; ``ckpt_dir``
     resumes from and writes disk checkpoints in the reference's format
-    (whole leaves), restored before the EC copy is created.
+    (whole leaves; a replicated state written once), restored before the
+    EC copy is created.
     ``observe(step, state)``, if given, is called after each step with
     {"model", "params", "opt_state", "ec", "metrics"}."""
     comms = comm if isinstance(comm, ranks.AxisComms) else \
@@ -205,15 +218,13 @@ def train_on_rank(comm, cfg, params=None, *, steps: int = 100,
             make_optimizer(optimizer, lr=lr,
                            warmup_steps=min(20, steps // 5 + 1),
                            total_steps=steps)
-        opt_state = opt.init(params)
+        opt_state = opt.init(params, place=Blocks(model.specs, comms))
         data = SyntheticLM(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
             seed=seed,
             embed_dim=cfg.d_model if cfg.input_mode == "embeddings" else 0,
             mrope=cfg.rope_kind == "mrope"), device=dev)
-        state_specs = {"p": model.specs,
-                       "o": {"m": model.specs, "v": model.specs,
-                             "count": shd.P()}}
+        state_specs = {"p": model.specs, "o": state_specs_of(opt, model)}
         start_step = 0
         if ckpt_dir:
             last = ckpt.latest_step(ckpt_dir)

@@ -84,25 +84,14 @@ def segsum(a_chunk: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, diff, -math.inf)
 
 
-def mamba2_forward(p: Mamba2, x, cfg: ModelConfig):
-    """x: (B, S, d) -> (B, S, d); the full-sequence SSD."""
-    B, S, _ = x.shape
-    di, H, P, N, G = _dims(cfg)
-    Q = min(cfg.ssm_chunk, S)
-    if S % Q:
-        raise ValueError(f"seq {S} not divisible by ssd chunk {Q}")
+def ssd(xs, Bm, Cm, dt, A, Q: int):
+    """The SSD chunked scan: xs (B, S, H, P), Bm and Cm (B, S, H, N), dt
+    (B, S, H) after the softplus, A (H,) the (negative) decay rates, Q
+    the chunk -> y (B, S, H, P) in fp32, the intra-chunk term plus the
+    carried states' (without the skip term D)."""
+    B, S, H, P = xs.shape
+    N = Bm.shape[-1]
     nc = S // Q
-    proj = x @ p.in_proj
-    z, xBC, dt = _split_proj(proj, cfg)
-    xBC = _causal_conv(xBC, p.conv_w, p.conv_b)
-    xs = xBC[..., :di].reshape(B, S, H, P)
-    rep = H // G
-    Bm = xBC[..., di: di + G * N].reshape(B, S, G, N) \
-        .repeat_interleave(rep, dim=2)                          # (B,S,H,N)
-    Cm = xBC[..., di + G * N:].reshape(B, S, G, N) \
-        .repeat_interleave(rep, dim=2)
-    dt = nn.functional.softplus(dt.float() + p.dt_bias)         # (B,S,H)
-    A = -torch.exp(p.A_log)
     dA = dt * A                                                  # log decay
 
     def chunk(t):
@@ -125,7 +114,7 @@ def mamba2_forward(p: Mamba2, x, cfg: ModelConfig):
     states = torch.einsum("bchk,bckhn,bckhp->bchpn", decay_end,
                           B_c.float(), xdt)
     chunk_decay = torch.exp(torch.sum(dAh, dim=-1))               # (B,nc,H)
-    carry = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    carry = torch.zeros((B, H, P, N), dtype=torch.float32, device=xs.device)
     prev = []
     for c in range(nc):                      # the state entering chunk c
         prev.append(carry)
@@ -135,7 +124,27 @@ def mamba2_forward(p: Mamba2, x, cfg: ModelConfig):
     decay_in = torch.exp(torch.cumsum(dAh, dim=-1))              # (B,nc,H,Q)
     y_off = torch.einsum("bcqhn,bchpn,bchq->bcqhp", C_c.float(),
                          prev_states, decay_in)
-    y = (y_diag + y_off).reshape(B, S, H, P)
+    return (y_diag + y_off).reshape(B, S, H, P)
+
+
+def mamba2_forward(p: Mamba2, x, cfg: ModelConfig):
+    """x: (B, S, d) -> (B, S, d); the full-sequence SSD."""
+    B, S, _ = x.shape
+    di, H, P, N, G = _dims(cfg)
+    Q = min(cfg.ssm_chunk, S)
+    if S % Q:
+        raise ValueError(f"seq {S} not divisible by ssd chunk {Q}")
+    proj = x @ p.in_proj
+    z, xBC, dt = _split_proj(proj, cfg)
+    xBC = _causal_conv(xBC, p.conv_w, p.conv_b)
+    xs = xBC[..., :di].reshape(B, S, H, P)
+    rep = H // G
+    Bm = xBC[..., di: di + G * N].reshape(B, S, G, N) \
+        .repeat_interleave(rep, dim=2)                          # (B,S,H,N)
+    Cm = xBC[..., di + G * N:].reshape(B, S, G, N) \
+        .repeat_interleave(rep, dim=2)
+    dt = nn.functional.softplus(dt.float() + p.dt_bias)         # (B,S,H)
+    y = ssd(xs, Bm, Cm, dt, -torch.exp(p.A_log), Q)
     y = y + xs.float() * p.D[None, None, :, None]
     y = y.reshape(B, S, di)
     y = rmsnorm(p.out_norm.scale,
@@ -150,6 +159,18 @@ def mamba2_init_cache(cfg: ModelConfig, batch: int, device,
                                 dtype=dtype, device=device),
             "ssm": torch.zeros((batch, H, P, N), dtype=torch.float32,
                                device=device)}
+
+
+def ssm_step(ssm, xs, Bm, Cm, dt, A, D):
+    """One token of the SSM: the state ``ssm`` (B, H, P, N) decayed and
+    updated by xs (B, H, P), Bm (B, H, N) and dt (B, H) after the
+    softplus -> (y (B, H, P) in fp32 with the skip term D, the new
+    state)."""
+    da = torch.exp(dt * A)
+    upd = torch.einsum("bhn,bhp,bh->bhpn", Bm.float(), xs.float(), dt)
+    ssm = ssm * da[..., None, None] + upd
+    y = torch.einsum("bhn,bhpn->bhp", Cm.float(), ssm)
+    return y + xs.float() * D[None, :, None], ssm
 
 
 def mamba2_step(p: Mamba2, x, cfg: ModelConfig, cache: dict):
@@ -169,12 +190,7 @@ def mamba2_step(p: Mamba2, x, cfg: ModelConfig, cache: dict):
     Cm = xBC[..., di + G * N:].reshape(B, G, N).repeat_interleave(
         H // G, dim=1)
     dt = nn.functional.softplus(dt.float() + p.dt_bias)         # (B,H)
-    A = -torch.exp(p.A_log)
-    da = torch.exp(dt * A)
-    upd = torch.einsum("bhn,bhp,bh->bhpn", Bm.float(), xs.float(), dt)
-    ssm = cache["ssm"] * da[..., None, None] + upd
-    y = torch.einsum("bhn,bhpn->bhp", Cm.float(), ssm)
-    y = y + xs.float() * p.D[None, :, None]
+    y, ssm = ssm_step(cache["ssm"], xs, Bm, Cm, dt, -torch.exp(p.A_log), p.D)
     y = y.reshape(B, di)
     y = rmsnorm(p.out_norm.scale,
                 (y * nn.functional.silu(z.float())).to(x.dtype))

@@ -1,6 +1,6 @@
-"""A model of attention layers on one rank of a (data, model) or (pod,
-data, model) mesh: its forward, its decode, and its backward for
-training.
+"""A model of attention, RG-LRU and Mamba-2 layers on one rank of a
+(data, model) or (pod, data, model) mesh: its forward, its decode, and
+its backward for training.
 
 The reference runs its model over a mesh inside one compiled program:
 ``set_activation_mesh(mesh)`` (``src/repro/models/layers.py:36-79``)
@@ -56,6 +56,32 @@ positions, rank (a, m):
   activation dtype;
 * **MLP**: w_gate and w_up column-parallel, w_down row-parallel, an
   all-reduce after it (activation dtype);
+* **RG-LRU** (kind "R"): the rank owns channels [m·d/M, (m+1)·d/M):
+  ``w_x`` and ``w_gate``'s columns (FSDP over "data"), the causal
+  conv's taps and bias, ``ba``, ``bi``, ``lam``, and the fp32 log-step
+  scan (``rglru.linear_scan``) on them.  ``wa`` and ``wi`` are
+  ``(None, model)``: the rank's gate columns read the whole conv output
+  ``xb``, so ``xb`` is all-gathered over the model column (the gradient
+  of each position's channels summed back over the column);
+  ``w_out``'s rows of the channels, then an all-reduce.  Decode keeps
+  the rank's "h" (B, d/M) and "conv" (B, K - 1, d/M) blocks, which
+  ``cache_specs`` places there;
+* **Mamba-2** (kind "S"): the rank owns heads [m·H/M, (m+1)·H/M) (H % M
+  must be 0, else a ``ValueError``).  ``in_proj``'s columns are packed
+  [z | x | B | C | dt], so its column block does not line up with the
+  heads: the whole ``in_proj``, ``conv_w`` and ``conv_b`` are gathered
+  over the model column too, and the rank computes its heads' z, x and
+  dt columns and the whole (shared) B and C (those products every model
+  position repeats).  The SSD chunked scan runs on the heads;
+  ``out_norm``, an RMSNorm over the whole d_inner, all-reduces the fp32
+  sum of squares over the model column (its gradient summed back), its
+  scale block the heads' channels; ``out_proj``'s rows of the heads,
+  then an all-reduce.  Decode keeps the heads' "ssm" block; the packed
+  "conv" state's channel block (``cache_specs``: contiguous over its
+  x | B | C channels) does not line up with the heads either, so a step
+  gathers it over the model column, computes the token's whole x | B |
+  C input (every model position alike) and writes back the rank's own
+  block;
 * **embed / logits**: vocab over "model": a masked lookup in the rank's
   rows of the table, then an all-reduce; the logits stay the rank's
   vocab block ``(B_rows, S, V/M)``, the reference's ``shard_act(logits,
@@ -104,10 +130,12 @@ Every result is the one-device model's up to the order of sums.  The
 arithmetic a rank shares with ``Model`` is ``layers.py``'s own (RoPE and
 M-RoPE, the embedding lookup, the SwiGLU MLP, the unembedding, kernel
 11's route, the masked and local attention, int8 quantization, the
-unsharded decode attention); what is this module's is the split: which
-rows, heads and slices a rank computes and how blocks move.  Layer kinds
-other than "A" and "W" raise on a mesh larger than 1 x 1, naming the
-ROADMAP item that will port them.  ``READ_FIELDS`` and ``KIND_FIELDS``
+unsharded decode attention) and ``rglru.py``'s and ``mamba2.py``'s (the
+conv, the gates, the scan, the SSD and its one-token step); what is
+this module's is the split: which rows, heads, channels and slices a
+rank computes and how blocks move.  MLA and MoE layers ("L", "M") raise
+on a mesh larger than 1 x 1, naming the ROADMAP item that will port
+them.  ``READ_FIELDS`` and ``KIND_FIELDS``
 say, for every ``ModelConfig`` field, whether the rank path reads it or
 leaves it to a refused layer kind; a field in neither fails the rank
 tests, so a new option cannot go unread here.  On a 1 x 1 mesh
@@ -116,8 +144,9 @@ tests, so a new option cannot go unread here.  On a 1 x 1 mesh
 
 ``repeated`` counts, by product, the matrix-product FLOPs that every
 model position computes alike (the plan's repeats: K and V everywhere,
-and in a "seq" decode step wq and wo too); the dry run reports them
-beside a rank's count (``launch/dryrun.py``).
+and in a "seq" decode step wq and wo too; Mamba-2's B and C columns, and
+in a decode step the token's whole x | B | C input); the dry run reports
+them beside a rank's count (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -136,6 +165,7 @@ from ..kernels import dispatch
 from ..kernels.flash_attention import stripe_positions
 from ..tree import Stacked, tree_map
 from . import layers as L
+from . import mamba2, rglru
 from .config import ModelConfig
 from .layers import NEG_INF, rmsnorm
 from .transformer import (REMAT_CONTEXTS, Model, stack_cache,
@@ -146,34 +176,29 @@ from .transformer import (REMAT_CONTEXTS, Model, stack_cache,
 ROADMAP_ITEMS = {
     "M": (7, "MoE experts over 'model'"),
     "L": (8, "MLA"),
-    "S": (9, "Mamba-2"),
-    "R": (10, "RG-LRU"),
 }
 
 #: the layer kinds the rank path runs: global and local attention, each
-#: with a dense MLP
-KINDS = frozenset("AW")
+#: with a dense MLP, RG-LRU with a dense MLP, and Mamba-2
+KINDS = frozenset("AWRS")
 
-#: ``ModelConfig`` fields the rank path reads as ``Model``'s attention
-#: layers do (``remat``: honoured while autograd records, as
-#: ``Model.forward`` honours it; a forward without gradients ignores it
-#: alike)
+#: ``ModelConfig`` fields the rank path reads as ``Model``'s layers do
+#: (``remat``: honoured while autograd records, as ``Model.forward``
+#: honours it; a forward without gradients ignores it alike)
 READ_FIELDS = frozenset({
     "name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads",
     "d_ff", "vocab_size", "head_dim", "layer_pattern", "rope_kind",
     "rope_theta", "mrope_sections", "local_window", "attn_logit_softcap",
     "attn_block_q", "attn_block_kv", "attn_parallel", "kv_cache_dtype",
     "input_mode", "tie_embeddings", "norm_eps", "logit_softcap", "dtype",
-    "remat"})
+    "remat", "rglru_conv", "rglru_c", "ssm_state", "ssm_expand",
+    "ssm_headdim", "ssm_conv", "ssm_chunk", "ssm_groups"})
 
 #: fields only the layer kinds the rank path refuses read
 KIND_FIELDS = {
     "L": ("q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim",
           "v_head_dim"),
     "M": ("num_experts", "experts_per_token", "moe_capacity_factor"),
-    "S": ("ssm_state", "ssm_expand", "ssm_headdim", "ssm_conv", "ssm_chunk",
-          "ssm_groups"),
-    "R": ("rglru_conv", "rglru_c"),
 }
 
 
@@ -206,8 +231,12 @@ def check_config(cfg: ModelConfig, mesh) -> None:
     for kind in sorted(set(cfg.layers) - KINDS):
         _refuse(cfg, f"layer kind {kind!r}", ROADMAP_ITEMS[kind])
     M = mesh.shape["model"]
-    for what, n in (("d_ff", cfg.d_ff), ("the padded vocab",
-                                          cfg.padded_vocab)):
+    sizes = [("d_ff", cfg.d_ff), ("the padded vocab", cfg.padded_vocab)]
+    if "R" in cfg.layers:
+        sizes.append(("the RG-LRU width d_model", cfg.d_model))
+    if "S" in cfg.layers:
+        sizes.append(("the Mamba-2 head count", cfg.ssm_heads))
+    for what, n in sizes:
         if n % M:
             raise ValueError(f"{cfg.name}: {what} {n} does not split over "
                              f"{M} model positions")
@@ -285,7 +314,8 @@ def _split_dim(spec, axis: str):
 
 
 class RankModel:
-    """A config of "A" and "W" layers on this rank (module notes).
+    """A config of "A", "W", "R" and "S" layers on this rank (module
+    notes).
 
     ``params``: the rank's blocks of the parameter tree in the
     reference's layout (``convert.param_tree`` cut by
@@ -593,17 +623,155 @@ class RankModel:
         out = (o * w[..., None]).sum(dim=0) / (l_r * w).sum(dim=0)[..., None]
         return out.reshape(B, 1, H, hd).to(q.dtype)
 
+    # -- RG-LRU ------------------------------------------------------------------
+    def _rglru(self, p: dict, h, cache=None):
+        """Kind "R" on the rank's channels [m·d/M, (m+1)·d/M) (module
+        notes): its x and gate columns, conv, gates and scan; the gate
+        products read the whole x branch (gathered over the model
+        column); ``w_out``'s rows of the channels, then an all-reduce.
+        ``cache`` (decode): the rank's {"conv", "h"} block, written in
+        place."""
+        cfg = self.cfg
+        B, S, _ = h.shape
+        xb = self._mm("w_x", h, p["w_x"])
+        gate = nn.functional.gelu(self._mm("w_gate", h, p["w_gate"]).float(),
+                                  approximate="tanh")
+        xb, new_conv = rglru._conv(xb, p["conv_w"], p["conv_b"],
+                                   None if cache is None else cache["conv"])
+        whole = ranks.all_gather(self.comms.model, xb)      # (M, B, S, d/M)
+        whole = whole.permute(1, 2, 0, 3).reshape(B, S, -1)
+        a, gin = rglru._lru_gates(SimpleNamespace(**p), xb, cfg, whole)
+        if cache is None:
+            y = rglru.linear_scan(a, gin)
+        else:
+            y = cache["h"] * a[:, 0] + gin[:, 0]
+            cache["conv"].copy_(new_conv)
+            cache["h"].copy_(y)
+            y = y[:, None, :]
+        y = (y * gate).to(h.dtype)
+        return ranks.all_reduce(self.comms.model,
+                                self._mm("w_out", y, p["w_out"]))
+
+    # -- Mamba-2 -----------------------------------------------------------------
+    def _mamba(self, p: dict, h, cache=None):
+        """Kind "S" on the rank's heads (module notes): ``in_proj``'s and
+        the conv's whole columns (gathered over the model column) give the
+        heads' z, x and dt and the shared B and C; the SSD on the heads;
+        ``out_norm`` over the whole d_inner through an all-reduce of the
+        sum of squares; ``out_proj``'s rows of the heads, then an
+        all-reduce.  ``cache`` (decode): the rank's {"conv", "ssm"}
+        block, written in place (the conv state gathered over the model
+        column for the step)."""
+        cfg = self.cfg
+        di, H, P, N, G = mamba2._dims(cfg)
+        Hl = H // self.M
+        h0 = self.m * Hl                     # the rank's heads [h0, h0 + Hl)
+        dev = h.device
+        mine = torch.arange(h0 * P, (h0 + Hl) * P, device=dev)
+        bc = torch.arange(2 * G * N, device=dev)
+        w = p["in_proj"]
+        z, dt = (self._mm("in_proj", h, w.index_select(1, c)) for c in (
+            mine, 2 * di + 2 * G * N + h0 + torch.arange(Hl, device=dev)))
+        # the conv channels of the heads' x and of B and C
+        chan = torch.cat([mine, di + bc])
+        conv_w, conv_b = (p["conv_w"].index_select(-1, chan),
+                          p["conv_b"].index_select(-1, chan))
+        heads = torch.arange(h0, h0 + Hl, device=dev)
+        dt_bias, A_log, D = (p[k].index_select(0, heads)
+                             for k in ("dt_bias", "A_log", "D"))
+        rep = H // G
+        if cache is None:
+            xs = self._mm("in_proj", h, w.index_select(1, di + mine))
+            BC = self._mm("in_proj_bc", h, w[:, 2 * di: 2 * di + 2 * G * N],
+                          True)
+            xBC = mamba2._causal_conv(torch.cat([xs, BC], dim=-1), conv_w,
+                                      conv_b)
+            B_, S = h.shape[:2]
+            Q = min(cfg.ssm_chunk, S)
+            if S % Q:
+                raise ValueError(f"seq {S} not divisible by ssd chunk {Q}")
+            shape = (B_, S)
+        else:
+            xBC = self._conv_step(cache, h[:, 0], w, conv_w, conv_b, chan,
+                                  h.dtype)
+            shape = (h.shape[0],)
+        xs = xBC[..., :Hl * P].reshape(*shape, Hl, P)
+        Bm, Cm = (xBC[..., Hl * P + j * G * N: Hl * P + (j + 1) * G * N]
+                  .reshape(*shape, G, N).repeat_interleave(rep, dim=-2)
+                  .index_select(-2, heads) for j in (0, 1))
+        dt = nn.functional.softplus(dt.float() + dt_bias)
+        if cache is None:
+            y = mamba2.ssd(xs, Bm, Cm, dt, -torch.exp(A_log), Q)
+            y = y + xs.float() * D[None, None, :, None]
+        else:
+            y, ssm = mamba2.ssm_step(cache["ssm"], xs, Bm, Cm, dt[:, 0],
+                                     -torch.exp(A_log), D)
+            cache["ssm"].copy_(ssm)
+            y = y[:, None]
+        y = y.reshape(*h.shape[:2], Hl * P)
+        y = self._out_norm(p["out_norm"]["scale"],
+                           (y * nn.functional.silu(z.float())).to(h.dtype),
+                           di)
+        return ranks.all_reduce(self.comms.model,
+                                self._mm("out_proj", y, p["out_proj"]))
+
+    def _conv_step(self, cache: dict, x, w, conv_w, conv_b, chan, dtype):
+        """One token of the Mamba-2 conv on the channels ``chan``: the
+        conv state gathered whole over the model column (its channel
+        block does not line up with the heads), the whole packed x|B|C
+        input of the token computed (every model position alike), the
+        rank's block of the new state written back."""
+        cfg = self.cfg
+        di, _, _, N, G = mamba2._dims(cfg)
+        state = cache["conv"]
+        cd = di + 2 * G * N
+        split = state.shape[-1] != cd
+        if split:
+            g = self.comms.model.all_gather(state)       # (M, B, K-1, cd/M)
+            state = g.permute(1, 2, 0, 3).reshape(*state.shape[:2], cd)
+        xBC = self._mm("in_proj_xbc", x, w[:, di: 2 * di + 2 * G * N], True)
+        conv_in = torch.cat([state, xBC[:, None, :].to(state.dtype)], dim=1)
+        acc = torch.einsum("bkd,kd->bd", conv_in.index_select(-1, chan)
+                           .float(), conv_w)
+        new = conv_in[:, 1:]
+        if split:
+            cl = cache["conv"].shape[-1]
+            new = new[..., self.m * cl:(self.m + 1) * cl]
+        cache["conv"].copy_(new)
+        return nn.functional.silu(acc + conv_b).to(dtype)
+
+    def _out_norm(self, scale, y, width: int):
+        """``layers.rmsnorm`` (eps 1e-6) of rows whose whole spans the model
+        column's blocks: the sum of squares all-reduced over the column in
+        fp32 (its gradient summed back over the column: each position
+        scales only its own block by it), ``scale`` the rank's block."""
+        yf = y.float()
+        ss = ranks.sum_grad(self.comms.model, ranks.all_reduce(
+            self.comms.model, torch.sum(yf * yf, dim=-1, keepdim=True)))
+        return (yf * torch.rsqrt(ss / width + 1e-6) * scale).to(y.dtype)
+
     # -- layers -------------------------------------------------------------------
     def _apply_layer(self, i: int, x, positions, at=None):
         blocks, specs = self._layer(i)
-        attn = self._gathered(blocks["attn"], specs["attn"],
-                              () if self.head_parallel else ("wq", "wo"))
+        kind = self.cfg.layers[i]
         eps = self.cfg.norm_eps
         h = ranks.sum_grad(self.comms.model,
                            rmsnorm(blocks["ln1"]["scale"], x, eps))
-        x = x + self._attention(attn, h, positions,
-                                self.cfg.layers[i] == "W", at)
-        del attn, h
+        if kind == "R":
+            x = x + self._rglru(self._gathered(blocks["rglru"],
+                                               specs["rglru"]), h, at)
+        elif kind == "S":
+            x = x + self._mamba(self._gathered(
+                blocks["mamba"], specs["mamba"],
+                ("in_proj", "conv_w", "conv_b")), h, at)
+        else:
+            attn = self._gathered(blocks["attn"], specs["attn"],
+                                  () if self.head_parallel else ("wq", "wo"))
+            x = x + self._attention(attn, h, positions, kind == "W", at)
+            del attn
+        del h
+        if "mlp" not in blocks:
+            return x
         mlp = self._gathered(blocks["mlp"], specs["mlp"])
         h = ranks.sum_grad(self.comms.model,
                            rmsnorm(blocks["ln2"]["scale"], x, eps))
@@ -699,7 +867,8 @@ class RankModel:
         specs = shd.cache_specs(self.cfg, shapes, self.mesh)
         local = unstack_cache(tree_map(lambda t, spec: shd.local_block(
             t, spec, self.mesh, self.comms.coords), shapes, specs))
-        self._slots = [c["k"].shape[1] for c in unstack_cache(shapes)]
+        self._slots = [c["k"].shape[1] if "k" in c else None
+                       for c in unstack_cache(shapes)]
         return [{k: torch.zeros(t.shape, dtype=t.dtype, device=self.device)
                  for k, t in c.items()} for c in local]
 
@@ -726,6 +895,9 @@ class RankModel:
         pos = self._positions(positions, r0, r1, 1, cur_len, x.device)
         W = self.cfg.local_window or 0
         for i, layer_cache in enumerate(cache):
+            if self.cfg.layers[i] in "RS":           # recurrent state
+                x = self._apply_layer(i, x, pos, layer_cache)
+                continue
             slot, n_valid = cur_len, cur_len + 1
             if self.cfg.layers[i] == "W" and W:
                 slot, n_valid = cur_len % W, min(cur_len + 1, W)

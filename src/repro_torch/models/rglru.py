@@ -73,10 +73,15 @@ def _conv(x, w, b, state=None):
     return (out + b).to(x.dtype), new_state
 
 
-def _lru_gates(p: RGLRU, xb, cfg: ModelConfig):
+def _lru_gates(p: RGLRU, xb, cfg: ModelConfig, gates_in=None):
+    """(a, gated input) of the channels of ``xb``; the gate products read
+    ``gates_in`` (default ``xb``): on a rank of a mesh, the whole
+    width's xb, while ``xb`` and the gate columns are the rank's
+    channels."""
     xf = xb.float()
-    r = torch.sigmoid(xf @ p.wa + p.ba)
-    i = torch.sigmoid(xf @ p.wi + p.bi)
+    xg = xf if gates_in is None else gates_in.float()
+    r = torch.sigmoid(xg @ p.wa + p.ba)
+    i = torch.sigmoid(xg @ p.wi + p.bi)
     log_a = -cfg.rglru_c * nn.functional.softplus(p.lam) * r
     a = torch.exp(log_a)
     gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..distributed.ecstore import ECConfig, ECStateStore
-from ..distributed.sharding import entry_axes, local_block
+from ..distributed.sharding import local_block, whole_leaf
 from ..tree import Stacked, leaves, leaves_with_path
 
 
@@ -67,26 +67,15 @@ def _dtype_name(leaf) -> str:
     return str(leaf.dtype).removeprefix("torch.")
 
 
-def _whole(t: torch.Tensor, spec, comms) -> torch.Tensor:
-    """The whole leaf of which ``t`` is a rank's block by ``spec``: along
-    each dimension, the blocks of its axes gathered, the minor axis
-    first."""
-    cols = {c.axis: c for c in comms.columns()}
-    for i, entry in enumerate(spec):
-        for axis in reversed(entry_axes(entry)):
-            g = cols[axis].all_gather(t.contiguous()).movedim(0, i)
-            t = g.reshape(*t.shape[:i], -1, *t.shape[i + 1:])
-    return t
-
-
 def _gathered_leaves(tree, specs, comms):
     """(name, whole leaf) of the rank blocks of ``tree``, one at a time."""
     for (name, leaf), spec in zip(_leaf_paths(tree), leaves(specs)):
         if isinstance(leaf, Stacked):
             inner = type(spec)(*spec[1:])
-            yield name, Stacked(_whole(p, inner, comms) for p in leaf.parts)
+            yield name, Stacked(whole_leaf(p, inner, comms)
+                                for p in leaf.parts)
         else:
-            yield name, _whole(leaf, spec, comms)
+            yield name, whole_leaf(leaf, spec, comms)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, keep_last: int = 3, *,

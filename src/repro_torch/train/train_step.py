@@ -16,16 +16,18 @@ the old bytes into its page buffer before the optimizer runs and whose
 
 Across ranks (``make_rank_train_step``): one rank of a (data, model) or
 (pod, data, model) mesh computes its part of the reference's sharded
-step, ``jit(make_train_step(model, adamw))`` under
-``set_activation_mesh(mesh)`` with parameters by ``param_specs``,
-moments by ``_opt_specs`` and the batch by ``batch_specs``.  The loss is
-``rank_cross_entropy`` over the rank's vocab block and batch rows; the
-backward leaves each block's whole gradient over "model" and "data"
-on the rank that holds it (``models/ranked.py``), the step then sums the
+step, ``jit(make_train_step(model, opt))`` under
+``set_activation_mesh(mesh)`` with parameters by ``param_specs``, the
+optimizer state by ``_opt_specs`` and the batch by ``batch_specs``.  The
+loss is ``rank_cross_entropy`` over the rank's vocab block and batch
+rows; the backward leaves each block's whole gradient over "model" and
+"data" on the rank that holds it (``models/ranked.py``), the step then sums the
 leaves that "data" does not split over the data column, and every leaf
 over the pods (the pods replicate the parameters); the global norm
 counts each block once (``rank_global_norm``), and the reference's clip
-and AdamW run on the rank's blocks.
+and optimizer run on the rank's blocks (``optimizer.Blocks``: AdamW's
+moments are the rank's blocks, adamw8bit's and adafactor's state is
+replicated whole and moves only statistics and codes).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from ..models import Model, layers, moe
 from ..models.convert import param_tree
 from ..tree import (leaves, leaves_with_path, map_parts, materialize,
                     path_str, tensors, tree_map)
-from .optimizer import Optimizer, check_ranks, clip_scale, global_norm
+from .optimizer import Blocks, Optimizer, clip_scale, global_norm
 
 
 def cross_entropy(logits, labels, z_loss: float = 1e-4):
@@ -194,17 +196,18 @@ def make_rank_train_step(model, optimizer: Optimizer, *,
     """``make_train_step`` for a ``ranked.RankModel`` on its rank (module
     notes): train_step(params, opt_state, batch) with ``params`` the
     model's blocks (``model.params``), ``opt_state`` the optimizer's state
-    of them and ``batch`` the whole batch; ``ec`` an
+    of them (``optimizer.init(params, place=Blocks(model.specs,
+    model.comms))``) and ``batch`` the whole batch; ``ec`` an
     ``ECCheckpoint(comm=...)`` over the rank's blocks.  The metrics are
     the reference's: the loss (summed over the data and pod columns) and
     the global gradient norm, the same on every rank.  On a 1 x 1 mesh it
     is ``make_train_step`` of the one-device model."""
-    check_ranks(optimizer, model.mesh)
     if model._one is not None:
         return make_train_step(model._one, optimizer, grad_clip=grad_clip,
                                ec=ec)
     loss_fn = make_rank_loss_fn(model)
     comms, specs = model.comms, model.specs
+    place = Blocks(specs, comms)
 
     def step(params, opt_state, batch):
         # the backward on this thread: its collectives keep the order of
@@ -217,7 +220,8 @@ def make_rank_train_step(model, optimizer: Optimizer, *,
             if ec is not None:
                 ec.stage(params)
             opt_state = optimizer.apply(grads, opt_state, params,
-                                        clip_scale(gnorm, grad_clip))
+                                        clip_scale(gnorm, grad_clip),
+                                        place=place)
             del grads
             for t in _param_tensors(params):
                 t.grad = None

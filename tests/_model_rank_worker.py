@@ -13,6 +13,7 @@ from repro_torch.distributed.ranks import rank_comms
 from repro_torch.models import layers
 from repro_torch.models.ranked import RankModel, batch_rows
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.tree import leaves_with_path, materialize, path_str
 
 #: the seed of the engine's generator when it samples
 SAMPLE_SEED = 7
@@ -33,7 +34,8 @@ def model_body(comm, jobs, prompt_len, sample_logits=None):
     sent), greedy decoding through ``ServeEngine`` (an fp32 cache; the
     whole batch's tokens and the logits block after the prompt's
     token-by-token prefill, the prompt being the batch's first
-    ``prompt_len`` tokens or embeddings), the same decoding sampled at
+    ``prompt_len`` tokens or embeddings, and the rank's cache block after
+    it, by tree path), the same decoding sampled at
     temperature 1.0 from a generator seeded with ``SAMPLE_SEED``, and one
     ``decode_step`` at the last slot of a cache as long as the batch, the
     step the dry run counts (its bytes sent); both decodings start from
@@ -59,7 +61,7 @@ def model_body(comm, jobs, prompt_len, sample_logits=None):
             dec_logits = eng.prefill(prompt)
             first = model.argmax(dec_logits)
             after_prompt = eng.cache_snapshot()
-            tokens = []
+            tokens, caches = [], []
             for temperature in (0.0, 1.0):     # both from the prompt's cache
                 eng.cache = [{k: t.clone() for k, t in c.items()}
                              for c in after_prompt]
@@ -68,6 +70,9 @@ def model_body(comm, jobs, prompt_len, sample_logits=None):
                                   first_tokens=first)
                 tokens.append(np.concatenate([first[:, None].numpy(),
                                               rest.tokens], axis=1))
+                caches.append({path_str(k): materialize(t).numpy().copy()
+                               for k, t in leaves_with_path(
+                                   eng.cache_tree())})
             cache = model.init_cache(B, S, dtype=torch.bfloat16)
             step_in = inp[:, :1] if inp.dim() == 3 else inp[:, 0]
             _, sent_decode = _sent(model.decode_step, cache, step_in, S - 1)
@@ -75,7 +80,7 @@ def model_body(comm, jobs, prompt_len, sample_logits=None):
                 coords=comm.coords,
                 rows=batch_rows(B, comm.axis_size, comm.index),
                 logits=logits.numpy(), dec_logits=dec_logits.numpy(),
-                tokens=tokens[0], sampled=tokens[1],
+                tokens=tokens[0], sampled=tokens[1], cache=caches[0],
                 sent_prefill=sent_prefill, sent_decode=sent_decode,
                 op_paths=dict(model.op_paths),
                 routes=dict(layers.OP_PATHS))
@@ -97,3 +102,26 @@ def _sampler(model, logits):
     gen = torch.Generator().manual_seed(SAMPLE_SEED)
     block = logits[r0:r1, model.m * Vl:(model.m + 1) * Vl]
     return model.sample(block, 1.0, gen).numpy()
+
+
+def mamba_decode_body(comm, cfg, blocks, tokens):
+    """``RankModel.decode_step`` of ``cfg`` (Mamba-2 layers) on this
+    rank's blocks (on the card when they are), one step a column of
+    ``tokens`` (B, T) from an empty fp32 cache: the logits block of each
+    step and the cache block after the last, by layer."""
+    if blocks["final_norm"]["scale"].is_cuda:
+        torch.cuda.set_device(0)
+    layers.set_activation_mesh(rank_comms(comm))
+    try:
+        model = RankModel(cfg, blocks)
+        B, T = tokens.shape
+        cache = model.init_cache(B, T, dtype=torch.float32)
+        logits = []
+        for t in range(T):
+            lg, cache = model.decode_step(cache, tokens[:, t], t)
+            logits.append(lg.cpu().numpy())
+        return dict(coords=comm.coords, logits=np.stack(logits, axis=1),
+                    cache=[{k: v.cpu().numpy() for k, v in c.items()}
+                           for c in cache])
+    finally:
+        layers.set_activation_mesh(None)

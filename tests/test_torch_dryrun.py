@@ -35,8 +35,10 @@ process only, while this process counts the port's cells on ``meta``:
    and wq and wo in a decode step), and the stripes' attention FLOPs sum
    to the one-device kernel's.  The reference's per-device HLO dot FLOPs
    and collective bytes of the same cells are printed beside the port's
-   (``-s``); the two plans differ (PERF.md §6).  Training cells and the
-   other archs keep the even split.
+   (``-s``); the two plans differ (PERF.md §6).  Every cell of
+   starcoder2-3b and recurrentgemma-2b on (4, 2), training with the
+   CLI's adamw8bit too, counts a rank; the MoE arch keeps the even
+   split.
 4. The EC pseudo-cells on (4, 2) at the reference's 256 MiB a device:
    each counts one position's rank body (``ecstore.rank_*``), which
    sends the reference's blocks, so argument bytes, collective-permute
@@ -298,16 +300,21 @@ def test_mesh_cell_counts_a_rank(both, arch, shape):
 
 
 def test_training_and_other_archs_keep_the_even_split(both):
-    """On (4, 2) a training cell and a non-dense arch's cells still split
-    the one-card program evenly, and say why."""
+    """On (4, 2) every cell of the archs the rank path runs - training
+    with the CLI's adamw8bit included, and recurrentgemma-2b's RG-LRU
+    layers - counts a rank; the MoE arch's cells still split the
+    one-card program evenly, and say why, naming its ROADMAP item."""
     port, _ = both
     for arch, shape in CELLS:
         cell = port[f"{arch}/{shape}"]["4x2"]
-        ranked = arch == "starcoder2-3b" and shape != "train_4k"
+        ranked = arch != "llama4-maverick-400b-a17b"
         assert cell["count"] == ("rank" if ranked else "even split")
-        if not ranked:
+        if ranked:
+            assert cell["collectives"]["all-gather"] > 0
+        else:
             assert cell["collective_bytes_per_device"] is None
             assert "not ported" in cell["collective_note"]
+            assert "item 7" in cell["collective_note"]
             assert cell["flops_per_device"] * 8 == cell["flops_total"]
 
 

@@ -1425,3 +1425,60 @@ def test_masked_stripes_on_card_match_cpu(cuda, S, W, cap, stripe):
         torch.testing.assert_close(got.cpu(), want, atol=MASKED_TOL,
                                    rtol=MASKED_TOL)
     assert dict(launch_counts()) == before
+
+
+def test_mamba2_conv_cache_gather_on_card(cuda, tmp_path):
+    """Two gloo ranks over (data 1, model 2) sharing the card, each a
+    ``RankModel`` of mamba2-370m at full width, one layer, fp32: each
+    decode step gathers the rank's block of the packed conv state (B x 3
+    x 2,304 channels, split 1,152 + 1,152 across the heads' boundary at
+    1,024) over the model column through gloo's host staging and writes
+    back its own block.  After 4 steps each rank's conv and ssm blocks
+    and each step's logits block equal the one-card model's on the card
+    within 1e-5 (fp32; the rank sums its row-parallel products and the
+    norm's squares in another order)."""
+    import _model_rank_worker
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ranks, sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.convert import param_tree
+    from repro_torch.tree import tree_map
+    cfg = get_config("mamba2-370m").scaled(num_layers=1, dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    model = Model(cfg, device=cuda).init(gen)
+    B, T = 2, 4
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device=cuda)
+    cache = model.init_cache(B, T, dtype=torch.float32)
+    want = []
+    for t in range(T):
+        lg, cache = model.decode_step(cache, tokens[:, t], t)
+        want.append(lg)
+    want = torch.stack(want, dim=1).cpu()
+    mesh = make_mesh((1, 2), ("data", "model"))
+    params = param_tree(model)
+    specs = sharding.param_specs(cfg, params, mesh)
+    args = [(cfg, tree_map(lambda leaf, spec: sharding.local_block(
+        leaf, spec, mesh, mesh.coords(r)), params, specs), tokens)
+        for r in range(mesh.size)]
+    res = ranks.launch(_model_rank_worker.mamba_decode_body, mesh, args,
+                       init_file=str(tmp_path / "init"), timeout=300.0)
+    cd = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    H = cfg.ssm_heads
+    V = cfg.padded_vocab // 2
+    for out in res:
+        m = out["coords"][1]
+        torch.testing.assert_close(torch.from_numpy(out["logits"]),
+                                   want[..., m * V:(m + 1) * V],
+                                   atol=1e-5, rtol=1e-5)
+        got = out["cache"][0]
+        assert got["conv"].shape == (B, cfg.ssm_conv - 1, cd // 2)
+        torch.testing.assert_close(
+            torch.from_numpy(got["conv"]),
+            cache[0]["conv"][..., m * cd // 2:(m + 1) * cd // 2].cpu(),
+            atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(
+            torch.from_numpy(got["ssm"]),
+            cache[0]["ssm"][:, m * H // 2:(m + 1) * H // 2].cpu(),
+            atol=1e-5, rtol=1e-5)

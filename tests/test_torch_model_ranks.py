@@ -13,7 +13,11 @@ embeddings input), their prompts fed as embeddings and their greedy
 tokens fed back through the table; and starcoder2-3b with the attention
 options (``OPTIONS``: layers "AW" with a 16-slot window, the int8 KV
 cache, both softcaps), decoded to 24 positions so that the "W" layer's
-ring wraps.  Also its striped ``blockwise_attention`` at S 64 and at a
+ring wraps; and the recurrent archs (``RECURRENT``): recurrentgemma-2b
+(RG-LRU "R" layers beside "W" layers, "seq" and "head") and mamba2-370m
+(Mamba-2 "S" layers, whose 296 packed ``in_proj`` columns and 160 conv
+channels split over "model" across its heads), with their caches after
+the decode.  Also its striped ``blockwise_attention`` at S 64 and at a
 ragged S 80 (padded to 128 rows, the second stripe's last 48 rows
 padding), and its ``_local_attention`` at S 80 with a 32-row window and
 a softcap (three windows, the last half padding).  The weights are the
@@ -38,8 +42,11 @@ rank's block of given logits against ``Model.sample`` on them, exactly;
 reference's rows at those positions; a stripe count of 1 against the
 unstriped call, bit for bit; a 1 x 1 mesh against the one-device model,
 bit for bit; each rank's bytes sent by kind against the dry run's count
-of the same forward (``dryrun.count_rank_forward``); the other layer
-kinds refusing on a (2, 2) mesh, naming their ROADMAP item.
+of the same forward (``dryrun.count_rank_forward``); a recurrent job's
+cache block after the decode against the same block of the reference's
+(fp32 bounds); MLA and MoE refusing on a (2, 2) mesh, naming their
+ROADMAP item, and a Mamba-2 head count the model axis does not divide
+raising.
 """
 import functools
 import json
@@ -69,14 +76,18 @@ from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.models import Model, layers, ranked
 from repro_torch.models.convert import param_tree, params_from_jax
 from repro_torch.serve.engine import ServeEngine, greedy_generate
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves_with_path, path_str, tree_map
 
 torch.set_num_threads(1)
 
 ARCHS = ("starcoder2-3b", "phi4-mini-3.8b", "qwen2-vl-7b",
          "musicgen-medium", "options")
 MODES = ("seq", "head")
-JOBS = [f"{a}/{m}" for a in ARCHS for m in MODES]
+#: the recurrent archs' jobs (RG-LRU with "W" layers, Mamba-2 alone, whose
+#: layers have no attention mode)
+RECURRENT = ["recurrentgemma-2b/seq", "recurrentgemma-2b/head",
+             "mamba2-370m/seq"]
+JOBS = [f"{a}/{m}" for a in ARCHS for m in MODES] + RECURRENT
 #: the attention options on reduced starcoder2-3b ("options" jobs)
 OPTIONS = dict(layer_pattern="AW", local_window=16, kv_cache_dtype="int8",
                attn_logit_softcap=50.0, logit_softcap=30.0)
@@ -118,41 +129,48 @@ def config(arch, mode):
             dtype="float32", attn_parallel=mode, **OPTIONS)
     return get_reduced(arch).scaled(dtype="float32", attn_parallel=mode)
 
+def flat(tree):
+    return {jax.tree_util.keystr(p, simple=True, separator="/"):
+            np.asarray(x) for p, x in jax.tree_util.tree_leaves_with_path(tree)}
+
 out = {}
-for arch in ARCHS:
-    for mode in MODES:
-        cfg = config(arch, mode)
-        steps = STEPS.get(arch, 4)
-        model = Model(cfg)
-        params = model.init(jax.random.PRNGKey(SEED))
-        params = jax.device_put(params, named(shd.param_specs(cfg, params,
-                                                              mesh)))
-        emb = cfg.input_mode == "embeddings"
-        batch = ({"embeddings": jnp.asarray(inp[f"emb/{arch}"])} if emb
-                 else {"tokens": jnp.asarray(inp["tokens"])})
-        if cfg.rope_kind == "mrope":
-            batch["positions"] = jnp.asarray(inp["positions"])
-        batch = jax.device_put(batch, named(shd.batch_specs(cfg, batch,
+for job in JOBS:
+    arch, mode = job.split("/")
+    cfg = config(arch, mode)
+    steps = STEPS.get(arch, 4)
+    model = Model(cfg)
+    params = model.init(jax.random.PRNGKey(SEED))
+    params = jax.device_put(params, named(shd.param_specs(cfg, params,
+                                                          mesh)))
+    emb = cfg.input_mode == "embeddings"
+    batch = ({"embeddings": jnp.asarray(inp[f"emb/{arch}"])} if emb
+             else {"tokens": jnp.asarray(inp["tokens"])})
+    if cfg.rope_kind == "mrope":
+        batch["positions"] = jnp.asarray(inp["positions"])
+    batch = jax.device_put(batch, named(shd.batch_specs(cfg, batch,
+                                                        mesh)))
+    with mesh:
+        logits = jax.jit(model.apply)(params, batch)
+        cache = model.init_cache(B, PROMPT + steps, dtype=jnp.float32)
+        cache = jax.device_put(cache, named(shd.cache_specs(cfg, cache,
                                                             mesh)))
-        with mesh:
-            logits = jax.jit(model.apply)(params, batch)
-            cache = model.init_cache(B, PROMPT + steps, dtype=jnp.float32)
-            cache = jax.device_put(cache, named(shd.cache_specs(cfg, cache,
-                                                                mesh)))
-            dec = jax.jit(model.decode_step)
-            for t in range(PROMPT):
-                x = (jnp.asarray(inp[f"emb/{arch}"][:, t:t + 1]) if emb
-                     else jnp.asarray(inp["tokens"][:, t]))
-                lg, cache = dec(params, cache, x, jnp.int32(t))
-            out[f"{arch}/{mode}/dec_logits"] = np.asarray(lg)
+        dec = jax.jit(model.decode_step)
+        for t in range(PROMPT):
+            x = (jnp.asarray(inp[f"emb/{arch}"][:, t:t + 1]) if emb
+                 else jnp.asarray(inp["tokens"][:, t]))
+            lg, cache = dec(params, cache, x, jnp.int32(t))
+        out[f"{arch}/{mode}/dec_logits"] = np.asarray(lg)
+        tok = jnp.argmax(lg, axis=-1).astype(jnp.int32)
+        toks = [np.asarray(tok)]
+        for s in range(steps - 1):
+            lg, cache = dec(params, cache, tok, jnp.int32(PROMPT + s))
             tok = jnp.argmax(lg, axis=-1).astype(jnp.int32)
-            toks = [np.asarray(tok)]
-            for s in range(steps - 1):
-                lg, cache = dec(params, cache, tok, jnp.int32(PROMPT + s))
-                tok = jnp.argmax(lg, axis=-1).astype(jnp.int32)
-                toks.append(np.asarray(tok))
-        out[f"{arch}/{mode}/logits"] = np.asarray(logits)
-        out[f"{arch}/{mode}/tokens"] = np.stack(toks, axis=1)
+            toks.append(np.asarray(tok))
+    out[f"{arch}/{mode}/logits"] = np.asarray(logits)
+    out[f"{arch}/{mode}/tokens"] = np.stack(toks, axis=1)
+    if job in RECURRENT:
+        for k, v in flat(cache).items():
+            out[f"{job}/cache/{k}"] = v
 cfg = get_reduced(ARCHS[0]).scaled(dtype="float32", attn_parallel="seq")
 attend = jax.jit(lambda q, k, v: blockwise_attention(q, k, v, cfg))
 for Sa in ATTN_S:
@@ -255,7 +273,8 @@ def both(tmp_path_factory):
     env = subprocess_env()
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["JAX_PLATFORMS"] = "cpu"
-    code = (f"ARCHS = {ARCHS!r}\nMODES = {MODES!r}\nMESH = {MESH!r}\n"
+    code = (f"ARCHS = {ARCHS!r}\nJOBS = {JOBS!r}\n"
+            f"RECURRENT = {RECURRENT!r}\nMESH = {MESH!r}\n"
             f"B, S, PROMPT, STEPS = {B}, {S}, {PROMPT}, {STEPS!r}\n"
             f"ATTN_S = {ATTN_S!r}\nLOCAL = {LOCAL!r}\n"
             f"OPTIONS = {OPTIONS!r}\nSEED = {SEED}\n"
@@ -348,27 +367,32 @@ def test_rank_sampler_is_the_one_device_sampler(both):
 
 @pytest.mark.parametrize("job", JOBS)
 def test_routes_are_the_flash_route(both, job):
-    """Prefill is one kernel-11 call a layer on each rank (its plain
-    version on the CPU), never the masked route, unless a softcap or a
-    window past the sequence's first takes the masked route in every
+    """Prefill is one kernel-11 call an attention layer on each rank (its
+    plain version on the CPU), never the masked route, unless a softcap
+    or a window past the sequence's first takes the masked route in every
     layer; decode combines the sequence-sharded cache (the "W" ring's
-    slots too)."""
+    slots too); Mamba-2 layers take no attention route."""
     _, res, _, _ = both
     cfg = _cfg(*job.split("/"))
     steps = PROMPT + 2 * (_steps(job) - 1) + 1
+    attention = sum(cfg.layers.count(k) for k in "AW")
     for r in res:
         got = r[job]
-        if cfg.attn_logit_softcap:
+        if not attention:
+            assert got["op_paths"] == {}
+            assert not any(k.startswith(("flash", "masked", "decode"))
+                           for k in got["routes"])
+        elif cfg.attn_logit_softcap:
             assert got["op_paths"] == {}
             assert got["routes"]["masked_blockwise:torch"] == \
                 cfg.num_layers
             assert not any(k.startswith("flash") for k in got["routes"])
         else:
             assert got["op_paths"] == {"flash_attention": dispatch.TORCH_CPU}
-            assert got["routes"]["flash_attention:torch-cpu"] == \
-                cfg.num_layers
+            assert got["routes"]["flash_attention:torch-cpu"] == attention
             assert not any(k.startswith("masked") for k in got["routes"])
-        assert got["routes"]["decode_ranked:torch"] == steps * cfg.num_layers
+        if attention:
+            assert got["routes"]["decode_ranked:torch"] == steps * attention
 
 
 @pytest.mark.parametrize("kind", ("prefill", "decode"))
@@ -497,12 +521,47 @@ def test_one_by_one_mesh_is_the_one_device_model():
         assert ours[name].data_ptr() == p.data_ptr(), name
 
 
+@pytest.mark.parametrize("job", RECURRENT)
+def test_recurrent_cache_blocks_match_reference(both, job):
+    """After the greedy decode each rank's cache block, every leaf (the
+    RG-LRU "h" and "conv" states of its channels, the Mamba-2 "ssm" state
+    of its heads and its block of the packed conv state, a "W" layer's
+    ring slice), is the same block of the reference's cache placed by
+    ``cache_specs``."""
+    _, res, ref, _ = both
+    cfg = _cfg(*job.split("/"))
+    mesh = make_mesh(MESH, ("data", "model"))
+    with dispatch.dry_run():
+        meta = Model(cfg, device="meta")
+    shapes = meta.cache_tree(meta.init_cache(B, PROMPT + _steps(job),
+                                             torch.float32))
+    specs = {path_str(k): s for k, s in leaves_with_path(
+        sharding.cache_specs(cfg, shapes, mesh))}
+    for r in res:
+        got = r[job]
+        assert sorted(got["cache"]) == sorted(specs)
+        for name, x in got["cache"].items():
+            want = sharding.local_block(torch.from_numpy(
+                ref[f"{job}/cache/{name}"]), specs[name], mesh,
+                got["coords"]).numpy()
+            np.testing.assert_allclose(x, want, atol=ATOL, rtol=RTOL,
+                                       err_msg=f"{got['coords']} {name}")
+
+
+def test_mamba2_heads_must_split():
+    """A Mamba-2 head count that the model axis does not divide raises a
+    ``ValueError``, as a ``d_ff`` or an RG-LRU width would."""
+    cfg = get_reduced("mamba2-370m").scaled(vocab_size=768)
+    mesh = make_mesh((1, 3), ("data", "model"))
+    with pytest.raises(ValueError, match="head count 8 does not split"):
+        ranked.RankModel(cfg, {}, counting_comms(mesh, (0, 1)))
+
+
 @pytest.mark.parametrize("arch,item", [
-    ("minicpm3-4b", 8), ("llama4-maverick-400b-a17b", 7),
-    ("mamba2-370m", 9), ("recurrentgemma-2b", 10)])
+    ("minicpm3-4b", 8), ("llama4-maverick-400b-a17b", 7)])
 def test_other_kinds_refuse_across_ranks(arch, item):
-    """A layer kind not yet ported across ranks raises on a (2, 2) mesh,
-    naming its ROADMAP item; the 1 x 1 mesh takes them."""
+    """MLA and MoE layers, not yet ported across ranks, raise on a (2, 2)
+    mesh, naming their ROADMAP item; the 1 x 1 mesh takes them."""
     cfg = get_reduced(arch)
     mesh = make_mesh((2, 2), ("data", "model"))
     with pytest.raises(NotImplementedError,

@@ -16,6 +16,10 @@ a cache (RS(k=1, m=1) over "data", 256-byte pages):
   one-card ``ECStateStore`` over the cache gathered from every rank's
   block; the refreshed parity against a fresh encode; every data
   position's pages rebuilt over the ring on every rank of its column;
+* reduced recurrentgemma-2b (RG-LRU layers beside "W" layers) in fp32,
+  served the same way: its pages and parity after the prefill and after
+  the refresh against the stacked store, byte for byte, and every data
+  position rebuilt;
 * two AdamW steps (``launch.train.train_on_rank`` with its EC copy, as
   ``tests/test_torch_train_ranks.py`` runs it) of reduced qwen2-vl-7b
   (M-RoPE, an embeddings input) and of the options config, "seq" and
@@ -54,6 +58,9 @@ B = 2
 PROMPT, STEPS, MAX_LEN = 8, 14, 24
 EC = dict(k=1, m=1, page_size=256)
 TRAIN = ("qwen2-vl-7b/seq", "options/seq", "options/head")
+#: the recurrent arch whose protected cache (RG-LRU states, the "W" ring)
+#: is rebuilt
+RECURRENT = "recurrentgemma-2b"
 SEQ = 64
 SEED = 26
 DEADLINE = 300.0
@@ -90,24 +97,27 @@ def _batch(cfg):
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
     """(the served model, its prompt, the ranks' results, the trained
-    models by job)."""
+    models by job, the served recurrent model)."""
     tmp = tmp_path_factory.mktemp("serve_ranks")
     mesh = make_mesh(MESH, ("data", "model"))
     served = _model("options/seq")
     prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, served.cfg.vocab_size, (B, PROMPT)))
     trained = {job: _model(job) for job in TRAIN}
+    recurrent = _model(f"{RECURRENT}/seq")
     args = [((served.cfg, _blocks(served, mesh, mesh.coords(r)), prompt,
               STEPS, MAX_LEN, EC),
              [(job, m.cfg, _blocks(m, mesh, mesh.coords(r)), B, SEQ)
-              for job, m in trained.items()])
+              for job, m in trained.items()],
+             (recurrent.cfg, _blocks(recurrent, mesh, mesh.coords(r)),
+              prompt, STEPS, MAX_LEN, EC))
             for r in range(mesh.size)]
     res = ranks.launch(_serve_rank_worker.serve_body, mesh, args,
                        init_file=str(tmp / "init"), timeout=DEADLINE)
-    return served, prompt, res, trained
+    return served, prompt, res, trained, recurrent
 
 
-def _gathered(cfg, res, key) -> dict:
+def _gathered(cfg, res, key, session="protect") -> dict:
     """The whole cache (the reference's stacked layout, plain tensors),
     each leaf assembled from every rank's block (``key``: the point of
     the session), and its ``cache_specs``."""
@@ -123,7 +133,7 @@ def _gathered(cfg, res, key) -> dict:
             name = path_str(path)
             view = sharding.local_view(leaf, flat_specs[name], mesh)
             view[tuple(r["coords"])].copy_(torch.from_numpy(
-                r["protect"][key][name]))
+                r[session][key][name]))
     return tree, specs
 
 
@@ -134,7 +144,7 @@ def test_rank_cache_pages_equal_the_stacked_store(spawned, when):
     stacked store's over the cache gathered from every rank's block, byte
     for byte; every leaf of the cache (the int8 K/V and their scales, the
     "A" layer's slots and the "W" layer's ring) is packed."""
-    served, _, res, _ = spawned
+    served, _, res, _, _ = spawned
     key = {"prefill": "prefill_cache", "refresh": "cache"}[when]
     tree, specs = _gathered(served.cfg, res, key)
     mesh = make_mesh(MESH, ("data", "model"))
@@ -155,7 +165,7 @@ def test_refresh_is_a_fresh_encode_and_every_position_rebuilds(spawned):
     a fresh encode of the cache on every rank, and each data position's
     pages, rebuilt over the ring, equal that position's live pages on
     every rank of its model column; the products took the CPU path."""
-    _, _, res, _ = spawned
+    _, _, res, _, _ = spawned
     live = {tuple(r["coords"]): r["protect"]["pages"] for r in res}
     for r in res:
         got = r["protect"]
@@ -167,11 +177,49 @@ def test_refresh_is_a_fresh_encode_and_every_position_rebuilds(spawned):
         assert set(got["op_paths"].values()) == {dispatch.TORCH_CPU}
 
 
+@pytest.mark.parametrize("when", ("prefill", "refresh"))
+def test_recurrent_cache_pages_equal_the_stacked_store(spawned, when):
+    """recurrentgemma-2b's protected cache on a rank - the RG-LRU "conv"
+    and "h" states of its channels and the "W" ring's slice, every leaf
+    packed - gives the stacked store's pages and parity over the cache
+    gathered from every rank's block, byte for byte, after the prefill
+    and after the refresh."""
+    _, _, res, _, model = spawned
+    key = {"prefill": "prefill_cache", "refresh": "cache"}[when]
+    tree, specs = _gathered(model.cfg, res, key, "recurrent")
+    mesh = make_mesh(MESH, ("data", "model"))
+    store = ECStateStore(mesh, specs, ECConfig(**EC))
+    pages, parity = store.local_pages(tree), store.encode(tree)
+    prefix = "prefill_" if when == "prefill" else ""
+    for r in res:
+        got, at = r["recurrent"], tuple(r["coords"])
+        assert got["n_leaves"] == 6
+        np.testing.assert_array_equal(got[f"{prefix}pages"],
+                                      pages[at].numpy())
+        np.testing.assert_array_equal(got[f"{prefix}parity"],
+                                      parity[at].numpy())
+
+
+def test_recurrent_cache_rebuilds_byte_for_byte(spawned):
+    """After recurrentgemma-2b's decode steps the refreshed parity is a
+    fresh encode on every rank, and each data position's pages, rebuilt
+    over the ring, equal its live pages byte for byte."""
+    _, _, res, _, _ = spawned
+    live = {tuple(r["coords"]): r["recurrent"]["pages"] for r in res}
+    for r in res:
+        got = r["recurrent"]
+        assert got["cur_len"] == PROMPT + STEPS
+        np.testing.assert_array_equal(got["parity"], got["fresh"])
+        for f, rebuilt in enumerate(got["rebuilt"]):
+            np.testing.assert_array_equal(rebuilt,
+                                          live[(f, r["coords"][1])])
+
+
 @pytest.fixture(scope="module")
 def one_device(spawned):
     """The one-device step of each trained job on the same weights and
     batch."""
-    _, _, _, trained = spawned
+    trained = spawned[3]
     opt = make_optimizer("adamw", **_train_rank_worker.OPT)
     return {job: recorded_step(m, opt, _batch(m.cfg))
             for job, m in trained.items()}
@@ -182,7 +230,7 @@ def test_rank_step_matches_the_one_device_step(spawned, one_device, job):
     """Every rank's loss and gradient norm are the one-device step's; its
     gradient blocks and parameter blocks after the step are the same
     blocks of the one-device step's (fp32 bounds)."""
-    _, _, res, trained = spawned
+    _, _, res, trained, _ = spawned
     want = one_device[job]
     mesh = make_mesh(MESH, ("data", "model"))
     cfg = trained[job].cfg
@@ -217,7 +265,7 @@ def test_rank_step_parity_routes_and_bytes(spawned, job):
     attention takes the masked route (its "W" layer the masked stripes),
     another's kernel 11's; step 2's bytes sent by kind equal
     ``dryrun.count_rank_train``'s count at the rank's coordinates."""
-    _, _, res, trained = spawned
+    _, _, res, trained, _ = spawned
     cfg = trained[job].cfg
     for r in res:
         got = r[job]
