@@ -288,7 +288,26 @@ in place of the card):
              prefill and twice a step, kernel 1 in the EC calls, the
              card's paths only.  Prints per rank the seconds, the bytes
              by kind and the kernel-11 and kernel-1 launches;
-22. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
+22. mla-ranks - minicpm3-4b (MLA) at full width (d_model 2,560, 40
+             heads, q_lora 768, kv_lora 256, nope 64, rope 32, v 64, d_ff
+             6,400, vocab 73,448), depth cut to 4 of 62 layers, over
+             (data 2, model 2) as phase 21 runs its archs: a bf16
+             prefill of 2 x 2,048 (each rank's ``_mla_blockwise`` on its
+             stripe of Q tiles), each rank's logits block within
+             ``MODEL_RANKS_TWIN_MULTIPLE`` times the one-card bf16 logits'
+             distance from an fp32 twin; on the fp32 twin the protected
+             greedy session (1-token prompt, 8 steps over the
+             sequence-sharded latent cache, RS(1,1) over "data"): tokens
+             equal to the one-card fp32 engine's, pages to the stacked
+             store's, a fresh parity, data position 0 rebuilt byte for
+             byte, a flipped parity byte changing the rebuild; two bf16
+             AdamW steps of ``train_on_rank``, step 1's loss and norm
+             within train-ranks' bounds.  Every prefill's, decode step's
+             and step 2's bytes by kind must equal the dry run's count;
+             kernel 11 launches 0 times, kernel 1 in the EC calls, the
+             card's paths only.  Prints per rank the seconds, the bytes
+             by kind and the launches;
+23. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
              step at phase 12's cut (B 2 x S 2,048, remat "full",
              AdamW, the 1 x 1 mesh), made on ``meta``, against the same
              step on the card: the argument bytes asked of the allocator
@@ -309,7 +328,7 @@ counted (a call reached through a binding it does not wrap fails the
 run); then every shape is timed and each kernel's loss per run, calls x
 (kernel ms - bound ms), is printed beside its launches.
 Kernel 10 is also held against its plain version on the real object
-index of a server of the loaded RS testbed.  Every phase of 4-22 starts
+index of a server of the loaded RS testbed.  Every phase of 4-23 starts
 with the launch counts at 0 and reads them when it ends; launches made
 to compare a kernel with its plain version are not counted.  The line
 before the last is ``{"kernels": [...]}``;
@@ -4518,9 +4537,15 @@ RECURRENT_RANKS_EC = dict(k=1, m=1, page_size=256)
 RECURRENT_RANKS_TRAIN_STEPS = 2
 RECURRENT_RANKS_SEED = 27
 RECURRENT_RANKS_DEADLINE = 900.0
+# the mla-ranks phase: minicpm3-4b's MLA layers over (data 2, model 2),
+# as the recurrent-ranks phase runs its archs (the same sizes, seed and
+# checks): full width, depth cut to 4 of 62 layers (every decode step
+# gathers every layer over gloo), AdamW (its moments are blocks of the
+# parameters', so step 1's state is not compared whole)
+MLA_RANKS = (("minicpm3-4b", 4, "adamw"),)
 
 
-def recurrent_optimizer(name: str):
+def rank_optimizer(name: str):
     """The optimizer ``launch.train.train_on_rank`` makes for the phase's
     steps (its defaults: lr 1e-3, the warm-up a fifth of the steps)."""
     from repro_torch.train.optimizer import make_optimizer
@@ -4557,8 +4582,8 @@ def state_errors(torch, got, want) -> dict:
 
 
 def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent):
-    """Part of a recurrent-ranks rank body: the protected greedy session
-    of ``RankModel(cfg, local)`` (the fp32 twin): the prompt's
+    """Part of a recurrent-ranks (or mla-ranks) rank body: the protected
+    greedy session of ``RankModel(cfg, local)`` (the fp32 twin): the prompt's
     token-by-token prefill, ``protect_cache`` (RS(1,1) over "data"),
     ``RECURRENT_RANKS_STEPS`` greedy decode steps, the refresh and the
     rebuild of data position 0 (each EC call timed, ``_rank_timed``),
@@ -4612,17 +4637,19 @@ def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent):
 
 
 def recurrent_rank_body(comm, jobs):
-    """Recurrent-ranks phase, one rank: for each job (name, cfg, bf16
-    blocks, fp32 twin blocks, tokens, ``want``) of ``RECURRENT_RANKS``,
+    """Recurrent-ranks (and mla-ranks) phase, one rank: for each job
+    (name, cfg, bf16 blocks, fp32 twin blocks, tokens, ``want``) of
+    ``RECURRENT_RANKS`` (``MLA_RANKS``),
     with the launch counts from 0: the bf16 ``apply`` on the whole batch
     (its logits block against the one card's, ``want["prefill"]``, its
     bytes by kind); the fp32 twin's protected greedy session
     (``_recurrent_serve``); ``launch.train.train_on_rank`` with the
     job's optimizer on the rank's own copies of its bf16 blocks for
     ``RECURRENT_RANKS_TRAIN_STEPS`` steps, per step the loss, the norm,
-    the seconds and the bytes by kind, and after step 1 the replicated
+    the seconds and the bytes by kind, and after step 1 a replicated
     optimizer state against the one-card state after its step 1
-    (``want["state"]``, ``state_errors``); the dry run's counts of the
+    (``want["state"]``, None for AdamW's blocks; ``state_errors``); the
+    dry run's counts of the
     same prefill, decode step and train step at the rank's coordinates;
     the launches, ``op_paths`` and the training's peak."""
     import torch
@@ -4674,7 +4701,7 @@ def recurrent_rank_body(comm, jobs):
                               grad_norm=float(st["metrics"]["grad_norm"]),
                               s=time.perf_counter() - steps_t[0],
                               sent=dict(total)))
-            if step == 0:
+            if step == 0 and want["state"] is not None:
                 got["state_err"] = state_errors(
                     torch, st["opt_state"], want["state"])
             steps_t[0] = time.perf_counter()
@@ -4685,7 +4712,7 @@ def recurrent_rank_body(comm, jobs):
                 kind, total.get(kind, 0) + n)):
             train_on_rank(comms, cfg, own, steps=RECURRENT_RANKS_TRAIN_STEPS,
                           batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                          optimizer=recurrent_optimizer(want["optimizer"]),
+                          optimizer=rank_optimizer(want["optimizer"]),
                           observe=observe, log=lambda *a: None)
         torch.cuda.synchronize()
         del own
@@ -4719,17 +4746,19 @@ def recurrent_rank_body(comm, jobs):
     return out
 
 
-def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card):
-    """One job's one-card side: the model at full width (its depth cut to
-    ``layers_cut``), its bf16 prefill logits and their bound
-    (``MODEL_RANKS_TWIN_MULTIPLE`` times their distance from the fp32
-    twin's); the fp32 twin's greedy session's tokens; one bf16 step of
-    ``opt_name`` on a copy of the weights (loss, norm, the state after
-    it) and the same step of an fp32 twin, from which the norm's bound
+def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card,
+                         label):
+    """One job's one-card side (``label``: its phase): the model at full
+    width (its depth cut to ``layers_cut``), its bf16 prefill logits and
+    their bound (``MODEL_RANKS_TWIN_MULTIPLE`` times their distance from
+    the fp32 twin's); the fp32 twin's greedy session's tokens; one bf16
+    step of ``opt_name`` on a copy of the weights (loss, norm, the state
+    after it) and the same step of an fp32 twin, from which the norm's bound
     and each kind of state leaf's come (``TWIN_MULTIPLE`` times the gap,
     the worst over the kind's leaves; for adamw8bit's int8 codes at
     least 1: two bf16 steps that round their sums in another order move
-    codes by more than one, 5 at the reduced config on the CPU)."""
+    codes by more than one, 5 at the reduced config on the CPU; none
+    for AdamW, whose moments a rank holds by block)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import Model
@@ -4765,7 +4794,7 @@ def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card):
     for dtype in ("bfloat16", "float32"):
         trainee = Model(cfg.scaled(dtype=dtype), device=dev)
         trainee.load_state_dict(model.state_dict())
-        opt = recurrent_optimizer(opt_name)
+        opt = rank_optimizer(opt_name)
         params = param_tree(trainee)
         state = opt.init(params)
         _, state, m = make_train_step(trainee, opt)(params, state, batch)
@@ -4774,13 +4803,17 @@ def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card):
         del trainee, params
         _free(torch)
     one, tw = steps["bfloat16"], steps["float32"]
+    replicated = opt_name != "adamw"
     bounds = dict(loss=TRAIN_LOSS_TOL, norm=TWIN_MULTIPLE * abs(
         one["grad_norm"] - tw["grad_norm"]) / tw["grad_norm"], state={
             k: max(1, TWIN_MULTIPLE * v) if k.endswith("/q")
             else TWIN_MULTIPLE * v for k, v in state_errors(
-                torch, one["state"], tw["state"])["worst"].items()})
+                torch, one["state"], tw["state"])["worst"].items()}
+        if replicated else {})
     del tw["state"]
-    log(f"recurrent-ranks [{card}] {arch} one-card ({cfg.num_layers} of "
+    if not replicated:
+        one["state"] = None
+    log(f"{label} [{card}] {arch} one-card ({cfg.num_layers} of "
         f"{full.num_layers} layers, d_model {cfg.d_model}, vocab "
         f"{cfg.vocab_size}): prefill logit bound {bound}; {opt_name} step 1 "
         f"bf16 loss {one['loss']} norm {one['grad_norm']}, fp32 twin loss "
@@ -4791,9 +4824,24 @@ def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card):
 
 def run_recurrent_ranks(np, torch, dev, card):
     """The recurrent layer kinds across ranks (module notes, phase 21):
-    four gloo ranks over (data 2, model 2), each a ``RankModel`` of
-    recurrentgemma-2b ("RRW") and of mamba2-370m on its blocks of the
-    parent's one-card models.  Per job: each rank's bf16 prefill logits
+    recurrentgemma-2b ("RRW") and mamba2-370m (``run_kind_ranks``)."""
+    return run_kind_ranks(np, torch, dev, card, RECURRENT_RANKS,
+                          "recurrent-ranks")
+
+
+def run_mla_ranks(np, torch, dev, card):
+    """MLA across ranks (module notes, phase 22): minicpm3-4b at 4
+    layers (``run_kind_ranks``), its prefill's ``_mla_blockwise`` on
+    each rank's stripe, its decode over the sequence-sharded latent
+    cache, AdamW on the rank's blocks."""
+    return run_kind_ranks(np, torch, dev, card, MLA_RANKS, "mla-ranks")
+
+
+def run_kind_ranks(np, torch, dev, card, jobs, label):
+    """Layer kinds across ranks: four gloo ranks over (data 2, model 2),
+    each a ``RankModel`` of every arch of ``jobs`` ((arch, depth cut,
+    optimizer)) on its blocks of the parent's one-card models; ``label``
+    names the phase.  Per job: each rank's bf16 prefill logits
     block within the twin-based bound; the protected greedy session's
     tokens equal to the one-card fp32 engine's, its pages equal to the
     stacked one-card store's over the cache gathered from the ranks, the
@@ -4805,9 +4853,10 @@ def run_recurrent_ranks(np, torch, dev, card):
     (adamw8bit's codes, at least within 1, and scales; adafactor's
     factors), the worst over the leaves; every
     prefill's, decode step's and training step 2's bytes by kind equal
-    to the dry run's count; kernel 11 on every attention layer, kernel 1
-    in the EC calls, the card's paths only.  Returns the ranks'
-    launches, summed, and the phase's numbers."""
+    to the dry run's count; kernel 11 on every attention layer (none on
+    an MLA layer, whose prefill takes ``mla_blockwise:torch`` once a
+    layer), kernel 1 in the EC calls, the card's paths only.  Returns
+    the ranks' launches, summed, and the phase's numbers."""
     from repro_torch.distributed import ranks as rk
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_mesh
@@ -4815,8 +4864,9 @@ def run_recurrent_ranks(np, torch, dev, card):
     from repro_torch.models.ranked import batch_rows
     from repro_torch.tree import Stacked, tree_map
     t_phase = time.perf_counter()
-    refs = {arch: _recurrent_reference(torch, dev, arch, cut, opt, card)
-            for arch, cut, opt in RECURRENT_RANKS}
+    refs = {arch: _recurrent_reference(torch, dev, arch, cut, opt, card,
+                                       label)
+            for arch, cut, opt in jobs}
     mesh = make_mesh(RECURRENT_RANKS_MESH, ("data", "model"))
     A, M = RECURRENT_RANKS_MESH
     B = RECURRENT_RANKS_PREFILL[0]
@@ -4832,22 +4882,21 @@ def run_recurrent_ranks(np, torch, dev, card):
     for r in range(mesh.size):
         a, m = mesh.coords(r)
         r0, r1 = batch_rows(B, A, a)
-        jobs = []
-        for arch, _, opt in RECURRENT_RANKS:
+        rank_jobs = []
+        for arch, _, opt in jobs:
             ref = refs[arch]
             Vl = ref["cfg"].padded_vocab // M
-            jobs.append((arch, ref["cfg"], blocks(ref["model"], (a, m)),
-                         blocks(ref["twin"], (a, m)), ref["toks"], {
-                             "prefill": ref["logits"][r0:r1, :,
-                                                      m * Vl:(m + 1) * Vl],
-                             "state": ref["one"]["state"],
-                             "optimizer": opt}))
-        rank_args.append((jobs,))
+            rank_jobs.append((
+                arch, ref["cfg"], blocks(ref["model"], (a, m)),
+                blocks(ref["twin"], (a, m)), ref["toks"], {
+                    "prefill": ref["logits"][r0:r1, :, m * Vl:(m + 1) * Vl],
+                    "state": ref["one"]["state"], "optimizer": opt}))
+        rank_args.append((rank_jobs,))
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.perf_counter()
     try:
-        with tempfile.TemporaryDirectory(prefix="recurrent_ranks_") as tmp:
+        with tempfile.TemporaryDirectory(prefix="kind_ranks_") as tmp:
             res = rk.launch(recurrent_rank_body, mesh, rank_args,
                             init_file=os.path.join(tmp, "init"),
                             timeout=RECURRENT_RANKS_DEADLINE)
@@ -4859,10 +4908,11 @@ def run_recurrent_ranks(np, torch, dev, card):
     nums = {"spawn_s": time.perf_counter() - t0, "jobs": {}}
     del rank_args
     launches = None
-    for arch, _, opt in RECURRENT_RANKS:
+    for arch, _, opt in jobs:
         ref = refs.pop(arch)
         cfg, bounds = ref["cfg"], ref["bounds"]
         attention = sum(cfg.layers.count(k) for k in "AW")
+        mla = cfg.layers.count("L")
         P = RECURRENT_RANKS_PROMPT + RECURRENT_RANKS_STEPS
         stacked, _ = stacked_store(
             torch, dev, cfg.scaled(dtype="float32"),
@@ -4886,8 +4936,8 @@ def run_recurrent_ranks(np, torch, dev, card):
                     got["rebuilt"]).to(dev), stacked[0, at[1]]))
             shown = {k: got[k] for k in got
                      if k not in ("pages", "rebuilt", "cache", "state_err")}
-            shown["worst_state_err"] = got["state_err"]["worst"]
-            log(f"recurrent-ranks [{card}] {arch} rank at {at}: "
+            shown["worst_state_err"] = got.get("state_err", {}).get("worst")
+            log(f"{label} [{card}] {arch} rank at {at}: "
                 f"{json.dumps(shown)}")
             assert got["prefill_err"] <= ref["bound"], (
                 at, got["prefill_err"], ref["bound"])
@@ -4899,7 +4949,7 @@ def run_recurrent_ranks(np, torch, dev, card):
                 at, got["step1_loss_err"])
             assert got["step1_grad_norm_rel_err"] <= bounds["norm"], (
                 at, got["step1_grad_norm_rel_err"], bounds["norm"])
-            for k, v in got["state_err"]["worst"].items():
+            for k, v in (shown["worst_state_err"] or {}).items():
                 assert v <= bounds["state"][k], (at, k, v, bounds["state"][k])
             assert got["sent"]["prefill"] == got["counted"]["prefill"], at
             assert all(s == got["counted"]["decode"]
@@ -4914,6 +4964,7 @@ def run_recurrent_ranks(np, torch, dev, card):
             assert n["gf_matmul_batched"] > 0, n
             assert not any(k.startswith("masked")
                            for k in got["prefill_routes"])
+            assert got["prefill_routes"].get("mla_blockwise:torch", 0) == mla
             if attention:
                 assert got["op_paths"] == {"flash_attention": "cuda-kernel"}
             else:
@@ -4930,7 +4981,7 @@ def run_recurrent_ranks(np, torch, dev, card):
                    "kernel11": n["flash_attention"],
                    "kernel1": n["gf_matmul_batched"]})
         nums["jobs"][arch] = job
-        log(f"recurrent-ranks [{card}] {arch}: prefill s a rank "
+        log(f"{label} [{card}] {arch}: prefill s a rank "
             f"{[round(r['prefill_s'], 3) for r in job['ranks']]}, decode s a "
             f"step {[round(r['decode_s_per_step'], 3) for r in job['ranks']]}"
             f", train s a step (step 2) "
@@ -4944,7 +4995,7 @@ def run_recurrent_ranks(np, torch, dev, card):
     _free(torch)
     torch.cuda.ipc_collect()
     nums["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase recurrent-ranks: {nums['phase_s']:.1f} s")
+    log(f"phase {label}: {nums['phase_s']:.1f} s")
     return launches, nums
 
 
@@ -5175,6 +5226,8 @@ def main() -> int:
     by_phase["recurrent_ranks"], recurrent_ranks = run_recurrent_ranks(
         np, torch, dev, card)
     log(f"recurrent-ranks phase [{card}]:", json.dumps(recurrent_ranks))
+    by_phase["mla_ranks"], mla_ranks = run_mla_ranks(np, torch, dev, card)
+    log(f"mla-ranks phase [{card}]:", json.dumps(mla_ranks))
     stripe = model_ranks["stripes"]["timed"]
     for row in rows:
         if row["name"] == "flash_attention":

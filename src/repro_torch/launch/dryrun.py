@@ -18,11 +18,12 @@ argument bytes each device of the mesh holds under
   depth, so its extrapolation is an estimate (``peak_extrapolated``);
   ``count_cell`` counts one depth whole.
 * The prefill, decode and train cells of the archs whose layers the
-  rank path runs (kinds "A", "W", "R" and "S": starcoder2-3b,
+  rank path runs (kinds "A", "W", "L", "R" and "S": starcoder2-3b,
   phi4-mini-3.8b, mistral-large-123b, qwen2-vl-7b with its M-RoPE and
   embeddings input, musicgen-medium with its embeddings input,
-  recurrentgemma-2b and mamba2-370m) on a (data, model) or (pod, data,
-  model) mesh of more than one position count one rank's forward
+  minicpm3-4b's MLA, recurrentgemma-2b and mamba2-370m) on a (data,
+  model) or (pod, data, model) mesh of more than one position count one
+  rank's forward
   (``models/ranked.py``'s ``RankModel`` on the position's blocks, its
   moves counted by ``ranks.counting_comms``), or one rank's train step
   with any of the three optimizers (``count_rank_train``; adamw8bit, the
@@ -34,13 +35,14 @@ argument bytes each device of the mesh holds under
   "rank"``); the totals sum the positions; ``repeated_products`` names
   the matrix products every model position computes alike and their
   FLOPs on one position.  A batch at or above its axes' size that they
-  do not divide keeps the even split.
-* Every other model cell (the MoE and MLA archs, the 1 x 1 mesh) runs
-  its positions as one program on one card: FLOPs and bytes per device
-  are the program's divided by the devices (an even split, ``count:
-  "even split"``), the peak is given for one card running the whole
-  program, and there are no collectives (their fields are null, with the
-  reason).
+  do not divide, or a head count that "model" does not divide (an MLA
+  or Mamba-2 layer's; ``ranked.check_config``), keeps the even split.
+* Every other model cell (the MoE archs, the 1 x 1 mesh, and the cells
+  above that the rank path refuses) runs its positions as one program
+  on one card: FLOPs and bytes per device are the program's divided by
+  the devices (an even split, ``count: "even split"``), the peak is
+  given for one card running the whole program, and there are no
+  collectives (their fields are null, with the reason).
 * An EC cell runs one device's program: the rank body of one position
   (``distributed/ranks.py``, ``ecstore.rank_*``) on its own block, so its
   counts and peak are a device's, and its sends, counted by a
@@ -100,8 +102,7 @@ COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 NO_SPMD = ("no SPMD collectives: the mesh's positions run as one program "
            "on one card, its counts split evenly (MoE experts across "
-           "ranks, ROADMAP.md Queue 1 item 7, and MLA, item 8, are not "
-           "ported yet)")
+           "ranks, ROADMAP.md Queue 1 item 7, are not ported yet)")
 RANK_NOTE = ("one rank's forward or train step, the busiest position's: "
              "the bytes it sends by kind (an all-gather or a reduce-scatter "
              "(A - 1) blocks, an all-reduce 2(A - 1)/A of its bytes, the "
@@ -333,19 +334,24 @@ def count_model_cell(cfg, shape: ShapeSpec, mesh: Mesh,
     return out
 
 
-def rank_counted(cfg, shape: ShapeSpec, mesh: Mesh,
-                 optimizer: str = "adamw8bit") -> bool:
-    """Whether the cell counts one rank's forward or train step (module
-    notes)."""
+def rank_refusal(cfg, shape: ShapeSpec, mesh: Mesh) -> str | None:
+    """Why the cell keeps the even split: None where it counts one rank's
+    forward or train step (module notes), "" on a 1 x 1 or other mesh,
+    else the rank path's refusal."""
     if mesh.size == 1 or tuple(mesh.axis_names) not in MESH_AXES:
-        return False
+        return ""
     try:
         batch_rows(shape.global_batch, mesh.shape["data"], 0,
                    mesh.shape.get("pod", 1))
         check_config(cfg, mesh)
-    except (NotImplementedError, ValueError):
-        return False
-    return True
+    except (NotImplementedError, ValueError) as e:
+        return str(e)
+    return None
+
+
+def rank_counted(cfg, shape: ShapeSpec, mesh: Mesh) -> bool:
+    """Whether the cell counts one rank's forward or train step."""
+    return rank_refusal(cfg, shape, mesh) is None
 
 
 def _rank_blocks(cfg, mesh: Mesh, coords):
@@ -384,7 +390,8 @@ def count_rank_train(cfg, shape: ShapeSpec, mesh: Mesh, coords,
     backward, the gradient sums, the norm, ``optimizer`` on the blocks;
     with ``ec``, the ``ECCheckpoint(comm=...)`` stage and commit of the
     rank's blocks), its moves counted by ``ranks.counting_comms``: what
-    ``count_rank_forward`` reports.  Call inside ``dispatch.dry_run``."""
+    ``count_rank_forward`` reports; ``OP_PATHS`` and ``DROPS`` are left
+    as they were.  Call inside ``dispatch.dry_run``."""
     local, live = _rank_blocks(cfg, mesh, coords)
     comms = counting_comms(mesh, coords)
     model = RankModel(cfg, local, comms)
@@ -402,7 +409,7 @@ def count_rank_train(cfg, shape: ShapeSpec, mesh: Mesh, coords,
         live += [ec_ckpt.parity, ec_ckpt._pages]
     step = make_rank_train_step(model, opt, ec=ec_ckpt)
     live = [t for t in live if t.device.type == "meta"]
-    with ca.Count(live) as c:
+    with ca.Count(live) as c, _counters_kept():
         step(params, opt_state, batch)
     return _rank_count(c, model)
 
@@ -414,8 +421,8 @@ def count_rank_forward(cfg, shape: ShapeSpec, mesh: Mesh, coords) -> dict:
     ``decode_step`` at the last slot of a seq_len cache.  FLOPs, bytes,
     peak (the rank's blocks, the batch and its cache block live),
     collective bytes and moves by kind, and the products every model
-    position repeats (``RankModel.repeated``).  Call inside
-    ``dispatch.dry_run``."""
+    position repeats (``RankModel.repeated``); ``OP_PATHS`` and ``DROPS``
+    are left as they were.  Call inside ``dispatch.dry_run``."""
     local, live = _rank_blocks(cfg, mesh, coords)
     batch = make_inputs(cfg, shape, "meta")
     model = RankModel(cfg, local, counting_comms(mesh, coords))
@@ -432,7 +439,7 @@ def count_rank_forward(cfg, shape: ShapeSpec, mesh: Mesh, coords) -> dict:
             return model.decode_step(cache, batch["tokens"],
                                      shape.seq_len - 1,
                                      batch.get("positions"))
-    with ca.Count(live) as c:
+    with ca.Count(live) as c, _counters_kept():
         step()
     return _rank_count(c, model)
 
@@ -518,8 +525,8 @@ def run_cell(arch: str, shape_name: str, mesh="single", *,
             ok, why = shape_applicable(cfg, shape)
             if not ok:
                 return dict(base, status="skipped", reason=why)
-            kind = ("rank" if rank_counted(cfg, shape, mesh, optimizer)
-                    else "even split")
+            refusal = rank_refusal(cfg, shape, mesh)
+            kind = "rank" if refusal is None else "even split"
             if kind == "rank":
                 cell = count_rank_cell(cfg, shape, mesh, optimizer)
                 counts = dict(cell["busiest"])
@@ -561,7 +568,8 @@ def run_cell(arch: str, shape_name: str, mesh="single", *,
         res.update(collective_bytes_per_device=None,
                    collective_wire_bytes_per_device=None, collectives=None,
                    collective_wire=None, collective_counts=None,
-                   collective_note=NO_SPMD, t_collective=None)
+                   collective_note=NO_SPMD + (f"; {refusal}" if refusal
+                                              else ""), t_collective=None)
     else:
         total = sum(coll.values())
         res.update(collective_bytes_per_device=total,

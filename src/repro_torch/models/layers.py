@@ -13,13 +13,13 @@ The port of the JAX package's ``models/layers.py``.  Conventions:
 * a mesh is a set of ranks: ``set_activation_mesh`` installs a rank's
   communicators (``distributed.ranks.rank_comms``) where the reference's
   installs a mesh for GSPMD's activation constraints, and
-  ``models/ranked.py``'s ``RankModel`` runs a model of "A" and "W"
-  layers on the rank with the reference's activation layout (its
-  ``shard_act`` calls), the sequence- or head-parallel attention of its
-  ``blockwise_attention`` (kernel 11 on a stripe of Q tiles, or the
-  masked route on the stripe's positions) and the sequence-sharded
-  decode cache.  ``Model`` itself runs on one device and reads no
-  mesh.
+  ``models/ranked.py``'s ``RankModel`` runs a model of "A", "W", "L",
+  "R" and "S" layers on the rank with the reference's activation layout
+  (its ``shard_act`` calls), the sequence- or head-parallel attention of
+  its ``blockwise_attention`` (kernel 11 on a stripe of Q tiles, or the
+  masked route on the stripe's positions), MLA's ``_mla_blockwise`` on a
+  stripe of Q tiles and the sequence-sharded decode cache.  ``Model``
+  itself runs on one device and reads no mesh.
 
 Parameters are made with ``requires_grad=False``, as serving takes no
 gradients; the training step (``train/train_step.py``) turns it on.
@@ -56,7 +56,8 @@ NEG_INF = -1e30
 #: "flash_attention:<dispatch path>" (kernel 11 or its plain version),
 #: "masked_blockwise:torch", "decode:torch", "decode_q8:torch",
 #: "mla_blockwise:torch", "mla_decode:torch", and on a rank
-#: "decode_ranked:torch" (a sequence-sharded cache's combined decode)
+#: "decode_ranked:torch" and "mla_decode_ranked:torch" (a
+#: sequence-sharded cache's combined decode)
 OP_PATHS: collections.Counter = collections.Counter()
 
 #: the rank communicators ``set_activation_mesh`` installed, or None
@@ -593,25 +594,39 @@ def mla_apply(p: MLA, x, cfg: ModelConfig, positions, *,
     return out.reshape(B, S, H * vdim) @ p.wo, new_cache
 
 
-def _mla_blockwise(q_nope, q_rope, latent, k_rope, p: MLA, cfg: ModelConfig):
+def _mla_blockwise(q_nope, q_rope, latent, k_rope, p: MLA, cfg: ModelConfig,
+                   stripe=None):
     """Prefill: per KV tile the latent is up-projected to per-head keys
     and values (in the weights' dtype, as the reference's einsums), scores
     q_nope·k_nope + q_rope·k_rope in fp32 over sqrt(nope + rope), causal,
     merged by the online softmax over Q tiles of ``attn_block_q`` and KV
     tiles of ``attn_block_kv``; tiles past the diagonal are skipped (they
-    add exactly 0)."""
+    add exactly 0).
+
+    On a rank of a mesh (``ranked.RankModel``) the reference stripes the Q
+    tiles over "model" as ``blockwise_attention`` does: ``stripe=(bq, M,
+    m)`` says that the queries are stripe m's rows, tile t = l·M + m of bq
+    rows at row l·bq (positions ``stripe_positions``), against the whole
+    sequence's latent and RoPE key; each of those tiles is a Q tile here.
+    A stripe count of 1 is the unstriped call."""
     _count("mla_blockwise:torch")
     B, Sq, H, _ = q_nope.shape
+    Skv = latent.shape[1]
     vdim = cfg.v_head_dim
-    bq = min(cfg.attn_block_q, max(Sq, 16))
-    bkv = min(cfg.attn_block_kv, Sq)
+    seg, count, _ = stripe if stripe is not None else (Sq, 1, 0)
+    bq = min(cfg.attn_block_q, max(Sq, 16)) if count == 1 else seg
+    if count == 1:
+        stripe = None
+    bkv = min(cfg.attn_block_kv, Skv)
     scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     dev = q_nope.device
+    pos = stripe_positions(Sq, stripe, dev)
+    last = stripe_positions(Sq, stripe).tolist()       # no sync
     kr = k_rope[:, :, 0, :]
     out = torch.empty((B, Sq, H, vdim), dtype=q_nope.dtype, device=dev)
     tiles = []
-    for k0 in range(0, Sq, bkv):
-        k1 = min(Sq, k0 + bkv)
+    for k0 in range(0, Skv, bkv):
+        k1 = min(Skv, k0 + bkv)
         lat = latent[:, k0:k1]
         tiles.append((k0, k1,
                       torch.einsum("btr,rhd->bhtd", lat, p.w_uk).float(),
@@ -621,14 +636,14 @@ def _mla_blockwise(q_nope, q_rope, latent, k_rope, p: MLA, cfg: ModelConfig):
         q1 = min(Sq, q0 + bq)
         qn = q_nope[:, q0:q1].float().permute(0, 2, 1, 3)      # (B,H,bq,e)
         qr = q_rope[:, q0:q1].float().permute(0, 2, 1, 3)
-        qp = torch.arange(q0, q1, device=dev)[:, None]
+        qp = pos[q0:q1, None]
         acc = torch.zeros((B, H, q1 - q0, vdim), dtype=torch.float32,
                           device=dev)
         m_run = torch.full((B, H, q1 - q0), NEG_INF, dtype=torch.float32,
                            device=dev)
         l_run = torch.zeros_like(m_run)
         for k0, k1, k_nope, v_blk, kr_blk in tiles:
-            if k0 > q1 - 1:
+            if k0 > last[q1 - 1]:
                 break
             s = (torch.einsum("bhqd,bhtd->bhqt", qn, k_nope)
                  + torch.einsum("bhqd,btd->bhqt", qr, kr_blk)) * scale

@@ -1,4 +1,4 @@
-"""A model of attention, RG-LRU and Mamba-2 layers on one rank of a
+"""A model of attention, MLA, RG-LRU and Mamba-2 layers on one rank of a
 (data, model) or (pod, data, model) mesh: its forward, its decode, and
 its backward for training.
 
@@ -54,6 +54,25 @@ positions, rank (a, m):
   (a "W" layer through ``layers.local_attention``), and its wo rows; an
   all-reduce over the model column sums the partial outputs, in the
   activation dtype;
+* **MLA** (kind "L", whatever ``attn_parallel`` says: the reference's
+  ``_mla_blockwise`` never reads it): in a prefill the reference stripes
+  the Q tiles over "model" as ``blockwise_attention`` does.  The rank
+  computes the latent (``w_dkv``, ``kv_norm``) and the RoPE key of every
+  row, replicated over "model" as K and V are; it projects only its
+  stripe's rows through ``w_dq`` -> ``q_norm`` -> ``w_uq`` (or ``wq``),
+  gathered whole over the model column, runs
+  ``layers._mla_blockwise(stripe=(bq, M, m))`` against every key (each
+  KV tile up-projected through the whole ``w_uk`` and ``w_uv``: products
+  every model position repeats), multiplies its rows by the whole wo and
+  all-gathers the stripes back.  In a decode step heads carry the
+  projections and slots the scores: the rank (H % M must be 0, else a
+  ``ValueError``) computes its H/M heads' queries through its ``w_uq``
+  block (``w_dq`` repeated) and absorbs q_nope through its ``w_uk``
+  block; the absorbed queries and q_rope are all-gathered over the model
+  column; over its slice of the latent cache the rank computes every
+  head's fp32 partial max, sum and weighted latent, combined by
+  log-sum-exp as below; its heads' ``w_uv`` and wo rows follow, then an
+  all-reduce;
 * **MLP**: w_gate and w_up column-parallel, w_down row-parallel, an
   all-reduce after it (activation dtype);
 * **RG-LRU** (kind "R"): the rank owns channels [m·d/M, (m+1)·d/M):
@@ -89,15 +108,16 @@ positions, rank (a, m):
 * **decode**: the cache is the rank's block by ``cache_specs``
   (``init_cache``; ``cache_shapes`` gives the whole cache's shapes): its
   batch rows and, where a layer's slots split over "model" (max_len, or
-  a "W" layer's ring of min(max_len, W) slots), its contiguous slice of
-  them.  The new K/V (for the int8 cache quantized, with their scales)
-  are written by the rank whose slice holds the slot (``cache_len``, a
-  ring's ``cache_len`` mod W); each rank computes its slice's partial
-  softmax sums (max, sum, weighted V) in fp32 - the scores tanh-capped
-  before the max, an int8 cache's scales factored out of the dots - and
-  the model column combines them by log-sum-exp (an all-gather of the
-  partials, summed in model order) over the valid slots (a ring's
-  min(cache_len + 1, W));
+  a "W" layer's ring of min(max_len, W) slots, an "L" layer's latent
+  and RoPE-key slots), its contiguous slice of them.  The new K/V (for
+  the int8 cache quantized, with their scales; an "L" layer's latent and
+  RoPE key) are written by the rank whose slice holds the slot
+  (``cache_len``, a ring's ``cache_len`` mod W); each rank computes its
+  slice's partial softmax sums (max, sum, weighted V) in fp32 - the
+  scores tanh-capped before the max, an int8 cache's scales factored
+  out of the dots - and the model column combines them by log-sum-exp
+  (an all-gather of the partials, summed in model order) over the valid
+  slots (a ring's min(cache_len + 1, W));
 * **greedy sampling** (``argmax``): each rank's local (max, index), an
   all-gather over the model column (the first maximum wins, as
   ``torch.argmax``), then over the data (and pod) columns for the whole
@@ -116,7 +136,8 @@ whole leaf; the input of each column-parallel product (the normed
 residual before attention, before the MLP and before the unembedding)
 passes through ``ranks.sum_grad``, which sums its gradient over the
 model column, as do the wk and wv blocks (replicated over "model", and
-every model position's K and V serve only its own query rows or heads);
+every model position's K and V serve only its own query rows or heads)
+and MLA's ``w_dkv``, ``w_dq`` and norm scales;
 the row-parallel all-reduces pass their gradient through, and the
 "seq" stripes' gather hands each position its rows' gradient.  A
 replicated norm scale then has its whole gradient on every model
@@ -130,12 +151,12 @@ Every result is the one-device model's up to the order of sums.  The
 arithmetic a rank shares with ``Model`` is ``layers.py``'s own (RoPE and
 M-RoPE, the embedding lookup, the SwiGLU MLP, the unembedding, kernel
 11's route, the masked and local attention, int8 quantization, the
-unsharded decode attention) and ``rglru.py``'s and ``mamba2.py``'s (the
-conv, the gates, the scan, the SSD and its one-token step); what is
-this module's is the split: which rows, heads, channels and slices a
-rank computes and how blocks move.  MLA and MoE layers ("L", "M") raise
-on a mesh larger than 1 x 1, naming the ROADMAP item that will port
-them.  ``READ_FIELDS`` and ``KIND_FIELDS``
+unsharded decode attention, MLA's blockwise prefill) and ``rglru.py``'s
+and ``mamba2.py``'s (the conv, the gates, the scan, the SSD and its
+one-token step); what is this module's is the split: which rows, heads,
+channels and slices a rank computes and how blocks move.  MoE layers
+("M") raise on a mesh larger than 1 x 1, naming the ROADMAP item that
+will port them.  ``READ_FIELDS`` and ``KIND_FIELDS``
 say, for every ``ModelConfig`` field, whether the rank path reads it or
 leaves it to a refused layer kind; a field in neither fails the rank
 tests, so a new option cannot go unread here.  On a 1 x 1 mesh
@@ -144,9 +165,11 @@ tests, so a new option cannot go unread here.  On a 1 x 1 mesh
 
 ``repeated`` counts, by product, the matrix-product FLOPs that every
 model position computes alike (the plan's repeats: K and V everywhere,
-and in a "seq" decode step wq and wo too; Mamba-2's B and C columns, and
-in a decode step the token's whole x | B | C input); the dry run reports
-them beside a rank's count (``launch/dryrun.py``).
+and in a "seq" decode step wq and wo too; MLA's ``w_dkv``, in a prefill
+its KV tiles' ``w_uk`` and ``w_uv`` up-projections, in a decode step
+``w_dq``; Mamba-2's B and C columns, and in a decode step the token's
+whole x | B | C input); the dry run reports them beside a rank's count
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -175,12 +198,11 @@ from .transformer import (REMAT_CONTEXTS, Model, stack_cache,
 #: ranks
 ROADMAP_ITEMS = {
     "M": (7, "MoE experts over 'model'"),
-    "L": (8, "MLA"),
 }
 
-#: the layer kinds the rank path runs: global and local attention, each
-#: with a dense MLP, RG-LRU with a dense MLP, and Mamba-2
-KINDS = frozenset("AWRS")
+#: the layer kinds the rank path runs: global and local attention, MLA and
+#: RG-LRU, each with a dense MLP, and Mamba-2
+KINDS = frozenset("AWLRS")
 
 #: ``ModelConfig`` fields the rank path reads as ``Model``'s layers do
 #: (``remat``: honoured while autograd records, as ``Model.forward``
@@ -192,12 +214,11 @@ READ_FIELDS = frozenset({
     "attn_block_q", "attn_block_kv", "attn_parallel", "kv_cache_dtype",
     "input_mode", "tie_embeddings", "norm_eps", "logit_softcap", "dtype",
     "remat", "rglru_conv", "rglru_c", "ssm_state", "ssm_expand",
-    "ssm_headdim", "ssm_conv", "ssm_chunk", "ssm_groups"})
+    "ssm_headdim", "ssm_conv", "ssm_chunk", "ssm_groups", "q_lora_rank",
+    "kv_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim"})
 
 #: fields only the layer kinds the rank path refuses read
 KIND_FIELDS = {
-    "L": ("q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim",
-          "v_head_dim"),
     "M": ("num_experts", "experts_per_token", "moe_capacity_factor"),
 }
 
@@ -219,6 +240,10 @@ def _refuse(cfg: ModelConfig, what: str, item) -> None:
 
 MESH_AXES = (("data", "model"), ("pod", "data", "model"))
 
+#: an MLA layer's head-split leaves, gathered whole over the model column
+#: in a prefill (the stripe reads every head)
+MLA_HEADS = ("w_uq", "wq", "w_uk", "w_uv", "wo")
+
 
 def check_config(cfg: ModelConfig, mesh) -> None:
     """Raise unless ``cfg`` runs across ranks on ``mesh`` (module notes);
@@ -236,6 +261,8 @@ def check_config(cfg: ModelConfig, mesh) -> None:
         sizes.append(("the RG-LRU width d_model", cfg.d_model))
     if "S" in cfg.layers:
         sizes.append(("the Mamba-2 head count", cfg.ssm_heads))
+    if "L" in cfg.layers:
+        sizes.append(("the MLA head count", cfg.num_heads))
     for what, n in sizes:
         if n % M:
             raise ValueError(f"{cfg.name}: {what} {n} does not split over "
@@ -314,7 +341,7 @@ def _split_dim(spec, axis: str):
 
 
 class RankModel:
-    """A config of "A", "W", "R" and "S" layers on this rank (module
+    """A config of "A", "W", "L", "R" and "S" layers on this rank (module
     notes).
 
     ``params``: the rank's blocks of the parameter tree in the
@@ -413,9 +440,15 @@ class RankModel:
     def _mm(self, name: str, x, w, repeated: bool = False):
         """``x @ w``; a product every model position computes alike adds
         its FLOPs to ``repeated[name]``."""
-        if repeated and self.M > 1:
-            self.repeated[name] += 2 * x.numel() * w.shape[-1]
+        if repeated:
+            self._repeat(name, 2 * x.numel() * w.shape[-1])
         return x @ w
+
+    def _repeat(self, name: str, flops: int) -> None:
+        """Note ``flops`` of a product every model position computes
+        alike."""
+        if self.M > 1:
+            self.repeated[name] += flops
 
     def rows(self, B: int) -> tuple[int, int]:
         """The rows of a batch of B that this rank holds (``batch_rows``)."""
@@ -623,6 +656,109 @@ class RankModel:
         out = (o * w[..., None]).sum(dim=0) / (l_r * w).sum(dim=0)[..., None]
         return out.reshape(B, 1, H, hd).to(q.dtype)
 
+    # -- MLA ---------------------------------------------------------------
+    def _mla_query(self, p: dict, h, repeated: bool):
+        """The queries (B, S, heads, nope + rope) of ``h``'s rows through
+        the q LoRA (``w_dq`` -> ``q_norm`` -> ``w_uq``) or ``wq``, for the
+        heads of the ``w_uq``/``wq`` given (whole, or the rank's block);
+        ``repeated``: every model position projects these rows through
+        ``w_dq`` alike (decode)."""
+        if "w_dq" not in p:
+            return torch.einsum("bsd,dhe->bshe", h, p["wq"])
+        ql = rmsnorm(p["q_norm"]["scale"],
+                     self._mm("w_dq", h, p["w_dq"], repeated))
+        return torch.einsum("bsr,rhd->bshd", ql, p["w_uq"])
+
+    def _mla(self, p: dict, h, positions, at=None):
+        """Kind "L" (module notes).  Prefill: the latent and RoPE key of
+        every row, the stripe's queries through the whole ``w_uq`` (or
+        ``wq``), ``layers._mla_blockwise`` on the stripe against every key
+        (each KV tile up-projected through the whole ``w_uk``/``w_uv``),
+        the stripe's rows through the whole ``wo``, the stripes gathered
+        back.  ``at`` (decode): (cache, write slot, valid slots, the
+        rank's first slot or None for an unsharded cache); the blocks of
+        the heads' projections are the rank's."""
+        cfg = self.cfg
+        B, S, _ = h.shape
+        r, nope = cfg.kv_lora_rank, cfg.qk_nope_dim
+        ckv = self._mm("w_dkv", h, p["w_dkv"], True)            # every row
+        latent = rmsnorm(p["kv_norm"]["scale"], ckv[..., :r])
+        k_rope = L.embed_positions(cfg, ckv[..., r:][:, :, None, :],
+                                   positions)
+        if at is not None:
+            return self._mla_decode(p, h, positions, latent, k_rope, *at)
+        st = seq_stripe(cfg, S, self.M, self.m)
+        bq, rows, nv = st["bq"], st["rows"], st["valid"]
+        idx = stripe_positions(rows, (bq, self.M, self.m), h.device)[:nv]
+        q = self._mla_query(p, h.index_select(1, idx), False)
+        q_rope = L.embed_positions(cfg, q[..., nope:],
+                                   positions.index_select(-1, idx))
+        # the reference's zero padding rows, as ``_attention`` pads them
+        pad = (0, 0, 0, 0, 0, rows - nv)
+        q_nope = nn.functional.pad(q[..., :nope], pad)
+        q_rope = nn.functional.pad(q_rope, pad)
+        w_uk, w_uv = p["w_uk"], p["w_uv"]
+        for name, w in (("w_uk", w_uk), ("w_uv", w_uv)):
+            self._repeat(name, 2 * latent.numel() * w[0].numel())
+        out = L._mla_blockwise(q_nope, q_rope, latent, k_rope,
+                               SimpleNamespace(w_uk=w_uk, w_uv=w_uv), cfg,
+                               stripe=(bq, self.M, self.m))
+        y = self._mm("wo", out[:, :nv].flatten(2), p["wo"])
+        y = nn.functional.pad(y, (0, 0, 0, rows - nv))
+        g = ranks.all_gather_rows(self.comms.model, y)  # (M, B, rows, d)
+        g = g.reshape(self.M, B, st["n_local"], bq, -1).permute(1, 2, 0, 3, 4)
+        return g.reshape(B, st["n_local"] * self.M * bq, -1)[:, :S]
+
+    def _mla_decode(self, p, h, positions, latent, k_rope, cache, slot: int,
+                    n_valid: int, s0):
+        """One token of kind "L" over the rank's latent cache slice (slots
+        s0...; the whole cache when s0 is None): heads carry the
+        projections, slots the scores.  The rank writes the token's latent
+        and RoPE key where its slice holds ``slot``, computes its heads'
+        queries and absorbs q_nope through its ``w_uk`` block; the model
+        column all-gathers them, so every rank holds every head's
+        absorbed query; each rank's slice gives every head's fp32 partial
+        max, sum and weighted latent, all-gathered and combined by
+        log-sum-exp in model order (a slice with no valid slot adds
+        exactly nothing); the rank's heads of the combined context go
+        through its ``w_uv`` and ``wo`` blocks, then an all-reduce."""
+        L._count("mla_decode_ranked:torch")
+        cfg = self.cfg
+        B = h.shape[0]
+        nope, H = cfg.qk_nope_dim, cfg.num_heads
+        Hl = H // self.M
+        lat_c, kr_c = cache["latent"], cache["k_rope"]
+        S_loc = lat_c.shape[1]
+        start = 0 if s0 is None else s0
+        if start <= slot < start + S_loc:            # this rank's slot
+            lat_c[:, slot - start] = latent[:, 0].to(lat_c.dtype)
+            kr_c[:, slot - start] = k_rope[:, 0, 0].to(kr_c.dtype)
+        q = self._mla_query(p, h, True)               # (B, 1, Hl, nope+rope)
+        q_rope = L.embed_positions(cfg, q[..., nope:], positions)
+        q_abs = torch.einsum("bshd,rhd->bshr", q[..., :nope], p["w_uk"])
+        qa = self.comms.model.all_gather(torch.cat([q_abs, q_rope], dim=-1))
+        qa = qa.permute(1, 2, 0, 3, 4).reshape(B, 1, H, -1)  # every head
+        r = lat_c.shape[-1]
+        scale = 1.0 / math.sqrt(nope + cfg.qk_rope_dim)
+        s = (torch.einsum("bshr,btr->bhst", qa[..., :r].float(),
+                          lat_c.float())
+             + torch.einsum("bshd,btd->bhst", qa[..., r:].float(),
+                            kr_c.float())) * scale
+        valid = (start + torch.arange(S_loc, device=h.device)) < n_valid
+        s = torch.where(valid, s, NEG_INF)
+        mx = s.amax(dim=-1)                                   # (B, H, 1)
+        pr = torch.where(valid, torch.exp(s - mx[..., None]), 0.0)
+        part = torch.cat([torch.einsum("bhst,btr->bhsr", pr, lat_c.float()),
+                          mx[..., None], pr.sum(dim=-1)[..., None]], dim=-1)
+        g = part[None] if s0 is None else self.comms.model.all_gather(part)
+        o, m_r, l_r = g[..., :r], g[..., r], g[..., r + 1]    # (M, B, H, 1)
+        w = torch.exp(m_r - m_r.amax(dim=0))
+        ctx = (o * w[..., None]).sum(dim=0) / (l_r * w).sum(dim=0)[..., None]
+        mine = ctx[:, self.m * Hl:(self.m + 1) * Hl].permute(0, 2, 1, 3)
+        out = torch.einsum("bshr,rhd->bshd", mine, p["w_uv"].float())
+        y = self._mm("wo", out.to(h.dtype).reshape(B, 1, -1), p["wo"])
+        return self.comms.model.all_reduce(y)
+
     # -- RG-LRU ------------------------------------------------------------------
     def _rglru(self, p: dict, h, cache=None):
         """Kind "R" on the rank's channels [m·d/M, (m+1)·d/M) (module
@@ -764,6 +900,10 @@ class RankModel:
             x = x + self._mamba(self._gathered(
                 blocks["mamba"], specs["mamba"],
                 ("in_proj", "conv_w", "conv_b")), h, at)
+        elif kind == "L":
+            heads = () if at is not None else MLA_HEADS
+            x = x + self._mla(self._gathered(blocks["mla"], specs["mla"],
+                                             heads), h, positions, at)
         else:
             attn = self._gathered(blocks["attn"], specs["attn"],
                                   () if self.head_parallel else ("wq", "wo"))
@@ -867,8 +1007,7 @@ class RankModel:
         specs = shd.cache_specs(self.cfg, shapes, self.mesh)
         local = unstack_cache(tree_map(lambda t, spec: shd.local_block(
             t, spec, self.mesh, self.comms.coords), shapes, specs))
-        self._slots = [c["k"].shape[1] if "k" in c else None
-                       for c in unstack_cache(shapes)]
+        self._slots = [_slots(c) for c in unstack_cache(shapes)]
         return [{k: torch.zeros(t.shape, dtype=t.dtype, device=self.device)
                  for k, t in c.items()} for c in local]
 
@@ -901,7 +1040,7 @@ class RankModel:
             slot, n_valid = cur_len, cur_len + 1
             if self.cfg.layers[i] == "W" and W:
                 slot, n_valid = cur_len % W, min(cur_len + 1, W)
-            S_loc = layer_cache["k"].shape[1]
+            S_loc = _slots(layer_cache)
             s0 = self.m * S_loc if S_loc != self._slots[i] else None
             x = self._apply_layer(i, x, pos, (layer_cache, slot, n_valid, s0))
         return self._final(x)[:, 0], cache
@@ -949,6 +1088,15 @@ class RankModel:
         (module notes)."""
         return Model.sample(self.gathered_logits(logits), temperature,
                             generator)
+
+
+def _slots(cache: dict):
+    """A layer cache's slot count: its K ("k") or latent ("latent") slots,
+    None for a recurrent state."""
+    for key in ("k", "latent"):
+        if key in cache:
+            return cache[key].shape[1]
+    return None
 
 
 def _global_shapes(cfg: ModelConfig) -> dict:

@@ -60,19 +60,20 @@ def _protect(comms, cfg, blocks, prompt, steps, max_len, ec) -> dict:
     return out
 
 
-def serve_body(comm, protect, train, recurrent=None):
+def serve_body(comm, protect, train, sessions=()):
     """``protect``: (cfg, blocks, prompt, steps, max_len, ec) for
     ``_protect``; ``train``: (name, cfg, blocks, batch, seq) jobs, each
     two AdamW steps through ``_train_rank_worker._job`` (``train_on_rank``
     with its EC copy; the second step's bytes are counted);
-    ``recurrent``: another ``_protect`` session, of a recurrent arch."""
+    ``sessions``: (name, the arguments of ``_protect``) of other archs'
+    sessions, each answered under its name."""
     torch.set_num_threads(1)
     comms = rank_comms(comm)
     layers.set_activation_mesh(comms)
     try:
         out = {"coords": comm.coords, "protect": _protect(comms, *protect)}
-        if recurrent is not None:
-            out["recurrent"] = _protect(comms, *recurrent)
+        for name, args in sessions:
+            out[name] = _protect(comms, *args)
         for name, cfg, blocks, batch, seq in train:
             out[name] = _train_rank_worker._job(comms, cfg, blocks, batch,
                                                 seq, 2)

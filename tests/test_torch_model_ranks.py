@@ -17,12 +17,15 @@ ring wraps; and the recurrent archs (``RECURRENT``): recurrentgemma-2b
 (RG-LRU "R" layers beside "W" layers, "seq" and "head") and mamba2-370m
 (Mamba-2 "S" layers, whose 296 packed ``in_proj`` columns and 160 conv
 channels split over "model" across its heads), with their caches after
-the decode.  Also its striped ``blockwise_attention`` at S 64 and at a
-ragged S 80 (padded to 128 rows, the second stripe's last 48 rows
-padding), and its ``_local_attention`` at S 80 with a 32-row window and
-a softcap (three windows, the last half padding).  The weights are the
-reference's ``Model.init(PRNGKey(SEED))``, drawn again in this process
-and converted by ``models.convert.params_from_jax``.
+the decode; and the MLA jobs (``MLA``): reduced minicpm3-4b, "seq" and
+"head", and the same with its queries through one ``wq`` (q_lora_rank
+0), whose latent caches after the decode are held too.  Also its striped
+``blockwise_attention`` at S 64 and at a ragged S 80 (padded to 128
+rows, the second stripe's last 48 rows padding), its ``_mla_blockwise``
+at the same lengths, and its ``_local_attention`` at S 80 with a 32-row
+window and a softcap (three windows, the last half padding).  The
+weights are the reference's ``Model.init(PRNGKey(SEED))``, drawn again
+in this process and converted by ``models.convert.params_from_jax``.
 
 Port side, while the reference compiles: 8 gloo ranks on the CPU
 (``ranks.launch``), each with its ``sharding.local_block`` of every leaf,
@@ -37,22 +40,25 @@ different orders), its logits block after the prompt, the greedy tokens
 exactly; the tokens sampled at temperature 1.0 against the one-device
 port engine's from the same seed, and ``RankModel.sample`` on each
 rank's block of given logits against ``Model.sample`` on them, exactly;
-``flash_attention_plain`` on each stripe and
-``layers.local_attention_stripe`` on each window's stripe against the
-reference's rows at those positions; a stripe count of 1 against the
-unstriped call, bit for bit; a 1 x 1 mesh against the one-device model,
+``flash_attention_plain`` on each stripe,
+``layers.local_attention_stripe`` on each window's stripe and
+``layers._mla_blockwise`` on each stripe against the reference's rows
+at those positions; a stripe count of 1 against the unstriped call, bit
+for bit; a 1 x 1 mesh against the one-device model,
 bit for bit; each rank's bytes sent by kind against the dry run's count
 of the same forward (``dryrun.count_rank_forward``); a recurrent job's
-cache block after the decode against the same block of the reference's
-(fp32 bounds); MLA and MoE refusing on a (2, 2) mesh, naming their
-ROADMAP item, and a Mamba-2 head count the model axis does not divide
-raising.
+or MLA job's cache block after the decode against the same block of the
+reference's (fp32 bounds; an MLA decode writes both model positions'
+slices of the latent cache); MoE refusing on a (2, 2) mesh, naming its
+ROADMAP item, and a Mamba-2 or MLA head count the model axis does not
+divide raising.
 """
 import functools
 import json
 import subprocess
 import sys
 import textwrap
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -87,15 +93,26 @@ MODES = ("seq", "head")
 #: layers have no attention mode)
 RECURRENT = ["recurrentgemma-2b/seq", "recurrentgemma-2b/head",
              "mamba2-370m/seq"]
-JOBS = [f"{a}/{m}" for a in ARCHS for m in MODES] + RECURRENT
+#: the MLA jobs: minicpm3-4b in both modes (neither changes an MLA layer)
+#: and its queries through one ``wq`` (q_lora_rank 0, "minicpm3-wq")
+MLA = ["minicpm3-4b/seq", "minicpm3-4b/head", "minicpm3-wq/seq"]
+JOBS = [f"{a}/{m}" for a in ARCHS for m in MODES] + RECURRENT + MLA
+#: the jobs whose cache after the decode is held block by block
+CACHED = RECURRENT + MLA
 #: the attention options on reduced starcoder2-3b ("options" jobs)
 OPTIONS = dict(layer_pattern="AW", local_window=16, kv_cache_dtype="int8",
                attn_logit_softcap=50.0, logit_softcap=30.0)
+#: the jobs' arch names that are a reduced config with options: (its
+#: config's name, the options)
+VARIANTS = {"options": ("starcoder2-3b", OPTIONS),
+            "minicpm3-wq": ("minicpm3-4b", dict(q_lora_rank=0))}
 MESH = (4, 2)
 B, S = 4, 64
 #: prompt tokens, then greedy tokens a job (the "options" jobs decode to
-#: 24 positions: their ring of 16 slots wraps)
-PROMPT, STEPS = 16, {"options": 8}
+#: 24 positions: their ring of 16 slots wraps; "minicpm3-wq" to 21, which
+#: the 2 model positions do not divide: ``cache_specs`` leaves its latent
+#: cache's slots whole on every rank)
+PROMPT, STEPS = 16, {"options": 8, "minicpm3-wq": 5}
 ATTN_S = (64, 80)
 #: the reference's ``_local_attention`` case: S, window, softcap
 LOCAL = (80, 32, 50.0)
@@ -113,7 +130,8 @@ from repro.configs import get_reduced
 from repro.distributed import sharding as shd
 from repro.launch.mesh import make_test_mesh
 from repro.models import Model, set_activation_mesh
-from repro.models.layers import _local_attention, blockwise_attention
+from repro.models.layers import (_local_attention, _mla_blockwise,
+                                 blockwise_attention)
 
 inp = dict(np.load(sys.argv[1]))
 mesh = make_test_mesh(*MESH)
@@ -124,10 +142,9 @@ def named(t):
                         is_leaf=lambda x: isinstance(x, P))
 
 def config(arch, mode):
-    if arch == "options":
-        return get_reduced("starcoder2-3b").scaled(
-            dtype="float32", attn_parallel=mode, **OPTIONS)
-    return get_reduced(arch).scaled(dtype="float32", attn_parallel=mode)
+    base, extra = VARIANTS.get(arch, (arch, {}))
+    return get_reduced(base).scaled(dtype="float32", attn_parallel=mode,
+                                    **extra)
 
 def flat(tree):
     return {jax.tree_util.keystr(p, simple=True, separator="/"):
@@ -168,7 +185,7 @@ for job in JOBS:
             toks.append(np.asarray(tok))
     out[f"{arch}/{mode}/logits"] = np.asarray(logits)
     out[f"{arch}/{mode}/tokens"] = np.stack(toks, axis=1)
-    if job in RECURRENT:
+    if job in CACHED:
         for k, v in flat(cache).items():
             out[f"{job}/cache/{k}"] = v
 cfg = get_reduced(ARCHS[0]).scaled(dtype="float32", attn_parallel="seq")
@@ -182,15 +199,21 @@ cfg_l = cfg.scaled(local_window=W, attn_logit_softcap=cap)
 with mesh:
     out["local"] = np.asarray(jax.jit(lambda q, k, v: _local_attention(
         q, k, v, cfg_l))(inp[f"q{Sl}"], inp[f"k{Sl}"], inp[f"v{Sl}"]))
+cfg_m = get_reduced("minicpm3-4b").scaled(dtype="float32")
+mla = jax.jit(lambda qn, qr, lat, kr, uk, uv: _mla_blockwise(
+    qn, qr, lat, kr, {"w_uk": uk, "w_uv": uv}, cfg_m))
+for Sa in ATTN_S:
+    with mesh:
+        out[f"mla{Sa}"] = np.asarray(mla(*(inp[f"mla_{x}{Sa}"] for x in (
+            "qn", "qr", "lat", "kr")), inp["mla_w_uk"], inp["mla_w_uv"]))
 np.savez(sys.argv[2], **out)
 """
 
 
 def _cfg(arch, mode="seq"):
-    if arch == "options":
-        return get_reduced(ARCHS[0]).scaled(dtype="float32",
-                                            attn_parallel=mode, **OPTIONS)
-    return get_reduced(arch).scaled(dtype="float32", attn_parallel=mode)
+    base, extra = VARIANTS.get(arch, (arch, {}))
+    return get_reduced(base).scaled(dtype="float32", attn_parallel=mode,
+                                    **extra)
 
 
 def _steps(job) -> int:
@@ -207,6 +230,16 @@ def _inputs() -> dict:
         out[f"q{Sa}"] = rng.standard_normal((2, Sa, H, hd), np.float32)
         out[f"k{Sa}"] = rng.standard_normal((2, Sa, KV, hd), np.float32)
         out[f"v{Sa}"] = rng.standard_normal((2, Sa, KV, hd), np.float32)
+    m = _cfg(MLA[0].split("/")[0])
+    H, r = m.num_heads, m.kv_lora_rank
+    for Sa in ATTN_S:
+        for x, shape in (("qn", (2, Sa, H, m.qk_nope_dim)),
+                         ("qr", (2, Sa, H, m.qk_rope_dim)),
+                         ("lat", (2, Sa, r)),
+                         ("kr", (2, Sa, 1, m.qk_rope_dim))):
+            out[f"mla_{x}{Sa}"] = rng.standard_normal(shape, np.float32)
+    out["mla_w_uk"] = rng.standard_normal((r, H, m.qk_nope_dim), np.float32)
+    out["mla_w_uv"] = rng.standard_normal((r, H, m.v_head_dim), np.float32)
     for arch in ARCHS:
         c = _cfg(arch)
         if c.input_mode == "embeddings":
@@ -234,9 +267,8 @@ def _batch(job, inp) -> dict:
 @functools.lru_cache(maxsize=None)
 def _ref_params(arch) -> dict:
     """The reference's ``Model.init(PRNGKey(SEED))`` (numpy leaves)."""
-    extra = OPTIONS if arch == "options" else {}
-    ref_cfg = ref_get_reduced(ARCHS[0] if arch == "options" else arch) \
-        .scaled(dtype="float32", **extra)
+    base, extra = VARIANTS.get(arch, (arch, {}))
+    ref_cfg = ref_get_reduced(base).scaled(dtype="float32", **extra)
     return jax.tree.map(np.asarray,
                         RefModel(ref_cfg).init(jax.random.PRNGKey(SEED)))
 
@@ -274,10 +306,11 @@ def both(tmp_path_factory):
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["JAX_PLATFORMS"] = "cpu"
     code = (f"ARCHS = {ARCHS!r}\nJOBS = {JOBS!r}\n"
-            f"RECURRENT = {RECURRENT!r}\nMESH = {MESH!r}\n"
+            f"CACHED = {CACHED!r}\nVARIANTS = {VARIANTS!r}\n"
+            f"MESH = {MESH!r}\n"
             f"B, S, PROMPT, STEPS = {B}, {S}, {PROMPT}, {STEPS!r}\n"
             f"ATTN_S = {ATTN_S!r}\nLOCAL = {LOCAL!r}\n"
-            f"OPTIONS = {OPTIONS!r}\nSEED = {SEED}\n"
+            f"SEED = {SEED}\n"
             + textwrap.dedent(REFERENCE))
     proc = subprocess.Popen([sys.executable, "-c", code,
                              str(tmp / "in.npz"), str(tmp / "ref.npz")],
@@ -376,8 +409,12 @@ def test_routes_are_the_flash_route(both, job):
     cfg = _cfg(*job.split("/"))
     steps = PROMPT + 2 * (_steps(job) - 1) + 1
     attention = sum(cfg.layers.count(k) for k in "AW")
+    mla = cfg.layers.count("L")
     for r in res:
         got = r[job]
+        if mla:
+            assert got["routes"]["mla_blockwise:torch"] == mla
+            assert got["routes"]["mla_decode_ranked:torch"] == steps * mla
         if not attention:
             assert got["op_paths"] == {}
             assert not any(k.startswith(("flash", "masked", "decode"))
@@ -528,6 +565,33 @@ def test_recurrent_cache_blocks_match_reference(both, job):
     of its heads and its block of the packed conv state, a "W" layer's
     ring slice), is the same block of the reference's cache placed by
     ``cache_specs``."""
+    _cache_blocks_match(both, job)
+
+
+@pytest.mark.parametrize("job", MLA)
+def test_mla_cache_blocks_match_reference(both, job):
+    """After the greedy decode each rank's block of the latent cache, its
+    batch rows and its contiguous slice of the slots ("latent" and
+    "k_rope" by ``cache_specs``; every slot where the model positions do
+    not divide them), is the same block of the reference's; the decode
+    wrote slots on both model positions' slices (the prompt alone
+    crosses the boundary)."""
+    _cache_blocks_match(both, job)
+    _, res, _, _ = both
+    written = PROMPT + _steps(job) - 1
+    for r in res:
+        lat = r[job]["cache"]["blocks/0/latent"]       # (R, rows, slots, r)
+        slots = lat.shape[2]
+        mine = written
+        if slots != PROMPT + _steps(job):              # a slice of them
+            assert written > slots
+            mine = min(slots, max(0, written - r[job]["coords"][1] * slots))
+        assert mine > 0
+        assert (np.abs(lat[:, :, :mine]).sum(-1) > 0).all()
+        assert not lat[:, :, mine:].any()
+
+
+def _cache_blocks_match(both, job):
     _, res, ref, _ = both
     cfg = _cfg(*job.split("/"))
     mesh = make_mesh(MESH, ("data", "model"))
@@ -557,11 +621,54 @@ def test_mamba2_heads_must_split():
         ranked.RankModel(cfg, {}, counting_comms(mesh, (0, 1)))
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("minicpm3-4b", 8), ("llama4-maverick-400b-a17b", 7)])
+def test_mla_heads_must_split():
+    """An MLA head count that the model axis does not divide raises a
+    ``ValueError`` (a decode step splits the heads' projections)."""
+    cfg = get_reduced("minicpm3-4b").scaled(d_ff=96, vocab_size=768)
+    mesh = make_mesh((1, 3), ("data", "model"))
+    with pytest.raises(ValueError, match="MLA head count 4 does not split"):
+        ranked.RankModel(cfg, {}, counting_comms(mesh, (0, 1)))
+
+
+@pytest.mark.parametrize("Sa", ATTN_S)
+def test_mla_stripes_match_reference_rows(both, Sa):
+    """``layers._mla_blockwise`` on stripe m's rows (zero rows for the
+    padding) against every key equals the reference's ``_mla_blockwise``
+    under the (4, 2) mesh at those rows' positions (at S 80: 4 Q tiles of
+    32 rows, the last all padding, and 2 KV tiles of 64); the stripes
+    cover the sequence; a stripe count of 1 is the unstriped call bit
+    for bit."""
+    inp, _, ref, _ = both
+    cfg = _cfg(MLA[0].split("/")[0])
+    qn, qr, lat, kr = (torch.from_numpy(inp[f"mla_{x}{Sa}"])
+                       for x in ("qn", "qr", "lat", "kr"))
+    p = SimpleNamespace(w_uk=torch.from_numpy(inp["mla_w_uk"]),
+                        w_uv=torch.from_numpy(inp["mla_w_uv"]))
+    want = ref[f"mla{Sa}"]
+    M = MESH[1]
+    covered = []
+    for m in range(M):
+        st = ranked.seq_stripe(cfg, Sa, M, m)
+        stripe = (st["bq"], M, m)
+        pos = stripe_positions(st["rows"], stripe)[:st["valid"]]
+        q = [torch.zeros((2, st["rows"]) + x.shape[2:]) for x in (qn, qr)]
+        q[0][:, :st["valid"]], q[1][:, :st["valid"]] = qn[:, pos], qr[:, pos]
+        got = layers._mla_blockwise(*q, lat, kr, p, cfg, stripe=stripe)
+        np.testing.assert_allclose(got[:, :st["valid"]].numpy(),
+                                   want[:, pos.numpy()], atol=ATOL, rtol=RTOL)
+        covered += pos.tolist()
+    assert sorted(covered) == list(range(Sa))
+    one = layers._mla_blockwise(qn, qr, lat, kr, p, cfg)
+    np.testing.assert_allclose(one.numpy(), want, atol=ATOL, rtol=RTOL)
+    for seg in (ranked.seq_stripe(cfg, Sa, M, 0)["bq"], 7):
+        assert torch.equal(layers._mla_blockwise(qn, qr, lat, kr, p, cfg,
+                                                 stripe=(seg, 1, 0)), one)
+
+
+@pytest.mark.parametrize("arch,item", [("llama4-maverick-400b-a17b", 7)])
 def test_other_kinds_refuse_across_ranks(arch, item):
-    """MLA and MoE layers, not yet ported across ranks, raise on a (2, 2)
-    mesh, naming their ROADMAP item; the 1 x 1 mesh takes them."""
+    """MoE layers, not yet ported across ranks, raise on a (2, 2) mesh,
+    naming their ROADMAP item; the 1 x 1 mesh takes them."""
     cfg = get_reduced(arch)
     mesh = make_mesh((2, 2), ("data", "model"))
     with pytest.raises(NotImplementedError,

@@ -16,10 +16,12 @@ a cache (RS(k=1, m=1) over "data", 256-byte pages):
   one-card ``ECStateStore`` over the cache gathered from every rank's
   block; the refreshed parity against a fresh encode; every data
   position's pages rebuilt over the ring on every rank of its column;
-* reduced recurrentgemma-2b (RG-LRU layers beside "W" layers) in fp32,
-  served the same way: its pages and parity after the prefill and after
-  the refresh against the stacked store, byte for byte, and every data
-  position rebuilt;
+* reduced recurrentgemma-2b (RG-LRU layers beside "W" layers) and
+  reduced minicpm3-4b (MLA layers, whose "latent" and "k_rope" slots
+  split over "model": the 22 positions cross the boundary of the two
+  12-slot slices) in fp32, served the same way: their pages and parity
+  after the prefill and after the refresh against the stacked store,
+  byte for byte, and every data position rebuilt;
 * two AdamW steps (``launch.train.train_on_rank`` with its EC copy, as
   ``tests/test_torch_train_ranks.py`` runs it) of reduced qwen2-vl-7b
   (M-RoPE, an embeddings input) and of the options config, "seq" and
@@ -58,9 +60,11 @@ B = 2
 PROMPT, STEPS, MAX_LEN = 8, 14, 24
 EC = dict(k=1, m=1, page_size=256)
 TRAIN = ("qwen2-vl-7b/seq", "options/seq", "options/head")
-#: the recurrent arch whose protected cache (RG-LRU states, the "W" ring)
-#: is rebuilt
-RECURRENT = "recurrentgemma-2b"
+#: the other archs whose protected caches are rebuilt, by session name:
+#: RG-LRU states and the "W" ring; MLA's latent cache
+SESSIONS = {"recurrent": "recurrentgemma-2b", "mla": "minicpm3-4b"}
+#: the leaves of each session's cache tree
+SESSION_LEAVES = {"recurrent": 6, "mla": 2}
 SEQ = 64
 SEED = 26
 DEADLINE = 300.0
@@ -97,24 +101,24 @@ def _batch(cfg):
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
     """(the served model, its prompt, the ranks' results, the trained
-    models by job, the served recurrent model)."""
+    models by job, the other sessions' served models by name)."""
     tmp = tmp_path_factory.mktemp("serve_ranks")
     mesh = make_mesh(MESH, ("data", "model"))
     served = _model("options/seq")
     prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, served.cfg.vocab_size, (B, PROMPT)))
     trained = {job: _model(job) for job in TRAIN}
-    recurrent = _model(f"{RECURRENT}/seq")
+    others = {name: _model(f"{arch}/seq") for name, arch in SESSIONS.items()}
     args = [((served.cfg, _blocks(served, mesh, mesh.coords(r)), prompt,
               STEPS, MAX_LEN, EC),
              [(job, m.cfg, _blocks(m, mesh, mesh.coords(r)), B, SEQ)
               for job, m in trained.items()],
-             (recurrent.cfg, _blocks(recurrent, mesh, mesh.coords(r)),
-              prompt, STEPS, MAX_LEN, EC))
+             [(name, (m.cfg, _blocks(m, mesh, mesh.coords(r)), prompt,
+                      STEPS, MAX_LEN, EC)) for name, m in others.items()])
             for r in range(mesh.size)]
     res = ranks.launch(_serve_rank_worker.serve_body, mesh, args,
                        init_file=str(tmp / "init"), timeout=DEADLINE)
-    return served, prompt, res, trained, recurrent
+    return served, prompt, res, trained, others
 
 
 def _gathered(cfg, res, key, session="protect") -> dict:
@@ -184,30 +188,61 @@ def test_recurrent_cache_pages_equal_the_stacked_store(spawned, when):
     packed - gives the stacked store's pages and parity over the cache
     gathered from every rank's block, byte for byte, after the prefill
     and after the refresh."""
-    _, _, res, _, model = spawned
-    key = {"prefill": "prefill_cache", "refresh": "cache"}[when]
-    tree, specs = _gathered(model.cfg, res, key, "recurrent")
-    mesh = make_mesh(MESH, ("data", "model"))
-    store = ECStateStore(mesh, specs, ECConfig(**EC))
-    pages, parity = store.local_pages(tree), store.encode(tree)
-    prefix = "prefill_" if when == "prefill" else ""
-    for r in res:
-        got, at = r["recurrent"], tuple(r["coords"])
-        assert got["n_leaves"] == 6
-        np.testing.assert_array_equal(got[f"{prefix}pages"],
-                                      pages[at].numpy())
-        np.testing.assert_array_equal(got[f"{prefix}parity"],
-                                      parity[at].numpy())
+    _session_pages_equal_the_stacked_store(spawned, "recurrent", when)
 
 
 def test_recurrent_cache_rebuilds_byte_for_byte(spawned):
     """After recurrentgemma-2b's decode steps the refreshed parity is a
     fresh encode on every rank, and each data position's pages, rebuilt
     over the ring, equal its live pages byte for byte."""
+    _session_rebuilds_byte_for_byte(spawned, "recurrent")
+
+
+@pytest.mark.parametrize("when", ("prefill", "refresh"))
+def test_mla_cache_pages_equal_the_stacked_store(spawned, when):
+    """minicpm3-4b's protected latent cache on a rank - its batch row and
+    its slice of the "latent" and "k_rope" slots - gives the stacked
+    store's pages and parity over the cache gathered from every rank's
+    block, byte for byte, after the prefill and after the refresh."""
+    _session_pages_equal_the_stacked_store(spawned, "mla", when)
+
+
+def test_mla_cache_rebuilds_byte_for_byte(spawned):
+    """After minicpm3-4b's decode steps, which wrote both model
+    positions' slices, the refreshed parity is a fresh encode on every
+    rank, and each data position's pages, rebuilt over the ring, equal
+    its live pages byte for byte."""
+    _session_rebuilds_byte_for_byte(spawned, "mla")
     _, _, res, _, _ = spawned
-    live = {tuple(r["coords"]): r["recurrent"]["pages"] for r in res}
     for r in res:
-        got = r["recurrent"]
+        lat = r["mla"]["cache"]["blocks/0/latent"]     # (R, row, slots, r)
+        assert PROMPT + STEPS > lat.shape[2]
+        assert (np.abs(lat).sum(-1) > 0).sum(-1).min() == min(
+            lat.shape[2], PROMPT + STEPS - r["coords"][1] * lat.shape[2])
+
+
+def _session_pages_equal_the_stacked_store(spawned, name, when):
+    _, _, res, _, others = spawned
+    key = {"prefill": "prefill_cache", "refresh": "cache"}[when]
+    tree, specs = _gathered(others[name].cfg, res, key, name)
+    mesh = make_mesh(MESH, ("data", "model"))
+    store = ECStateStore(mesh, specs, ECConfig(**EC))
+    pages, parity = store.local_pages(tree), store.encode(tree)
+    prefix = "prefill_" if when == "prefill" else ""
+    for r in res:
+        got, at = r[name], tuple(r["coords"])
+        assert got["n_leaves"] == SESSION_LEAVES[name]
+        np.testing.assert_array_equal(got[f"{prefix}pages"],
+                                      pages[at].numpy())
+        np.testing.assert_array_equal(got[f"{prefix}parity"],
+                                      parity[at].numpy())
+
+
+def _session_rebuilds_byte_for_byte(spawned, name):
+    _, _, res, _, _ = spawned
+    live = {tuple(r["coords"]): r[name]["pages"] for r in res}
+    for r in res:
+        got = r[name]
         assert got["cur_len"] == PROMPT + STEPS
         np.testing.assert_array_equal(got["parity"], got["fresh"])
         for f, rebuilt in enumerate(got["rebuilt"]):

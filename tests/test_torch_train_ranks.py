@@ -12,7 +12,9 @@ at step 1 for the gradients.  The jobs ("arch/mode[/optimizer][/pod]"):
 reduced starcoder2-3b and phi4-mini-3.8b in fp32 with ``attn_parallel``
 "seq" and "head", remat "full", AdamW, on (4, 2); starcoder2-3b with
 adamw8bit and with adafactor, recurrentgemma-2b (RG-LRU and "W" layers)
-with adamw8bit and mamba2-370m (Mamba-2) with adafactor on (4, 2); and
+with adamw8bit, mamba2-370m (Mamba-2) with adafactor and minicpm3-4b
+(MLA: its latent attention striped over "model") with AdamW and with
+adamw8bit on (4, 2); and
 starcoder2-3b (AdamW) and mamba2-370m (adafactor) on a (2, 2, 2) (pod,
 data, model) mesh; B 4 x S 64 (one row a data position on (4, 2), one a
 (pod, data) position on (2, 2, 2)).  The weights are the reference's
@@ -45,7 +47,7 @@ into the ranks' blocks; a 1 x 1 mesh against the one-card
 ``make_train_step``, bit for bit; each optimizer on four ranks' blocks
 against the one-card optimizer on the same gradients; the striped
 attention backward against autograd through
-``flash_attention_plain(stripe=...)``; and the refusals of MLA and MoE.
+``flash_attention_plain(stripe=...)``; and the refusal of MoE.
 """
 import subprocess
 import sys
@@ -90,7 +92,8 @@ POD_MESH = (2, 2, 2)
 #: a job is "arch/mode[/optimizer][/pod]" (AdamW unless named)
 JOBS = [f"{a}/{m}" for a in ARCHS for m in MODES] + [
     "starcoder2-3b/seq/adamw8bit", "starcoder2-3b/seq/adafactor",
-    "recurrentgemma-2b/seq/adamw8bit", "mamba2-370m/seq/adafactor"]
+    "recurrentgemma-2b/seq/adamw8bit", "mamba2-370m/seq/adafactor",
+    "minicpm3-4b/seq", "minicpm3-4b/seq/adamw8bit"]
 POD_JOBS = ["starcoder2-3b/seq/pod", "mamba2-370m/seq/adafactor/pod"]
 #: the jobs whose ranks write a disk checkpoint after their last step
 SAVES = (JOBS[0], "starcoder2-3b/seq/adamw8bit")
@@ -436,9 +439,12 @@ def test_parity_fresh_and_routes(both, job):
     res, _, _, _ = both
     cfg = _cfg(*job.split("/")[:2])
     attention = sum(cfg.layers.count(k) for k in "AW")
+    mla = cfg.layers.count("L")
     for r in res:
         got = r[job]
         assert [st["stale"] for st in got["steps"]] == [0] * STEPS
+        if mla:
+            assert got["routes"]["mla_blockwise:torch"] == mla * STEPS
         if not attention:
             assert got["op_paths"] == {}
             assert not any(k.startswith(("flash", "masked"))
@@ -691,12 +697,12 @@ def test_production_mesh_refuses_outside_its_world(world, monkeypatch,
         assert f"({n} devices)" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("minicpm3-4b", 8), ("llama4-maverick-400b-a17b", 7)])
+@pytest.mark.parametrize("arch,item", [("llama4-maverick-400b-a17b", 7)])
 def test_other_kinds_refuse_to_train_across_ranks(arch, item):
-    """Training MLA or MoE layers on a (2, 2) mesh raises, naming its
-    ROADMAP item (the attention options train across ranks:
-    ``tests/test_torch_serve_ranks.py``; RG-LRU and Mamba-2 above)."""
+    """Training MoE layers on a (2, 2) mesh raises, naming its ROADMAP
+    item (the attention options train across ranks:
+    ``tests/test_torch_serve_ranks.py``; RG-LRU, Mamba-2 and MLA
+    above)."""
     mesh = make_mesh((2, 2), ("data", "model"))
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item} "):
