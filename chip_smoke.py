@@ -188,15 +188,16 @@ in place of the card):
              1 and takes no CPU or plain path; prints per rank the
              seconds and bytes of each operation, its launches and
              ``op_paths``;
-18. model-ranks - starcoder2-3b at full width, 8 of its 30 layers, bf16, over
+18. model-ranks - starcoder2-3b at full width, 4 of its 30 layers, bf16, over
              (data 2, model 2): four gloo ranks on this card, each holding
              its blocks of the parent's one-card model (shared, not
              copied) and running ``models/ranked.py``'s ``RankModel``:
              a prefill of 2 x 2,048 and 4 decode steps (teacher-forced
              with the one-card model's tokens, a cache of 4 positions
-             split 2 + 2 over "model") with ``attn_parallel="seq"``, a
-             prefill and 1 decode step with "head" (8 and 2 steps until
-             the serve-ranks phase took their time).  Each rank's logits
+             split 2 + 2 over "model") with ``attn_parallel="seq"`` (8
+             steps until the serve-ranks phase took their time; a "head"
+             pass until phase 23's kimi-k2 layer took the "head" path
+             over).  Each rank's logits
              block must stay within ``MODEL_RANKS_TWIN_MULTIPLE`` (2)
              times the one-card bf16 logits' distance from an fp32 twin,
              measured in the run, of the one-card model's; kernel 11
@@ -217,14 +218,14 @@ in place of the card):
              model 2), four gloo ranks on this card, each holding its
              blocks of the parent's one-card model: (a) qwen2-vl-7b at
              full width (M-RoPE, an embeddings input, bf16), depth cut to
-             4 of 28 layers (every decode step gathers every layer again
+             2 of 28 layers (every decode step gathers every layer again
              over gloo): ``apply`` on 2 x 2,048 embeddings with three
              M-RoPE position streams, each rank's logits block within
              ``MODEL_RANKS_TWIN_MULTIPLE`` times the one-card bf16
              logits' distance from an fp32 twin and its bytes by kind
-             equal to ``dryrun.count_rank_forward``'s; a 16-token prefill
+             equal to ``dryrun.count_rank_forward``'s; a 4-token prefill
              token by token, ``protect_cache`` (RS(1,1) over "data",
-             256-byte pages: ``launch.serve``'s defaults), 16 decode
+             256-byte pages: ``launch.serve``'s defaults), 8 decode
              steps at temperature 1.0, ``refresh_cache_parity`` and
              ``recover_cache_pages(0)`` on every rank: the pages equal
              the stacked one-card store's over the cache gathered from
@@ -243,7 +244,7 @@ in place of the card):
              prefill s, decode s a step, bytes sent by kind (the
              sampler's gathers apart), the EC ms and bytes, kernel-11
              and kernel-1 launches and peak GB;
-20. train-ranks - starcoder2-3b at full width, depth cut to 12 of 30
+20. train-ranks - starcoder2-3b at full width, depth cut to 4 of 30
              layers (the card's memory, then the script's time), bf16, remat
              "full", "seq", trained over (data 2, model 2): four gloo
              ranks on this card, each drawing its blocks of the seed's
@@ -269,10 +270,10 @@ in place of the card):
              four gloo ranks on this card, each holding its blocks of the
              parent's one-card models: (a) recurrentgemma-2b at full width,
              one "RRW" unit (3 of 26 layers), (b) mamba2-370m at full
-             width and depth.  Each: a bf16 prefill of 2 x 2,048, each
+             width, 12 of 48 layers.  Each: a bf16 prefill of 2 x 2,048, each
              rank's logits block within ``MODEL_RANKS_TWIN_MULTIPLE``
              times the one-card bf16 logits' distance from an fp32 twin;
-             on the fp32 twin, a 1-token prompt and 8 greedy decode steps
+             on the fp32 twin, a 1-token prompt and 4 greedy decode steps
              with the cache protected by RS(1,1) over "data", the tokens
              equal to the one-card fp32 engine's, the pages equal to the
              stacked one-card store's over the gathered cache, the parity
@@ -290,13 +291,13 @@ in place of the card):
              by kind and the kernel-11 and kernel-1 launches;
 22. mla-ranks - minicpm3-4b (MLA) at full width (d_model 2,560, 40
              heads, q_lora 768, kv_lora 256, nope 64, rope 32, v 64, d_ff
-             6,400, vocab 73,448), depth cut to 4 of 62 layers, over
+             6,400, vocab 73,448), depth cut to 2 of 62 layers, over
              (data 2, model 2) as phase 21 runs its archs: a bf16
              prefill of 2 x 2,048 (each rank's ``_mla_blockwise`` on its
              stripe of Q tiles), each rank's logits block within
              ``MODEL_RANKS_TWIN_MULTIPLE`` times the one-card bf16 logits'
              distance from an fp32 twin; on the fp32 twin the protected
-             greedy session (1-token prompt, 8 steps over the
+             greedy session (1-token prompt, 4 steps over the
              sequence-sharded latent cache, RS(1,1) over "data"): tokens
              equal to the one-card fp32 engine's, pages to the stacked
              store's, a fresh parity, data position 0 rebuilt byte for
@@ -307,7 +308,31 @@ in place of the card):
              kernel 11 launches 0 times, kernel 1 in the EC calls, the
              card's paths only.  Prints per rank the seconds, the bytes
              by kind and the launches;
-23. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
+23. moe-ranks - the MoE archs' experts over (data 2, model 2), four
+             gloo ranks on this card, each routing every token of its
+             batch rows and running its E/2 experts, a partial output
+             summed by an all-reduce over "model": (a) kimi-k2-1t-a32b at
+             full width (384 experts, top-8, 64 heads on the "head"
+             path, d_ff 2,048), 1 of 61 layers, bf16, the ranks on their
+             blocks of the parent's one-card model: a prefill of 2 x 256
+             (cap 7: assignments drop); a token is settled when its
+             top-8 experts and keep flags equal the one card's, every
+             other token must be explained (its own route flipped at a
+             near tie, or it shares in its row an expert that a flipped
+             assignment entered) and the settled tokens' logits must lie
+             within ``BF16_LOGIT_TOL`` of the one card's, the share
+             settled printed; then one protected ``ServeEngine`` decode
+             step on a one-token prompt (RS(1,1) over "data": the parity
+             a fresh encode, position 0 rebuilt equal to its live pages,
+             a flipped parity byte caught); (b) both MoE archs at their
+             reduced configs in fp32 through phase 21's checks (prefill 2
+             x 2,048, 8 greedy protected steps, two AdamW steps), routes,
+             drop set and tokens exactly the one card's, the logits
+             within ``MOE_RANKS_FP32_TOL``.  Both: bytes by kind equal to
+             the dry run's count, kernel 11 once an attention layer a
+             prefill, kernel 1 in the EC calls, the card's paths only.
+             Prints per rank prefill s, decode s and peak GB;
+24. dryrun - ``launch/dryrun.py``'s count of starcoder2-3b's training
              step at phase 12's cut (B 2 x S 2,048, remat "full",
              AdamW, the 1 x 1 mesh), made on ``meta``, against the same
              step on the card: the argument bytes asked of the allocator
@@ -328,7 +353,7 @@ counted (a call reached through a binding it does not wrap fails the
 run); then every shape is timed and each kernel's loss per run, calls x
 (kernel ms - bound ms), is printed beside its launches.
 Kernel 10 is also held against its plain version on the real object
-index of a server of the loaded RS testbed.  Every phase of 4-23 starts
+index of a server of the loaded RS testbed.  Every phase of 4-24 starts
 with the launch counts at 0 and reads them when it ends; launches made
 to compare a kernel with its plain version are not counted.  The line
 before the last is ``{"kernels": [...]}``;
@@ -380,12 +405,13 @@ REBALANCE_MOVES = 20_000
 # of it) where every cell takes ~70 s
 CLI_SHAPES = ("decode_32k", "prefill_32k")
 # the ten archs in groups of about equal counting time (CPU s of both
-# shapes on one x86 core: minicpm3-4b's MLA prefill ~35,
-# recurrentgemma-2b's rank counts ~27, the next three ~25, ~21, ~17), one
-# process a group
+# shapes on one x86 core, seven processes side by side: minicpm3-4b's MLA
+# prefill ~36, the dense three with mamba2-370m ~25, recurrentgemma-2b's
+# rank counts ~23, the MoE two's ~18 since they count ranks, the rest
+# ~9), one process a group
 CLI_GROUPS = ("minicpm3-4b", "recurrentgemma-2b",
-              "mamba2-370m,kimi-k2-1t-a32b,llama4-maverick-400b-a17b",
-              "starcoder2-3b,phi4-mini-3.8b,mistral-large-123b",
+              "kimi-k2-1t-a32b,llama4-maverick-400b-a17b",
+              "mamba2-370m,starcoder2-3b,phi4-mini-3.8b,mistral-large-123b",
               "qwen2-vl-7b,musicgen-medium")
 
 
@@ -3518,15 +3544,18 @@ def run_ranks(np, torch, dev, card):
 
 # the model-ranks phase: starcoder2-3b at full width over (data 2, model
 # 2), one rank a position, gloo on this card; its decode steps cut from 8
-# and 2 to 4 and 1 to make room for the serve-ranks phase (a step sends
-# ~2.3-2.9 GB a rank: ~3.2-4.3 s over gloo on an H100 80GB HBM3 at 700 W,
-# PERF.md §5), and its depth from 30 to 8 layers for the recurrent-ranks
-# phase (59.8 s at 30 layers, chip_smoke 1,001.9 s with it on that card;
-# 45.1 s at 15, chip_smoke 1,192.3 s on a slower host)
-MODEL_RANKS_LAYERS = 8
+# to 4 to make room for the serve-ranks phase (a step sends ~2.3-2.9 GB a
+# rank: ~3.2-4.3 s over gloo on an H100 80GB HBM3 at 700 W, PERF.md §5),
+# its depth from 30 to 8 layers for the recurrent-ranks phase (59.8 s at
+# 30 layers, chip_smoke 1,001.9 s with it on that card; 45.1 s at 15,
+# chip_smoke 1,192.3 s on a slower host), and to 4 with its "head" pass
+# (a prefill and a decode step) dropped for the moe-ranks phase, whose
+# full-width kimi-k2 layer runs the "head" path on the card (chip_smoke
+# 1,180.8-1,233.4 s on slow hosts before)
+MODEL_RANKS_LAYERS = 4
 MODEL_RANKS_MESH = (2, 2)
 MODEL_RANKS_PREFILL = (2, 2048)
-MODEL_RANKS_DECODE = {"seq": 4, "head": 1}
+MODEL_RANKS_DECODE = {"seq": 4}
 MODEL_RANKS_RAGGED = 1500
 MODEL_RANKS_TWIN_MULTIPLE = 2
 MODEL_RANKS_DEADLINE = 600.0
@@ -3751,7 +3780,7 @@ def run_model_ranks(np, torch, dev, card):
             assert not any(k.startswith("masked") for k in got["routes"])
         launches = x["launches"] if launches is None else {
             k: launches[k] + x["launches"][k] for k in launches}
-    nums["ranks"] = [{k: x[k] for k in ("coords", "peak_gb", "seq", "head")}
+    nums["ranks"] = [{k: x[k] for k in ("coords", "peak_gb", "seq")}
                      for x in res]
     del rank_args, logits, dec, params, model
     _free(torch)
@@ -3769,20 +3798,22 @@ def run_model_ranks(np, torch, dev, card):
 
 # the serve-ranks phase: ServeEngine on a RankModel over (data 2, model 2),
 # one gloo rank a position on this card.  (a) qwen2-vl-7b at full width
-# (M-RoPE, an embeddings input), depth cut to 4 of 28 layers: a rank
-# gathers every layer again at each decode step over gloo (1.1-1.9 s per
-# GB on an H100 80GB HBM3 at 700 W, PERF.md §5), ~13 GB a step at 28
-# layers, ~1.7 GB at 4; its cache
+# (M-RoPE, an embeddings input), depth cut to 2 of 28 layers (4 until the
+# moe-ranks phase): a rank gathers every layer again at each decode step
+# over gloo (1.1-1.9 s per GB on an H100 80GB HBM3 at 700 W, PERF.md §5),
+# ~13 GB a step at 28 layers, ~1.7 GB at 4; its cache
 # protected as launch.serve --protect protects it (RS(k=1, m=1) over
-# "data", 256-byte pages) and decoded at temperature 1.0.  (b) the
+# "data", 256-byte pages) and decoded at temperature 1.0, a 4-token
+# prompt and 8 steps (16 and 16 until the moe-ranks phase: each token is
+# a forward that gathers every layer).  (b) the
 # attention options at starcoder2-3b's widths: layers "AW" with a
 # 1,024-slot window, the int8 KV cache, both softcaps, 2 layers
 SERVE_RANKS_ARCH = "qwen2-vl-7b"
-SERVE_RANKS_LAYERS = 4
+SERVE_RANKS_LAYERS = 2
 SERVE_RANKS_MESH = (2, 2)
 SERVE_RANKS_PREFILL = (2, 2048)
-SERVE_RANKS_PROMPT = 16
-SERVE_RANKS_STEPS = 16
+SERVE_RANKS_PROMPT = 4
+SERVE_RANKS_STEPS = 8
 SERVE_RANKS_MAX_LEN = 2048
 SERVE_RANKS_EC = dict(k=1, m=1, page_size=256)
 SERVE_RANKS_SEED = 26
@@ -4222,8 +4253,10 @@ def run_serve_ranks(np, torch, dev, card):
 # EC copy was created (out of memory on an H100 80GB HBM3, 700 W); a
 # layer costs ~2.1 GiB over the four ranks.  Since the recurrent-ranks
 # phase it is 12 (a step takes 15.0-17.4 s a rank at 24 over gloo, and
-# chip_smoke took 1,192.3 s on a slow host with 24)
-TRAIN_RANKS_LAYERS = 12
+# chip_smoke took 1,192.3 s on a slow host with 24), and since the
+# moe-ranks phase 4 (chip_smoke took 1,180.8-1,233.4 s on slow hosts
+# with 8 and 12)
+TRAIN_RANKS_LAYERS = 4
 TRAIN_RANKS_MESH = (2, 2)
 TRAIN_RANKS_STEPS = 2
 TRAIN_RANKS_EC = dict(k=2, m=1)
@@ -4515,34 +4548,64 @@ def run_train_ranks(np, torch, dev, card):
     return launches, nums
 
 
-# the recurrent-ranks phase: the recurrent layer kinds over (data 2, model
-# 2), four gloo ranks on this card, each holding its blocks of the
-# parent's one-card models (shared, not copied).  (a) recurrentgemma-2b at
-# full width, one "RRW" unit (3 of 26 layers: a rank gathers its whole
-# model, the 655 M-element table twice, at every decode step over gloo);
-# (b) mamba2-370m at full width and depth.  The prefill runs in bf16, the
-# main path; the protected greedy session runs on the fp32 twin of the
-# same weights, whose tokens the one-card fp32 engine's must equal: in
-# bf16 the ranks' and the one card's logits sit a few hundredths apart
-# (their sums round in another order) and near-tied greedy tokens flip
-# (vocabularies of 256,000 and 50,280 random-weight logits); training runs
-# in bf16 with the arch's optimizer, adamw8bit or adafactor
+# the recurrent-ranks phase: the recurrent layer kinds over (data 2,
+# model 2), four gloo ranks on this card, each holding its blocks of the
+# parent's one-card models (shared, not copied).  (a) recurrentgemma-2b
+# at full width, one "RRW" unit (3 of 26 layers: a rank gathers its
+# whole model, the 655 M-element table twice, at every decode step over
+# gloo); (b) mamba2-370m at full width, 12 of 48 layers (since the
+# moe-ranks phase, for the script's time; the greedy sessions 4 steps, 8
+# before). The prefill runs in bf16, the main path; the protected greedy
+# session runs on the fp32 twin of the same weights, whose tokens the
+# one-card fp32 engine's must equal: in bf16 the ranks' and the one
+# card's logits sit a few hundredths apart (their sums round in another
+# order) and near-tied greedy tokens flip (vocabularies of 256,000 and
+# 50,280 random-weight logits); training runs in bf16 with the arch's
+# optimizer, adamw8bit or adafactor
 RECURRENT_RANKS = (("recurrentgemma-2b", 3, "adamw8bit"),
-                   ("mamba2-370m", None, "adafactor"))
+                   ("mamba2-370m", 12, "adafactor"))
 RECURRENT_RANKS_MESH = (2, 2)
 RECURRENT_RANKS_PREFILL = (2, 2048)
 RECURRENT_RANKS_PROMPT = 1
-RECURRENT_RANKS_STEPS = 8
+RECURRENT_RANKS_STEPS = 4
 RECURRENT_RANKS_EC = dict(k=1, m=1, page_size=256)
 RECURRENT_RANKS_TRAIN_STEPS = 2
 RECURRENT_RANKS_SEED = 27
 RECURRENT_RANKS_DEADLINE = 900.0
 # the mla-ranks phase: minicpm3-4b's MLA layers over (data 2, model 2),
 # as the recurrent-ranks phase runs its archs (the same sizes, seed and
-# checks): full width, depth cut to 4 of 62 layers (every decode step
-# gathers every layer over gloo), AdamW (its moments are blocks of the
-# parameters', so step 1's state is not compared whole)
-MLA_RANKS = (("minicpm3-4b", 4, "adamw"),)
+# checks): full width, depth cut to 2 of 62 layers (every decode step
+# gathers every layer over gloo; 4 until the moe-ranks phase), AdamW (its
+# moments are blocks of the parameters', so step 1's state is not
+# compared whole)
+MLA_RANKS = (("minicpm3-4b", 2, "adamw"),)
+# the moe-ranks phase: the MoE archs' experts over (data 2, model 2).
+# (a) kimi-k2-1t-a32b at full width, 1 of 61 layers (one layer holds
+# 43.50 GB of bf16 weights), bf16: a prefill of 2 x 256 tokens (cap 7:
+# assignments drop) against the parent's one-card model, then one
+# protected decode step, a one-token prompt's (ServeEngine prefills
+# token by token: a longer prompt costs a forward a token), into a cache
+# of 2 slots (1 a model position) protected while empty.  A rank sends
+# 10.87 GB a forward (its 192 experts' data halves, 8.46 GB, the two
+# fp32 tables' blocks, 2.35 GB, attention and router 0.07 GB), two in
+# all.  An fp32 twin of the layer does not fit the card beside it, so
+# the one card's bf16 routes are the reference and near-tie flips are
+# explained (``settled_tokens``).  (b) both MoE archs at their reduced
+# configs in fp32, as recurrent-ranks runs its archs (prefill 2 x 2,048,
+# 8 greedy protected steps, two AdamW steps): routes, drop set and
+# tokens exact; the logits within MOE_RANKS_FP32_TOL of the one card's
+# (the CPU tests read 2.4e-7 at the reduced size; their bound is 2e-5 +
+# 1e-4 relative)
+MOE_RANKS_ARCH = "kimi-k2-1t-a32b"
+MOE_RANKS_LAYERS = 1
+MOE_RANKS_PREFILL = (2, 256)
+MOE_RANKS_MAX_LEN = 2
+MOE_RANKS_STEPS = 8
+MOE_RANKS_SEED = 30
+MOE_RANKS_DEADLINE = 900.0
+MOE_RANKS_REDUCED = (("llama4-maverick-400b-a17b", None, "adamw"),
+                     ("kimi-k2-1t-a32b", None, "adamw"))
+MOE_RANKS_FP32_TOL = 1e-4
 
 
 def rank_optimizer(name: str):
@@ -4581,13 +4644,13 @@ def state_errors(torch, got, want) -> dict:
     return {"leaves": out, "worst": worst}
 
 
-def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent):
-    """Part of a recurrent-ranks (or mla-ranks) rank body: the protected
-    greedy session of ``RankModel(cfg, local)`` (the fp32 twin): the prompt's
-    token-by-token prefill, ``protect_cache`` (RS(1,1) over "data"),
-    ``RECURRENT_RANKS_STEPS`` greedy decode steps, the refresh and the
-    rebuild of data position 0 (each EC call timed, ``_rank_timed``),
-    the faulted control, each ``decode_step``'s bytes by kind."""
+def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent, steps):
+    """Part of a recurrent-ranks (mla-ranks, moe-ranks (b)) rank body: the
+    protected greedy session of ``RankModel(cfg, local)`` (the fp32 twin):
+    the prompt's token-by-token prefill, ``protect_cache`` (RS(1,1) over
+    "data"), ``steps`` greedy decode steps, the refresh and the rebuild of
+    data position 0 (each EC call timed, ``_rank_timed``), the faulted
+    control, each ``decode_step``'s bytes by kind."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.collectives import recording
     from repro_torch.distributed.ecstore import ECConfig
@@ -4603,9 +4666,8 @@ def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent):
             return step(*args)
     model.decode_step = noted
     B, P = toks.shape[0], RECURRENT_RANKS_PROMPT
-    eng = ServeEngine(model, max_len=P + RECURRENT_RANKS_STEPS,
-                      batch_size=B, cache_dtype=torch.float32,
-                      device=toks.device)
+    eng = ServeEngine(model, max_len=P + steps, batch_size=B,
+                      cache_dtype=torch.float32, device=toks.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     first = model.argmax(eng.prefill({"tokens": toks[:, :P]}))
@@ -4615,10 +4677,9 @@ def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent):
                 ECConfig(**RECURRENT_RANKS_EC))
     old = eng.cache_snapshot()
     t1 = time.perf_counter()
-    res = eng.decode(RECURRENT_RANKS_STEPS, first_tokens=first)
+    res = eng.decode(steps, first_tokens=first)
     torch.cuda.synchronize()
-    out = {"decode_s_per_step": (time.perf_counter() - t1)
-           / RECURRENT_RANKS_STEPS}
+    out = {"decode_s_per_step": (time.perf_counter() - t1) / steps}
     _rank_timed(torch, ops, "refresh", eng.refresh_cache_parity, old)
     rebuilt = _rank_timed(torch, ops, "rebuild0", eng.recover_cache_pages, 0)
     out["serve_s"] = time.perf_counter() - t0
@@ -4637,13 +4698,14 @@ def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent):
 
 
 def recurrent_rank_body(comm, jobs):
-    """Recurrent-ranks (and mla-ranks) phase, one rank: for each job
-    (name, cfg, bf16 blocks, fp32 twin blocks, tokens, ``want``) of
-    ``RECURRENT_RANKS`` (``MLA_RANKS``),
-    with the launch counts from 0: the bf16 ``apply`` on the whole batch
-    (its logits block against the one card's, ``want["prefill"]``, its
-    bytes by kind); the fp32 twin's protected greedy session
-    (``_recurrent_serve``); ``launch.train.train_on_rank`` with the
+    """Recurrent-ranks (mla-ranks, moe-ranks (b)) phase, one rank: for
+    each job (name, cfg, bf16 blocks, fp32 twin blocks, tokens, ``want``)
+    of ``RECURRENT_RANKS`` (``MLA_RANKS``, ``MOE_RANKS_REDUCED``: fp32
+    blocks, their own twin), with the launch counts from 0: the ``apply``
+    on the whole batch (its logits block against the one card's,
+    ``want["prefill"]``, its bytes by kind, an MoE layer's routes, keep
+    flags and drops of the rank's rows); the fp32 twin's protected greedy
+    session (``_recurrent_serve``); ``launch.train.train_on_rank`` with the
     job's optimizer on the rank's own copies of its bf16 blocks for
     ``RECURRENT_RANKS_TRAIN_STEPS`` steps, per step the loss, the norm,
     the seconds and the bytes by kind, and after step 1 a replicated
@@ -4659,7 +4721,7 @@ def recurrent_rank_body(comm, jobs):
                                      reset_launch_counts)
     from repro_torch.launch import dryrun
     from repro_torch.launch.train import train_on_rank
-    from repro_torch.models import layers
+    from repro_torch.models import layers, moe
     from repro_torch.models.ranked import RankModel
     from repro_torch.tree import Stacked, tree_map
     torch.cuda.set_device(0)
@@ -4671,14 +4733,19 @@ def recurrent_rank_body(comm, jobs):
         got = {}
         layers.reset_op_paths()
         reset_launch_counts()
+        moe.reset_drops()
         model = RankModel(cfg, local, comms)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with recording(lambda n, kind: sent["prefill"].__setitem__(
-                kind, sent["prefill"].get(kind, 0) + n)):
+        with moe.record_routes() as routes, recording(
+                lambda n, kind: sent["prefill"].__setitem__(
+                    kind, sent["prefill"].get(kind, 0) + n)):
             logits = model.apply({"tokens": toks})
         torch.cuda.synchronize()
         got["prefill_s"] = time.perf_counter() - t0
+        got["moe"] = dict(routes=[r.numpy() for r in routes],
+                          kept=[k.numpy() for k in routes.kept],
+                          drops=moe.dropped_assignments())
         got["prefill_err"] = float((logits.float() - want["prefill"]
                                     .float()).abs().max())
         got["prefill_launches"] = launch_counts()
@@ -4688,7 +4755,7 @@ def recurrent_rank_body(comm, jobs):
         ops = {}
         cfg32 = cfg.scaled(dtype="float32")
         got.update(_recurrent_serve(torch, comms, cfg32, local32, toks, ops,
-                                    sent["decode"]))
+                                    sent["decode"], want["steps"]))
         got["ops"] = ops
         # training on the rank's own copies of its bf16 blocks
         own = tree_map(lambda x: Stacked(p.clone() for p in x.parts)
@@ -4724,7 +4791,7 @@ def recurrent_rank_body(comm, jobs):
         got["launches"] = launch_counts()
         got["train_op_paths"] = dict(layers.OP_PATHS)
         B, S = toks.shape
-        P = RECURRENT_RANKS_PROMPT + RECURRENT_RANKS_STEPS
+        P = RECURRENT_RANKS_PROMPT + want["steps"]
         mesh, at = comm.mesh, comm.coords
         counts = {   # at 1 and 2 repeats of the unit, extrapolated (exact)
             "prefill": (cfg, lambda c: dryrun.count_rank_forward(
@@ -4747,43 +4814,56 @@ def recurrent_rank_body(comm, jobs):
 
 
 def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card,
-                         label):
+                         label, reduced, steps):
     """One job's one-card side (``label``: its phase): the model at full
-    width (its depth cut to ``layers_cut``), its bf16 prefill logits and
-    their bound (``MODEL_RANKS_TWIN_MULTIPLE`` times their distance from
-    the fp32 twin's); the fp32 twin's greedy session's tokens; one bf16
+    width (its depth cut to ``layers_cut``), its bf16 prefill logits (an
+    MoE layer's routes and keep flags recorded) and their bound
+    (``MODEL_RANKS_TWIN_MULTIPLE`` times their distance from the fp32
+    twin's); the fp32 twin's greedy session's tokens; one bf16
     step of ``opt_name`` on a copy of the weights (loss, norm, the state
     after it) and the same step of an fp32 twin, from which the norm's bound
     and each kind of state leaf's come (``TWIN_MULTIPLE`` times the gap,
     the worst over the kind's leaves; for adamw8bit's int8 codes at
     least 1: two bf16 steps that round their sums in another order move
     codes by more than one, 5 at the reduced config on the CPU; none
-    for AdamW, whose moments a rank holds by block)."""
-    from repro_torch.configs import get_config
+    for AdamW, whose moments a rank holds by block).  ``reduced``: the
+    arch's reduced config in fp32, its own twin, AdamW: the logits within
+    ``MOE_RANKS_FP32_TOL``, the loss and norm within ``MOE_TRAIN_TOL``;
+    ``steps``: the greedy session's decode steps."""
+    from repro_torch.configs import get_config, get_reduced
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.models import Model
+    from repro_torch.models import Model, moe
     from repro_torch.models.convert import param_tree
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.train.train_step import make_train_step
     full = get_config(arch)
-    cfg = full.scaled(num_layers=layers_cut or full.num_layers)
+    cfg = (get_reduced(arch).scaled(dtype="float32") if reduced else
+           full.scaled(num_layers=layers_cut or full.num_layers))
     gen = torch.Generator(device=dev)
     gen.manual_seed(RECURRENT_RANKS_SEED)
     model = Model(cfg, device=dev).init(gen)
     B, S = RECURRENT_RANKS_PREFILL
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                          device=dev)
-    logits = model.apply({"tokens": toks})
-    twin = fp32_twin(torch, model)
-    bound = MODEL_RANKS_TWIN_MULTIPLE * logit_err(
-        torch, logits, twin.apply({"tokens": toks}))
+    moe.reset_drops()
+    with moe.record_routes() as routes:
+        logits = model.apply({"tokens": toks})
+    routes = dict(routes=[r.numpy() for r in routes],
+                  kept=[k.numpy() for k in routes.kept],
+                  drops=moe.dropped_assignments())
+    if reduced:
+        twin, bound = model, MOE_RANKS_FP32_TOL
+    else:
+        twin = fp32_twin(torch, model)
+        bound = MODEL_RANKS_TWIN_MULTIPLE * logit_err(
+            torch, logits, twin.apply({"tokens": toks}))
     _free(torch)
     P = RECURRENT_RANKS_PROMPT
-    eng = ServeEngine(twin, max_len=P + RECURRENT_RANKS_STEPS, batch_size=B,
+    eng = ServeEngine(twin, max_len=P + steps, batch_size=B,
                       cache_dtype=torch.float32, device=dev)
     first = twin.argmax(eng.prefill({"tokens": toks[:, :P]}))
     tokens = np_tokens(torch.cat([first[:, None].cpu(), torch.as_tensor(
-        eng.decode(RECURRENT_RANKS_STEPS, first_tokens=first).tokens)],
+        eng.decode(steps, first_tokens=first).tokens)],
         dim=1).tolist())
     del eng
     batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
@@ -4791,7 +4871,7 @@ def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card,
                                    global_batch=TRAIN_BATCH, seed=0),
                         device=dev).batch(0)
     steps = {}
-    for dtype in ("bfloat16", "float32"):
+    for dtype in ("float32",) if reduced else ("bfloat16", "float32"):
         trainee = Model(cfg.scaled(dtype=dtype), device=dev)
         trainee.load_state_dict(model.state_dict())
         opt = rank_optimizer(opt_name)
@@ -4802,7 +4882,7 @@ def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card,
                             grad_norm=float(m["grad_norm"]), state=state)
         del trainee, params
         _free(torch)
-    one, tw = steps["bfloat16"], steps["float32"]
+    one, tw = steps[cfg.dtype], steps["float32"]
     replicated = opt_name != "adamw"
     bounds = dict(loss=TRAIN_LOSS_TOL, norm=TWIN_MULTIPLE * abs(
         one["grad_norm"] - tw["grad_norm"]) / tw["grad_norm"], state={
@@ -4810,7 +4890,9 @@ def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card,
             else TWIN_MULTIPLE * v for k, v in state_errors(
                 torch, one["state"], tw["state"])["worst"].items()}
         if replicated else {})
-    del tw["state"]
+    if reduced:
+        bounds.update(loss=MOE_TRAIN_TOL, norm=MOE_TRAIN_TOL)
+    tw.pop("state", None)
     if not replicated:
         one["state"] = None
     log(f"{label} [{card}] {arch} one-card ({cfg.num_layers} of "
@@ -4819,7 +4901,8 @@ def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card,
         f"bf16 loss {one['loss']} norm {one['grad_norm']}, fp32 twin loss "
         f"{tw['loss']} norm {tw['grad_norm']}; bounds {json.dumps(bounds)}")
     return dict(cfg=cfg, model=model, twin=twin, toks=toks, logits=logits,
-                bound=bound, tokens=tokens, one=one, bounds=bounds)
+                bound=bound, tokens=tokens, one=one, bounds=bounds,
+                routes=routes)
 
 
 def run_recurrent_ranks(np, torch, dev, card):
@@ -4837,35 +4920,325 @@ def run_mla_ranks(np, torch, dev, card):
     return run_kind_ranks(np, torch, dev, card, MLA_RANKS, "mla-ranks")
 
 
-def run_kind_ranks(np, torch, dev, card, jobs, label):
-    """Layer kinds across ranks: four gloo ranks over (data 2, model 2),
-    each a ``RankModel`` of every arch of ``jobs`` ((arch, depth cut,
-    optimizer)) on its blocks of the parent's one-card models; ``label``
-    names the phase.  Per job: each rank's bf16 prefill logits
-    block within the twin-based bound; the protected greedy session's
-    tokens equal to the one-card fp32 engine's, its pages equal to the
-    stacked one-card store's over the cache gathered from the ranks, the
-    parity a fresh encode, the rebuilt position 0 its live pages and a
-    flipped parity byte changing the rebuild; step 1's loss and norm of
-    the job's optimizer within train-ranks' bounds of the one-card step,
-    the replicated state against the one card's within twice the one
-    card's bf16 distance from its fp32 twin's, by kind of state leaf
-    (adamw8bit's codes, at least within 1, and scales; adafactor's
-    factors), the worst over the leaves; every
-    prefill's, decode step's and training step 2's bytes by kind equal
-    to the dry run's count; kernel 11 on every attention layer (none on
-    an MLA layer, whose prefill takes ``mla_blockwise:torch`` once a
-    layer), kernel 1 in the EC calls, the card's paths only.  Returns
-    the ranks' launches, summed, and the phase's numbers."""
-    from repro_torch.distributed import ranks as rk
+def settled_tokens(np, one, got, K: int) -> dict:
+    """A rank's rows of one MoE layer against the one card's (``one``,
+    ``got``: "routes" (rows, S, K) experts, "kept" their keep flags,
+    "probs" (rows, S, E) router probabilities).  A token is settled when
+    its top-K experts and their keep flags equal the one card's.  An
+    unsettled token is explained when its own route flipped at a near tie
+    (the one card's gap between its K-th and (K+1)-th probability at
+    most twice the largest |p - p_one| of the token) or, its route
+    unflipped, it holds in its row an expert that a flipped assignment
+    entered in either run (the capacity's order then moves).  Returns
+    the masks and counts."""
+    def by_expert(x):
+        order = np.argsort(x["routes"], axis=-1)
+        return (np.take_along_axis(x["routes"], order, -1),
+                np.take_along_axis(x["kept"], order, -1))
+    e1, k1 = by_expert(one)
+    e2, k2 = by_expert(got)
+    same = (e1 == e2).all(-1)
+    settled = same & (k1 == k2).all(-1)
+    dp = np.abs(got["probs"] - one["probs"]).max(-1)
+    top = -np.sort(-one["probs"], axis=-1)
+    near_tie = top[..., K - 1] - top[..., K] <= 2 * dp
+    explained = settled | (~same & near_tie)
+    for b in range(e1.shape[0]):
+        touched = set()
+        for t in np.flatnonzero(~same[b]):
+            touched |= set(e1[b, t].tolist()) ^ set(e2[b, t].tolist())
+        for t in np.flatnonzero(same[b] & ~settled[b]):
+            explained[b, t] = bool(touched & set(e1[b, t].tolist()))
+    return dict(settled=settled, explained=explained,
+                n_settled=int(settled.sum()), n=int(settled.size),
+                flipped=int((~same).sum()),
+                unexplained=int((~explained).sum()))
+
+
+def moe_rank_body(comm, cfg, local, toks, want, kind_jobs):
+    """Moe-ranks phase (a), one rank: with the launch counts from 0, the
+    bf16 ``RankModel.apply`` of the whole batch on the rank's blocks
+    (shared with the parent), its routes, keep flags, router
+    probabilities and drops, each token's largest |logit - the one
+    card's| (``want["prefill"]``: its logits block), its bytes by kind
+    and seconds; then one protected decode step through ``ServeEngine``
+    (a bf16 cache of ``MOE_RANKS_MAX_LEN`` slots protected by RS(1,1)
+    over "data" while empty, the one-token prompt's step, the same
+    numbers against ``want["decode"]``, the greedy token, the parity
+    refreshed, data position 0 rebuilt, a flipped parity byte); the dry
+    run's counts of the same prefill and decode step; the launches,
+    ``op_paths`` and the peak.  Then part (b): ``recurrent_rank_body`` on
+    ``kind_jobs``, under "reduced"."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.distributed.ecstore import ECConfig
+    from repro_torch.distributed.ranks import rank_comms
+    from repro_torch.kernels import (dispatch, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers, moe
+    from repro_torch.models.ranked import RankModel
+    from repro_torch.serve.engine import ServeEngine
+    torch.cuda.set_device(0)
+    comms = rank_comms(comm)
+    layers.set_activation_mesh(comms)
+    sent = {"prefill": {}, "decode": {}}
+    layers.reset_op_paths()
+    reset_launch_counts()
+    moe.reset_drops()
+    torch.cuda.reset_peak_memory_stats()
+    model = RankModel(cfg, local, comms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with moe.record_routes() as routes, recording(
+            lambda n, kind: sent["prefill"].__setitem__(
+                kind, sent["prefill"].get(kind, 0) + n)):
+        logits = model.apply({"tokens": toks})
+    torch.cuda.synchronize()
+    got = {"coords": comm.coords, "prefill_s": time.perf_counter() - t0,
+           "prefill_launches": launch_counts(),
+           "finite": bool(torch.isfinite(logits).all()),
+           "tok_err": (logits.float() - want["prefill"].float()).abs()
+           .amax(-1).cpu().numpy(),
+           "routes": routes[0].numpy(), "kept": routes.kept[0].numpy(),
+           "probs": routes.probs[0].numpy(),
+           "drops": moe.dropped_assignments(),
+           "op_paths": dict(model.op_paths),
+           "prefill_routes": dict(layers.OP_PATHS)}
+    del logits
+    # one protected decode step: the cache protected while empty, the
+    # one-token prompt's step, the parity refreshed, position 0 rebuilt
+    ops = {}
+    B, S = toks.shape
+    eng = ServeEngine(model, max_len=MOE_RANKS_MAX_LEN, batch_size=B,
+                      device=toks.device)
+    mesh = comm.mesh
+    specs = shd.cache_specs(cfg, eng.cache_shapes(), mesh)
+    _rank_timed(torch, ops, "create", eng.protect_cache, mesh, specs,
+                ECConfig(**RECURRENT_RANKS_EC))
+    old = eng.cache_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with moe.record_routes() as routes, recording(
+            lambda n, kind: sent["decode"].__setitem__(
+                kind, sent["decode"].get(kind, 0) + n)):
+        logits = eng.prefill({"tokens": toks[:, :1]})
+    torch.cuda.synchronize()
+    got.update(decode_s=time.perf_counter() - t0,
+               dec_finite=bool(torch.isfinite(logits).all()),
+               dec_err=(logits.float() - want["decode"].float()).abs()
+               .amax(-1).cpu().numpy(),
+               dec_routes=routes[0][:, 0].numpy(),
+               dec_kept=routes.kept[0][:, 0].numpy(),
+               dec_probs=routes.probs[0][:, 0].numpy(),
+               token=model.argmax(logits).cpu().numpy())
+    _rank_timed(torch, ops, "refresh", eng.refresh_cache_parity, old)
+    rebuilt = _rank_timed(torch, ops, "rebuild0", eng.recover_cache_pages, 0)
+    faulted = eng.ec_parity.clone()
+    faulted.view(-1)[0] ^= 1
+    got.update(
+        stale=_differ(torch, eng.ec_parity,
+                      eng.ec_store.encode(eng.cache_tree())),
+        faulted_differs=_differ(torch, eng.ec_store.reconstruct(
+            eng.cache_tree(), faulted, 0), rebuilt),
+        pages=eng.ec_store.local_pages(eng.cache_tree()).cpu().numpy(),
+        rebuilt=rebuilt.cpu().numpy(), ec_paths=dict(comms.data.op_paths),
+        ops=ops, launches=launch_counts(),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, sent=sent)
+    del eng, model, logits
+    with dispatch.dry_run():
+        got["counted"] = {k: {kind: n for kind, n in dryrun.count_rank_forward(
+            cfg, dryrun.ShapeSpec("x", k, s, B), mesh, comm.coords)[
+                "collectives"].items() if n}
+            for k, s in (("prefill", S), ("decode", MOE_RANKS_MAX_LEN))}
+    layers.set_activation_mesh(None)
+    torch.cuda.empty_cache()
+    got["reduced"] = recurrent_rank_body(comm, kind_jobs)
+    return got
+
+
+def run_moe_full_width(np, torch, dev, card, kind_jobs):
+    """Moe-ranks (a): kimi-k2 at full width and ``MOE_RANKS_LAYERS``
+    layer(s), bf16, over (data 2, model 2), the ranks on their blocks of
+    the parent's one-card model (shared, not copied), against its prefill
+    and its decode step of the prompt's token (their routes, keep flags
+    and router probabilities recorded): every unsettled token explained
+    (``settled_tokens``), the settled tokens' logits within
+    ``BF16_LOGIT_TOL``, the share settled printed; the protected step's
+    parity a fresh encode, position 0 rebuilt equal to its live pages, a
+    flipped parity byte caught; bytes by kind equal
+    to the dry run's count; kernel 11 once in a prefill, kernel 1 in the
+    EC calls, the card's paths only.  The same ranks then run ``kind_jobs``
+    (by rank: part (b), ``recurrent_rank_body``) after (a).  Returns the
+    ranks' launches in (a), summed, the numbers, and (b)'s results by
+    rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model, moe
+    from repro_torch.models.convert import param_tree
+    from repro_torch.models.ranked import batch_rows
+    from repro_torch.tree import Stacked, tree_map
+    t0 = time.perf_counter()
+    full = get_config(MOE_RANKS_ARCH)
+    cfg = full.scaled(num_layers=MOE_RANKS_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MOE_RANKS_SEED)
+    model = Model(cfg, device=dev).init(gen)
+    B, S = MOE_RANKS_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=dev)
+    moe.reset_drops()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with moe.record_routes() as routes:
+        logits = model.apply({"tokens": toks})
+    torch.cuda.synchronize()
+    nums = {"one_card_prefill_s": time.perf_counter() - t1,
+            "one_card_drops": moe.dropped_assignments(),
+            "cap": moe.capacity(S, cfg)}
+    one = {"routes": routes[0].numpy(), "kept": routes.kept[0].numpy(),
+           "probs": routes.probs[0].numpy()}
+    assert nums["one_card_drops"][0] > 0, nums
+    # the one card's decode step of the prompt's token, from an empty cache
+    with moe.record_routes() as routes:
+        dec, _ = model.decode_step(
+            model.init_cache(B, MOE_RANKS_MAX_LEN), toks[:, 0], 0)
+    one_dec = {"routes": routes[0][:, 0].numpy(),
+               "kept": routes.kept[0][:, 0].numpy(),
+               "probs": routes.probs[0][:, 0].numpy()}
+    mesh = make_mesh(RECURRENT_RANKS_MESH, ("data", "model"))
+    A, M = RECURRENT_RANKS_MESH
+    params = tree_map(lambda x: Stacked(p.detach() for p in x.parts)
+                      if isinstance(x, Stacked) else x.detach(),
+                      param_tree(model))
+    specs = shd.param_specs(cfg, params, mesh)
+    Vl = cfg.padded_vocab // M
+    rank_args = []
+    for r in range(mesh.size):
+        a, m = mesh.coords(r)
+        r0, r1 = batch_rows(B, A, a)
+        local = tree_map(lambda leaf, spec: shd.local_block(
+            leaf, spec, mesh, (a, m)), params, specs)
+        rank_args.append((cfg, local, toks, {
+            "prefill": logits[r0:r1, :, m * Vl:(m + 1) * Vl],
+            "decode": dec[r0:r1, m * Vl:(m + 1) * Vl]}, kind_jobs[r]))
+    t1 = time.perf_counter()
+    res = launch_on_card(moe_rank_body, rank_args, MOE_RANKS_DEADLINE)
+    nums["spawn_s"] = time.perf_counter() - t1
+    del rank_args, params, logits, dec, model
+    _free(torch)
+    torch.cuda.ipc_collect()
+    launches, nums["ranks"] = None, []
+    K = cfg.experts_per_token
+    live = {tuple(x["coords"]): x["pages"] for x in res}
+    for x in res:
+        at = tuple(x["coords"])
+        r0, r1 = batch_rows(B, A, at[0])
+        st = settled_tokens(np, {k: v[r0:r1] for k, v in one.items()}, x, K)
+        settled_err = float(x["tok_err"][st["settled"]].max(initial=0.0))
+        # the decode step: one token a row, the same analysis
+        sd = settled_tokens(
+            np, {k: v[r0:r1, None] for k, v in one_dec.items()},
+            {k: x[f"dec_{k}"][:, None] for k in one_dec}, K)
+        dec_err = float(x["dec_err"][sd["settled"][:, 0]].max(initial=0.0))
+        n = x["launches"]
+        row = {k: x[k] for k in ("prefill_s", "decode_s", "peak_gb",
+                                 "drops", "ops", "stale",
+                                 "faulted_differs")}
+        row.update(coords=at, settled=f"{st['n_settled']} of {st['n']}",
+                   settled_share=st["n_settled"] / st["n"],
+                   flipped=st["flipped"], unexplained=st["unexplained"],
+                   settled_logit_err=settled_err,
+                   worst_logit_err=float(x["tok_err"].max()),
+                   decode_settled=f"{sd['n_settled']} of {sd['n']}",
+                   decode_unexplained=sd["unexplained"],
+                   decode_settled_logit_err=dec_err,
+                   token=x["token"].tolist(),
+                   sent_prefill=x["sent"]["prefill"],
+                   sent_decode_step=x["sent"]["decode"],
+                   kernel11=n["flash_attention"],
+                   kernel1=n["gf_matmul_batched"],
+                   rebuilt_vs_live=_differ(
+                       torch, torch.from_numpy(x["rebuilt"]),
+                       torch.from_numpy(live[0, at[1]])))
+        nums["ranks"].append(row)
+        log(f"moe-ranks (a) [{card}] {MOE_RANKS_ARCH} rank at {at}: "
+            f"{json.dumps(row)}")
+        assert x["finite"] and x["dec_finite"], at
+        assert st["unexplained"] == 0 and sd["unexplained"] == 0, (
+            at, st["unexplained"], sd["unexplained"])
+        assert max(settled_err, dec_err) <= BF16_LOGIT_TOL, (
+            at, settled_err, dec_err)
+        assert x["drops"][0] == int((~x["kept"]).sum()), at
+        assert row["rebuilt_vs_live"] == 0, at
+        assert x["stale"] == 0 and x["faulted_differs"] > 0, at
+        assert x["sent"]["prefill"] == x["counted"]["prefill"], (
+            at, x["sent"]["prefill"], x["counted"]["prefill"])
+        assert x["sent"]["decode"] == x["counted"]["decode"], (
+            at, x["sent"]["decode"], x["counted"]["decode"])
+        assert x["prefill_launches"]["flash_attention"] == \
+            cfg.layers.count("M"), x["prefill_launches"]
+        assert sum(x["prefill_launches"].values()) == \
+            x["prefill_launches"]["flash_attention"], x["prefill_launches"]
+        assert n["gf_matmul_batched"] > 0, n
+        assert x["op_paths"] == {"flash_attention": "cuda-kernel"}, at
+        assert not any(k.startswith("masked") for k in x["prefill_routes"])
+        assert set(x["ec_paths"].values()) == {"cuda-kernel"}, at
+        launches = n if launches is None else {k: launches[k] + n[k]
+                                               for k in launches}
+    nums["settled_share"] = sum(r["settled_share"] for r in nums["ranks"]) \
+        / len(nums["ranks"])
+    nums["s"] = time.perf_counter() - t0
+    log(f"moe-ranks (a) [{card}] {MOE_RANKS_ARCH} ({cfg.num_layers} of "
+        f"{full.num_layers} layers, cap {nums['cap']}, one card drops "
+        f"{nums['one_card_drops']}): settled tokens "
+        f"{[r['settled'] for r in nums['ranks']]} (share "
+        f"{nums['settled_share']:.4f}); prefill s a rank "
+        f"{[round(r['prefill_s'], 3) for r in nums['ranks']]}, decode s a "
+        f"step {[round(r['decode_s'], 3) for r in nums['ranks']]}"
+        f", peak GB {[round(r['peak_gb'], 2) for r in nums['ranks']]}")
+    return launches, nums, [x["reduced"] for x in res]
+
+
+def run_moe_ranks(np, torch, dev, card):
+    """MoE across ranks (module notes, phase 23), one spawn of four
+    ranks: (a) kimi-k2 at full width (``run_moe_full_width``); (b) both
+    MoE archs at their reduced configs in fp32, ``run_kind_ranks``'
+    checks (``kind_rank_jobs``, ``check_kind_ranks``): routes, drop set
+    and tokens the one card's exactly, the drop count above zero."""
+    t_phase = time.perf_counter()
+    label = "moe-ranks (b)"
+    refs, kind_jobs = kind_rank_jobs(torch, dev, card, MOE_RANKS_REDUCED,
+                                     label, reduced=True,
+                                     steps=MOE_RANKS_STEPS)
+    launches, full, res = run_moe_full_width(np, torch, dev, card, kind_jobs)
+    del kind_jobs
+    more, reduced = check_kind_ranks(np, torch, dev, card, MOE_RANKS_REDUCED,
+                                     label, refs, res, MOE_RANKS_STEPS)
+    for arch, job in reduced["jobs"].items():
+        assert job["one_card_drops"][0] > 0, (arch, job["one_card_drops"])
+    nums = {"full_width": full, "reduced": reduced,
+            "phase_s": time.perf_counter() - t_phase}
+    log(f"phase moe-ranks: {nums['phase_s']:.1f} s")
+    return {k: launches[k] + more[k] for k in launches}, nums
+
+
+def kind_rank_jobs(torch, dev, card, jobs, label, reduced=False,
+                   steps=RECURRENT_RANKS_STEPS):
+    """The one-card side of ``run_kind_ranks``' ``jobs`` ((arch, depth
+    cut, optimizer)): each arch's reference (``_recurrent_reference``) by
+    arch, and each rank's jobs for ``recurrent_rank_body``, by rank (its
+    blocks of the one-card models, the logits block it must match, the
+    optimizer, ``steps`` greedy decode steps)."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.convert import param_tree
     from repro_torch.models.ranked import batch_rows
     from repro_torch.tree import Stacked, tree_map
-    t_phase = time.perf_counter()
     refs = {arch: _recurrent_reference(torch, dev, arch, cut, opt, card,
-                                       label)
+                                       label, reduced, steps)
             for arch, cut, opt in jobs}
     mesh = make_mesh(RECURRENT_RANKS_MESH, ("data", "model"))
     A, M = RECURRENT_RANKS_MESH
@@ -4878,7 +5251,7 @@ def run_kind_ranks(np, torch, dev, card, jobs, label):
         specs = shd.param_specs(m.cfg, params, mesh)
         return tree_map(lambda leaf, spec: shd.local_block(
             leaf, spec, mesh, coords), params, specs)
-    rank_args = []
+    by_rank = []
     for r in range(mesh.size):
         a, m = mesh.coords(r)
         r0, r1 = batch_rows(B, A, a)
@@ -4890,30 +5263,85 @@ def run_kind_ranks(np, torch, dev, card, jobs, label):
                 arch, ref["cfg"], blocks(ref["model"], (a, m)),
                 blocks(ref["twin"], (a, m)), ref["toks"], {
                     "prefill": ref["logits"][r0:r1, :, m * Vl:(m + 1) * Vl],
-                    "state": ref["one"]["state"], "optimizer": opt}))
-        rank_args.append((rank_jobs,))
+                    "state": ref["one"]["state"], "optimizer": opt,
+                    "steps": steps}))
+        by_rank.append(rank_jobs)
+    return refs, by_rank
+
+
+def launch_on_card(fn, rank_args, deadline):
+    """``ranks.launch`` of ``fn`` on four gloo ranks over (data 2, model
+    2) of this card, the ranks' allocator on expandable segments."""
+    from repro_torch.distributed import ranks as rk
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(RECURRENT_RANKS_MESH, ("data", "model"))
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    t0 = time.perf_counter()
     try:
         with tempfile.TemporaryDirectory(prefix="kind_ranks_") as tmp:
-            res = rk.launch(recurrent_rank_body, mesh, rank_args,
-                            init_file=os.path.join(tmp, "init"),
-                            timeout=RECURRENT_RANKS_DEADLINE)
+            return rk.launch(fn, mesh, rank_args,
+                             init_file=os.path.join(tmp, "init"),
+                             timeout=deadline)
     finally:
         if alloc is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    nums = {"spawn_s": time.perf_counter() - t0, "jobs": {}}
-    del rank_args
+
+
+def run_kind_ranks(np, torch, dev, card, jobs, label):
+    """Layer kinds across ranks: four gloo ranks over (data 2, model 2),
+    each a ``RankModel`` of every arch of ``jobs`` ((arch, depth cut,
+    optimizer)) on its blocks of the parent's one-card models
+    (``kind_rank_jobs``); ``label`` names the phase.  Per job
+    (``check_kind_ranks``): each rank's bf16 prefill logits block within
+    the twin-based bound; an MoE layer's routes, keep flags and drops of
+    the rank's rows exactly the one card's; the protected greedy
+    session's tokens equal to the one-card fp32 engine's, its pages
+    equal to the stacked one-card store's over the cache gathered from
+    the ranks, the parity a fresh encode, the rebuilt position 0 its
+    live pages and a flipped parity byte changing the rebuild; step 1's
+    loss and norm of the job's optimizer within train-ranks' bounds of
+    the one-card step, the replicated state against the one card's
+    within twice the one card's bf16 distance from its fp32 twin's, by
+    kind of state leaf (adamw8bit's codes, at least within 1, and
+    scales; adafactor's factors), the worst over the leaves; every
+    prefill's, decode step's and training step 2's bytes by kind equal
+    to the dry run's count; kernel 11 on every attention layer (none on
+    an MLA layer, whose prefill takes ``mla_blockwise:torch`` once a
+    layer), kernel 1 in the EC calls, the card's paths only.  Returns
+    the ranks' launches, summed, and the phase's numbers."""
+    t_phase = time.perf_counter()
+    refs, by_rank = kind_rank_jobs(torch, dev, card, jobs, label)
+    t0 = time.perf_counter()
+    res = launch_on_card(recurrent_rank_body, [(j,) for j in by_rank],
+                         RECURRENT_RANKS_DEADLINE)
+    spawn_s = time.perf_counter() - t0
+    del by_rank
+    launches, nums = check_kind_ranks(np, torch, dev, card, jobs, label,
+                                      refs, res, RECURRENT_RANKS_STEPS)
+    nums.update(spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase)
+    log(f"phase {label}: {nums['phase_s']:.1f} s")
+    return launches, nums
+
+
+def check_kind_ranks(np, torch, dev, card, jobs, label, refs, res, steps):
+    """``run_kind_ranks``' checks of the ranks' results ``res`` against the
+    one-card references ``refs`` (``kind_rank_jobs``); consumes both.
+    Returns the ranks' launches, summed, and the numbers by job."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.ranked import batch_rows
+    mesh = make_mesh(RECURRENT_RANKS_MESH, ("data", "model"))
+    A = RECURRENT_RANKS_MESH[0]
+    B = RECURRENT_RANKS_PREFILL[0]
+    nums = {"jobs": {}}
     launches = None
     for arch, _, opt in jobs:
         ref = refs.pop(arch)
         cfg, bounds = ref["cfg"], ref["bounds"]
-        attention = sum(cfg.layers.count(k) for k in "AW")
+        attention = sum(cfg.layers.count(k) for k in "AWM")
         mla = cfg.layers.count("L")
-        P = RECURRENT_RANKS_PROMPT + RECURRENT_RANKS_STEPS
+        P = RECURRENT_RANKS_PROMPT + steps
         stacked, _ = stacked_store(
             torch, dev, cfg.scaled(dtype="float32"),
             [x[arch]["cache"] for x in res],
@@ -4921,7 +5349,8 @@ def run_kind_ranks(np, torch, dev, card, jobs, label):
             RECURRENT_RANKS_EC)
         job = {"one_card": {k: ref["one"][k] for k in ("loss", "grad_norm")},
                "bounds": bounds, "bound_prefill": ref["bound"],
-               "one_card_tokens": ref["tokens"], "ranks": []}
+               "one_card_tokens": ref["tokens"],
+               "one_card_drops": ref["routes"]["drops"], "ranks": []}
         for x in res:
             got, at = x[arch], tuple(x["coords"])
             s1 = got["steps"][0]
@@ -4934,8 +5363,9 @@ def run_kind_ranks(np, torch, dev, card, jobs, label):
                                    .to(dev), stacked[at]),
                 rebuilt_vs_live=_differ(torch, torch.from_numpy(
                     got["rebuilt"]).to(dev), stacked[0, at[1]]))
-            shown = {k: got[k] for k in got
-                     if k not in ("pages", "rebuilt", "cache", "state_err")}
+            shown = {k: got[k] for k in got if k not in (
+                "pages", "rebuilt", "cache", "state_err", "moe")}
+            shown["moe_drops"] = got["moe"]["drops"]
             shown["worst_state_err"] = got.get("state_err", {}).get("worst")
             log(f"{label} [{card}] {arch} rank at {at}: "
                 f"{json.dumps(shown)}")
@@ -4951,6 +5381,17 @@ def run_kind_ranks(np, torch, dev, card, jobs, label):
                 at, got["step1_grad_norm_rel_err"], bounds["norm"])
             for k, v in (shown["worst_state_err"] or {}).items():
                 assert v <= bounds["state"][k], (at, k, v, bounds["state"][k])
+            r0, r1 = batch_rows(B, A, at[0])
+            one_moe = ref["routes"]
+            assert len(got["moe"]["routes"]) == cfg.layers.count("M"), at
+            for i, (e, k) in enumerate(zip(one_moe["routes"],
+                                           one_moe["kept"])):
+                assert np.array_equal(got["moe"]["routes"][i], e[r0:r1]), (
+                    at, i)
+                assert np.array_equal(got["moe"]["kept"][i], k[r0:r1]), (
+                    at, i)
+            assert got["moe"]["drops"][0] == sum(
+                int((~k[r0:r1]).sum()) for k in one_moe["kept"]), at
             assert got["sent"]["prefill"] == got["counted"]["prefill"], at
             assert all(s == got["counted"]["decode"]
                        for s in got["sent"]["decode"]), (
@@ -4975,7 +5416,8 @@ def run_kind_ranks(np, torch, dev, card, jobs, label):
             job["ranks"].append({k: shown[k] for k in (
                 "prefill_s", "decode_s_per_step", "serve_s",
                 "train_peak_gb", "steps", "prefill_err", "step1_loss_err",
-                "step1_grad_norm_rel_err", "worst_state_err", "ops")}
+                "step1_grad_norm_rel_err", "worst_state_err", "ops",
+                "moe_drops")}
                 | {"coords": at, "sent_prefill": got["sent"]["prefill"],
                    "sent_decode_step": got["sent"]["decode"][-1],
                    "kernel11": n["flash_attention"],
@@ -4991,11 +5433,10 @@ def run_kind_ranks(np, torch, dev, card, jobs, label):
             f", kernel-11 / kernel-1 launches a rank "
             f"{[(r['kernel11'], r['kernel1']) for r in job['ranks']]}")
         del ref, stacked
-    del refs, res
+    refs.clear()
+    res.clear()
     _free(torch)
     torch.cuda.ipc_collect()
-    nums["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase {label}: {nums['phase_s']:.1f} s")
     return launches, nums
 
 
@@ -5103,10 +5544,13 @@ def run_dryrun(np, torch, dev, card):
              "single", "--arch", group, "--shape", ",".join(CLI_SHAPES),
              "--out", out], env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True) for group in CLI_GROUPS]
+        group_s = {}
         try:
-            for proc in procs:
+            for group, proc in zip(CLI_GROUPS, procs):
                 stdout, stderr = proc.communicate(timeout=300)
                 assert proc.returncode == 0, stdout[-3000:] + stderr[-3000:]
+                took = re.search(r"records in ([0-9.]+) s", stdout)
+                group_s[group] = float(took.group(1)) if took else None
         finally:
             for proc in procs:
                 if proc.poll() is None:
@@ -5120,11 +5564,12 @@ def run_dryrun(np, torch, dev, card):
         assert r["status"] in ("ok", "skipped"), r
         assert r["status"] == "ok" or r["reason"], r
         status[r["status"]] = status.get(r["status"], 0) + 1
-    nums.update(ec_cells=ec, cli_cells=status,
+    nums.update(ec_cells=ec, cli_cells=status, cli_group_s=group_s,
                 cli_s=time.perf_counter() - t0,
                 phase_s=time.perf_counter() - t_phase)
     log(f"dryrun CLI --mesh single, {', '.join(CLI_SHAPES)}: "
-        f"{json.dumps(status)} in {nums['cli_s']:.1f} s")
+        f"{json.dumps(status)} in {nums['cli_s']:.1f} s (s a group: "
+        f"{json.dumps(group_s)})")
     log(f"phase dryrun: {nums['phase_s']:.1f} s")
     return launches, nums
 
@@ -5228,6 +5673,8 @@ def main() -> int:
     log(f"recurrent-ranks phase [{card}]:", json.dumps(recurrent_ranks))
     by_phase["mla_ranks"], mla_ranks = run_mla_ranks(np, torch, dev, card)
     log(f"mla-ranks phase [{card}]:", json.dumps(mla_ranks))
+    by_phase["moe_ranks"], moe_ranks = run_moe_ranks(np, torch, dev, card)
+    log(f"moe-ranks phase [{card}]:", json.dumps(moe_ranks))
     stripe = model_ranks["stripes"]["timed"]
     for row in rows:
         if row["name"] == "flash_attention":

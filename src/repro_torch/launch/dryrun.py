@@ -17,11 +17,8 @@ argument bytes each device of the mesh holds under
   counted at full depth.  The peak's place in a training step moves with
   depth, so its extrapolation is an estimate (``peak_extrapolated``);
   ``count_cell`` counts one depth whole.
-* The prefill, decode and train cells of the archs whose layers the
-  rank path runs (kinds "A", "W", "L", "R" and "S": starcoder2-3b,
-  phi4-mini-3.8b, mistral-large-123b, qwen2-vl-7b with its M-RoPE and
-  embeddings input, musicgen-medium with its embeddings input,
-  minicpm3-4b's MLA, recurrentgemma-2b and mamba2-370m) on a (data,
+* The prefill, decode and train cells of every arch (the rank path
+  runs every layer kind: "A", "W", "L", "R", "S" and "M") on a (data,
   model) or (pod, data, model) mesh of more than one position count one
   rank's forward
   (``models/ranked.py``'s ``RankModel`` on the position's blocks, its
@@ -35,10 +32,11 @@ argument bytes each device of the mesh holds under
   "rank"``); the totals sum the positions; ``repeated_products`` names
   the matrix products every model position computes alike and their
   FLOPs on one position.  A batch at or above its axes' size that they
-  do not divide, or a head count that "model" does not divide (an MLA
-  or Mamba-2 layer's; ``ranked.check_config``), keeps the even split.
-* Every other model cell (the MoE archs, the 1 x 1 mesh, and the cells
-  above that the rank path refuses) runs its positions as one program
+  do not divide, or a head or expert count that "model" does not divide
+  (an MLA, Mamba-2 or MoE layer's; ``ranked.check_config``), keeps the
+  even split.
+* Every other model cell (the 1 x 1 mesh, and the cells above that the
+  rank path refuses) runs its positions as one program
   on one card: FLOPs and bytes per device are the program's divided by
   the devices (an even split, ``count: "even split"``), the peak is
   given for one card running the whole program, and there are no
@@ -101,8 +99,7 @@ NVLINK_BW = 450e9          # bytes/s each way per card, within one NVLink domain
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 NO_SPMD = ("no SPMD collectives: the mesh's positions run as one program "
-           "on one card, its counts split evenly (MoE experts across "
-           "ranks, ROADMAP.md Queue 1 item 7, are not ported yet)")
+           "on one card, its counts split evenly")
 RANK_NOTE = ("one rank's forward or train step, the busiest position's: "
              "the bytes it sends by kind (an all-gather or a reduce-scatter "
              "(A - 1) blocks, an all-reduce 2(A - 1)/A of its bytes, the "
@@ -344,7 +341,7 @@ def rank_refusal(cfg, shape: ShapeSpec, mesh: Mesh) -> str | None:
         batch_rows(shape.global_batch, mesh.shape["data"], 0,
                    mesh.shape.get("pod", 1))
         check_config(cfg, mesh)
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         return str(e)
     return None
 

@@ -14,13 +14,21 @@ in ``jax.lax.top_k``.  Expert weights are stacked (E, d, f).
 ``DROPS`` adds up, on the device, the assignments each call drops
 (``dropped_assignments()`` reads it), so a caller can show that a run
 dropped none; a remat recompute adds nothing (``layers.recomputing``).
-Inside ``record_routes()`` each call's top-K experts are kept too, once
-a forward, so a check can compare two runs' routing.
+Inside ``record_routes()`` each call's top-K experts, their keep flags
+and the router's probabilities are kept too, once a forward, so a check
+can compare two runs' routing and drop sets.
+
+``moe_apply`` is ``plan`` (the router, the capacity, the sort, the slots
+and keep flags) and then ``experts`` over every expert: the dispatch of
+a range of experts' slots, their products and the weighted combine into
+the output.  A rank of a mesh (``models/ranked.py``) calls the same two
+on its rows and its own experts' range.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -33,7 +41,7 @@ from .layers import _param, counting, init_normal, torch_dtype
 DROPS: dict = {}
 #: each call's top-K experts (B, S, K) on the host, while
 #: ``record_routes`` is open
-_ROUTES: list | None = None
+_ROUTES: Routes | None = None
 
 
 def reset_drops() -> None:
@@ -45,12 +53,25 @@ def dropped_assignments() -> tuple[int, int]:
     return (int(DROPS.get("dropped", 0)), int(DROPS.get("total", 0)))
 
 
+class Routes(list):
+    """Each MoE call's top-K experts (a CPU tensor, (B, S, K)) in call
+    order; ``kept``: each call's keep flags (bool, (B, S, K), False where
+    the assignment was dropped) and ``probs`` its router probabilities
+    (fp32, (B, S, E)), in the same order."""
+
+    def __init__(self):
+        super().__init__()
+        self.kept: list = []
+        self.probs: list = []
+
+
 @contextlib.contextmanager
 def record_routes():
-    """Yields a list that gets each MoE call's top-K experts (a CPU
-    tensor, (B, S, K)) in call order, not again in a remat recompute."""
+    """Yields a ``Routes`` that gets each MoE call's top-K experts, keep
+    flags and router probabilities in call order, not again in a remat
+    recompute."""
     global _ROUTES
-    prev, _ROUTES = _ROUTES, []
+    prev, _ROUTES = _ROUTES, Routes()
     try:
         yield _ROUTES
     finally:
@@ -79,23 +100,50 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def router_probs(p: MoE, x):
+    """The router's probabilities (B, S, E): a softmax over the experts of
+    fp32 logits."""
+    return torch.softmax(x.float() @ p.router, dim=-1)
+
+
 def route(p: MoE, x, cfg: ModelConfig):
     """The router: (top_w (B, S, K) renormalised, top_e (B, S, K))."""
-    logits = x.float() @ p.router                                 # (B,S,E)
-    probs = torch.softmax(logits, dim=-1)
+    probs = router_probs(p, x)
     top_w, top_e = top_k(probs, cfg.experts_per_token)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     return top_w, top_e
 
 
-def moe_apply(p: MoE, x, cfg: ModelConfig):
-    """x: (B, S, d) -> (B, S, d)."""
-    B, S, d = x.shape
+class Plan(NamedTuple):
+    """Where each of a batch's S·K assignments goes, each row's sorted by
+    expert id: ``cap`` slots an expert; ``st``, ``sw``, ``slot``,
+    ``keep`` (B, S·K): the token, its renormalised router weight, its
+    slot e·cap + place in the (E·cap + 1)-row dispatch buffer (E·cap, the
+    overflow row, for a dropped one) and whether it was kept."""
+    cap: int
+    st: torch.Tensor
+    sw: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+
+
+def capacity(S: int, cfg: ModelConfig) -> int:
+    """Slots an expert takes a batch row: ceil(S·K/E · the capacity
+    factor), at least 4."""
+    return max(int(math.ceil(S * cfg.experts_per_token / cfg.num_experts
+                             * cfg.moe_capacity_factor)), 4)
+
+
+def plan(p, x, cfg: ModelConfig) -> Plan:
+    """The router (``route``) on x (B, S, d) and the slots of every row's
+    assignments; adds the drops to ``DROPS`` and, inside
+    ``record_routes``, keeps the top-K experts, keep flags and router
+    probabilities (neither again in a remat recompute).  ``p`` needs only
+    ``router``."""
+    B, S, _ = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     top_w, top_e = route(p, x, cfg)
-    if _ROUTES is not None and counting():
-        _ROUTES.append(top_e.cpu())
-    cap = max(int(math.ceil(S * K / E * cfg.moe_capacity_factor)), 4)
+    cap = capacity(S, cfg)
     dev = x.device
 
     flat_e = top_e.reshape(B, S * K)
@@ -115,30 +163,62 @@ def moe_apply(p: MoE, x, cfg: ModelConfig):
     if counting() and dev.type != "meta":     # a dry run has no values
         DROPS["dropped"] = DROPS.get("dropped", 0) + (~keep).sum()
         DROPS["total"] = DROPS.get("total", 0) + B * S * K
+    if _ROUTES is not None and counting():
+        _ROUTES.append(top_e.cpu())
+        _ROUTES.kept.append(torch.empty_like(keep).scatter_(
+            1, order, keep).reshape(B, S, K).cpu())
+        with torch.no_grad():     # nothing saved for a backward
+            _ROUTES.probs.append(router_probs(p, x).cpu())
+    return Plan(cap, st, sw, slot, keep)
 
-    # dispatch: each kept assignment's token into its slot; the dropped
-    # ones write zeros into the overflow row
+
+def experts(x, pl: Plan, w_gate, w_up, w_down, e0: int, out):
+    """Experts [e0, e0 + n) on x's rows (B, S, d) by the plan ``pl``,
+    their stacked weights ``w_gate``/``w_up`` (n, d, f) and ``w_down``
+    (n, f, d): their slots of the dispatch buffer, one batched product an
+    expert over the B·cap rows, and each of their kept assignments'
+    output, weighted, added to its token's row of ``out`` (B·S, d) in
+    place; returns ``out``.  ``moe_apply`` calls it once on every
+    expert; a rank on its own experts, a chunk at a time
+    (``models/ranked.py``)."""
+    B, S, d = x.shape
+    n, cap = w_gate.shape[0], pl.cap
+    dev = x.device
+    local = pl.slot - e0 * cap
+    mine = pl.keep & (local >= 0) & (local < n * cap)
+    slot = torch.where(mine, local, n * cap)
+
+    # dispatch: each of the range's kept assignments' token into its
+    # slot; the others write zeros into the overflow row
     rows = torch.arange(B, device=dev)[:, None]
-    vals = x[rows, st] * keep[..., None].to(x.dtype)              # (B,S*K,d)
-    disp = torch.zeros((B, E * cap + 1, d), dtype=x.dtype, device=dev)
+    vals = x[rows, pl.st] * mine[..., None].to(x.dtype)           # (B,S*K,d)
+    disp = torch.zeros((B, n * cap + 1, d), dtype=x.dtype, device=dev)
     disp[rows, slot] = vals
-    h = disp[:, : E * cap].reshape(B, E, cap, d)
+    h = disp[:, : n * cap].reshape(B, n, cap, d)
     # the experts: one batched product per expert over the B·cap rows
-    he = h.permute(1, 0, 2, 3).reshape(E, B * cap, d)
-    g = nn.functional.silu(torch.bmm(he, p.w_gate))
-    u = torch.bmm(he, p.w_up)
-    y = torch.bmm(g * u, p.w_down)                                # (E,B*cap,d)
-    y = y.reshape(E, B, cap, d).permute(1, 0, 2, 3).reshape(B, E * cap, d)
+    he = h.permute(1, 0, 2, 3).reshape(n, B * cap, d)
+    g = nn.functional.silu(torch.bmm(he, w_gate))
+    u = torch.bmm(he, w_up)
+    y = torch.bmm(g * u, w_down)                                  # (n,B*cap,d)
+    y = y.reshape(n, B, cap, d).permute(1, 0, 2, 3).reshape(B, n * cap, d)
 
     # combine: each assignment's expert output, weighted, added to its
     # token
-    idx = torch.clamp(slot, max=E * cap - 1)
-    wk = (sw * keep.float()).to(y.dtype)
+    idx = torch.clamp(slot, max=n * cap - 1)
+    wk = (pl.sw * mine.float()).to(y.dtype)
     contrib = y[rows, idx] * wk[..., None]                        # (B,S*K,d)
-    out = torch.zeros((B * S, d), dtype=y.dtype, device=dev)
-    flat_tok = (st + rows * S).reshape(-1)
-    out.index_add_(0, flat_tok, contrib.reshape(B * S * K, d))
-    return out.reshape(B, S, d)
+    flat_tok = (pl.st + rows * S).reshape(-1)
+    return out.index_add_(0, flat_tok, contrib.reshape(-1, d))
+
+
+def moe_apply(p: MoE, x, cfg: ModelConfig):
+    """x: (B, S, d) -> (B, S, d): ``plan``, then every expert at once
+    (``experts``)."""
+    B, S, d = x.shape
+    pl = plan(p, x, cfg)
+    out = torch.zeros((B * S, d), dtype=x.dtype, device=x.device)
+    return experts(x, pl, p.w_gate, p.w_up, p.w_down, 0, out) \
+        .reshape(B, S, d)
 
 
 def moe_aux_stats(p: MoE, x, cfg: ModelConfig) -> dict:

@@ -1,5 +1,5 @@
-"""A model of attention, MLA, RG-LRU and Mamba-2 layers on one rank of a
-(data, model) or (pod, data, model) mesh: its forward, its decode, and
+"""A model of attention, MLA, RG-LRU, Mamba-2 and MoE layers on one rank
+of a (data, model) or (pod, data, model) mesh: its forward, its decode, and
 its backward for training.
 
 The reference runs its model over a mesh inside one compiled program:
@@ -32,7 +32,8 @@ positions, rank (a, m):
   nothing over "pod": the parameters are replicated over pods (the
   reference's ``sharding.py``: "pods replicate params for fast
   recovery");
-* **attention, ``attn_parallel="seq"``** (the default): the reference's
+* **attention, ``attn_parallel="seq"``** (the default; kinds "A", "W"
+  and "M"): the reference's
   ``blockwise_attention`` stripes Q tiles of ``bq = min(attn_block_q,
   max(S // M, 16))`` rows over "model", tile t = l·M + m to stripe m,
   with S padded to a multiple of M·bq.  The rank projects its stripe's
@@ -75,6 +76,26 @@ positions, rank (a, m):
   all-reduce;
 * **MLP**: w_gate and w_up column-parallel, w_down row-parallel, an
   all-reduce after it (activation dtype);
+* **MoE** (kind "M": the attention above, then this FFN): the rank owns
+  experts [m·E/M, (m+1)·E/M) (E % M must be 0, else a ``ValueError``),
+  the reference's ``param_specs`` (``w_gate``/``w_up`` (model, data,
+  None), ``w_down`` (model, None, data)).  The residual stream holds
+  every token of the rank's rows on every model position, so each
+  position routes them itself: the router (data, None), gathered whole
+  over the data column, gives the top-K experts, the capacity, the
+  sorted slots and keep flags as one device computes them for these
+  rows (``moe.plan``; a product every model position repeats), so the
+  drop set is the one device's by construction.  The rank runs its
+  experts' slots of the dispatch buffer (``moe.experts``), their blocks
+  gathered over the data column ``EXPERT_CHUNK_BYTES`` at a time and
+  freed before the next chunk, adds their weighted outputs into a
+  partial (rows, S, d), and an all-reduce over the model column sums
+  the partials in the activation dtype, as the MLP's does.  The
+  reference's ``shard_act(h, "batch", "model")`` moves tokens to the
+  experts by an all-to-all of (rows, S·K, d); with the tokens already
+  on every model position the all-reduce sends 2(M - 1)/M of (rows, S,
+  d) instead, K times less at top-K.  A decode step (S 1) has cap 4 and
+  drops nothing;
 * **RG-LRU** (kind "R"): the rank owns channels [m·d/M, (m+1)·d/M):
   ``w_x`` and ``w_gate``'s columns (FSDP over "data"), the causal
   conv's taps and bias, ``ba``, ``bi``, ``lam``, and the fp32 log-step
@@ -133,11 +154,14 @@ rank's own blocks, through the collectives' backwards
 (``distributed/ranks.py``).  A parameter gather's backward is a
 reduce-scatter, so a block's gradient sums every position's use of the
 whole leaf; the input of each column-parallel product (the normed
-residual before attention, before the MLP and before the unembedding)
-passes through ``ranks.sum_grad``, which sums its gradient over the
-model column, as do the wk and wv blocks (replicated over "model", and
-every model position's K and V serve only its own query rows or heads)
-and MLA's ``w_dkv``, ``w_dq`` and norm scales;
+residual before attention, before the MLP or the experts and before the
+unembedding) passes through ``ranks.sum_grad``, which sums its gradient
+over the model column, as do the wk and wv blocks (replicated over
+"model", and every model position's K and V serve only its own query
+rows or heads), MLA's ``w_dkv``, ``w_dq`` and norm scales, and the MoE
+router (each position's top-K weights reach only its own experts'
+outputs); an expert block's gradient stays on its model position (the
+chunk gathers' backward reduce-scatters it over the data column);
 the row-parallel all-reduces pass their gradient through, and the
 "seq" stripes' gather hands each position its rows' gradient.  A
 replicated norm scale then has its whole gradient on every model
@@ -153,13 +177,12 @@ M-RoPE, the embedding lookup, the SwiGLU MLP, the unembedding, kernel
 11's route, the masked and local attention, int8 quantization, the
 unsharded decode attention, MLA's blockwise prefill) and ``rglru.py``'s
 and ``mamba2.py``'s (the conv, the gates, the scan, the SSD and its
-one-token step); what is this module's is the split: which rows, heads,
-channels and slices a rank computes and how blocks move.  MoE layers
-("M") raise on a mesh larger than 1 x 1, naming the ROADMAP item that
-will port them.  ``READ_FIELDS`` and ``KIND_FIELDS``
-say, for every ``ModelConfig`` field, whether the rank path reads it or
-leaves it to a refused layer kind; a field in neither fails the rank
-tests, so a new option cannot go unread here.  On a 1 x 1 mesh
+one-token step) and ``moe.py``'s (the routing plan, the experts'
+dispatch, products and combine); what is this module's is the split:
+which rows, heads, channels, slices and experts a rank computes and how
+blocks move.  ``READ_FIELDS`` names every ``ModelConfig`` field the rank
+path reads; a field outside it fails the rank tests, so a new option
+cannot go unread here.  On a 1 x 1 mesh
 ``RankModel`` is today's ``Model`` on the rank's (whole) blocks, and
 ``params`` are that model's parameters (sharing the blocks' storage).
 
@@ -168,8 +191,8 @@ model position computes alike (the plan's repeats: K and V everywhere,
 and in a "seq" decode step wq and wo too; MLA's ``w_dkv``, in a prefill
 its KV tiles' ``w_uk`` and ``w_uv`` up-projections, in a decode step
 ``w_dq``; Mamba-2's B and C columns, and in a decode step the token's
-whole x | B | C input); the dry run reports them beside a rank's count
-(``launch/dryrun.py``).
+whole x | B | C input; MoE's router); the dry run reports them beside a
+rank's count (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -188,25 +211,16 @@ from ..kernels import dispatch
 from ..kernels.flash_attention import stripe_positions
 from ..tree import Stacked, tree_map
 from . import layers as L
-from . import mamba2, rglru
+from . import mamba2, moe, rglru
 from .config import ModelConfig
 from .layers import NEG_INF, rmsnorm
-from .transformer import (REMAT_CONTEXTS, Model, stack_cache,
+from .transformer import (FFN_KINDS, REMAT_CONTEXTS, Model, stack_cache,
                           unstack_cache)
-
-#: ROADMAP.md Queue 1 items that will port the other layer kinds across
-#: ranks
-ROADMAP_ITEMS = {
-    "M": (7, "MoE experts over 'model'"),
-}
-
-#: the layer kinds the rank path runs: global and local attention, MLA and
-#: RG-LRU, each with a dense MLP, and Mamba-2
-KINDS = frozenset("AWLRS")
 
 #: ``ModelConfig`` fields the rank path reads as ``Model``'s layers do
 #: (``remat``: honoured while autograd records, as ``Model.forward``
-#: honours it; a forward without gradients ignores it alike)
+#: honours it; a forward without gradients ignores it alike); a field
+#: missing from it fails the rank tests
 READ_FIELDS = frozenset({
     "name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads",
     "d_ff", "vocab_size", "head_dim", "layer_pattern", "rope_kind",
@@ -215,27 +229,19 @@ READ_FIELDS = frozenset({
     "input_mode", "tie_embeddings", "norm_eps", "logit_softcap", "dtype",
     "remat", "rglru_conv", "rglru_c", "ssm_state", "ssm_expand",
     "ssm_headdim", "ssm_conv", "ssm_chunk", "ssm_groups", "q_lora_rank",
-    "kv_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim"})
+    "kv_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim",
+    "num_experts", "experts_per_token", "moe_capacity_factor"})
 
-#: fields only the layer kinds the rank path refuses read
-KIND_FIELDS = {
-    "M": ("num_experts", "experts_per_token", "moe_capacity_factor"),
-}
+#: bytes of gathered expert weights a rank holds at once: it gathers its
+#: experts' blocks over the data column this many bytes' worth at a time
+#: (at least one expert), runs them and frees them before the next chunk
+EXPERT_CHUNK_BYTES = 1 << 30
 
 
 def unclassified_fields() -> set:
-    """``ModelConfig`` fields in neither table above (none, or a new
-    option was added without saying what the rank path does)."""
-    known = READ_FIELDS | {f for fields in KIND_FIELDS.values()
-                           for f in fields}
-    return {f.name for f in dataclasses.fields(ModelConfig)} - known
-
-
-def _refuse(cfg: ModelConfig, what: str, item) -> None:
-    n, name = item
-    raise NotImplementedError(
-        f"{cfg.name}: {what} across ranks is not ported yet; ROADMAP.md "
-        f"Queue 1 item {n} ({name}) ports it")
+    """``ModelConfig`` fields the rank path does not say it reads (none,
+    or a new option was added without saying what the rank path does)."""
+    return {f.name for f in dataclasses.fields(ModelConfig)} - READ_FIELDS
 
 
 MESH_AXES = (("data", "model"), ("pod", "data", "model"))
@@ -253,8 +259,6 @@ def check_config(cfg: ModelConfig, mesh) -> None:
     if tuple(mesh.axis_names) not in MESH_AXES:
         raise ValueError(f"a model across ranks takes a (data, model) or "
                          f"(pod, data, model) mesh, not {mesh.axis_names}")
-    for kind in sorted(set(cfg.layers) - KINDS):
-        _refuse(cfg, f"layer kind {kind!r}", ROADMAP_ITEMS[kind])
     M = mesh.shape["model"]
     sizes = [("d_ff", cfg.d_ff), ("the padded vocab", cfg.padded_vocab)]
     if "R" in cfg.layers:
@@ -263,6 +267,8 @@ def check_config(cfg: ModelConfig, mesh) -> None:
         sizes.append(("the Mamba-2 head count", cfg.ssm_heads))
     if "L" in cfg.layers:
         sizes.append(("the MLA head count", cfg.num_heads))
+    if "M" in cfg.layers:
+        sizes.append(("the expert count", cfg.num_experts))
     for what, n in sizes:
         if n % M:
             raise ValueError(f"{cfg.name}: {what} {n} does not split over "
@@ -341,8 +347,8 @@ def _split_dim(spec, axis: str):
 
 
 class RankModel:
-    """A config of "A", "W", "L", "R" and "S" layers on this rank (module
-    notes).
+    """A config of "A", "W", "L", "R", "S" and "M" layers on this rank
+    (module notes).
 
     ``params``: the rank's blocks of the parameter tree in the
     reference's layout (``convert.param_tree`` cut by
@@ -886,6 +892,35 @@ class RankModel:
             self.comms.model, torch.sum(yf * yf, dim=-1, keepdim=True)))
         return (yf * torch.rsqrt(ss / width + 1e-6) * scale).to(y.dtype)
 
+    # -- MoE ---------------------------------------------------------------------
+    def _moe(self, p: dict, specs: dict, h):
+        """Kind "M"'s FFN (module notes): the whole router (gathered over
+        the data column) routes the rank's rows as one device routes them,
+        every model position alike; the rank's experts [m·E/M,
+        (m+1)·E/M) run on their slots, their blocks gathered over the data
+        column ``EXPERT_CHUNK_BYTES`` at a time; an all-reduce over the
+        model column sums the partial outputs."""
+        cfg = self.cfg
+        B, S, d = h.shape
+        # replicated over "model": its gradient summed over the column
+        router = self._gather(ranks.sum_grad(self.comms.model, p["router"]),
+                              specs["router"], "data")
+        self._repeat("router", 2 * h.numel() * router.shape[-1])
+        pl = moe.plan(SimpleNamespace(router=router), h, cfg)
+        del router
+        n = p["w_gate"].shape[0]                     # the rank's experts
+        e0 = self.m * n
+        whole = sum(t[0].numel() * t.element_size() * self.A
+                    for t in (p["w_gate"], p["w_up"], p["w_down"]))
+        chunk = max(1, EXPERT_CHUNK_BYTES // whole)
+        out = torch.zeros((B * S, d), dtype=h.dtype, device=h.device)
+        for c0 in range(0, n, chunk):
+            w = [self._gather(p[k][c0:c0 + chunk], specs[k], "data")
+                 for k in ("w_gate", "w_up", "w_down")]
+            out = moe.experts(h, pl, *w, e0 + c0, out)
+            del w
+        return ranks.all_reduce(self.comms.model, out.reshape(B, S, d))
+
     # -- layers -------------------------------------------------------------------
     def _apply_layer(self, i: int, x, positions, at=None):
         blocks, specs = self._layer(i)
@@ -910,11 +945,14 @@ class RankModel:
             x = x + self._attention(attn, h, positions, kind == "W", at)
             del attn
         del h
-        if "mlp" not in blocks:
+        ffn = FFN_KINDS[kind]
+        if ffn is None:
             return x
-        mlp = self._gathered(blocks["mlp"], specs["mlp"])
         h = ranks.sum_grad(self.comms.model,
                            rmsnorm(blocks["ln2"]["scale"], x, eps))
+        if ffn == "moe":
+            return x + self._moe(blocks["moe"], specs["moe"], h)
+        mlp = self._gathered(blocks["mlp"], specs["mlp"])
         return x + ranks.all_reduce(self.comms.model,
                                     L.mlp_apply(SimpleNamespace(**mlp), h))
 

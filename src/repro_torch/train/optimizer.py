@@ -470,9 +470,11 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, weight_decay=0.0,
             vc = beta * f["vc"] + (1 - beta) * (cols / whole[-2])
             r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
                                  min=eps)
-            a0, b0 = off[-2], off[-1]
-            r = r[..., a0:a0 + g.shape[-2]]
-            c = vc[..., b0:b0 + g.shape[-1]]
+            # the rank's block of the whole factors: every dimension's
+            # offset, a split leading one (an MoE expert leaf's) too
+            at = [slice(o, o + n) for o, n in zip(off, g.shape)]
+            r = r[tuple(at[:-1])]
+            c = vc[tuple(at[:-2] + at[-1:])]
             step = g / (torch.sqrt(r)[..., None]
                         * torch.sqrt(c)[..., None, :] + 1e-12)
             f["vr"].copy_(vr)

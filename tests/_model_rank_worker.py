@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.distributed.collectives import recording
 from repro_torch.distributed.ranks import rank_comms
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.ranked import RankModel, batch_rows
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.tree import leaves_with_path, materialize, path_str
@@ -39,7 +39,10 @@ def model_body(comm, jobs, prompt_len, sample_logits=None):
     temperature 1.0 from a generator seeded with ``SAMPLE_SEED``, and one
     ``decode_step`` at the last slot of a cache as long as the batch, the
     step the dry run counts (its bytes sent); both decodings start from
-    the cache the prompt left.  ``sample_logits`` (B, V):
+    the cache the prompt left.  An MoE config's prefill also gives each
+    layer's top-K experts and keep flags of the rank's rows
+    (``moe.record_routes``) and its dropped assignments
+    (``moe.dropped_assignments``).  ``sample_logits`` (B, V):
     the tokens ``RankModel.sample`` draws from this rank's block of
     them."""
     torch.set_num_threads(1)
@@ -49,7 +52,10 @@ def model_body(comm, jobs, prompt_len, sample_logits=None):
         for name, cfg, blocks, batch, steps in jobs:
             model = RankModel(cfg, blocks)
             layers.reset_op_paths()
-            logits, sent_prefill = _sent(model.apply, batch)
+            moe.reset_drops()
+            with moe.record_routes() as routes:
+                logits, sent_prefill = _sent(model.apply, batch)
+            drops = moe.dropped_assignments()
             inp = batch.get("embeddings", batch.get("tokens"))
             B, S = inp.shape[:2]
             prompt = ({"embeddings": inp[:, :prompt_len]} if inp.dim() == 3
@@ -82,6 +88,8 @@ def model_body(comm, jobs, prompt_len, sample_logits=None):
                 logits=logits.numpy(), dec_logits=dec_logits.numpy(),
                 tokens=tokens[0], sampled=tokens[1], cache=caches[0],
                 sent_prefill=sent_prefill, sent_decode=sent_decode,
+                moe_routes=[r.numpy() for r in routes],
+                moe_kept=[k.numpy() for k in routes.kept], drops=drops,
                 op_paths=dict(model.op_paths),
                 routes=dict(layers.OP_PATHS))
         if sample_logits is not None:

@@ -29,19 +29,21 @@ process only, while this process counts the port's cells on ``meta``:
 2. Argument bytes per device, on the host mesh and on (4, 2), against
    ``compiled.memory_analysis().argument_size_in_bytes``: exact.
 3. A rank's count on (4, 2) (``count: "rank"``), for reduced
-   starcoder2-3b's and minicpm3-4b's prefill_32k and decode_32k (the MLA
-   prefill cut to B 8 x S 256, ``MESH_CUTS``): the matrix-product FLOPs
-   of a position times 8 equal the one-device count plus what the plan
-   repeats on every "model" position (``repeated_products``: K and V,
-   and wq and wo in a decode step; MLA's ``w_dkv``, and ``w_uk`` and
-   ``w_uv`` in a prefill, ``w_dq`` in a decode step), and the stripes'
-   attention FLOPs sum to the one-device kernel's.  The reference's
+   starcoder2-3b's, minicpm3-4b's and llama4-maverick's prefill_32k and
+   decode_32k (the MLA prefill cut to B 8 x S 256, ``MESH_CUTS``): the
+   matrix-product FLOPs of a position times 8 equal the one-device count
+   plus what the plan repeats on every "model" position
+   (``repeated_products``: K and V, and wq and wo in a decode step;
+   MLA's ``w_dkv``, and ``w_uk`` and ``w_uv`` in a prefill, ``w_dq`` in a
+   decode step; MoE's router, its experts' products split over the
+   positions), and the stripes' attention FLOPs sum to the one-device
+   kernel's.  The reference's
    per-device HLO dot FLOPs and collective bytes of starcoder2-3b's
    cells are printed beside the port's (``-s``); the two plans differ
    (PERF.md §6).  Every cell of
-   starcoder2-3b and recurrentgemma-2b on (4, 2), training with the
-   CLI's adamw8bit too, counts a rank; the MoE arch keeps the even
-   split.
+   starcoder2-3b, recurrentgemma-2b and llama4-maverick (its experts
+   split over "model") on (4, 2), training with the CLI's adamw8bit too,
+   counts a rank.
 4. The EC pseudo-cells on (4, 2) at the reference's 256 MiB a device:
    each counts one position's rank body (``ecstore.rank_*``), which
    sends the reference's blocks, so argument bytes, collective-permute
@@ -77,12 +79,18 @@ EC_OPS = ("update", "update_chain", "reconstruct")
 #: cells whose (4, 2) program a rank counts
 MESH_CELLS = [("starcoder2-3b", "prefill_32k"), ("starcoder2-3b",
                                                   "decode_32k"),
-              ("minicpm3-4b", "prefill_32k"), ("minicpm3-4b", "decode_32k")]
+              ("minicpm3-4b", "prefill_32k"), ("minicpm3-4b", "decode_32k"),
+              ("llama4-maverick-400b-a17b", "prefill_32k"),
+              ("llama4-maverick-400b-a17b", "decode_32k")]
 #: the products each mesh cell's plan repeats on every "model" position
 REPEATED = {("starcoder2-3b", "prefill_32k"): {"wk", "wv"},
             ("starcoder2-3b", "decode_32k"): {"wk", "wv", "wq", "wo"},
             ("minicpm3-4b", "prefill_32k"): {"w_dkv", "w_uk", "w_uv"},
-            ("minicpm3-4b", "decode_32k"): {"w_dkv", "w_dq"}}
+            ("minicpm3-4b", "decode_32k"): {"w_dkv", "w_dq"},
+            ("llama4-maverick-400b-a17b", "prefill_32k"): {"wk", "wv",
+                                                           "router"},
+            ("llama4-maverick-400b-a17b", "decode_32k"): {"wk", "wv", "wq",
+                                                          "wo", "router"}}
 #: mesh cells counted at a cut (batch, seq), on both meshes: reduced
 #: minicpm3-4b's prefill at S 32,768 steps through 262,144 (Q, KV) tile
 #: pairs of ``_mla_blockwise`` a layer; at S 256 its 32-row stripes have
@@ -282,10 +290,10 @@ def _mm(flops_by_op) -> int:
 
 @pytest.mark.parametrize("arch,shape", MESH_CELLS)
 def test_mesh_cell_counts_a_rank(both, arch, shape):
-    """A (4, 2) prefill or decode cell of a dense arch reports a rank's
-    count: a position's matrix-product FLOPs times 8 equal the one-device
-    count plus the products the plan repeats on the other M - 1 "model"
-    positions of each of the A data positions; the stripes' kernel-11
+    """A (4, 2) prefill or decode cell of a dense or MoE arch reports a
+    rank's count: a position's matrix-product FLOPs times 8 equal the
+    one-device count plus the products the plan repeats on the other M - 1
+    "model" positions of each of the A data positions; the stripes' kernel-11
     FLOPs times A sum to the one-device kernel's.  The reference's
     per-device HLO numbers are printed beside (module notes)."""
     port, ref = both
@@ -323,23 +331,22 @@ def test_mesh_cell_counts_a_rank(both, arch, shape):
 
 
 def test_training_and_other_archs_keep_the_even_split(both):
-    """On (4, 2) every cell of the archs the rank path runs - training
-    with the CLI's adamw8bit included, and recurrentgemma-2b's RG-LRU
-    layers - counts a rank; the MoE arch's cells still split the
-    one-card program evenly, and say why, naming its ROADMAP item."""
+    """On (4, 2) every cell counts a rank - training with the CLI's
+    adamw8bit included, recurrentgemma-2b's RG-LRU layers and the MoE
+    arch's experts too - with all-gather and all-reduce bytes (an MoE
+    layer's all-reduce over "model" sums its experts' partial outputs),
+    the MoE cells naming the router among the products every model
+    position repeats; only the 1 x 1 mesh keeps the even split."""
     port, _ = both
     for arch, shape in CELLS:
         cell = port[f"{arch}/{shape}"]["4x2"]
-        ranked = arch != "llama4-maverick-400b-a17b"
-        assert cell["count"] == ("rank" if ranked else "even split")
-        if ranked:
-            assert cell["collectives"]["all-gather"] > 0
-        else:
-            assert cell["collective_bytes_per_device"] is None
-            assert "not ported" in cell["collective_note"]
-            assert "item 7" in cell["collective_note"]
-            assert "item 8" not in cell["collective_note"]
-            assert cell["flops_per_device"] * 8 == cell["flops_total"]
+        assert cell["count"] == "rank", (arch, shape)
+        assert cell["collectives"]["all-gather"] > 0
+        assert cell["collectives"]["all-reduce"] > 0
+        assert "not ported" not in cell["collective_note"]
+        assert port[f"{arch}/{shape}"]["host"]["count"] == "even split"
+        if arch == "llama4-maverick-400b-a17b":
+            assert cell["repeated_products"]["router"] > 0
 
 
 @pytest.mark.parametrize("op", EC_OPS)

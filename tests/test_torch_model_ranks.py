@@ -19,7 +19,10 @@ ring wraps; and the recurrent archs (``RECURRENT``): recurrentgemma-2b
 channels split over "model" across its heads), with their caches after
 the decode; and the MLA jobs (``MLA``): reduced minicpm3-4b, "seq" and
 "head", and the same with its queries through one ``wq`` (q_lora_rank
-0), whose latent caches after the decode are held too.  Also its striped
+0), whose latent caches after the decode are held too; and the MoE jobs
+(``MOE``): reduced llama4-maverick-400b-a17b (8 experts, top-1, "seq")
+and kimi-k2-1t-a32b (16 experts, top-4, its 4 heads on the "head"
+path), whose experts split over "model".  Also its striped
 ``blockwise_attention`` at S 64 and at a ragged S 80 (padded to 128
 rows, the second stripe's last 48 rows padding), its ``_mla_blockwise``
 at the same lengths, and its ``_local_attention`` at S 80 with a 32-row
@@ -45,13 +48,15 @@ rank's block of given logits against ``Model.sample`` on them, exactly;
 ``layers._mla_blockwise`` on each stripe against the reference's rows
 at those positions; a stripe count of 1 against the unstriped call, bit
 for bit; a 1 x 1 mesh against the one-device model,
-bit for bit; each rank's bytes sent by kind against the dry run's count
+bit for bit (a dense and both MoE archs); each rank's bytes sent by kind
+against the dry run's count
 of the same forward (``dryrun.count_rank_forward``); a recurrent job's
 or MLA job's cache block after the decode against the same block of the
 reference's (fp32 bounds; an MLA decode writes both model positions'
-slices of the latent cache); MoE refusing on a (2, 2) mesh, naming its
-ROADMAP item, and a Mamba-2 or MLA head count the model axis does not
-divide raising.
+slices of the latent cache); an MoE job's routes and keep flags on each
+rank against the one-device port model's rows, exactly, with drops; and
+a Mamba-2 or MLA head count
+or an expert count the model axis does not divide raising.
 """
 import functools
 import json
@@ -79,7 +84,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  stripe_positions)
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh, make_mesh
-from repro_torch.models import Model, layers, ranked
+from repro_torch.models import Model, layers, moe, ranked
 from repro_torch.models.convert import param_tree, params_from_jax
 from repro_torch.serve.engine import ServeEngine, greedy_generate
 from repro_torch.tree import leaves_with_path, path_str, tree_map
@@ -96,7 +101,11 @@ RECURRENT = ["recurrentgemma-2b/seq", "recurrentgemma-2b/head",
 #: the MLA jobs: minicpm3-4b in both modes (neither changes an MLA layer)
 #: and its queries through one ``wq`` (q_lora_rank 0, "minicpm3-wq")
 MLA = ["minicpm3-4b/seq", "minicpm3-4b/head", "minicpm3-wq/seq"]
-JOBS = [f"{a}/{m}" for a in ARCHS for m in MODES] + RECURRENT + MLA
+#: the MoE jobs: llama4-maverick's top-1 router under "seq" attention,
+#: kimi-k2's top-4 under its config's "auto" (its 4 heads split over the
+#: 2 model positions: the "head" path)
+MOE = ["llama4-maverick-400b-a17b/seq", "kimi-k2-1t-a32b/auto"]
+JOBS = [f"{a}/{m}" for a in ARCHS for m in MODES] + RECURRENT + MLA + MOE
 #: the jobs whose cache after the decode is held block by block
 CACHED = RECURRENT + MLA
 #: the attention options on reduced starcoder2-3b ("options" jobs)
@@ -408,7 +417,7 @@ def test_routes_are_the_flash_route(both, job):
     _, res, _, _ = both
     cfg = _cfg(*job.split("/"))
     steps = PROMPT + 2 * (_steps(job) - 1) + 1
-    attention = sum(cfg.layers.count(k) for k in "AW")
+    attention = sum(cfg.layers.count(k) for k in "AWM")
     mla = cfg.layers.count("L")
     for r in res:
         got = r[job]
@@ -542,20 +551,22 @@ def test_one_stripe_is_the_unstriped_call():
 def test_one_by_one_mesh_is_the_one_device_model():
     """On a 1 x 1 mesh ``RankModel`` is ``Model`` on the rank's blocks
     (the whole leaves, not copies): prefill logits and greedy tokens bit
-    for bit."""
-    model = _port_model(ARCHS[0])
-    mesh = make_host_mesh()
-    blocks = _blocks(model, mesh, (0, 0))
-    rm = ranked.RankModel(model.cfg, blocks, counting_comms(mesh, (0, 0)))
+    for bit, for a dense and each MoE arch."""
     tokens = torch.from_numpy(_inputs()["tokens"]).long()
-    assert torch.equal(rm.apply({"tokens": tokens}),
-                       model.apply({"tokens": tokens}))
-    np.testing.assert_array_equal(
-        greedy_generate(rm, tokens[:, :PROMPT], _steps(ARCHS[0])),
-        greedy_generate(model, tokens[:, :PROMPT], _steps(ARCHS[0])))
-    ours = dict(rm._one.named_parameters())
-    for name, p in model.named_parameters():
-        assert ours[name].data_ptr() == p.data_ptr(), name
+    mesh = make_host_mesh()
+    for arch in [ARCHS[0]] + [job.split("/")[0] for job in MOE]:
+        model = _port_model(arch)
+        blocks = _blocks(model, mesh, (0, 0))
+        rm = ranked.RankModel(model.cfg, blocks,
+                              counting_comms(mesh, (0, 0)))
+        assert torch.equal(rm.apply({"tokens": tokens}),
+                           model.apply({"tokens": tokens}))
+        np.testing.assert_array_equal(
+            greedy_generate(rm, tokens[:, :PROMPT], _steps(arch)),
+            greedy_generate(model, tokens[:, :PROMPT], _steps(arch)))
+        ours = dict(rm._one.named_parameters())
+        for name, p in model.named_parameters():
+            assert ours[name].data_ptr() == p.data_ptr(), (arch, name)
 
 
 @pytest.mark.parametrize("job", RECURRENT)
@@ -665,16 +676,47 @@ def test_mla_stripes_match_reference_rows(both, Sa):
                                                  stripe=(seg, 1, 0)), one)
 
 
-@pytest.mark.parametrize("arch,item", [("llama4-maverick-400b-a17b", 7)])
-def test_other_kinds_refuse_across_ranks(arch, item):
-    """MoE layers, not yet ported across ranks, raise on a (2, 2) mesh,
-    naming their ROADMAP item; the 1 x 1 mesh takes them."""
-    cfg = get_reduced(arch)
-    mesh = make_mesh((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item} "):
+def test_expert_count_must_split():
+    """An expert count that the model axis does not divide raises a
+    ``ValueError`` (a rank owns E/M whole experts); the 1 x 1 mesh takes
+    any."""
+    cfg = get_reduced("kimi-k2-1t-a32b").scaled(num_experts=9)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    with pytest.raises(ValueError, match="expert count 9 does not split"):
         ranked.RankModel(cfg, {}, counting_comms(mesh, (0, 1)))
     ranked.check_config(cfg, make_host_mesh())
+
+
+@pytest.mark.parametrize("job", MOE)
+def test_moe_routes_and_drops_are_the_one_device_model(both, job):
+    """Each rank's prefill routes its batch rows as the one-device model
+    routes them: every MoE layer's top-K experts and keep flags (the drop
+    set) equal the one-device model's rows, exactly, and its dropped
+    assignments their count; the batch drops some (the capacity binds at
+    B 4 x S 64)."""
+    inp, res, _, models = both
+    model = models[job]
+    moe.reset_drops()
+    with moe.record_routes() as routes:
+        model.apply(_batch(job, inp))
+    n_moe = model.cfg.layers.count("M")
+    assert len(routes) == len(routes.kept) == n_moe
+    dropped = {}
+    for r in res:
+        got = r[job]
+        r0, r1 = got["rows"]
+        assert len(got["moe_routes"]) == len(got["moe_kept"]) == n_moe
+        for i in range(n_moe):
+            np.testing.assert_array_equal(got["moe_routes"][i],
+                                          routes[i][r0:r1].numpy())
+            np.testing.assert_array_equal(got["moe_kept"][i],
+                                          routes.kept[i][r0:r1].numpy())
+        assert got["drops"] == (sum(int((~k[r0:r1]).sum())
+                                    for k in routes.kept),
+                                (r1 - r0) * S * model.cfg.experts_per_token
+                                * n_moe)
+        dropped[got["rows"]] = got["drops"][0]
+    assert sum(dropped.values()) == moe.dropped_assignments()[0] > 0
 
 
 def test_batch_smaller_than_data_is_replicated(tmp_path):
@@ -732,8 +774,8 @@ def test_batch_rows_follow_shard_act():
 
 def test_every_config_field_is_read_or_refused():
     """Every ``ModelConfig`` field is one the rank path reads as
-    ``Model`` does, refuses, or leaves to a refused layer kind: a new
-    option of the dense path fails here until ``ranked`` says which."""
+    ``Model`` does (every layer kind runs across ranks): a new option
+    fails here until ``ranked`` says how it reads it."""
     assert ranked.unclassified_fields() == set()
 
 

@@ -16,10 +16,12 @@ a cache (RS(k=1, m=1) over "data", 256-byte pages):
   one-card ``ECStateStore`` over the cache gathered from every rank's
   block; the refreshed parity against a fresh encode; every data
   position's pages rebuilt over the ring on every rank of its column;
-* reduced recurrentgemma-2b (RG-LRU layers beside "W" layers) and
+* reduced recurrentgemma-2b (RG-LRU layers beside "W" layers),
   reduced minicpm3-4b (MLA layers, whose "latent" and "k_rope" slots
   split over "model": the 22 positions cross the boundary of the two
-  12-slot slices) in fp32, served the same way: their pages and parity
+  12-slot slices) and the reduced MoE archs (llama4-maverick-400b-a17b,
+  kimi-k2-1t-a32b: their experts split over "model") in fp32, served
+  the same way: their pages and parity
   after the prefill and after the refresh against the stacked store,
   byte for byte, and every data position rebuilt;
 * two AdamW steps (``launch.train.train_on_rank`` with its EC copy, as
@@ -60,11 +62,16 @@ B = 2
 PROMPT, STEPS, MAX_LEN = 8, 14, 24
 EC = dict(k=1, m=1, page_size=256)
 TRAIN = ("qwen2-vl-7b/seq", "options/seq", "options/head")
-#: the other archs whose protected caches are rebuilt, by session name:
-#: RG-LRU states and the "W" ring; MLA's latent cache
-SESSIONS = {"recurrent": "recurrentgemma-2b", "mla": "minicpm3-4b"}
+#: the other archs' jobs ("arch/mode") whose protected caches are
+#: rebuilt, by session name: RG-LRU states and the "W" ring; MLA's latent
+#: cache; the MoE archs' attention caches (their experts split over
+#: "model"; kimi-k2 on the "head" path)
+SESSIONS = {"recurrent": "recurrentgemma-2b/seq", "mla": "minicpm3-4b/seq",
+            "llama4": "llama4-maverick-400b-a17b/seq",
+            "kimi": "kimi-k2-1t-a32b/auto"}
 #: the leaves of each session's cache tree
-SESSION_LEAVES = {"recurrent": 6, "mla": 2}
+SESSION_LEAVES = {"recurrent": 6, "mla": 2, "llama4": 2, "kimi": 2}
+MOE_SESSIONS = ("llama4", "kimi")
 SEQ = 64
 SEED = 26
 DEADLINE = 300.0
@@ -108,7 +115,7 @@ def spawned(tmp_path_factory):
     prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, served.cfg.vocab_size, (B, PROMPT)))
     trained = {job: _model(job) for job in TRAIN}
-    others = {name: _model(f"{arch}/seq") for name, arch in SESSIONS.items()}
+    others = {name: _model(job) for name, job in SESSIONS.items()}
     args = [((served.cfg, _blocks(served, mesh, mesh.coords(r)), prompt,
               STEPS, MAX_LEN, EC),
              [(job, m.cfg, _blocks(m, mesh, mesh.coords(r)), B, SEQ)
@@ -219,6 +226,24 @@ def test_mla_cache_rebuilds_byte_for_byte(spawned):
         assert PROMPT + STEPS > lat.shape[2]
         assert (np.abs(lat).sum(-1) > 0).sum(-1).min() == min(
             lat.shape[2], PROMPT + STEPS - r["coords"][1] * lat.shape[2])
+
+
+@pytest.mark.parametrize("when", ("prefill", "refresh"))
+@pytest.mark.parametrize("name", MOE_SESSIONS)
+def test_moe_cache_pages_equal_the_stacked_store(spawned, name, when):
+    """An MoE arch's protected cache on a rank (its attention K and V:
+    its batch row and its slice of the slots) gives the stacked store's
+    pages and parity over the cache gathered from every rank's block,
+    byte for byte, after the prefill and after the refresh."""
+    _session_pages_equal_the_stacked_store(spawned, name, when)
+
+
+@pytest.mark.parametrize("name", MOE_SESSIONS)
+def test_moe_cache_rebuilds_byte_for_byte(spawned, name):
+    """After an MoE arch's decode steps the refreshed parity is a fresh
+    encode on every rank, and each data position's pages, rebuilt over
+    the ring, equal its live pages byte for byte."""
+    _session_rebuilds_byte_for_byte(spawned, name)
 
 
 def _session_pages_equal_the_stacked_store(spawned, name, when):
