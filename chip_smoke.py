@@ -4579,6 +4579,17 @@ RECURRENT_RANKS_DEADLINE = 900.0
 # moments are blocks of the parameters', so step 1's state is not
 # compared whole)
 MLA_RANKS = (("minicpm3-4b", 2, "adamw"),)
+# the mla-ranks phase, part (b): minicpm3-4b on the production meshes'
+# model axis, 16 gloo ranks over (data 1, model 16), whose 16 model
+# positions do not divide its 40 heads (``param_specs`` leaves the head
+# leaves whole on every position and splits ``wo`` by flat rows, 2.5
+# heads a position), after part (a)'s (2, 2) spawn: full width, 1 of 62
+# layers, a bf16 prefill of 2 x 512, a protected greedy fp32 session of
+# 2 steps into a cache of 32 slots (2 a model position: most slices hold
+# no valid slot), RS(1,1) over a data column of one position (the
+# store's wrapped roles), one bf16 AdamW step at B 2 x S 512; at most 90
+# s with the spawn
+MLA_WIDE = (("minicpm3-4b", 1, "adamw"),)
 # the moe-ranks phase: the MoE archs' experts over (data 2, model 2).
 # (a) kimi-k2-1t-a32b at full width, 1 of 61 layers (one layer holds
 # 43.50 GB of bf16 weights), bf16: a prefill of 2 x 256 tokens (cap 7:
@@ -4606,13 +4617,31 @@ MOE_RANKS_DEADLINE = 900.0
 MOE_RANKS_REDUCED = (("llama4-maverick-400b-a17b", None, "adamw"),
                      ("kimi-k2-1t-a32b", None, "adamw"))
 MOE_RANKS_FP32_TOL = 1e-4
+#: mla-ranks (b)'s sizes (``rank_sizes``)
+MLA_WIDE_SIZES = dict(mesh=(1, 16), prefill=(2, 512), steps=2, max_len=32,
+                      train_steps=1, train_seq=512)
 
 
-def rank_optimizer(name: str):
-    """The optimizer ``launch.train.train_on_rank`` makes for the phase's
-    steps (its defaults: lr 1e-3, the warm-up a fifth of the steps)."""
+def rank_sizes(**over) -> dict:
+    """A kind-rank spawn's sizes (``kind_rank_jobs``): the (data, model)
+    mesh, the prefill (B, S), the greedy session's decode steps and cache
+    slots (the prompt's and the steps' unless given), the training steps
+    and sequence; the recurrent-ranks phase's, read when called, with
+    ``over``'s changes."""
+    sizes = dict(dict(mesh=RECURRENT_RANKS_MESH,
+                      prefill=RECURRENT_RANKS_PREFILL,
+                      steps=RECURRENT_RANKS_STEPS,
+                      train_steps=RECURRENT_RANKS_TRAIN_STEPS,
+                      train_seq=TRAIN_SEQ), **over)
+    sizes.setdefault("max_len", RECURRENT_RANKS_PROMPT + sizes["steps"])
+    return sizes
+
+
+def rank_optimizer(name: str, steps: int = RECURRENT_RANKS_TRAIN_STEPS):
+    """The optimizer ``launch.train.train_on_rank`` makes for a phase's
+    ``steps`` (its defaults: lr 1e-3, the warm-up a fifth of the
+    steps)."""
     from repro_torch.train.optimizer import make_optimizer
-    steps = RECURRENT_RANKS_TRAIN_STEPS
     return make_optimizer(name, lr=1e-3, warmup_steps=min(20, steps // 5 + 1),
                           total_steps=steps)
 
@@ -4644,13 +4673,15 @@ def state_errors(torch, got, want) -> dict:
     return {"leaves": out, "worst": worst}
 
 
-def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent, steps):
+def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent, steps,
+                     max_len):
     """Part of a recurrent-ranks (mla-ranks, moe-ranks (b)) rank body: the
-    protected greedy session of ``RankModel(cfg, local)`` (the fp32 twin):
-    the prompt's token-by-token prefill, ``protect_cache`` (RS(1,1) over
-    "data"), ``steps`` greedy decode steps, the refresh and the rebuild of
-    data position 0 (each EC call timed, ``_rank_timed``), the faulted
-    control, each ``decode_step``'s bytes by kind."""
+    protected greedy session of ``RankModel(cfg, local)`` (the fp32 twin)
+    into a cache of ``max_len`` slots: the prompt's token-by-token
+    prefill, ``protect_cache`` (RS(1,1) over "data"), ``steps`` greedy
+    decode steps, the refresh and the rebuild of data position 0 (each
+    EC call timed, ``_rank_timed``), the faulted control, each
+    ``decode_step``'s bytes by kind."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.collectives import recording
     from repro_torch.distributed.ecstore import ECConfig
@@ -4666,7 +4697,7 @@ def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent, steps):
             return step(*args)
     model.decode_step = noted
     B, P = toks.shape[0], RECURRENT_RANKS_PROMPT
-    eng = ServeEngine(model, max_len=P + steps, batch_size=B,
+    eng = ServeEngine(model, max_len=max_len, batch_size=B,
                       cache_dtype=torch.float32, device=toks.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4700,14 +4731,16 @@ def _recurrent_serve(torch, comms, cfg, local, toks, ops, sent, steps):
 def recurrent_rank_body(comm, jobs):
     """Recurrent-ranks (mla-ranks, moe-ranks (b)) phase, one rank: for
     each job (name, cfg, bf16 blocks, fp32 twin blocks, tokens, ``want``)
-    of ``RECURRENT_RANKS`` (``MLA_RANKS``, ``MOE_RANKS_REDUCED``: fp32
-    blocks, their own twin), with the launch counts from 0: the ``apply``
+    of ``RECURRENT_RANKS`` (``MLA_RANKS``, ``MLA_WIDE``,
+    ``MOE_RANKS_REDUCED``: fp32 blocks, their own twin), at the sizes
+    ``want["sizes"]`` (``rank_sizes``), with the launch counts from 0:
+    the ``apply``
     on the whole batch (its logits block against the one card's,
     ``want["prefill"]``, its bytes by kind, an MoE layer's routes, keep
     flags and drops of the rank's rows); the fp32 twin's protected greedy
     session (``_recurrent_serve``); ``launch.train.train_on_rank`` with the
-    job's optimizer on the rank's own copies of its bf16 blocks for
-    ``RECURRENT_RANKS_TRAIN_STEPS`` steps, per step the loss, the norm,
+    job's optimizer on the rank's own copies of its bf16 blocks for the
+    sizes' training steps, per step the loss, the norm,
     the seconds and the bytes by kind, and after step 1 a replicated
     optimizer state against the one-card state after its step 1
     (``want["state"]``, None for AdamW's blocks; ``state_errors``); the
@@ -4754,8 +4787,10 @@ def recurrent_rank_body(comm, jobs):
         del logits, model
         ops = {}
         cfg32 = cfg.scaled(dtype="float32")
+        sizes = want["sizes"]
+        P = sizes["max_len"]
         got.update(_recurrent_serve(torch, comms, cfg32, local32, toks, ops,
-                                    sent["decode"], want["steps"]))
+                                    sent["decode"], sizes["steps"], P))
         got["ops"] = ops
         # training on the rank's own copies of its bf16 blocks
         own = tree_map(lambda x: Stacked(p.clone() for p in x.parts)
@@ -4777,9 +4812,10 @@ def recurrent_rank_body(comm, jobs):
         steps_t = [time.perf_counter()]
         with recording(lambda n, kind: total.__setitem__(
                 kind, total.get(kind, 0) + n)):
-            train_on_rank(comms, cfg, own, steps=RECURRENT_RANKS_TRAIN_STEPS,
-                          batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                          optimizer=rank_optimizer(want["optimizer"]),
+            train_on_rank(comms, cfg, own, steps=sizes["train_steps"],
+                          batch=TRAIN_BATCH, seq=sizes["train_seq"],
+                          optimizer=rank_optimizer(want["optimizer"],
+                                                   sizes["train_steps"]),
                           observe=observe, log=lambda *a: None)
         torch.cuda.synchronize()
         del own
@@ -4791,7 +4827,6 @@ def recurrent_rank_body(comm, jobs):
         got["launches"] = launch_counts()
         got["train_op_paths"] = dict(layers.OP_PATHS)
         B, S = toks.shape
-        P = RECURRENT_RANKS_PROMPT + want["steps"]
         mesh, at = comm.mesh, comm.coords
         counts = {   # at 1 and 2 repeats of the unit, extrapolated (exact)
             "prefill": (cfg, lambda c: dryrun.count_rank_forward(
@@ -4799,7 +4834,8 @@ def recurrent_rank_body(comm, jobs):
             "decode": (cfg32, lambda c: dryrun.count_rank_forward(
                 c, dryrun.ShapeSpec("x", "decode", P, B), mesh, at)),
             "train": (cfg, lambda c: dryrun.count_rank_train(
-                c, dryrun.ShapeSpec("x", "train", TRAIN_SEQ, TRAIN_BATCH),
+                c, dryrun.ShapeSpec("x", "train", sizes["train_seq"],
+                                    TRAIN_BATCH),
                 mesh, at, optimizer=want["optimizer"]))}
         with dispatch.dry_run():
             got["counted"] = {
@@ -4814,7 +4850,7 @@ def recurrent_rank_body(comm, jobs):
 
 
 def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card,
-                         label, reduced, steps):
+                         label, reduced, sizes):
     """One job's one-card side (``label``: its phase): the model at full
     width (its depth cut to ``layers_cut``), its bf16 prefill logits (an
     MoE layer's routes and keep flags recorded) and their bound
@@ -4829,7 +4865,8 @@ def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card,
     for AdamW, whose moments a rank holds by block).  ``reduced``: the
     arch's reduced config in fp32, its own twin, AdamW: the logits within
     ``MOE_RANKS_FP32_TOL``, the loss and norm within ``MOE_TRAIN_TOL``;
-    ``steps``: the greedy session's decode steps."""
+    ``sizes``: the prefill, the greedy session's decode steps and cache
+    slots, the training steps and sequence (``rank_sizes``)."""
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import Model, moe
@@ -4842,7 +4879,8 @@ def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card,
     gen = torch.Generator(device=dev)
     gen.manual_seed(RECURRENT_RANKS_SEED)
     model = Model(cfg, device=dev).init(gen)
-    B, S = RECURRENT_RANKS_PREFILL
+    B, S = sizes["prefill"]
+    steps = sizes["steps"]
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                          device=dev)
     moe.reset_drops()
@@ -4859,7 +4897,7 @@ def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card,
             torch, logits, twin.apply({"tokens": toks}))
     _free(torch)
     P = RECURRENT_RANKS_PROMPT
-    eng = ServeEngine(twin, max_len=P + steps, batch_size=B,
+    eng = ServeEngine(twin, max_len=sizes["max_len"], batch_size=B,
                       cache_dtype=torch.float32, device=dev)
     first = twin.argmax(eng.prefill({"tokens": toks[:, :P]}))
     tokens = np_tokens(torch.cat([first[:, None].cpu(), torch.as_tensor(
@@ -4867,14 +4905,14 @@ def _recurrent_reference(torch, dev, arch, layers_cut, opt_name, card,
         dim=1).tolist())
     del eng
     batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                   seq_len=TRAIN_SEQ,
+                                   seq_len=sizes["train_seq"],
                                    global_batch=TRAIN_BATCH, seed=0),
                         device=dev).batch(0)
     steps = {}
     for dtype in ("float32",) if reduced else ("bfloat16", "float32"):
         trainee = Model(cfg.scaled(dtype=dtype), device=dev)
         trainee.load_state_dict(model.state_dict())
-        opt = rank_optimizer(opt_name)
+        opt = rank_optimizer(opt_name, sizes["train_steps"])
         params = param_tree(trainee)
         state = opt.init(params)
         _, state, m = make_train_step(trainee, opt)(params, state, batch)
@@ -4913,11 +4951,22 @@ def run_recurrent_ranks(np, torch, dev, card):
 
 
 def run_mla_ranks(np, torch, dev, card):
-    """MLA across ranks (module notes, phase 22): minicpm3-4b at 4
-    layers (``run_kind_ranks``), its prefill's ``_mla_blockwise`` on
-    each rank's stripe, its decode over the sequence-sharded latent
-    cache, AdamW on the rank's blocks."""
-    return run_kind_ranks(np, torch, dev, card, MLA_RANKS, "mla-ranks")
+    """MLA across ranks (module notes, phase 22): (a) minicpm3-4b at 2
+    layers over (2, 2) (``run_kind_ranks``), its prefill's
+    ``_mla_blockwise`` on each rank's stripe, its decode over the
+    sequence-sharded latent cache, AdamW on the rank's blocks; (b) the
+    same at 1 layer over (1, 16) (``MLA_WIDE_SIZES``): 16 model
+    positions, which do not divide its 40 heads, so the head leaves are
+    whole on every rank and ``wo`` splits by flat rows."""
+    launches, nums = run_kind_ranks(np, torch, dev, card, MLA_RANKS,
+                                    "mla-ranks")
+    t0 = time.perf_counter()
+    more, nums["wide"] = run_kind_ranks(np, torch, dev, card, MLA_WIDE,
+                                        "mla-ranks (b)",
+                                        rank_sizes(**MLA_WIDE_SIZES))
+    log(f"mla-ranks (b) [{card}]: {time.perf_counter() - t0:.1f} s, spawn "
+        f"{nums['wide']['spawn_s']:.1f} s")
+    return {k: launches[k] + more[k] for k in launches}, nums
 
 
 def settled_tokens(np, one, got, K: int) -> dict:
@@ -5212,11 +5261,12 @@ def run_moe_ranks(np, torch, dev, card):
     label = "moe-ranks (b)"
     refs, kind_jobs = kind_rank_jobs(torch, dev, card, MOE_RANKS_REDUCED,
                                      label, reduced=True,
-                                     steps=MOE_RANKS_STEPS)
+                                     sizes=rank_sizes(steps=MOE_RANKS_STEPS))
     launches, full, res = run_moe_full_width(np, torch, dev, card, kind_jobs)
     del kind_jobs
     more, reduced = check_kind_ranks(np, torch, dev, card, MOE_RANKS_REDUCED,
-                                     label, refs, res, MOE_RANKS_STEPS)
+                                     label, refs, res,
+                                     rank_sizes(steps=MOE_RANKS_STEPS))
     for arch, job in reduced["jobs"].items():
         assert job["one_card_drops"][0] > 0, (arch, job["one_card_drops"])
     nums = {"full_width": full, "reduced": reduced,
@@ -5226,23 +5276,25 @@ def run_moe_ranks(np, torch, dev, card):
 
 
 def kind_rank_jobs(torch, dev, card, jobs, label, reduced=False,
-                   steps=RECURRENT_RANKS_STEPS):
+                   sizes=None):
     """The one-card side of ``run_kind_ranks``' ``jobs`` ((arch, depth
-    cut, optimizer)): each arch's reference (``_recurrent_reference``) by
-    arch, and each rank's jobs for ``recurrent_rank_body``, by rank (its
-    blocks of the one-card models, the logits block it must match, the
-    optimizer, ``steps`` greedy decode steps)."""
+    cut, optimizer)) at ``sizes`` (default ``rank_sizes()``): each arch's
+    reference (``_recurrent_reference``) by arch, and each rank's jobs
+    for ``recurrent_rank_body``, by rank (its blocks of the one-card
+    models, the logits block it must match, the optimizer, the
+    sizes)."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.convert import param_tree
     from repro_torch.models.ranked import batch_rows
     from repro_torch.tree import Stacked, tree_map
+    sizes = sizes or rank_sizes()
     refs = {arch: _recurrent_reference(torch, dev, arch, cut, opt, card,
-                                       label, reduced, steps)
+                                       label, reduced, sizes)
             for arch, cut, opt in jobs}
-    mesh = make_mesh(RECURRENT_RANKS_MESH, ("data", "model"))
-    A, M = RECURRENT_RANKS_MESH
-    B = RECURRENT_RANKS_PREFILL[0]
+    mesh = make_mesh(sizes["mesh"], ("data", "model"))
+    A, M = sizes["mesh"]
+    B = sizes["prefill"][0]
 
     def blocks(m, coords):
         params = tree_map(lambda x: Stacked(p.detach() for p in x.parts)
@@ -5264,17 +5316,18 @@ def kind_rank_jobs(torch, dev, card, jobs, label, reduced=False,
                 blocks(ref["twin"], (a, m)), ref["toks"], {
                     "prefill": ref["logits"][r0:r1, :, m * Vl:(m + 1) * Vl],
                     "state": ref["one"]["state"], "optimizer": opt,
-                    "steps": steps}))
+                    "sizes": sizes}))
         by_rank.append(rank_jobs)
     return refs, by_rank
 
 
-def launch_on_card(fn, rank_args, deadline):
-    """``ranks.launch`` of ``fn`` on four gloo ranks over (data 2, model
-    2) of this card, the ranks' allocator on expandable segments."""
+def launch_on_card(fn, rank_args, deadline, mesh_shape=RECURRENT_RANKS_MESH):
+    """``ranks.launch`` of ``fn`` on gloo ranks over ``mesh_shape`` (data,
+    model) of this card (four over (2, 2) unless asked), the ranks'
+    allocator on expandable segments."""
     from repro_torch.distributed import ranks as rk
     from repro_torch.launch.mesh import make_mesh
-    mesh = make_mesh(RECURRENT_RANKS_MESH, ("data", "model"))
+    mesh = make_mesh(mesh_shape, ("data", "model"))
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
@@ -5289,11 +5342,12 @@ def launch_on_card(fn, rank_args, deadline):
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
 
 
-def run_kind_ranks(np, torch, dev, card, jobs, label):
-    """Layer kinds across ranks: four gloo ranks over (data 2, model 2),
-    each a ``RankModel`` of every arch of ``jobs`` ((arch, depth cut,
-    optimizer)) on its blocks of the parent's one-card models
-    (``kind_rank_jobs``); ``label`` names the phase.  Per job
+def run_kind_ranks(np, torch, dev, card, jobs, label, sizes=None):
+    """Layer kinds across ranks: gloo ranks over ``sizes["mesh"]`` (four
+    over (data 2, model 2) unless asked), each a ``RankModel`` of every
+    arch of ``jobs`` ((arch, depth cut, optimizer)) on its blocks of the
+    parent's one-card models (``kind_rank_jobs``), at ``sizes``;
+    ``label`` names the phase.  Per job
     (``check_kind_ranks``): each rank's bf16 prefill logits block within
     the twin-based bound; an MoE layer's routes, keep flags and drops of
     the rank's rows exactly the one card's; the protected greedy
@@ -5306,34 +5360,38 @@ def run_kind_ranks(np, torch, dev, card, jobs, label):
     within twice the one card's bf16 distance from its fp32 twin's, by
     kind of state leaf (adamw8bit's codes, at least within 1, and
     scales; adafactor's factors), the worst over the leaves; every
-    prefill's, decode step's and training step 2's bytes by kind equal
-    to the dry run's count; kernel 11 on every attention layer (none on
-    an MLA layer, whose prefill takes ``mla_blockwise:torch`` once a
-    layer), kernel 1 in the EC calls, the card's paths only.  Returns
+    prefill's, decode step's and last training step's bytes by kind
+    equal to the dry run's count; kernel 11 on every attention layer
+    (none on an MLA layer, whose prefill takes ``mla_blockwise:torch``
+    once a layer), kernel 1 in the EC calls, the card's paths only.  Returns
     the ranks' launches, summed, and the phase's numbers."""
     t_phase = time.perf_counter()
-    refs, by_rank = kind_rank_jobs(torch, dev, card, jobs, label)
+    sizes = sizes or rank_sizes()
+    refs, by_rank = kind_rank_jobs(torch, dev, card, jobs, label,
+                                   sizes=sizes)
     t0 = time.perf_counter()
     res = launch_on_card(recurrent_rank_body, [(j,) for j in by_rank],
-                         RECURRENT_RANKS_DEADLINE)
+                         RECURRENT_RANKS_DEADLINE, sizes["mesh"])
     spawn_s = time.perf_counter() - t0
     del by_rank
     launches, nums = check_kind_ranks(np, torch, dev, card, jobs, label,
-                                      refs, res, RECURRENT_RANKS_STEPS)
+                                      refs, res, sizes)
     nums.update(spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase)
     log(f"phase {label}: {nums['phase_s']:.1f} s")
     return launches, nums
 
 
-def check_kind_ranks(np, torch, dev, card, jobs, label, refs, res, steps):
+def check_kind_ranks(np, torch, dev, card, jobs, label, refs, res, sizes):
     """``run_kind_ranks``' checks of the ranks' results ``res`` against the
-    one-card references ``refs`` (``kind_rank_jobs``); consumes both.
-    Returns the ranks' launches, summed, and the numbers by job."""
+    one-card references ``refs`` (``kind_rank_jobs``) at ``sizes``;
+    consumes both.  Returns the ranks' launches, summed, and the numbers
+    by job."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.ranked import batch_rows
-    mesh = make_mesh(RECURRENT_RANKS_MESH, ("data", "model"))
-    A = RECURRENT_RANKS_MESH[0]
-    B = RECURRENT_RANKS_PREFILL[0]
+    mesh = make_mesh(sizes["mesh"], ("data", "model"))
+    A = sizes["mesh"][0]
+    B = sizes["prefill"][0]
+    train_steps = sizes["train_steps"]
     nums = {"jobs": {}}
     launches = None
     for arch, _, opt in jobs:
@@ -5341,7 +5399,7 @@ def check_kind_ranks(np, torch, dev, card, jobs, label, refs, res, steps):
         cfg, bounds = ref["cfg"], ref["bounds"]
         attention = sum(cfg.layers.count(k) for k in "AWM")
         mla = cfg.layers.count("L")
-        P = RECURRENT_RANKS_PROMPT + steps
+        P = sizes["max_len"]
         stacked, _ = stacked_store(
             torch, dev, cfg.scaled(dtype="float32"),
             [x[arch]["cache"] for x in res],
@@ -5396,12 +5454,12 @@ def check_kind_ranks(np, torch, dev, card, jobs, label, refs, res, steps):
             assert all(s == got["counted"]["decode"]
                        for s in got["sent"]["decode"]), (
                 at, got["sent"]["decode"][-1], got["counted"]["decode"])
-            assert got["steps"][1]["sent"] == got["counted"]["train"], (
-                at, got["steps"][1]["sent"], got["counted"]["train"])
+            assert len(got["steps"]) == train_steps, at
+            assert got["steps"][-1]["sent"] == got["counted"]["train"], (
+                at, got["steps"][-1]["sent"], got["counted"]["train"])
             n = got["launches"]
             assert got["prefill_launches"]["flash_attention"] == attention
-            assert n["flash_attention"] == attention * (
-                1 + 2 * RECURRENT_RANKS_TRAIN_STEPS), n
+            assert n["flash_attention"] == attention * (1 + 2 * train_steps), n
             assert n["gf_matmul_batched"] > 0, n
             assert not any(k.startswith("masked")
                            for k in got["prefill_routes"])
@@ -5426,10 +5484,11 @@ def check_kind_ranks(np, torch, dev, card, jobs, label, refs, res, steps):
         log(f"{label} [{card}] {arch}: prefill s a rank "
             f"{[round(r['prefill_s'], 3) for r in job['ranks']]}, decode s a "
             f"step {[round(r['decode_s_per_step'], 3) for r in job['ranks']]}"
-            f", train s a step (step 2) "
-            f"{[round(r['steps'][1]['s'], 3) for r in job['ranks']]}, bytes "
-            f"sent by kind (rank at (0, 0): prefill, a decode step, train "
-            f"step 2) {json.dumps([job['ranks'][0]['sent_prefill'], job['ranks'][0]['sent_decode_step'], job['ranks'][0]['steps'][1]['sent']])}"
+            f", train s a step (step {train_steps}) "
+            f"{[round(r['steps'][-1]['s'], 3) for r in job['ranks']]}, train "
+            f"peak GB {[round(r['train_peak_gb'], 2) for r in job['ranks']]}"
+            f", bytes sent by kind (rank at (0, 0): prefill, a decode step, "
+            f"train step {train_steps}) {json.dumps([job['ranks'][0]['sent_prefill'], job['ranks'][0]['sent_decode_step'], job['ranks'][0]['steps'][-1]['sent']])}"
             f", kernel-11 / kernel-1 launches a rank "
             f"{[(r['kernel11'], r['kernel1']) for r in job['ranks']]}")
         del ref, stacked

@@ -57,7 +57,11 @@ its blocks.
 * ``CountingComm(mesh, coords, axis)`` runs a rank body on ``meta``
   tensors without a group (``launch/dryrun.py``): ``shift``,
   ``all_gather``, ``reduce_scatter`` and ``all_reduce`` note what
-  ``RankComm`` notes and return an empty tensor of the result's shape.  It notes every shift, one
+  ``RankComm`` notes and return an empty tensor of the result's shape;
+  on a column of one rank ``all_gather`` and ``all_reduce`` return a
+  copy of the block, as ``RankComm``'s do, so that autograd follows a
+  parameter through them to the backward's moves beyond (a (1, M) mesh's
+  data gathers).  It notes every shift, one
   of a multiple of A included, as the reference's HLO holds a
   ``collective-permute`` for every ``ppermute``; with no such shift the
   two count the same bytes, and ``CountingComm(..., count_stays=False)``
@@ -316,6 +320,8 @@ class CountingComm(_Column):
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         self._note_gather(x)
+        if self.axis_size == 1:              # ``RankComm``'s copy
+            return x.unsqueeze(0).clone()
         return x.new_empty((self.axis_size,) + tuple(x.shape))
 
     def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
@@ -325,8 +331,9 @@ class CountingComm(_Column):
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         _REDUCE_OPS[op]
-        if self.axis_size > 1:
-            self._note_reduce(x)
+        if self.axis_size == 1:              # ``RankComm``'s copy
+            return x.clone(memory_format=torch.contiguous_format)
+        self._note_reduce(x)
         return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 

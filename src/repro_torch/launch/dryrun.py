@@ -33,8 +33,9 @@ argument bytes each device of the mesh holds under
   the matrix products every model position computes alike and their
   FLOPs on one position.  A batch at or above its axes' size that they
   do not divide, or a head or expert count that "model" does not divide
-  (an MLA, Mamba-2 or MoE layer's; ``ranked.check_config``), keeps the
-  even split.
+  (a Mamba-2 or MoE layer's; ``ranked.check_config``), keeps the even
+  split: no cell of the production meshes does (an MLA layer's heads
+  need not split: ``models/ranked.py``).
 * Every other model cell (the 1 x 1 mesh, and the cells above that the
   rank path refuses) runs its positions as one program
   on one card: FLOPs and bytes per device are the program's divided by

@@ -65,15 +65,22 @@ positions, rank (a, m):
   ``layers._mla_blockwise(stripe=(bq, M, m))`` against every key (each
   KV tile up-projected through the whole ``w_uk`` and ``w_uv``: products
   every model position repeats), multiplies its rows by the whole wo and
-  all-gathers the stripes back.  In a decode step heads carry the
-  projections and slots the scores: the rank (H % M must be 0, else a
-  ``ValueError``) computes its H/M heads' queries through its ``w_uq``
-  block (``w_dq`` repeated) and absorbs q_nope through its ``w_uk``
-  block; the absorbed queries and q_rope are all-gathered over the model
-  column; over its slice of the latent cache the rank computes every
+  all-gathers the stripes back.  In a decode step slots carry the
+  scores: over its slice of the latent cache the rank computes every
   head's fp32 partial max, sum and weighted latent, combined by
-  log-sum-exp as below; its heads' ``w_uv`` and wo rows follow, then an
-  all-reduce;
+  log-sum-exp as below.  Where "model" divides the heads, heads carry
+  the projections: the rank computes its H/M heads' queries through its
+  ``w_uq`` block (``w_dq`` repeated) and absorbs q_nope through its
+  ``w_uk`` block, the absorbed queries and q_rope are all-gathered over
+  the model column, and its heads' ``w_uv`` and wo rows follow, then an
+  all-reduce.  Where it does not (minicpm3-4b's 40 heads on 16
+  positions), ``param_specs`` leaves ``w_uq`` (or ``wq``), ``w_uk`` and
+  ``w_uv`` whole on every model position (``fit_spec`` demotes the axis
+  that does not divide) and splits ``wo`` by flat rows, across head
+  boundaries: the rank computes every head's query and absorption
+  (products every model position repeats), gathers no query, takes the
+  whole context through the whole ``w_uv`` and keeps the columns its
+  ``wo`` rows hold, then the all-reduce (none where ``wo`` is whole);
 * **MLP**: w_gate and w_up column-parallel, w_down row-parallel, an
   all-reduce after it (activation dtype);
 * **MoE** (kind "M": the attention above, then this FFN): the rank owns
@@ -191,8 +198,10 @@ model position computes alike (the plan's repeats: K and V everywhere,
 and in a "seq" decode step wq and wo too; MLA's ``w_dkv``, in a prefill
 its KV tiles' ``w_uk`` and ``w_uv`` up-projections, in a decode step
 ``w_dq``; Mamba-2's B and C columns, and in a decode step the token's
-whole x | B | C input; MoE's router); the dry run reports them beside a
-rank's count (``launch/dryrun.py``).
+whole x | B | C input; MoE's router; with whole MLA heads, a decode
+step's ``w_uq`` or ``wq``, ``w_uk`` and ``w_uv`` too, and ``wo`` where it
+is whole); the dry run reports them beside a rank's count
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -265,8 +274,6 @@ def check_config(cfg: ModelConfig, mesh) -> None:
         sizes.append(("the RG-LRU width d_model", cfg.d_model))
     if "S" in cfg.layers:
         sizes.append(("the Mamba-2 head count", cfg.ssm_heads))
-    if "L" in cfg.layers:
-        sizes.append(("the MLA head count", cfg.num_heads))
     if "M" in cfg.layers:
         sizes.append(("the expert count", cfg.num_experts))
     for what, n in sizes:
@@ -663,19 +670,24 @@ class RankModel:
         return out.reshape(B, 1, H, hd).to(q.dtype)
 
     # -- MLA ---------------------------------------------------------------
-    def _mla_query(self, p: dict, h, repeated: bool):
+    def _mla_query(self, p: dict, h, repeated=()):
         """The queries (B, S, heads, nope + rope) of ``h``'s rows through
         the q LoRA (``w_dq`` -> ``q_norm`` -> ``w_uq``) or ``wq``, for the
         heads of the ``w_uq``/``wq`` given (whole, or the rank's block);
-        ``repeated``: every model position projects these rows through
-        ``w_dq`` alike (decode)."""
+        ``repeated`` names the products of these rows that every model
+        position computes alike (decode: ``w_dq``, and with whole heads
+        ``w_uq`` or ``wq``)."""
         if "w_dq" not in p:
+            if "wq" in repeated:
+                self._repeat("wq", 2 * h.numel() * p["wq"][0].numel())
             return torch.einsum("bsd,dhe->bshe", h, p["wq"])
         ql = rmsnorm(p["q_norm"]["scale"],
-                     self._mm("w_dq", h, p["w_dq"], repeated))
+                     self._mm("w_dq", h, p["w_dq"], "w_dq" in repeated))
+        if "w_uq" in repeated:
+            self._repeat("w_uq", 2 * ql.numel() * p["w_uq"][0].numel())
         return torch.einsum("bsr,rhd->bshd", ql, p["w_uq"])
 
-    def _mla(self, p: dict, h, positions, at=None):
+    def _mla(self, p: dict, specs: dict, h, positions, at=None):
         """Kind "L" (module notes).  Prefill: the latent and RoPE key of
         every row, the stripe's queries through the whole ``w_uq`` (or
         ``wq``), ``layers._mla_blockwise`` on the stripe against every key
@@ -683,7 +695,7 @@ class RankModel:
         the stripe's rows through the whole ``wo``, the stripes gathered
         back.  ``at`` (decode): (cache, write slot, valid slots, the
         rank's first slot or None for an unsharded cache); the blocks of
-        the heads' projections are the rank's."""
+        the heads' projections are the rank's (``specs``)."""
         cfg = self.cfg
         B, S, _ = h.shape
         r, nope = cfg.kv_lora_rank, cfg.qk_nope_dim
@@ -692,11 +704,12 @@ class RankModel:
         k_rope = L.embed_positions(cfg, ckv[..., r:][:, :, None, :],
                                    positions)
         if at is not None:
-            return self._mla_decode(p, h, positions, latent, k_rope, *at)
+            return self._mla_decode(p, specs, h, positions, latent, k_rope,
+                                    *at)
         st = seq_stripe(cfg, S, self.M, self.m)
         bq, rows, nv = st["bq"], st["rows"], st["valid"]
         idx = stripe_positions(rows, (bq, self.M, self.m), h.device)[:nv]
-        q = self._mla_query(p, h.index_select(1, idx), False)
+        q = self._mla_query(p, h.index_select(1, idx))
         q_rope = L.embed_positions(cfg, q[..., nope:],
                                    positions.index_select(-1, idx))
         # the reference's zero padding rows, as ``_attention`` pads them
@@ -715,35 +728,46 @@ class RankModel:
         g = g.reshape(self.M, B, st["n_local"], bq, -1).permute(1, 2, 0, 3, 4)
         return g.reshape(B, st["n_local"] * self.M * bq, -1)[:, :S]
 
-    def _mla_decode(self, p, h, positions, latent, k_rope, cache, slot: int,
-                    n_valid: int, s0):
+    def _mla_decode(self, p, specs, h, positions, latent, k_rope, cache,
+                    slot: int, n_valid: int, s0):
         """One token of kind "L" over the rank's latent cache slice (slots
-        s0...; the whole cache when s0 is None): heads carry the
-        projections, slots the scores.  The rank writes the token's latent
-        and RoPE key where its slice holds ``slot``, computes its heads'
-        queries and absorbs q_nope through its ``w_uk`` block; the model
-        column all-gathers them, so every rank holds every head's
-        absorbed query; each rank's slice gives every head's fp32 partial
-        max, sum and weighted latent, all-gathered and combined by
-        log-sum-exp in model order (a slice with no valid slot adds
-        exactly nothing); the rank's heads of the combined context go
-        through its ``w_uv`` and ``wo`` blocks, then an all-reduce."""
+        s0...; the whole cache when s0 is None): slots carry the scores.
+        The rank writes the token's latent and RoPE key where its slice
+        holds ``slot``.  Where ``w_uk`` splits over "model", heads carry
+        the projections: the rank computes its heads' queries, absorbs
+        q_nope through its ``w_uk`` block and the model column
+        all-gathers them; else (whole heads) the rank computes every
+        head's, as every model position does.  Each rank's slice gives
+        every head's fp32 partial max, sum and weighted latent,
+        all-gathered and combined by log-sum-exp in model order (a slice
+        with no valid slot adds exactly nothing); the combined context
+        goes through ``w_uv`` (the rank's heads', or every head's) to the
+        columns that the rank's ``wo`` rows hold, [c0, c0 + R) of the
+        flattened (H·v_head) dimension, then through ``wo`` and an
+        all-reduce (none where ``wo`` is whole)."""
         L._count("mla_decode_ranked:torch")
         cfg = self.cfg
         B = h.shape[0]
-        nope, H = cfg.qk_nope_dim, cfg.num_heads
-        Hl = H // self.M
+        nope, H, vd = cfg.qk_nope_dim, cfg.num_heads, cfg.v_head_dim
+        whole = _split_dim(specs["w_uk"], "model") is None
         lat_c, kr_c = cache["latent"], cache["k_rope"]
         S_loc = lat_c.shape[1]
         start = 0 if s0 is None else s0
         if start <= slot < start + S_loc:            # this rank's slot
             lat_c[:, slot - start] = latent[:, 0].to(lat_c.dtype)
             kr_c[:, slot - start] = k_rope[:, 0, 0].to(kr_c.dtype)
-        q = self._mla_query(p, h, True)               # (B, 1, Hl, nope+rope)
+        q = self._mla_query(p, h, ("w_dq", "w_uq", "wq") if whole
+                            else ("w_dq",))    # (B, 1, heads, nope+rope)
         q_rope = L.embed_positions(cfg, q[..., nope:], positions)
         q_abs = torch.einsum("bshd,rhd->bshr", q[..., :nope], p["w_uk"])
-        qa = self.comms.model.all_gather(torch.cat([q_abs, q_rope], dim=-1))
-        qa = qa.permute(1, 2, 0, 3, 4).reshape(B, 1, H, -1)  # every head
+        if whole:                                    # every head already
+            self._repeat("w_uk", 2 * q[..., :nope].numel()
+                         * p["w_uk"].shape[0])
+            qa = torch.cat([q_abs, q_rope], dim=-1)
+        else:
+            qa = self.comms.model.all_gather(torch.cat([q_abs, q_rope],
+                                                       dim=-1))
+            qa = qa.permute(1, 2, 0, 3, 4).reshape(B, 1, H, -1)
         r = lat_c.shape[-1]
         scale = 1.0 / math.sqrt(nope + cfg.qk_rope_dim)
         s = (torch.einsum("bshr,btr->bhst", qa[..., :r].float(),
@@ -760,10 +784,20 @@ class RankModel:
         o, m_r, l_r = g[..., :r], g[..., r], g[..., r + 1]    # (M, B, H, 1)
         w = torch.exp(m_r - m_r.amax(dim=0))
         ctx = (o * w[..., None]).sum(dim=0) / (l_r * w).sum(dim=0)[..., None]
-        mine = ctx[:, self.m * Hl:(self.m + 1) * Hl].permute(0, 2, 1, 3)
-        out = torch.einsum("bshr,rhd->bshd", mine, p["w_uv"].float())
-        y = self._mm("wo", out.to(h.dtype).reshape(B, 1, -1), p["wo"])
-        return self.comms.model.all_reduce(y)
+        # the rank's wo rows: columns [c0, c0 + R) of the (H·v_head) output
+        R = p["wo"].shape[0]
+        split = _split_dim(specs["wo"], "model") is not None
+        c0 = self.m * R if split else 0
+        if whole:
+            self._repeat("w_uv", 2 * ctx.numel() * vd)
+            out = torch.einsum("bshr,rhd->bshd", ctx.permute(0, 2, 1, 3),
+                               p["w_uv"].float()).flatten(2)[..., c0:c0 + R]
+        else:                                  # the rank's R / v_head heads
+            mine = ctx[:, c0 // vd:(c0 + R) // vd].permute(0, 2, 1, 3)
+            out = torch.einsum("bshr,rhd->bshd", mine,
+                               p["w_uv"].float()).flatten(2)
+        y = self._mm("wo", out.to(h.dtype), p["wo"], not split)
+        return self.comms.model.all_reduce(y) if split else y
 
     # -- RG-LRU ------------------------------------------------------------------
     def _rglru(self, p: dict, h, cache=None):
@@ -938,7 +972,8 @@ class RankModel:
         elif kind == "L":
             heads = () if at is not None else MLA_HEADS
             x = x + self._mla(self._gathered(blocks["mla"], specs["mla"],
-                                             heads), h, positions, at)
+                                             heads), specs["mla"], h,
+                              positions, at)
         else:
             attn = self._gathered(blocks["attn"], specs["attn"],
                                   () if self.head_parallel else ("wq", "wo"))

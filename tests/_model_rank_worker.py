@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.collectives import recording
-from repro_torch.distributed.ranks import rank_comms
+from repro_torch.distributed.ranks import CountingComm, rank_comms
 from repro_torch.models import layers, moe
 from repro_torch.models.ranked import RankModel, batch_rows
 from repro_torch.serve.engine import ServeEngine
@@ -17,6 +17,23 @@ from repro_torch.tree import leaves_with_path, materialize, path_str
 
 #: the seed of the engine's generator when it samples
 SAMPLE_SEED = 7
+
+
+class ShapeComm(CountingComm):
+    """A ``CountingComm`` that keeps the shape and dtype of every block it
+    all-gathers or all-reduces (``gathered``, ``reduced``)."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.gathered, self.reduced = [], []
+
+    def all_gather(self, x):
+        self.gathered.append((tuple(x.shape), x.dtype))
+        return super().all_gather(x)
+
+    def all_reduce(self, x, op="sum"):
+        self.reduced.append((tuple(x.shape), x.dtype))
+        return super().all_reduce(x, op)
 
 
 def _sent(fn, *args):

@@ -54,6 +54,7 @@ process only, while this process counts the port's cells on ``meta``:
 """
 import importlib
 import json
+import math
 import subprocess
 import sys
 import textwrap
@@ -512,3 +513,95 @@ def test_embeddings_archs_count_a_rank(arch, kind):
         got["collectives"]["all-reduce"] == lookup
     assert tokens["collectives"]["all-gather"] > \
         got["collectives"]["all-gather"]      # the table's gather too
+
+
+@pytest.mark.parametrize("multi_pod", (False, True))
+def test_production_meshes_count_every_cell_by_rank(multi_pod):
+    """On the production meshes (16 x 16 and 2 x 16 x 16) the rank path
+    refuses no cell of any arch: minicpm3-4b's 40 MLA heads need not
+    split over the 16 model positions (``ranked.check_config``)."""
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    assert get_config("minicpm3-4b").num_heads % mesh.shape["model"]
+    for arch in ARCH_NAMES:
+        for shape in SHAPES:
+            assert dryrun.rank_refusal(get_config(arch),
+                                       dryrun.cell_shape(shape), mesh) \
+                is None, (arch, shape)
+
+
+def test_minicpm3_decode_counts_a_rank_on_the_production_mesh(monkeypatch):
+    """minicpm3-4b's decode_32k on 16 x 16 counts a rank (8 batch rows,
+    2,048 of the 32,768 cache slots), its 40 heads whole on every model
+    position: the model column's only all-gather a layer is the
+    partials', (8, 40, 1, r + 2) fp32 (330,240 B, counted as its 15
+    copies), and its all-reduces are (8, 1, 2,560) bf16, two a layer
+    (attention and MLP) and the embedding's; with the data column's
+    parameter gathers they add up to the cell's bytes by kind."""
+    import _model_rank_worker
+    from repro_torch.distributed import ranks
+    from repro_torch.distributed.ranks import GATHER, REDUCE
+    from repro_torch.launch.mesh import make_production_mesh
+    res = dryrun.run_cell("minicpm3-4b", "decode_32k", "single")
+    assert res["count"] == "rank"
+    assert res["collectives"]["all-gather"] > 0
+    assert res["collectives"]["all-reduce"] > 0
+    cfg = dryrun.get_config("minicpm3-4b")
+    shape = dryrun.cell_shape("decode_32k")
+    coords = tuple(res["busiest_position"])
+    made = []
+
+    def recorded(mesh, at):
+        made.append(ranks.AxisComms(
+            _model_rank_worker.ShapeComm(mesh, at, "data"),
+            _model_rank_worker.ShapeComm(mesh, at, "model")))
+        return made[-1]
+    monkeypatch.setattr(dryrun, "counting_comms", recorded)
+    mesh = make_production_mesh()
+    with dispatch.dry_run():
+        got = dryrun.count_rank_forward(cfg, shape, mesh, coords)
+    comms, = made
+    n, M = cfg.num_layers, 16
+    rows, r = shape.global_batch // 16, cfg.kv_lora_rank
+    partials = ((rows, cfg.num_heads, 1, r + 2), torch.float32)
+    assert rows == 8 and comms.model.gathered == [partials] * n
+    assert 8 * 40 * 258 * 4 == 330240
+    assert comms.model.reduced == [((rows, 1, cfg.d_model),
+                                    torch.bfloat16)] * (2 * n + 1)
+
+    def nbytes(shape, dtype):
+        return math.prod(shape) * dtype.itemsize
+    gathers = (M - 1) * sum(nbytes(*x) for x in comms.model.gathered
+                            + comms.data.gathered)
+    reduces = sum(2 * (M - 1) * nbytes(*x) // M for x in comms.model.reduced)
+    assert comms.data.reduced == []
+    assert got["collectives"] == {GATHER: gathers, REDUCE: reduces}
+    assert res["collectives"]["all-gather"] == gathers
+    assert res["collectives"]["all-reduce"] == reduces == 125 * 76800
+    print(json.dumps({"cell": "minicpm3-4b/decode_32k, 16 x 16",
+                      "collectives": res["collectives"],
+                      "partials_gather_counted": n * (M - 1) * 330240,
+                      "repeated_products": res["repeated_products"]}))
+
+
+def test_counting_comm_follows_gradients_through_a_column_of_one():
+    """On a (1, 2) mesh a parameter's data gather (a column of one rank)
+    is a copy that autograd follows, as ``RankComm``'s is, so the count
+    of a backward reaches the moves beyond it: the model gather's
+    reduce-scatter and the model column's gradient sum."""
+    from repro_torch.distributed import ranks
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.launch.mesh import make_mesh
+    comms = ranks.counting_comms(make_mesh((1, 2), ("data", "model")),
+                                 (0, 1))
+    w = torch.ones((4, 3), requires_grad=True)
+    sent = {}
+    with recording(lambda n, k: sent.__setitem__(k, sent.get(k, 0) + n)):
+        block = ranks.all_gather(comms.data, ranks.sum_grad(comms.model, w))
+        whole = ranks.all_gather(comms.model, block[0])
+        assert block.requires_grad and whole.shape == (2, 4, 3)
+        whole.sum().backward()
+    assert w.grad is not None
+    assert sent == {"all-gather": 48, "reduce-scatter": 48,
+                    "all-reduce": 48}

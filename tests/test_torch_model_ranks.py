@@ -18,8 +18,11 @@ ring wraps; and the recurrent archs (``RECURRENT``): recurrentgemma-2b
 (Mamba-2 "S" layers, whose 296 packed ``in_proj`` columns and 160 conv
 channels split over "model" across its heads), with their caches after
 the decode; and the MLA jobs (``MLA``): reduced minicpm3-4b, "seq" and
-"head", and the same with its queries through one ``wq`` (q_lora_rank
-0), whose latent caches after the decode are held too; and the MoE jobs
+"head", the same with its queries through one ``wq`` (q_lora_rank 0),
+and with 3 heads ("minicpm3-h3"), which the 2 model positions do not
+divide (``param_specs`` leaves the head leaves whole and splits ``wo``'s
+48 rows 24 a position, 1.5 heads: the layout of minicpm3-4b's 40 heads
+on 16), whose latent caches after the decode are held too; and the MoE jobs
 (``MOE``): reduced llama4-maverick-400b-a17b (8 experts, top-1, "seq")
 and kimi-k2-1t-a32b (16 experts, top-4, its 4 heads on the "head"
 path), whose experts split over "model".  Also its striped
@@ -54,9 +57,11 @@ of the same forward (``dryrun.count_rank_forward``); a recurrent job's
 or MLA job's cache block after the decode against the same block of the
 reference's (fp32 bounds; an MLA decode writes both model positions'
 slices of the latent cache); an MoE job's routes and keep flags on each
-rank against the one-device port model's rows, exactly, with drops; and
-a Mamba-2 or MLA head count
-or an expert count the model axis does not divide raising.
+rank against the one-device port model's rows, exactly, with drops; a
+decode step with whole MLA heads gathering no query and repeating the
+head products on every model position (counted on ``meta``); and a
+Mamba-2 head count, an expert count or an MLA config's d_ff that the
+model axis does not divide raising.
 """
 import functools
 import json
@@ -98,9 +103,11 @@ MODES = ("seq", "head")
 #: layers have no attention mode)
 RECURRENT = ["recurrentgemma-2b/seq", "recurrentgemma-2b/head",
              "mamba2-370m/seq"]
-#: the MLA jobs: minicpm3-4b in both modes (neither changes an MLA layer)
-#: and its queries through one ``wq`` (q_lora_rank 0, "minicpm3-wq")
-MLA = ["minicpm3-4b/seq", "minicpm3-4b/head", "minicpm3-wq/seq"]
+#: the MLA jobs: minicpm3-4b in both modes (neither changes an MLA layer),
+#: its queries through one ``wq`` (q_lora_rank 0, "minicpm3-wq"), and its
+#: 3 heads ("minicpm3-h3") whole on both model positions
+MLA = ["minicpm3-4b/seq", "minicpm3-4b/head", "minicpm3-wq/seq",
+       "minicpm3-h3/seq"]
 #: the MoE jobs: llama4-maverick's top-1 router under "seq" attention,
 #: kimi-k2's top-4 under its config's "auto" (its 4 heads split over the
 #: 2 model positions: the "head" path)
@@ -114,7 +121,9 @@ OPTIONS = dict(layer_pattern="AW", local_window=16, kv_cache_dtype="int8",
 #: the jobs' arch names that are a reduced config with options: (its
 #: config's name, the options)
 VARIANTS = {"options": ("starcoder2-3b", OPTIONS),
-            "minicpm3-wq": ("minicpm3-4b", dict(q_lora_rank=0))}
+            "minicpm3-wq": ("minicpm3-4b", dict(q_lora_rank=0)),
+            "minicpm3-h3": ("minicpm3-4b", dict(num_heads=3,
+                                                num_kv_heads=3))}
 MESH = (4, 2)
 B, S = 4, 64
 #: prompt tokens, then greedy tokens a job (the "options" jobs decode to
@@ -632,13 +641,51 @@ def test_mamba2_heads_must_split():
         ranked.RankModel(cfg, {}, counting_comms(mesh, (0, 1)))
 
 
-def test_mla_heads_must_split():
-    """An MLA head count that the model axis does not divide raises a
-    ``ValueError`` (a decode step splits the heads' projections)."""
+def test_mla_config_needs_d_ff_to_split():
+    """An MLA config takes a head count that the model axis does not
+    divide (its head leaves stay whole), but a ``d_ff`` that it does not
+    divide still raises a ``ValueError``."""
     cfg = get_reduced("minicpm3-4b").scaled(d_ff=96, vocab_size=768)
     mesh = make_mesh((1, 3), ("data", "model"))
-    with pytest.raises(ValueError, match="MLA head count 4 does not split"):
-        ranked.RankModel(cfg, {}, counting_comms(mesh, (0, 1)))
+    assert cfg.num_heads % 3
+    ranked.RankModel(cfg, {}, counting_comms(mesh, (0, 1)))
+    with pytest.raises(ValueError, match="d_ff 128 does not split"):
+        ranked.RankModel(cfg.scaled(d_ff=128), {},
+                         counting_comms(mesh, (0, 1)))
+
+
+@pytest.mark.parametrize("arch", ("minicpm3-4b", "minicpm3-h3"))
+def test_whole_head_decode_gathers_no_query(arch):
+    """A decode step of an MLA config on (4, 2), counted on ``meta``: with
+    4 heads each model position absorbs its 2 heads' queries and the
+    model column all-gathers them (width r + rope); with 3 heads
+    ("minicpm3-h3") no block of that width moves, every position
+    computes every head's query, absorption and ``w_uv`` up-projection,
+    which ``repeated`` names, and its ``wo`` block is 24 flat rows."""
+    cfg = _cfg(arch)
+    mesh = make_mesh(MESH, ("data", "model"))
+    width = cfg.kv_lora_rank + cfg.qk_rope_dim
+    with dispatch.dry_run():
+        local, _ = dryrun._rank_blocks(cfg, mesh, (1, 1))
+        comms = ranks.AxisComms(ranks.CountingComm(mesh, (1, 1), "data"),
+                                _model_rank_worker.ShapeComm(mesh, (1, 1),
+                                                             "model"))
+        model = ranked.RankModel(cfg, local, comms)
+        tokens = torch.zeros((B, 1), dtype=torch.long, device="meta")
+        model.decode_step(model.init_cache(B, S), tokens[:, 0], S - 1)
+    gathered = [shape for shape, _ in comms.model.gathered]
+    widths = {shape[-1] for shape in gathered}
+    mla = cfg.layers.count("L")
+    if cfg.num_heads % MESH[1]:
+        assert width not in widths
+        assert {"w_uq", "w_uk", "w_uv"} <= set(model.repeated)
+        assert local["blocks"][0]["mla"]["wo"].parts[0].shape[0] == 24
+    else:
+        assert len([s for s in gathered if s[-1] == width]) == mla
+        assert not {"w_uq", "w_uk", "w_uv"} & set(model.repeated)
+    # the partials: (rows, H, 1, r + 2) a layer
+    partials = (B // MESH[0], cfg.num_heads, 1, cfg.kv_lora_rank + 2)
+    assert gathered.count(partials) == mla
 
 
 @pytest.mark.parametrize("Sa", ATTN_S)

@@ -19,7 +19,9 @@ a cache (RS(k=1, m=1) over "data", 256-byte pages):
 * reduced recurrentgemma-2b (RG-LRU layers beside "W" layers),
   reduced minicpm3-4b (MLA layers, whose "latent" and "k_rope" slots
   split over "model": the 22 positions cross the boundary of the two
-  12-slot slices) and the reduced MoE archs (llama4-maverick-400b-a17b,
+  12-slot slices), the same with 3 heads ("mla-h3": the head leaves
+  whole on both model positions, ``wo`` split by flat rows across a
+  head) and the reduced MoE archs (llama4-maverick-400b-a17b,
   kimi-k2-1t-a32b: their experts split over "model") in fp32, served
   the same way: their pages and parity
   after the prefill and after the refresh against the stacked store,
@@ -52,7 +54,7 @@ from repro_torch.models.convert import param_tree
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.train_step import recorded_step
 from repro_torch.tree import leaves_with_path, path_str, tree_map
-from test_torch_model_ranks import OPTIONS
+from test_torch_model_ranks import OPTIONS, VARIANTS
 from test_torch_train_archs import GRAD_TOL, LOSS_TOL, PARAM_TOL
 
 torch.set_num_threads(1)
@@ -64,13 +66,16 @@ EC = dict(k=1, m=1, page_size=256)
 TRAIN = ("qwen2-vl-7b/seq", "options/seq", "options/head")
 #: the other archs' jobs ("arch/mode") whose protected caches are
 #: rebuilt, by session name: RG-LRU states and the "W" ring; MLA's latent
-#: cache; the MoE archs' attention caches (their experts split over
-#: "model"; kimi-k2 on the "head" path)
+#: cache, with heads split over "model" and whole ("minicpm3-h3",
+#: ``test_torch_model_ranks.VARIANTS``); the MoE archs' attention caches
+#: (their experts split over "model"; kimi-k2 on the "head" path)
 SESSIONS = {"recurrent": "recurrentgemma-2b/seq", "mla": "minicpm3-4b/seq",
+            "mla-h3": "minicpm3-h3/seq",
             "llama4": "llama4-maverick-400b-a17b/seq",
             "kimi": "kimi-k2-1t-a32b/auto"}
 #: the leaves of each session's cache tree
-SESSION_LEAVES = {"recurrent": 6, "mla": 2, "llama4": 2, "kimi": 2}
+SESSION_LEAVES = {"recurrent": 6, "mla": 2, "mla-h3": 2, "llama4": 2,
+                  "kimi": 2}
 MOE_SESSIONS = ("llama4", "kimi")
 SEQ = 64
 SEED = 26
@@ -78,11 +83,9 @@ DEADLINE = 300.0
 
 
 def _cfg(arch, mode="seq"):
-    if arch == "options":
-        return get_reduced("starcoder2-3b").scaled(
-            dtype="float32", attn_parallel=mode, remat="full", **OPTIONS)
-    return get_reduced(arch).scaled(dtype="float32", attn_parallel=mode,
-                                    remat="full")
+    base, extra = VARIANTS.get(arch, (arch, {}))
+    return get_reduced(base).scaled(dtype="float32", attn_parallel=mode,
+                                    remat="full", **extra)
 
 
 def _model(job) -> Model:
@@ -214,15 +217,32 @@ def test_mla_cache_pages_equal_the_stacked_store(spawned, when):
     _session_pages_equal_the_stacked_store(spawned, "mla", when)
 
 
+@pytest.mark.parametrize("when", ("prefill", "refresh"))
+def test_whole_head_mla_cache_pages_equal_the_stacked_store(spawned, when):
+    """The same with 3 heads ("mla-h3"), whose head leaves are whole on
+    both model positions and whose ``wo`` splits across a head."""
+    _session_pages_equal_the_stacked_store(spawned, "mla-h3", when)
+
+
 def test_mla_cache_rebuilds_byte_for_byte(spawned):
     """After minicpm3-4b's decode steps, which wrote both model
     positions' slices, the refreshed parity is a fresh encode on every
     rank, and each data position's pages, rebuilt over the ring, equal
     its live pages byte for byte."""
-    _session_rebuilds_byte_for_byte(spawned, "mla")
+    _mla_rebuilds_byte_for_byte(spawned, "mla")
+
+
+def test_whole_head_mla_cache_rebuilds_byte_for_byte(spawned):
+    """The same with 3 heads ("mla-h3"), its heads whole on both model
+    positions."""
+    _mla_rebuilds_byte_for_byte(spawned, "mla-h3")
+
+
+def _mla_rebuilds_byte_for_byte(spawned, name):
+    _session_rebuilds_byte_for_byte(spawned, name)
     _, _, res, _, _ = spawned
     for r in res:
-        lat = r["mla"]["cache"]["blocks/0/latent"]     # (R, row, slots, r)
+        lat = r[name]["cache"]["blocks/0/latent"]      # (R, row, slots, r)
         assert PROMPT + STEPS > lat.shape[2]
         assert (np.abs(lat).sum(-1) > 0).sum(-1).min() == min(
             lat.shape[2], PROMPT + STEPS - r["coords"][1] * lat.shape[2])

@@ -14,13 +14,15 @@ phi4-mini-3.8b in fp32 with ``attn_parallel`` "seq" and "head", remat
 "full", AdamW, on (4, 2); starcoder2-3b with adamw8bit and with
 adafactor, recurrentgemma-2b (RG-LRU and "W" layers) with adamw8bit,
 mamba2-370m (Mamba-2) with adafactor and minicpm3-4b (MLA: its latent
-attention striped over "model") with AdamW and with adamw8bit,
+attention striped over "model") with AdamW and with adamw8bit, and with
+3 heads ("minicpm3-h3": head leaves whole on every model position,
+``wo`` split by flat rows across a head) with AdamW,
 llama4-maverick-400b-a17b (MoE, top-1, "seq") with AdamW and
 kimi-k2-1t-a32b (MoE, top-4, its heads on the "head" path) with AdamW,
 adamw8bit and adafactor on (4, 2); and starcoder2-3b (AdamW),
-mamba2-370m (adafactor) and both MoE archs (AdamW) on a (2, 2, 2) (pod,
-data, model) mesh; B 4 x S 64 (one row a data position on (4, 2), one a
-(pod, data) position on (2, 2, 2)).  The weights are the reference's
+mamba2-370m (adafactor), both MoE archs (AdamW) and minicpm3-h3
+(adafactor) on a (2, 2, 2) (pod, data, model) mesh; B 4 x S 64 (one row
+a data position on (4, 2), one a (pod, data) position on (2, 2, 2)).  The weights are the reference's
 ``Model.init(PRNGKey(SEED))``, drawn again in this process and converted
 by ``models.convert.params_from_jax``; the batches are ``SyntheticLM``'s
 (seed 0) on both sides.
@@ -85,6 +87,7 @@ from repro_torch.models.convert import param_tree, params_from_jax
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.train_step import make_train_step
 from repro_torch.tree import Stacked, leaves_with_path, path_str, tree_map
+from test_torch_model_ranks import VARIANTS
 from test_torch_train_archs import (GRAD_TOL, LEAF_TOL, LOSS_TOL, PARAM_TOL,
                                     ZERO_GRAD, ZERO_TOL)
 
@@ -98,11 +101,12 @@ POD_MESH = (2, 2, 2)
 JOBS = [f"{a}/{m}" for a in ARCHS for m in MODES] + [
     "starcoder2-3b/seq/adamw8bit", "starcoder2-3b/seq/adafactor",
     "recurrentgemma-2b/seq/adamw8bit", "mamba2-370m/seq/adafactor",
-    "minicpm3-4b/seq", "minicpm3-4b/seq/adamw8bit",
+    "minicpm3-4b/seq", "minicpm3-4b/seq/adamw8bit", "minicpm3-h3/seq",
     "llama4-maverick-400b-a17b/seq", "kimi-k2-1t-a32b/auto",
     "kimi-k2-1t-a32b/auto/adamw8bit", "kimi-k2-1t-a32b/auto/adafactor"]
 POD_JOBS = ["starcoder2-3b/seq/pod", "mamba2-370m/seq/adafactor/pod",
-            "llama4-maverick-400b-a17b/seq/pod", "kimi-k2-1t-a32b/auto/pod"]
+            "llama4-maverick-400b-a17b/seq/pod", "kimi-k2-1t-a32b/auto/pod",
+            "minicpm3-h3/seq/adafactor/pod"]
 #: the jobs whose ranks write a disk checkpoint after their last step
 SAVES = (JOBS[0], "starcoder2-3b/seq/adamw8bit")
 #: the job whose step-2 sends the dry run's training cell of the same
@@ -149,8 +153,9 @@ for job in JOBS + POD_JOBS:
     mesh = (make_mesh(POD_MESH, ("pod", "data", "model"))
             if job.endswith("/pod") else make_mesh(MESH, ("data", "model")))
     set_activation_mesh(mesh)
-    cfg = get_reduced(arch).scaled(dtype="float32", attn_parallel=mode,
-                                   remat="full")
+    base, extra = VARIANTS.get(arch, (arch, {}))
+    cfg = get_reduced(base).scaled(dtype="float32", attn_parallel=mode,
+                                   remat="full", **extra)
     model = Model(cfg)
     params = model.init(jax.random.PRNGKey(SEED))
     opt = make_optimizer(name, **OPT)
@@ -188,12 +193,14 @@ np.savez(sys.argv[1], **out)
 
 
 def _cfg(arch, mode="seq"):
-    return get_reduced(arch).scaled(dtype="float32", attn_parallel=mode,
-                                    remat="full")
+    base, extra = VARIANTS.get(arch, (arch, {}))
+    return get_reduced(base).scaled(dtype="float32", attn_parallel=mode,
+                                    remat="full", **extra)
 
 
 def _ref_params(arch):
-    ref_cfg = ref_get_reduced(arch).scaled(dtype="float32")
+    base, extra = VARIANTS.get(arch, (arch, {}))
+    ref_cfg = ref_get_reduced(base).scaled(dtype="float32", **extra)
     return RefModel(ref_cfg).init(jax.random.PRNGKey(SEED))
 
 
@@ -259,6 +266,7 @@ def both(tmp_path_factory):
         jobs = [j for j in group if j in JOBS]
         pods = [j for j in group if j in POD_JOBS]
         code = (f"JOBS = {jobs!r}\nPOD_JOBS = {pods!r}\nMESH = {MESH!r}\n"
+                f"VARIANTS = {VARIANTS!r}\n"
                 f"POD_MESH = {POD_MESH!r}\nB, S, STEPS, SEED = {B}, {S}, "
                 f"{STEPS}, {SEED}\nOPT = {_train_rank_worker.OPT!r}\n"
                 + textwrap.dedent(REFERENCE))
